@@ -1,0 +1,53 @@
+"""Continuous normalizing flows in PyTorch, with hand-written CUDA kernels for
+an NVIDIA H100.
+
+The port of ``continuousnormalizingflows_tpu`` (JAX/Pallas on a TPU), which
+stays beside it as the reference.  This slice covers the log-density and
+sampling path: config, the MLP dynamics net, the ICNF model, fixed-step
+solves with backprop gradients, ``inference``/``log_prob``/``loss``/
+``generate``, and ``ICNFDist``/``CondICNFDist``.  Two CUDA kernels carry the
+stochastic modes: the fused dynamics stage (``ops.fused_dynamics``) and the
+whole RK4 solve (``ops.fused_solve``).
+
+Quick start::
+
+    import torch
+    import continuousnormalizingflows_tpu_torch as cnf
+
+    icnf = cnf.ICNF.create(nvariables=2, solver=cnf.SolverConfig(
+        method="rk4", gradient="backprop", fixed_steps=32), fused=True)
+    params = icnf.init(torch.Generator().manual_seed(0), device="cuda")
+    d = cnf.ICNFDist(icnf, params, cnf.Mode.TRAIN)
+    lp = d.logpdf(x)
+"""
+
+from .config import ICNFConfig, Mode, ProbeDist, SolverConfig, TraceEstimator
+from .core import (base_logpdf, generate, generate_with_logp, inference, log_prob, loss,
+                   loss_with_stats)
+from .dist import CondICNFDist, ICNFDist
+from .models.icnf import ICNF, default_net
+from .models.nets import MLP, DynamicsNet
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ICNF",
+    "ICNFConfig",
+    "Mode",
+    "ProbeDist",
+    "SolverConfig",
+    "TraceEstimator",
+    "MLP",
+    "DynamicsNet",
+    "default_net",
+    "inference",
+    "loss_with_stats",
+    "generate",
+    "generate_with_logp",
+    "loss",
+    "log_prob",
+    "base_logpdf",
+    "ICNFDist",
+    "CondICNFDist",
+    "__version__",
+]

@@ -1,0 +1,244 @@
+"""Functional core: ``inference``, ``generate``, ``loss``.
+
+Counterpart of ``continuousnormalizingflows_tpu.core``: each entry point pads
+the state, draws the Hutchinson probe, steers the end time in regularized
+train mode, runs the solve and splits the terminal state
+``[z (nz), dlogp, E, n]``.  Where JAX takes a PRNG key, these take a
+``torch.Generator``; every draw happens on the generator's device and moves
+to the data's device, so one seed gives the same probe and end time whatever
+route the solve then takes.
+
+Draw order per call: ``inference`` steer then probe; ``generate*`` base,
+steer, then probe (the trace-free path stops after steer, so the same seed
+gives it the same base draw and end time as the full path).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .config import LOG_2PI, ICNFConfig, Mode, ProbeDist
+from .models.icnf import ICNF
+from .models.nets import Params
+from .ops.adjoint import odeint_diff
+from .ops.dynamics import make_augmented_dynamics, make_field
+from .ops.fused_solve import fused_solve_applicable, fused_solve_rk4
+from .ops.ode import SolverStats
+
+__all__ = [
+    "base_logpdf",
+    "sample_base",
+    "sample_probe",
+    "steer_t1",
+    "inference",
+    "generate",
+    "generate_with_logp",
+    "loss",
+    "loss_with_stats",
+    "log_prob",
+]
+
+
+def _custom_dist_unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"a custom {what} needs distributions.py, not ported yet (ROADMAP.md, "
+        "Queue 1: distributions)"
+    )
+
+
+def _draw(fn, generator: torch.Generator, device) -> torch.Tensor:
+    return fn(generator.device).to(device)
+
+
+def base_logpdf(cfg: ICNFConfig, z: torch.Tensor) -> torch.Tensor:
+    """Standard-normal log-density over the augmented dimension ``nz``."""
+    if cfg.base_dist is not None:
+        raise _custom_dist_unported("base_dist")
+    return -0.5 * (cfg.nz * LOG_2PI + torch.sum(torch.square(z), dim=-1))
+
+
+def sample_base(cfg: ICNFConfig, generator: torch.Generator, n: int, device) -> torch.Tensor:
+    """``(n, nz)`` base samples for the generate path."""
+    if cfg.base_dist is not None:
+        raise _custom_dist_unported("base_dist")
+    return _draw(lambda d: torch.randn((n, cfg.nz), generator=generator, dtype=cfg.dtype,
+                                       device=d), generator, device)
+
+
+def sample_probe(cfg: ICNFConfig, generator: torch.Generator, batch: int,
+                 device) -> torch.Tensor:
+    """Fresh Hutchinson probes, ``(nprobes, batch, nz)``."""
+    shape = (cfg.nprobes, batch, cfg.nz)
+    if not isinstance(cfg.probe_dist, ProbeDist):
+        raise _custom_dist_unported("probe_dist")
+    if cfg.probe_dist is ProbeDist.RADEMACHER:
+        fn = lambda d: 2.0 * torch.randint(0, 2, shape, generator=generator, device=d).to(
+            cfg.dtype) - 1.0
+    else:
+        fn = lambda d: torch.randn(shape, generator=generator, dtype=cfg.dtype, device=d)
+    return _draw(fn, generator, device)
+
+
+def steer_t1(cfg: ICNFConfig, generator: torch.Generator, device) -> torch.Tensor:
+    """STEER end time ``t1' = t1 + |t1 - t0| * r``, ``r ~ U(-rate, rate)``, as a
+    scalar tensor on ``device`` (no host synchronisation)."""
+    if cfg.steer_dist is not None:
+        raise _custom_dist_unported("steer_dist")
+    t0, t1 = cfg.tspan
+    u = _draw(lambda d: torch.rand((), generator=generator, dtype=cfg.dtype, device=d),
+              generator, device)
+    r = (2.0 * u - 1.0) * cfg.steer_rate
+    return t1 + abs(t1 - t0) * r
+
+
+def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
+           eps: Optional[torch.Tensor],
+           ys: Optional[torch.Tensor]) -> Tuple[torch.Tensor, SolverStats]:
+    """Solve the augmented state from ``t0`` to ``t1``.  The whole-solve kernel
+    route (K3) is taken when :func:`fused_solve_applicable`; otherwise the
+    dynamics (with the per-stage kernel K1 where it applies) go through
+    :func:`odeint_diff`."""
+    cfg = icnf.config
+    if eps is not None and fused_solve_applicable(cfg, icnf.net, mode):
+        steps = cfg.solver.fixed_steps
+        cdt = torch.bfloat16 if icnf.net.precision != "highest" else None
+        t_col = None if cfg.autonomous else cfg.nz
+        u1 = fused_solve_rk4(u0, eps[0], ys, params, (t0, t1), cfg.nz, t_col, steps, cdt)
+        dt = (torch.as_tensor(t1, dtype=cfg.dtype, device=u0.device)
+              - torch.as_tensor(t0, dtype=cfg.dtype, device=u0.device)) / steps
+        return u1, SolverStats(4 * steps, steps, 0, dt)
+    f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
+    return odeint_diff(f_aug, u0, t0, t1, {"params": params, "eps": eps, "ys": ys},
+                       cfg.solver)
+
+
+def _split_terminal(cfg: ICNFConfig, mode: Mode, u1: torch.Tensor):
+    nz = cfg.nz
+    z = u1[..., :nz]
+    dlogp = u1[..., nz]
+    e_acc = u1[..., nz + 1]
+    n_acc = u1[..., nz + 2]
+    logpx = base_logpdf(cfg, z) - dlogp
+    if cfg.augmented and cfg.norm_z_aug and mode is Mode.TRAIN:
+        a_term = torch.sqrt(torch.sum(torch.square(z[..., cfg.nvariables:]), dim=-1))
+    else:
+        a_term = torch.zeros_like(dlogp)
+    return logpx, (e_acc, n_acc, a_term)
+
+
+def _device_of(params: Params) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def _as_batch(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    return (x[None, :], True) if x.ndim == 1 else (x, False)
+
+
+def _prep_ys(cfg: ICNFConfig, ys, device) -> Optional[torch.Tensor]:
+    if ys is None:
+        return None
+    return _as_batch(torch.as_tensor(ys, dtype=cfg.dtype, device=device))[0]
+
+
+def _need_generator(mode: Mode, generator: Optional[torch.Generator]) -> None:
+    if generator is None and mode.stochastic:
+        raise ValueError("train mode needs a torch.Generator (probe + steer sampling)")
+
+
+def inference(icnf: ICNF, mode: Mode, xs, params: Params,
+              generator: Optional[torch.Generator] = None, ys=None):
+    """Forward solve x -> z; returns ``(logpx, (E, n, A), SolverStats)``.
+
+    ``xs``: ``(batch, nvariables)`` or one ``(nvariables,)`` sample."""
+    cfg = icnf.config
+    device = _device_of(params)
+    xs, single = _as_batch(torch.as_tensor(xs, dtype=cfg.dtype, device=device))
+    ys = _prep_ys(cfg, ys, device)
+    _need_generator(mode, generator)
+    batch = xs.shape[0]
+    u0 = torch.cat(
+        [xs, torch.zeros((batch, cfg.n_aug_input + 3), dtype=cfg.dtype, device=device)], dim=-1
+    )
+    t0, t1 = cfg.tspan
+    if mode.regularized and cfg.steered:
+        t1 = steer_t1(cfg, generator, device)
+    eps = sample_probe(cfg, generator, batch, device) if mode.stochastic else None
+    u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys)
+    logpx, augs = _split_terminal(cfg, mode, u1)
+    if single:
+        logpx, augs = logpx[0], tuple(a[0] for a in augs)
+    return logpx, augs, stats
+
+
+def generate_with_logp(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator,
+                       n: int, ys=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(samples (n, nvariables), logpx (n,))`` from ONE reversed solve: the
+    backward integration accumulates ``-dlogp``, so
+    ``logp(x) = logpdf_base(z1) + u[nz]``."""
+    cfg = icnf.config
+    device = _device_of(params)
+    ys = _prep_ys(cfg, ys, device)
+    z1 = sample_base(cfg, generator, n, device)
+    t0, t1 = cfg.tspan
+    if mode.regularized and cfg.steered:
+        t1 = steer_t1(cfg, generator, device)
+    eps = sample_probe(cfg, generator, n, device) if mode.stochastic else None
+    u0 = torch.cat([z1, torch.zeros((n, 3), dtype=cfg.dtype, device=device)], dim=-1)
+    u_final, _stats = _solve(icnf, mode, u0, t1, t0, params, eps, ys)
+    logpx = base_logpdf(cfg, z1) + u_final[..., cfg.nz]
+    return u_final[..., : cfg.nvariables], logpx
+
+
+def _generate_tracefree(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator,
+                        n: int, ys) -> torch.Tensor:
+    """Integrates the bare field ``dz/dt = f(z, t)`` backward: the flow map
+    does not depend on the accumulators, so sampling skips the trace."""
+    cfg = icnf.config
+    device = _device_of(params)
+    z1 = sample_base(cfg, generator, n, device)
+    t0, t1 = cfg.tspan
+    if mode.regularized and cfg.steered:
+        t1 = steer_t1(cfg, generator, device)
+    field = make_field(cfg, icnf.net)
+    z0, _stats = odeint_diff(
+        lambda t, z, args: field(t, z, args["params"], args["ys"]),
+        z1, t1, t0, {"params": params, "ys": ys}, cfg.solver,
+    )
+    return z0[..., : cfg.nvariables]
+
+
+def generate(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator, n: int,
+             ys=None, trace_free: bool = False) -> torch.Tensor:
+    """Sample ``n`` points by integrating the flow backward t1 -> t0.
+    ``trace_free=True`` integrates the bare field (same distribution, no
+    per-step trace estimate)."""
+    ys = _prep_ys(icnf.config, ys, _device_of(params))
+    if trace_free:
+        return _generate_tracefree(icnf, mode, params, generator, int(n), ys)
+    return generate_with_logp(icnf, mode, params, generator, int(n), ys)[0]
+
+
+def loss_with_stats(icnf: ICNF, mode: Mode, xs, params: Params,
+                    generator: Optional[torch.Generator] = None,
+                    ys=None) -> Tuple[torch.Tensor, SolverStats]:
+    """``(mean(-logpx + l1*E + l2*n + l3*A), solver stats)``."""
+    cfg = icnf.config
+    logpx, (e_acc, n_acc, a_term), stats = inference(icnf, mode, xs, params, generator, ys)
+    l = torch.mean(
+        -logpx + cfg.lambda_1 * e_acc + cfg.lambda_2 * n_acc + cfg.lambda_3 * a_term
+    )
+    return l, stats
+
+
+def loss(icnf: ICNF, mode: Mode, xs, params: Params,
+         generator: Optional[torch.Generator] = None, ys=None) -> torch.Tensor:
+    """Regularized negative log-likelihood ``mean(-logpx + l1*E + l2*n + l3*A)``."""
+    return loss_with_stats(icnf, mode, xs, params, generator, ys)[0]
+
+
+def log_prob(icnf: ICNF, mode: Mode, xs, params: Params,
+             generator: Optional[torch.Generator] = None, ys=None) -> torch.Tensor:
+    """Just ``logpx``."""
+    return inference(icnf, mode, xs, params, generator, ys)[0]

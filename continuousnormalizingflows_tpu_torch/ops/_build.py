@@ -1,0 +1,107 @@
+"""Builds the CUDA kernels of ``csrc/`` at first use and loads them.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+with a plain C interface, which ``ctypes`` loads.  The library lands in
+``_build/`` beside this package (listed in ``.gitignore``), named by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing here runs at import: the first CUDA launch calls
+:func:`kernels`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["kernels", "check", "plan", "build_info"]
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# argtypes of each C entry point, in the order of its C signature
+_SIGNATURES = {
+    "cnf_fused_dynamics_fwd": [_P] * 16 + [_I] * 6 + [_P],
+    "cnf_fused_solve_rk4_fwd": [_P] * 15 + [_I] * 10 + [_P],
+    "cnf_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+}
+
+# what the last build did: seconds, library path, compiler log
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_nvcc = Path("/usr/local/cuda/bin/nvcc")
+    if cuda_nvcc.exists():
+        return str(cuda_nvcc)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """Builds (if needed) and loads the kernel library; cached per process."""
+    cus, headers = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cus + headers:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    lib_path = BUILD_DIR / f"libcnf_kernels_{digest.hexdigest()[:16]}.so"
+    start = time.perf_counter()
+    log = ""
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cus)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a half-written file
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cnf_error_string.argtypes = [ctypes.c_int]
+    lib.cnf_error_string.restype = ctypes.c_char_p
+    build_info.update(seconds=time.perf_counter() - start, path=str(lib_path), log=log)
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raises if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = kernels().cnf_error_string(err).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
+
+
+@functools.cache
+def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
+    """The kernels' launch shape for these widths (``sd``: the whole-solve
+    kernel's state width, 0 for the single stage): ``(rows per block,
+    weights staged in shared memory, H)``, where ``H > 0`` is the
+    row-per-thread path with hidden width padded to ``H`` and ``H == 0`` the
+    tiled path."""
+    info = (ctypes.c_int * 2)()
+    rows = kernels().cnf_plan(n_in, h, n_out, nz, sd, info)
+    return rows, bool(info[0]), int(info[1])

@@ -1,0 +1,164 @@
+"""Augmented ODE dynamics, batch-first.
+
+Counterpart of ``continuousnormalizingflows_tpu.ops.dynamics``.  State per
+row ``u = [z (nz), dlogp, E, n]``; the derivative is
+``du = [dz, -tr(J) estimate, |dz|, |eps^T J|]``, with the two regularizer
+columns zero unless the mode and the lambdas ask for them.
+
+Ported branches: the fused Hutchinson-VJP stage (K1, :mod:`.fused_dynamics`),
+the plain Hutchinson VJP (``torch.func.vjp``), and the analytic exact trace
+of 1- and 2-hidden-layer MLPs.  The Hutchinson JVP and the generic exact
+sweep raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ICNFConfig, Mode, TraceEstimator
+from ..models.nets import MLP, DynamicsNet, Params, linear, mlp_layers
+from .fused_dynamics import MAX_HIDDEN, _row_norm, fused_dynamics_vjp
+
+__all__ = ["make_augmented_dynamics", "make_field", "fused_dynamics_applicable"]
+
+Args = dict
+
+
+def _net_input(cfg: ICNFConfig, t, z: torch.Tensor, ys: Optional[torch.Tensor]) -> torch.Tensor:
+    """``[z, t (non-autonomous), ys (conditioned)]`` along the last axis."""
+    cols = [z]
+    if not cfg.autonomous:
+        tt = torch.as_tensor(t, dtype=z.dtype, device=z.device)
+        cols.append(tt.expand(z.shape[:-1] + (1,)))
+    if cfg.conditioned:
+        if ys is None:
+            raise ValueError("conditioned ICNF requires ys")
+        cols.append(ys.to(z.dtype).expand(z.shape[:-1] + (ys.shape[-1],)))
+    return torch.cat(cols, dim=-1)
+
+
+def make_field(cfg: ICNFConfig, net: DynamicsNet) -> Callable:
+    """The raw vector field ``f(t, z, params, ys) -> dz``, ``(B, nz) -> (B, nz)``."""
+
+    def field(t, z: torch.Tensor, params: Params, ys: Optional[torch.Tensor]) -> torch.Tensor:
+        return net.apply(params, _net_input(cfg, t, z, ys))
+
+    return field
+
+
+def _mlp_exact_applicable(net) -> bool:
+    return isinstance(net, MLP) and len(net.widths) in (3, 4)
+
+
+def _act_and_deriv(act, z: torch.Tensor):
+    if act is F.softplus:
+        return F.softplus(z), torch.sigmoid(z)
+    return torch.func.jvp(act, (z,), (torch.ones_like(z),))
+
+
+def _mlp_exact_trace(net: MLP, params: Params, x_full: torch.Tensor, nz: int):
+    """Analytic ``(dz, tr(J_z))`` for 1- and 2-hidden-layer MLPs.
+
+    The z-block Jacobian of ``y = A3 sp(A2 sp(A1 x))`` is
+    ``A3[:nz] D2 A2 D1 A1[:, :nz]`` with ``D_i = diag(s_i)``, so
+    ``tr(J) = sum_{k,l} s1[k] G[k,l] s2[l]`` with
+    ``G = A2^T o (A1[:, :nz] A3[:nz])``: one batch-independent masked
+    product and one extra ``(B, h) x (h, h)`` product per evaluation."""
+    prec = net.precision
+    layers = mlp_layers(params)
+    if len(layers) == 2:
+        (a1, b1), (a2, b2) = layers
+        h1, s1 = _act_and_deriv(net.activation, linear(x_full, a1, b1, prec))
+        dz = linear(h1, a2, b2, prec)
+        g = torch.sum(a1[:, :nz] * a2[:nz, :].T, dim=1)  # (h,)
+        return dz, s1 @ g
+    (a1, b1), (a2, b2), (a3, b3) = layers
+    h1, s1 = _act_and_deriv(net.activation, linear(x_full, a1, b1, prec))
+    h2, s2 = _act_and_deriv(net.activation, linear(h1, a2, b2, prec))
+    dz = linear(h2, a3, b3, prec)
+    m = linear(a1[:, :nz], a3[:nz, :].T, None, prec)  # (h1, h2)
+    g_mat = a2.T * m
+    div = torch.sum(linear(s1, g_mat.T, None, prec) * s2, dim=-1)
+    return dz, div
+
+
+def fused_dynamics_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
+    """The JAX fused-stage predicate without its TPU-backend check."""
+    return (
+        cfg.fused
+        and cfg.trace_for(mode) is TraceEstimator.HUTCH_VJP
+        and cfg.nprobes == 1
+        and isinstance(net, MLP)
+        and len(net.widths) == 4
+        and net.widths[1] == net.widths[2]
+        and net.widths[1] <= MAX_HIDDEN
+        and net.activation is F.softplus
+    )
+
+
+def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Callable:
+    """Build ``f_aug(t, u, args) -> du`` for :func:`.ode.odeint`.
+
+    ``args`` is ``{"params": dict, "eps": (P, B, nz) | None, "ys": (B, nc) | None}``."""
+    nz = cfg.nz
+    estimator = cfg.trace_for(mode)
+    compute_reg_z = mode.regularized and cfg.norm_z
+    compute_reg_j = mode.regularized and cfg.norm_j
+    field = make_field(cfg, net)
+
+    if fused_dynamics_applicable(cfg, net, mode):
+        cdt = torch.bfloat16 if net.precision != "highest" else None
+
+        def f_aug_fused(t, u: torch.Tensor, args: Args) -> torch.Tensor:
+            x_full = _net_input(cfg, t, u[..., :nz], args.get("ys"))
+            dz, _epsj, div, reg_z, reg_j = fused_dynamics_vjp(
+                x_full, args["eps"][0], args["params"], nz, cdt
+            )
+            zero = torch.zeros_like(div)
+            return torch.cat(
+                [
+                    dz,
+                    -div[..., None],
+                    (reg_z if compute_reg_z else zero)[..., None],
+                    (reg_j if compute_reg_j else zero)[..., None],
+                ],
+                dim=-1,
+            )
+
+        return f_aug_fused
+
+    if estimator is TraceEstimator.HUTCH_JVP:
+        raise NotImplementedError(
+            "the Hutchinson JVP estimator is not ported yet (ROADMAP.md, "
+            "Queue 1: exact sweep and JVP)"
+        )
+    if estimator is TraceEstimator.EXACT and (compute_reg_j or not _mlp_exact_applicable(net)):
+        raise NotImplementedError(
+            "the generic exact-trace sweep is not ported yet; only the analytic "
+            "trace of 1- and 2-hidden-layer MLPs is (ROADMAP.md, Queue 1: exact "
+            "sweep and JVP)"
+        )
+
+    def f_aug(t, u: torch.Tensor, args: Args) -> torch.Tensor:
+        params = args["params"]
+        ys = args.get("ys")
+        z = u[..., :nz]
+        zero = torch.zeros(z.shape[:-1], dtype=u.dtype, device=u.device)
+        if estimator is TraceEstimator.EXACT:
+            dz, div = _mlp_exact_trace(net, params, _net_input(cfg, t, z, ys), nz)
+            reg_j = zero
+        else:  # HUTCH_VJP: one shared forward, one VJP per probe
+            dz, vjp_fn = torch.func.vjp(lambda zz: field(t, zz, params, ys), z)
+            eps = args["eps"]
+            eps_j = torch.stack([vjp_fn(e)[0] for e in eps])  # (P, B, nz)
+            div = torch.mean(torch.sum(eps_j * eps, dim=-1), dim=0)
+            reg_j = torch.mean(_row_norm(eps_j), dim=0) if compute_reg_j else zero
+        reg_z = _row_norm(dz) if compute_reg_z else zero
+        return torch.cat(
+            [dz, -div[..., None], reg_z[..., None], reg_j[..., None]], dim=-1
+        )
+
+    return f_aug

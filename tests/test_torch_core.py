@@ -1,0 +1,216 @@
+"""The slice as a whole, port vs JAX: the flagship RNODE (2-D, nz = 5,
+MLP 6 -> 24 -> 24 -> 5, rk4 with backprop) at 8 steps on a small batch.
+
+The two packages draw different random numbers, so the probe ``eps`` and the
+steered ``t1`` are injected: directly into ``_solve``, or by replacing both
+packages' samplers with ones that return the same numpy arrays.  Mode.TEST is
+deterministic and goes through the public API as it is.
+
+Tolerance rtol 2e-4 / atol 2e-5 (fp32 solve of 8 RK4 steps, sums in another
+order), as the JAX kernel-vs-scan test; ``loss`` is a batch mean of
+log-densities of size ~10, held at rtol 2e-5 / atol 2e-4."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import continuousnormalizingflows_tpu as jcnf
+import continuousnormalizingflows_tpu.core as jcore
+import continuousnormalizingflows_tpu_torch as tcnf
+import continuousnormalizingflows_tpu_torch.core as tcore
+from continuousnormalizingflows_tpu.config import Mode as JMode
+from continuousnormalizingflows_tpu.config import SolverConfig as JSolver
+from continuousnormalizingflows_tpu.utils import datasets as jdata
+from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp
+from continuousnormalizingflows_tpu_torch.ops.fused_solve import fused_solve_rk4
+from continuousnormalizingflows_tpu_torch.utils import datasets as tdata
+from continuousnormalizingflows_tpu_torch.utils.convert import params_from_jax
+
+STEPS = 8
+B = 32
+RTOL, ATOL = 2e-4, 2e-5
+
+
+def _models(fused=False, **kw):
+    jicnf = jcnf.ICNF.create(
+        nvariables=2, solver=JSolver(method="rk4", gradient="backprop", fixed_steps=STEPS),
+        **kw)
+    ticnf = tcnf.ICNF.create(
+        nvariables=2, solver=SolverConfig(method="rk4", gradient="backprop",
+                                          fixed_steps=STEPS), fused=fused, **kw)
+    jparams = jax.device_get(jicnf.init(jax.random.PRNGKey(0)))
+    return jicnf, jparams, ticnf, params_from_jax(jparams)
+
+
+def _data(b=B, seed=1):
+    return np.array(jdata.gaussian_mixture(jax.random.PRNGKey(seed), b), np.float32)
+
+
+def _close(a, b, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol)
+
+
+def test_test_mode_inference_matches_jax():
+    jicnf, jparams, ticnf, tparams = _models()
+    x = _data()
+    lp_j, augs_j, _ = jcnf.inference(jicnf, JMode.TEST, x, jparams)
+    lp_t, augs_t, stats = tcnf.inference(ticnf, Mode.TEST, x, tparams)
+    _close(lp_t, lp_j)
+    for a, b in zip(augs_t, augs_j):
+        _close(a, b)
+    assert int(stats) == 4 * STEPS
+
+
+def test_test_mode_dist_logpdf_matches_jax():
+    jicnf, jparams, ticnf, tparams = _models()
+    x = _data()
+    _close(tcnf.ICNFDist(ticnf, tparams).logpdf(x), jcnf.ICNFDist(jicnf, jparams).logpdf(x))
+    # one (d,) sample gives a scalar
+    single = tcnf.ICNFDist(ticnf, tparams).logpdf(x[0])
+    assert single.ndim == 0
+    _close(single, jcnf.ICNFDist(jicnf, jparams).logpdf(x[0]))
+
+
+def test_conditioned_test_mode_matches_jax():
+    jicnf, jparams, ticnf, tparams = _models(nconditions=3)
+    x = _data()
+    ys = np.random.default_rng(2).standard_normal((1, 3)).astype(np.float32)
+    _close(tcnf.CondICNFDist(ticnf, tparams, ys).logpdf(x),
+           jcnf.CondICNFDist(jicnf, jparams, ys).logpdf(x))
+
+
+def _injected(cfg, b, seed=3):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((1, b, cfg.nz)).astype(np.float32), np.float32(1.07)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("mode", [Mode.TRAIN, Mode.TRAIN_NOREG])
+def test_solve_and_split_match_jax(mode, fused):
+    jicnf, jparams, ticnf, tparams = _models(fused=fused)
+    cfg = ticnf.config
+    x = _data()
+    eps, t1 = _injected(cfg, B)
+    u0 = np.concatenate([x, np.zeros((B, cfg.n_aug_input + 3), np.float32)], axis=-1)
+    jmode = JMode(mode.value)
+    u1_j, _ = jcore._solve(jicnf, jmode, jnp.asarray(u0), 0.0, jnp.float32(t1), jparams,
+                           jnp.asarray(eps), None)
+    lp_j, augs_j = jcore._split_terminal(jicnf.config, jmode, u1_j)
+    counters = (fused_solve_rk4.launches, fused_dynamics_vjp.launches)
+    u1_t, stats = tcore._solve(ticnf, mode, torch.from_numpy(u0), 0.0, torch.tensor(t1),
+                               tparams, torch.from_numpy(eps), None)
+    assert counters == (fused_solve_rk4.launches, fused_dynamics_vjp.launches)  # CPU
+    lp_t, augs_t = tcore._split_terminal(cfg, mode, u1_t)
+    _close(u1_t, u1_j)
+    _close(lp_t, lp_j)
+    for a, b in zip(augs_t, augs_j):
+        _close(a, b)
+    assert (stats.nfe, stats.naccept, stats.nreject) == (4 * STEPS, STEPS, 0)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_reversed_span_generate_matches_jax(fused):
+    """The generate path's solve, t1 -> t0 from base draws (K3 reversed)."""
+    jicnf, jparams, ticnf, tparams = _models(fused=fused)
+    cfg = ticnf.config
+    rng = np.random.default_rng(4)
+    z1 = rng.standard_normal((B, cfg.nz)).astype(np.float32)
+    eps, t1 = _injected(cfg, B, seed=5)
+    u0 = np.concatenate([z1, np.zeros((B, 3), np.float32)], axis=-1)
+    u_j, _ = jcore._solve(jicnf, JMode.TRAIN, jnp.asarray(u0), jnp.float32(t1), 0.0,
+                          jparams, jnp.asarray(eps), None)
+    u_t, _ = tcore._solve(ticnf, Mode.TRAIN, torch.from_numpy(u0), torch.tensor(t1), 0.0,
+                          tparams, torch.from_numpy(eps), None)
+    _close(u_t, u_j)
+
+
+@pytest.fixture
+def same_draws(monkeypatch):
+    """Both packages' probe, steer and base samplers return the same arrays."""
+    rng = np.random.default_rng(6)
+    eps = rng.standard_normal((1, B, 5)).astype(np.float32)
+    z1 = rng.standard_normal((B, 5)).astype(np.float32)
+    t1 = np.float32(0.95)
+    monkeypatch.setattr(jcore, "sample_probe", lambda cfg, key, b: jnp.asarray(eps))
+    monkeypatch.setattr(jcore, "steer_t1", lambda cfg, key: jnp.float32(t1))
+    monkeypatch.setattr(jcore, "sample_base", lambda cfg, key, n: jnp.asarray(z1))
+    monkeypatch.setattr(tcore, "sample_probe", lambda cfg, g, b, d: torch.from_numpy(eps))
+    monkeypatch.setattr(tcore, "steer_t1", lambda cfg, g, d: torch.tensor(t1))
+    monkeypatch.setattr(tcore, "sample_base", lambda cfg, g, n, d: torch.from_numpy(z1))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("mode", list(Mode))
+def test_loss_matches_jax(same_draws, mode, fused):
+    jicnf, jparams, ticnf, tparams = _models(fused=fused)
+    x = _data()
+    l_j = jcnf.loss(jicnf, JMode(mode.value), x, jparams, key=jax.random.PRNGKey(0))
+    l_t = tcnf.loss(ticnf, mode, x, tparams, torch.Generator().manual_seed(0))
+    _close(l_t, l_j, rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("mode", [Mode.TEST, Mode.TRAIN])
+def test_generate_with_logp_matches_jax(same_draws, mode, fused):
+    jicnf, jparams, ticnf, tparams = _models(fused=fused)
+    s_j, lp_j = jcnf.generate_with_logp(jicnf, JMode(mode.value), jparams,
+                                        jax.random.PRNGKey(0), B)
+    s_t, lp_t = tcnf.ICNFDist(ticnf, tparams, mode).sample_with_logpdf(B)
+    _close(s_t, s_j)
+    _close(lp_t, lp_j)
+
+
+def test_trace_free_sample_matches_full_path():
+    _j, _jp, ticnf, tparams = _models(fused=True)
+    d = tcnf.ICNFDist(ticnf, tparams, Mode.TRAIN)
+    full = d.sample(B, torch.Generator().manual_seed(9))
+    free = d.sample(B, torch.Generator().manual_seed(9), trace_free=True)
+    assert full.shape == free.shape == (B, 2)
+    _close(free, full)
+
+
+def test_hutchinson_mean_matches_exact_trace():
+    """The probe does not move the flow, so over many probes the TRAIN_NOREG
+    log-density's mean is the TEST (exact trace) one: held to 5 standard
+    errors of the mean."""
+    _j, _jp, ticnf, tparams = _models(fused=True)
+    x = torch.from_numpy(_data(b=4))
+    reps = 2000
+    exact = tcnf.inference(ticnf, Mode.TEST, x, tparams)[0]
+    est = tcnf.inference(ticnf, Mode.TRAIN_NOREG, x.repeat(reps, 1), tparams,
+                         torch.Generator().manual_seed(11))[0].reshape(reps, 4)
+    sem = est.std(dim=0) / reps**0.5
+    assert torch.all((est.mean(dim=0) - exact).abs() < 5 * sem + 1e-4)
+    assert torch.all(sem > 0)
+
+
+def test_gaussian_mixture_logpdf_matches_jax():
+    x = _data(b=64)
+    _close(tdata.gaussian_mixture_logpdf(torch.from_numpy(x)),
+           jdata.gaussian_mixture_logpdf(x), rtol=1e-5, atol=1e-5)
+    s = tdata.gaussian_mixture(torch.Generator().manual_seed(0), 4096)
+    assert s.shape == (4096, 2)
+    assert abs(float(s.norm(dim=-1).mean()) - 2.0) < 0.05  # ring of radius 2
+
+
+@pytest.mark.parametrize(
+    "kw, msg",
+    [
+        (dict(solver=SolverConfig()), "adaptive"),
+        (dict(solver=SolverConfig(method="dopri5", gradient="quadrature")), "adaptive"),
+    ],
+)
+def test_unported_solvers_raise(kw, msg):
+    icnf = tcnf.ICNF.create(nvariables=2, **kw)
+    params = icnf.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match=msg):
+        tcnf.inference(icnf, Mode.TEST, torch.zeros(4, 2), params)
+
+
+def test_stochastic_mode_needs_generator():
+    _j, _jp, ticnf, tparams = _models()
+    with pytest.raises(ValueError, match="Generator"):
+        tcnf.inference(ticnf, Mode.TRAIN, torch.zeros(4, 2), tparams)

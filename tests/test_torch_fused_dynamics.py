@@ -1,0 +1,109 @@
+"""Port K1 (fused dynamics stage) vs JAX: the port's plain version against the
+JAX Pallas kernel (interpret mode on CPU) and its XLA reference.
+
+Tolerances: fp32 rtol 2e-5 / atol 1e-5, as the JAX kernel test (the two sides
+sum the same products in another order).  bf16 operands: both sides round
+the same operands to bfloat16 and the products are exact in fp32; only the
+summation order differs (measured up to 7e-5 relative on ``div``), so
+rtol 1e-3 / atol 1e-4."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from continuousnormalizingflows_tpu.models.nets import MLP as JMLP
+from continuousnormalizingflows_tpu.ops.pallas_kernels import (
+    fused_dynamics_vjp as jax_fused,
+    mlp3_forward_vjp_reference as jax_reference,
+)
+from continuousnormalizingflows_tpu_torch.models.nets import MLP
+from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
+    fused_dynamics_vjp,
+    mlp3_forward_vjp_reference,
+)
+from continuousnormalizingflows_tpu_torch.utils.convert import params_from_jax
+
+NAMES = ["y", "epsj_z", "div", "reg_z", "reg_j"]
+
+# (n_in, h, nz): the flagship stage, and the tabular width (naugments=0)
+SHAPES = {"flagship": (6, 24, 5), "tabular": (44, 176, 43)}
+
+
+def _setup(shape, b=64):
+    n_in, h, nz = SHAPES[shape]
+    jparams = jax.device_get(JMLP((n_in, h, h, nz)).init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((b, n_in)).astype(np.float32)
+    eps = rng.standard_normal((b, nz)).astype(np.float32)
+    return jparams, x, eps, nz
+
+
+def _port(jparams, x, eps, nz, cdt=None):
+    out = mlp3_forward_vjp_reference(torch.from_numpy(x), torch.from_numpy(eps),
+                                     params_from_jax(jparams), nz, cdt)
+    return [o.numpy() for o in out]
+
+
+def _close(port, ref, rtol, atol):
+    for name, a, b in zip(NAMES, port, ref):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=rtol, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_jax_kernel(shape):
+    jparams, x, eps, nz = _setup(shape)
+    ref = jax.jit(lambda x_, e_, p_: jax_fused(x_, e_, p_, nz))(x, eps, jparams)
+    _close(_port(jparams, x, eps, nz), ref, 2e-5, 1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_jax_reference(shape):
+    jparams, x, eps, nz = _setup(shape)
+    _close(_port(jparams, x, eps, nz), jax_reference(x, eps, jparams, nz), 2e-5, 1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_bf16_matches_jax_bf16_kernel(shape):
+    jparams, x, eps, nz = _setup(shape)
+    ref = jax.jit(lambda x_, e_, p_: jax_fused(x_, e_, p_, nz, 256, jnp.bfloat16))(
+        x, eps, jparams)
+    _close(_port(jparams, x, eps, nz, torch.bfloat16), ref, 1e-3, 1e-4)
+
+
+def test_plain_matches_autodiff():
+    """The hand-written probe VJP equals autograd's VJP of the MLP."""
+    jparams, x, eps, nz = _setup("flagship")
+    params = params_from_jax(jparams)
+    net = MLP((6, 24, 24, 5))
+    xt, et = torch.from_numpy(x), torch.from_numpy(eps)
+    y, vjp_fn = torch.func.vjp(lambda xx: net.apply(params, xx), xt)
+    y_r, ez, *_ = mlp3_forward_vjp_reference(xt, et, params, nz)
+    torch.testing.assert_close(y_r, y, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ez, vjp_fn(et)[0][:, :nz], rtol=1e-4, atol=1e-5)
+
+
+def test_cpu_tensor_takes_plain_version_without_launch():
+    jparams, x, eps, nz = _setup("flagship", b=13)  # ragged: no tile divides it
+    before = fused_dynamics_vjp.launches
+    out = fused_dynamics_vjp(torch.from_numpy(x), torch.from_numpy(eps),
+                             params_from_jax(jparams), nz)
+    assert fused_dynamics_vjp.launches == before
+    _close([o.numpy() for o in out], jax_reference(x, eps, jparams, nz), 2e-5, 1e-5)
+    assert [tuple(o.shape) for o in out] == [(13, 5), (13, 5), (13,), (13,), (13,)]
+
+
+def test_plain_version_is_differentiable_on_cpu():
+    jparams, x, eps, nz = _setup("flagship", b=8)
+    params = {k: v.requires_grad_() for k, v in params_from_jax(jparams).items()}
+    out = fused_dynamics_vjp(torch.from_numpy(x), torch.from_numpy(eps), params, nz)
+    sum(o.sum() for o in out).backward()
+    assert all(torch.isfinite(p.grad).all() for p in params.values())
+
+
+def test_rejects_other_devices():
+    jparams, x, eps, nz = _setup("flagship", b=4)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_dynamics_vjp(torch.from_numpy(x).to("meta"), torch.from_numpy(eps),
+                           params_from_jax(jparams), nz)
