@@ -3,18 +3,21 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``continuousnormalizingflows_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the slice's shapes in both
-precisions, then drives the flagship RNODE's log-density and sampling path
-(65,536 samples) through the public entry points and checks that the
-kernels carried it.  Imports nothing of JAX.  Exits non-zero, with no result
-line, when there is no CUDA device or any phase fails; on success the last
-line is ``{"ok": true, "device": {...}}``.  A detailed record goes to
+holds each (forward K1, K3 and backward K2, K4) against its plain PyTorch
+version at the flagship and tabular shapes in both precisions, drives the
+flagship RNODE's log-density and sampling path (65,536 samples) through the
+public entry points, then trains it with ``ICNFModel.fit`` (batch 65,536,
+32 steps through K3 + K4) and its FFJORD form (through K1 + K2), and checks
+that the kernels carried each path.  Imports nothing of JAX.  Exits
+non-zero, with no result line, when there is no CUDA device or any phase
+fails; on success the last line is ``{"ok": true, "device": {...}}``.  A detailed record goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -26,6 +29,8 @@ import torch
 BATCH = 65_536
 STEPS = 32
 TABULAR_BATCH = 8_192
+TRAIN_POINTS = 4 * 65_536  # 4 steps an epoch at the flagship batch
+TRAIN_EPOCHS = 8
 
 # (rtol, atol) by (kernel, precision); reasons in tests/test_torch_kernels_cuda.py
 TOL = {
@@ -37,6 +42,16 @@ TOL = {
 # fused vs unfused log-density of the slice: the same fp32 32-step solve, the
 # probe VJP by hand in one and by autograd in the other
 SLICE_TOL = (5e-4, 5e-5)
+# backward kernels vs their plain versions, per output tensor as
+# max|kernel - plain| <= tol * max|plain| (a weight gradient sums over every
+# row and stage, so its small entries carry the absolute error of the
+# largest); reasons in tests/test_torch_kernels_cuda.py
+BWD_TOL = {("stage", None): 1e-4, ("stage", torch.bfloat16): 3e-2,
+           ("solve", None): 5e-4, ("solve", torch.bfloat16): 6e-2}
+# one train step's parameter gradients, fused vs unfused route, same draws:
+# the same fp32 32-step solve and its exact backward, by hand in one and by
+# autograd in the other, summed over 65,536 rows
+GRAD_TOL = 5e-4
 
 
 def log(msg: str) -> None:
@@ -91,13 +106,35 @@ def compare(name: str, got, want, rtol: float, atol: float) -> float:
     return worst_abs
 
 
+def compare_to_max(name: str, got, want, tol: float) -> float:
+    """Max abs error; fails unless each tensor is within tol * max|want|."""
+    worst, worst_ratio = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{name}: tensor {i} non-finite or of shape {tuple(a.shape)}")
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        if err > tol * scale:
+            fail(f"{name}: tensor {i} max abs err {err:.3e} > {tol} x max |plain| {scale:.3e}")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, err / max(scale, 1e-30))
+    log(f"  {name}: max abs {worst:.3e}, worst max-abs/max|plain| {worst_ratio:.3e} "
+        f"(tol {tol} per tensor) ok")
+    return worst
+
+
+def flat(out):
+    """(xbar, epsbar, weight grads) -> one list of tensors"""
+    return [out[0], out[1], *out[2]]
+
+
 def kernel_phase(dev, record):
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
     from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
-        fused_dynamics_vjp, mlp3_forward_vjp_reference)
+        fused_dynamics_vjp, fused_dynamics_vjp_bwd, fused_dynamics_vjp_bwd_reference,
+        mlp3_forward_vjp_reference)
     from continuousnormalizingflows_tpu_torch.ops.fused_solve import (
-        fused_solve_rk4, fused_solve_rk4_reference)
+        fused_solve_rk4, fused_solve_rk4_bwd, fused_solve_rk4_bwd_reference,
+        fused_solve_rk4_reference)
 
     # (name, n_in, h, nz, batch): the flagship and the tabular width (naugments=0)
     shapes = [("flagship", 6, 24, 5, BATCH), ("tabular", 44, 176, 43, TABULAR_BATCH)]
@@ -110,10 +147,19 @@ def kernel_phase(dev, record):
         u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
                         torch.zeros((b, 3), device=dev)], dim=-1)
         span = (0.0, torch.tensor(1.05, device=dev))  # steered t1 as a device scalar
+        # cotangents: of K1's five outputs, and of K3's u1
+        cot = (torch.randn((b, nz), generator=g, device=dev),
+               torch.randn((b, nz), generator=g, device=dev),
+               *torch.randn((3, b), generator=g, device=dev))
+        gbar = torch.randn((b, nz + 3), generator=g, device=dev)
         for kname, sd in (("K1", 0), ("K3", nz + 3)):
             rows, staged, h_pad = _build.plan(n_in, h, nz, nz, sd)
             path = f"row per thread, h padded to {h_pad}" if h_pad else "tiled"
             log(f"  plan {kname} {shape}: {path}, {rows} rows/block, weights in smem: {staged}")
+        for kname, sd in (("K2", 0), ("K4", nz + 3)):
+            rows, staged, grid, n_params = _build.bwd_plan(n_in, h, nz, nz, sd, b)
+            log(f"  plan {kname} {shape}: tiled, {rows} rows/tile, grid {grid}, "
+                f"{n_params} params, weights in smem: {staged}")
         for cdt in (None, torch.bfloat16):
             prec = "fp32" if cdt is None else "bf16"
             stage = lambda: fused_dynamics_vjp(x, eps, params, nz, cdt)
@@ -121,25 +167,44 @@ def kernel_phase(dev, record):
             solve = lambda: fused_solve_rk4(u0, eps, None, params, span, nz, nz, STEPS, cdt)
             solve_ref = lambda: fused_solve_rk4_reference(u0, eps, None, params, span, nz, nz,
                                                          STEPS, cdt)
+            stage_bwd = lambda: fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)
+            stage_bwd_ref = lambda: fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot,
+                                                                     cdt)
+            solve_bwd = lambda: fused_solve_rk4_bwd(u0, eps, None, params, span, nz, nz, STEPS,
+                                                    gbar, cdt)
+            solve_bwd_ref = lambda: fused_solve_rk4_bwd_reference(u0, eps, None, params, span,
+                                                                  nz, nz, STEPS, gbar, cdt)
             err1 = compare(f"K1 fused_dynamics {shape} {prec} B={b}", stage(), stage_ref(),
                            *TOL[("stage", cdt)])
             err3 = compare(f"K3 fused_solve_rk4 {shape} {prec} B={b} steps={STEPS}", solve(),
                            solve_ref(), *TOL[("solve", cdt)])
+            err2 = compare_to_max(f"K2 fused_dynamics_bwd {shape} {prec} B={b}",
+                                  flat(stage_bwd()), flat(stage_bwd_ref()),
+                                  BWD_TOL[("stage", cdt)])
+            k4 = flat(solve_bwd())
+            err4 = compare_to_max(f"K4 fused_solve_rk4_bwd {shape} {prec} B={b} steps={STEPS}",
+                                  k4, flat(solve_bwd_ref()), BWD_TOL[("solve", cdt)])
+            if not all(torch.equal(a, c) for a, c in zip(k4, flat(solve_bwd()))):
+                fail(f"K4 {shape} {prec}: two calls on the same inputs differ")
+            log(f"  K4 {shape} {prec}: two calls give the same bits ok")
             # plain, kernel, kernel, plain: the two versions in turns
-            t = {"k1_plain": [], "k1": [], "k3_plain": [], "k3": []}
+            pairs = {"k1": (stage, stage_ref, 20, 10), "k3": (solve, solve_ref, 10, 3),
+                     "k2": (stage_bwd, stage_bwd_ref, 20, 10),
+                     "k4": (solve_bwd, solve_bwd_ref, 3, 3)}
+            t = {k + s: [] for k in pairs for s in ("", "_plain")}
             for order in (("plain", "kernel"), ("kernel", "plain")):
                 for which in order:
-                    if which == "plain":
-                        t["k1_plain"].append(median_ms(stage_ref, 10))
-                        t["k3_plain"].append(median_ms(solve_ref, 3))
-                    else:
-                        t["k1"].append(median_ms(stage, 20))
-                        t["k3"].append(median_ms(solve, 10))
+                    for k, (kern, plain, reps_k, reps_p) in pairs.items():
+                        if which == "plain":
+                            t[k + "_plain"].append(median_ms(plain, reps_p))
+                        else:
+                            t[k].append(median_ms(kern, reps_k))
             ms = {k: statistics.median(v) for k, v in t.items()}
-            log(f"  time {shape} {prec}: K1 {ms['k1']:.4f} ms vs plain {ms['k1_plain']:.4f} ms; "
-                f"K3 {ms['k3']:.4f} ms vs plain {ms['k3_plain']:.4f} ms")
+            log(f"  time {shape} {prec}: " + "; ".join(
+                f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
             results.append(dict(shape=shape, precision=prec, batch=b, widths=[n_in, h, h, nz],
-                                k1_max_abs_err=err1, k3_max_abs_err=err3, **ms))
+                                k1_max_abs_err=err1, k2_max_abs_err=err2, k3_max_abs_err=err3,
+                                k4_max_abs_err=err4, **ms))
     record["kernels_vs_plain"] = results
     return results
 
@@ -253,6 +318,92 @@ def slice_phase(dev, record):
     return launches
 
 
+def train_phase(dev, record):
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
+        fused_dynamics_vjp, fused_dynamics_vjp_bwd)
+    from continuousnormalizingflows_tpu_torch.ops.fused_solve import (
+        fused_solve_rk4, fused_solve_rk4_bwd)
+    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+
+    counters = {"K1": fused_dynamics_vjp, "K2": fused_dynamics_vjp_bwd,
+                "K3": fused_solve_rk4, "K4": fused_solve_rk4_bwd}
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    solver = SolverConfig(method="rk4", gradient="backprop", fixed_steps=STEPS)
+    x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), TRAIN_POINTS)
+    ffjord = dict(naugments=0, lambda_1=0.0, lambda_2=0.0, lambda_3=0.0)
+
+    def fit(name, icnf, data, epochs, want):
+        """One fit, counted: the launch counts of every step must be ``want``;
+        returns (result, launches over the fit, train-step samples/s)."""
+        marks = []
+
+        def on_step(_it, _loss):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), counts()))
+
+        params = icnf.init(torch.Generator().manual_seed(0), device=dev)
+        model = cnf.ICNFModel(icnf, batchsize=BATCH, epochs=epochs, log_every=1,
+                              callback=on_step, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(7))
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), counts()))
+        res = model.fit(data, params=params)
+        launches = counts()
+        for i in range(1, len(marks)):
+            step = {k: marks[i][1][k] - marks[i - 1][1][k] for k in counters}
+            if step != want:
+                fail(f"{name}: step {i - 1} launched {step}, expected {want}")
+        hist = res.history
+        if res.stats["iterations"] != len(marks) - 1 or not all(map(math.isfinite, hist)):
+            fail(f"{name}: {res.stats['iterations']} steps, loss history {hist}")
+        # host clock between the ends of consecutive steps (each ends in a synchronize)
+        secs = sorted(b[0] - a[0] for a, b in zip(marks[1:], marks[2:]))
+        if len(secs) < 5:
+            fail(f"{name}: {len(secs)} timed steps, need at least 5")
+        rate = BATCH / secs[len(secs) // 2]
+        log(f"  {name}: {res.stats['iterations']} steps, launches {launches} "
+            f"(per step {want}) ok; loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
+            f"{rate:.1f} train samples/s (median of {len(secs)} steps: "
+            f"{secs[len(secs) // 2] * 1e3:.3f} ms; min {secs[0] * 1e3:.3f}, "
+            f"max {secs[-1] * 1e3:.3f})")
+        log(f"    loss history: {[round(v, 4) for v in hist]}")
+        return res, launches, rate
+
+    def grads(icnf, params, seed):
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        loss = cnf.loss(icnf, Mode.TRAIN, x[:BATCH], p, torch.Generator(device=dev).manual_seed(seed))
+        return list(torch.autograd.grad(loss, list(p.values())))
+
+    out = {}
+    none = {k: 0 for k in counters}
+    for form, kw, epochs, want in (
+        ("flagship RNODE", {}, TRAIN_EPOCHS, dict(none, K3=1, K4=1)),
+        # remat: each step's K1 launches run again in the backward
+        ("FFJORD form", ffjord, 2, dict(none, K1=8 * STEPS, K2=4 * STEPS)),
+    ):
+        fused = cnf.ICNF.create(nvariables=2, solver=solver, fused=True, **kw)
+        plain = cnf.ICNF.create(nvariables=2, solver=solver, fused=False, **kw)
+        res, launches, rate = fit(f"{form} fused=True", fused, x, epochs, want)
+        if form == "flagship RNODE" and not res.history[-1] < res.history[0]:
+            fail(f"{form}: the loss did not fall ({res.history[0]} -> {res.history[-1]})")
+        _res, _l, rate_plain = fit(f"{form} fused=False", plain, x, 2, none)
+        err = compare_to_max(f"{form}: one step's parameter gradients, fused vs unfused",
+                             grads(fused, res.params, 11), grads(plain, res.params, 11),
+                             GRAD_TOL)
+        out[form] = dict(launches=launches, steps=res.stats["iterations"],
+                         history=res.history, train_samples_per_s=rate,
+                         train_samples_per_s_unfused=rate_plain, grad_max_abs_err=err)
+    record["train"] = out
+    return {"rnode": out["flagship RNODE"]["launches"], "ffjord": out["FFJORD form"]["launches"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -278,6 +429,12 @@ def main() -> None:
     results = kernel_phase(dev, record)
     log("[slice] flagship RNODE, fused=True, 65,536 samples, rk4-32")
     launches = slice_phase(dev, record)
+    log("[train] ICNFModel.fit, batch 65,536, rk4-32: the flagship RNODE (K3 + K4) and "
+        "its FFJORD form (K1 + K2)")
+    train = train_phase(dev, record)
+    for path, want in (("rnode", ("K3", "K4")), ("ffjord", ("K1", "K2"))):
+        if any(train[path][k] == 0 for k in want):
+            fail(f"train {path}: a kernel of the path was not launched: {train[path]}")
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
     kernels = [
@@ -291,6 +448,16 @@ def main() -> None:
              replaces="continuousnormalizingflows_tpu/ops/pallas_solve.py:176",
              launches=launches["K3"], max_abs_err=flag["k3_max_abs_err"],
              ms=flag["k3"], plain_ms=flag["k3_plain"]),
+        dict(name="fused_dynamics_bwd", route="cuda",
+             source="continuousnormalizingflows_tpu_torch/csrc/fused_dynamics_bwd.cu",
+             replaces="continuousnormalizingflows_tpu/ops/pallas_kernels.py:182",
+             launches=train["ffjord"]["K2"], max_abs_err=flag["k2_max_abs_err"],
+             ms=flag["k2"], plain_ms=flag["k2_plain"]),
+        dict(name="fused_solve_rk4_bwd", route="cuda",
+             source="continuousnormalizingflows_tpu_torch/csrc/fused_solve_bwd.cu",
+             replaces="continuousnormalizingflows_tpu/ops/pallas_solve.py:206",
+             launches=train["rnode"]["K4"], max_abs_err=flag["k4_max_abs_err"],
+             ms=flag["k4"], plain_ms=flag["k4_plain"]),
     ]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

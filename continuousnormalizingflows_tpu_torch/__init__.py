@@ -2,12 +2,14 @@
 an NVIDIA H100.
 
 The port of ``continuousnormalizingflows_tpu`` (JAX/Pallas on a TPU), which
-stays beside it as the reference.  This slice covers the log-density and
-sampling path: config, the MLP dynamics net, the ICNF model, fixed-step
+stays beside it as the reference.  Ported so far: the log-density and
+sampling path (config, the MLP dynamics net, the ICNF model, fixed-step
 solves with backprop gradients, ``inference``/``log_prob``/``loss``/
-``generate``, and ``ICNFDist``/``CondICNFDist``.  Two CUDA kernels carry the
-stochastic modes: the fused dynamics stage (``ops.fused_dynamics``) and the
-whole RK4 solve (``ops.fused_solve``).
+``generate``, ``ICNFDist``/``CondICNFDist``) and training (``ICNFModel``,
+``CondICNFModel``, ``default_optimizer``, checkpoints).  Four CUDA kernels
+carry the stochastic modes: the fused dynamics stage and its backward
+(``ops.fused_dynamics``), the whole RK4 solve and its backward
+(``ops.fused_solve``).
 
 Quick start::
 
@@ -19,6 +21,7 @@ Quick start::
     params = icnf.init(torch.Generator().manual_seed(0), device="cuda")
     d = cnf.ICNFDist(icnf, params, cnf.Mode.TRAIN)
     lp = d.logpdf(x)
+    fit = cnf.ICNFModel(icnf, batchsize=65_536, epochs=8, device="cuda").fit(x)
 """
 
 from .config import ICNFConfig, Mode, ProbeDist, SolverConfig, TraceEstimator
@@ -27,6 +30,7 @@ from .core import (base_logpdf, generate, generate_with_logp, inference, log_pro
 from .dist import CondICNFDist, ICNFDist
 from .models.icnf import ICNF, default_net
 from .models.nets import MLP, DynamicsNet
+from .train import CondICNFModel, FitResult, ICNFModel, default_optimizer
 
 __version__ = "0.1.0"
 
@@ -49,5 +53,9 @@ __all__ = [
     "base_logpdf",
     "ICNFDist",
     "CondICNFDist",
+    "default_optimizer",
+    "FitResult",
+    "ICNFModel",
+    "CondICNFModel",
     "__version__",
 ]

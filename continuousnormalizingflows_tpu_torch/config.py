@@ -82,7 +82,7 @@ class SolverConfig:
     max_steps: int = 16_384
     fixed_steps: int = 64
     gradient: str = "adjoint"
-    remat: bool = True  # per-step recompute in the backward (training slice)
+    remat: bool = True  # per-step recompute in the backward (torch.utils.checkpoint)
     dt0: Any = "auto"
     dense_max_nodes: int = 128
     adjoint_seminorm: bool = True

@@ -1,7 +1,8 @@
 """Builds the CUDA kernels of ``csrc/`` at first use and loads them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, which ``ctypes`` loads.  The library lands in
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` -- one process per
+source, all started together -- and links the objects into one shared
+library with a plain C interface, which ``ctypes`` loads.  The library lands in
 ``_build/`` beside this package (listed in ``.gitignore``), named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing here runs at import: the first CUDA launch calls
@@ -19,14 +20,14 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["kernels", "check", "plan", "build_info"]
+__all__ = ["kernels", "check", "plan", "bwd_plan", "build_info"]
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -36,7 +37,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "cnf_fused_dynamics_fwd": [_P] * 16 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_fwd": [_P] * 15 + [_I] * 10 + [_P],
+    "cnf_fused_dynamics_bwd": [_P] * 20 + [_I] * 6 + [_P],
+    "cnf_fused_solve_rk4_bwd": [_P] * 20 + [_I] * 10 + [_P],
     "cnf_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 # what the last build did: seconds, library path, compiler log
@@ -71,11 +75,25 @@ def kernels() -> ctypes.CDLL:
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cus)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{cu.stem}.o") for cu in cus]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(cu)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cu, obj in zip(cus, objs)
+        ]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        failed = [cu.name for cu, proc in zip(cus, procs) if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            failed = ["link"] if link.returncode != 0 else []
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a half-written file
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
@@ -105,3 +123,14 @@ def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
     info = (ctypes.c_int * 2)()
     rows = kernels().cnf_plan(n_in, h, n_out, nz, sd, info)
     return rows, bool(info[0]), int(info[1])
+
+
+@functools.cache
+def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int):
+    """The backward kernels' launch shape (``sd``: the whole-solve kernel's
+    state width, 0 for the single stage): ``(rows per tile, weights staged in
+    shared memory, grid, parameter count)``; the wrapper allocates the
+    ``(grid, parameter count)`` buffer of per-block weight-gradient sums."""
+    info = (ctypes.c_int * 3)()
+    rows = kernels().cnf_bwd_plan(n_in, h, n_out, nz, sd, batch, info)
+    return rows, bool(info[0]), int(info[1]), int(info[2])

@@ -6,7 +6,7 @@ row ``u = [z (nz), dlogp, E, n]``; the derivative is
 columns zero unless the mode and the lambdas ask for them.
 
 Ported branches: the fused Hutchinson-VJP stage (K1, :mod:`.fused_dynamics`),
-the plain Hutchinson VJP (``torch.func.vjp``), and the analytic exact trace
+the plain Hutchinson VJP (``torch.autograd.grad``), and the analytic exact trace
 of 1- and 2-hidden-layer MLPs.  The Hutchinson JVP and the generic exact
 sweep raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
@@ -85,6 +85,24 @@ def _mlp_exact_trace(net: MLP, params: Params, x_full: torch.Tensor, nz: int):
     return dz, div
 
 
+def _probe_vjps(fn, z: torch.Tensor, eps: torch.Tensor, inputs):
+    """``(fn(z), stack of eps[p]^T dfn/dz)``.  Built on ``torch.autograd.grad``
+    (not ``torch.func.vjp``, which refuses the saved-tensor hooks of a
+    non-reentrant checkpoint, i.e. ``remat``).  The results stay in the graph
+    when grad is enabled and ``z`` or one of ``inputs`` (what ``fn`` closes
+    over) requires grad, and are plain values otherwise."""
+    train = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (z, eps, *inputs))
+    with torch.enable_grad():
+        zz = z if z.requires_grad else z.detach().requires_grad_()
+        dz = fn(zz)
+        eps_j = torch.stack([
+            torch.autograd.grad(dz, zz, e, create_graph=train, retain_graph=True)[0]
+            for e in eps
+        ])  # (P, B, nz)
+    return (dz, eps_j) if train else (dz.detach(), eps_j.detach())
+
+
 def fused_dynamics_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
     """The JAX fused-stage predicate without its TPU-backend check."""
     return (
@@ -151,9 +169,9 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
             dz, div = _mlp_exact_trace(net, params, _net_input(cfg, t, z, ys), nz)
             reg_j = zero
         else:  # HUTCH_VJP: one shared forward, one VJP per probe
-            dz, vjp_fn = torch.func.vjp(lambda zz: field(t, zz, params, ys), z)
             eps = args["eps"]
-            eps_j = torch.stack([vjp_fn(e)[0] for e in eps])  # (P, B, nz)
+            dz, eps_j = _probe_vjps(lambda zz: field(t, zz, params, ys), z, eps,
+                                    (*params.values(), ys))
             div = torch.mean(torch.sum(eps_j * eps, dim=-1), dim=0)
             reg_j = torch.mean(_row_norm(eps_j), dim=0) if compute_reg_j else zero
         reg_z = _row_norm(dz) if compute_reg_z else zero

@@ -6,8 +6,11 @@ per row ``u = [z (nz), dlogp, E, n]``; each stage runs the fused dynamics of
 ``du = [y, -div, |y|, |e_z|]``.  ``t = t0 + i*dt``, ``dt = (t1 - t0)/steps``.
 
 :func:`fused_solve_rk4` takes the plain version for a CPU tensor and the CUDA
-kernel (``csrc/fused_solve.cu``) for a CUDA tensor.  Forward only: the exact
-discrete backward (K4) comes with the training slice.
+kernel (``csrc/fused_solve.cu``) for a CUDA tensor.  It is a
+``torch.autograd.Function`` whose backward is K4 (``csrc/fused_solve_bwd.cu``,
+:func:`fused_solve_rk4_bwd`), the exact discrete backward of the solve, for
+CUDA tensors and its plain version (:func:`fused_solve_rk4_bwd_reference`)
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ import torch.nn.functional as F
 from ..config import ICNFConfig, Mode, TraceEstimator
 from ..models.nets import MLP, Params
 from . import _build
-from .fused_dynamics import _ptr, _precision, kernel_operands, mlp3_forward_vjp_reference
+from .fused_dynamics import (_ptr, _precision, fused_dynamics_vjp_bwd_reference,
+                             kernel_operands, mlp3_forward_vjp_reference, params_of,
+                             split_grads, transposes, weights_of)
 
 __all__ = ["fused_solve_applicable", "fused_solve_rk4", "fused_solve_rk4_reference",
-           "MAX_HIDDEN", "MAX_WIDTH"]
+           "fused_solve_rk4_bwd", "fused_solve_rk4_bwd_reference", "MAX_HIDDEN", "MAX_WIDTH"]
 
 # the gate's range: hidden width, and net-input / state width
 MAX_HIDDEN = 512
@@ -66,22 +71,21 @@ def _times(u0: torch.Tensor, tspan, steps: int) -> Tuple[torch.Tensor, torch.Ten
     return t0, (t1 - t0) / steps
 
 
-def fused_solve_rk4_reference(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tensor],
-                              params: Params, tspan, nz: int, t_col: Optional[int],
-                              steps: int, compute_dtype=None) -> torch.Tensor:
-    """Plain PyTorch version of the whole solve: ``steps`` RK4 steps of the
-    fused stage, with the kernel's rounding."""
-    t0, dt = _times(u0, tspan, steps)
+def _stage_input(t, z, ys, t_col):
+    cols = [z]
+    if t_col is not None:
+        cols.append(t.expand(z.shape[0], 1))
+    if ys is not None:
+        cols.append(ys.to(z.dtype))
+    return torch.cat(cols, dim=-1)
+
+
+def _rk4_reference(u0, eps, ys, params, t0, dt, nz, t_col, steps, compute_dtype):
     b = u0.shape[0]
 
     def stage(t, u):
-        cols = [u[:, :nz]]
-        if t_col is not None:
-            cols.append(t.expand(b, 1))
-        if ys is not None:
-            cols.append(ys.to(u.dtype))
         y, _ez, div, reg_z, reg_j = mlp3_forward_vjp_reference(
-            torch.cat(cols, dim=-1), eps, params, nz, compute_dtype
+            _stage_input(t, u[:, :nz], ys, t_col), eps, params, nz, compute_dtype
         )
         return torch.cat([y, -div[:, None], reg_z[:, None], reg_j[:, None]], dim=-1)
 
@@ -96,23 +100,78 @@ def fused_solve_rk4_reference(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[
     return u
 
 
-def fused_solve_rk4(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tensor],
-                    params: Params, tspan, nz: int, t_col: Optional[int], steps: int,
-                    compute_dtype=None) -> torch.Tensor:
-    """Whole-solve forward.  ``u0``: ``(B, state_dim)``; ``eps``: ``(B, nz)``;
-    ``ys``: ``(B, nconditions)`` or None; ``tspan = (t0, t1)`` floats or
-    scalar tensors; ``t_col``: the time column of the net input (``nz``), or
-    None for an autonomous net.  Returns ``u1`` ``(B, state_dim)``."""
-    if u0.device.type == "cpu":
-        return fused_solve_rk4_reference(u0, eps, ys, params, tspan, nz, t_col, steps,
-                                         compute_dtype)
-    if u0.device.type != "cuda":
-        raise ValueError(f"fused_solve_rk4 runs on CPU or CUDA tensors, got {u0.device}")
-    bf16 = _precision(compute_dtype) == "default"
+def fused_solve_rk4_reference(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tensor],
+                              params: Params, tspan, nz: int, t_col: Optional[int],
+                              steps: int, compute_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of the whole solve: ``steps`` RK4 steps of the
+    fused stage, with the kernel's rounding."""
     t0, dt = _times(u0, tspan, steps)
-    a1, b1, a2, b2, a3, b3, w1t, w2t, w3t = kernel_operands(
-        params, u0.shape[1], u0, eps, ys, t0, dt)
+    return _rk4_reference(u0, eps, ys, params, t0, dt, nz, t_col, steps, compute_dtype)
+
+
+def _rk4_bwd_reference(u0, eps, ys, params, t0, dt, nz, t_col, steps, gbar, compute_dtype):
     b, sd = u0.shape
+
+    def k_z(t, z):  # the z columns of a stage's du
+        return mlp3_forward_vjp_reference(_stage_input(t, z, ys, t_col), eps, params, nz,
+                                          compute_dtype)[0]
+
+    def stage_vjp(t, z, dub):
+        cot = (dub[:, :nz], torch.zeros_like(z), -dub[:, nz], dub[:, nz + 1], dub[:, nz + 2])
+        xbar, epsbar, wbars = fused_dynamics_vjp_bwd_reference(
+            _stage_input(t, z, ys, t_col), eps, params, nz, cot, compute_dtype)
+        return F.pad(xbar[:, :nz], (0, sd - nz)), epsbar, wbars
+
+    # 1. the step trajectory (z columns: the accumulators never enter a stage)
+    traj, z = [], u0[:, :nz]
+    for i in range(steps):
+        traj.append(z)
+        t = t0 + i * dt
+        k1 = k_z(t, z)
+        k2 = k_z(t + 0.5 * dt, z + 0.5 * dt * k1)
+        k3 = k_z(t + 0.5 * dt, z + 0.5 * dt * k2)
+        k4 = k_z(t + dt, z + dt * k3)
+        z = z + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    # 2. the steps backward through the RK4 chain rule
+    a = gbar.to(torch.float32)
+    epsbar = torch.zeros_like(eps)
+    wbars = [torch.zeros_like(w) for w in weights_of(params)]
+    for n in reversed(range(steps)):
+        u = traj[n]
+        t = t0 + n * dt
+        v1 = u + 0.5 * dt * k_z(t, u)
+        v2 = u + 0.5 * dt * k_z(t + 0.5 * dt, v1)
+        v3 = u + dt * k_z(t + 0.5 * dt, v2)
+        v3b, e4, w4 = stage_vjp(t + dt, v3, (dt / 6.0) * a)
+        v2b, e3, w3 = stage_vjp(t + 0.5 * dt, v2, (dt / 3.0) * a + dt * v3b)
+        v1b, e2, w2 = stage_vjp(t + 0.5 * dt, v1, (dt / 3.0) * a + 0.5 * dt * v2b)
+        u0b, e1, w1 = stage_vjp(t, u, (dt / 6.0) * a + 0.5 * dt * v1b)
+        a = a + v3b + v2b + v1b + u0b
+        epsbar = epsbar + e1 + e2 + e3 + e4
+        wbars = [acc + c4 + c3 + c2 + c1 for acc, c4, c3, c2, c1 in zip(wbars, w4, w3, w2, w1)]
+    return a, epsbar, tuple(wbars)
+
+
+def fused_solve_rk4_bwd_reference(u0: torch.Tensor, eps: torch.Tensor,
+                                  ys: Optional[torch.Tensor], params: Params, tspan, nz: int,
+                                  t_col: Optional[int], steps: int, gbar: torch.Tensor,
+                                  compute_dtype=None):
+    """Plain PyTorch version of K4, the exact discrete backward of the solve
+    (``pallas_solve._solve_bwd_kernel``): recompute the step trajectory, then
+    walk the RK4 steps backward with the stage VJP of
+    :func:`.fused_dynamics.fused_dynamics_vjp_bwd_reference`.
+
+    ``gbar``: the cotangent of ``u1``.  Returns ``(u0bar (B, state_dim),
+    epsbar (B, nz), (dA1, db1, dA2, db2, dA3, db3))``.  The cotangents of
+    ``ys`` and of the time span are not computed, as in the TPU kernel."""
+    t0, dt = _times(u0, tspan, steps)
+    return _rk4_bwd_reference(u0, eps, ys, params, t0, dt, nz, t_col, steps, gbar,
+                              compute_dtype)
+
+
+def _check_solve(u0, eps, ys, weights, nz, t_col):
+    b, sd = u0.shape
+    a1, _b1, a2, _b2, a3, _b3 = weights
     h, n_in, n_out = a1.shape[0], a1.shape[1], a3.shape[0]
     nc = 0 if ys is None else ys.shape[1]
     if (
@@ -134,6 +193,17 @@ def fused_solve_rk4(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tens
             f"widths n_in={n_in}, h={h}, state={sd} outside the kernel's range "
             f"(h <= {MAX_HIDDEN}, n_in and state <= {MAX_WIDTH})"
         )
+    return b, sd, n_in, h, n_out, nc
+
+
+def _launch_fwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, compute_dtype):
+    """K3 on CUDA tensors."""
+    bf16 = _precision(compute_dtype) == "default"
+    weights = kernel_operands(weights, u0, eps, ys, t0, dt)
+    b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
+    _rows, staged, _h_pad = _build.plan(n_in, h, n_out, n_out, sd)
+    a1, b1, a2, b2, a3, b3 = weights
+    w1t, w2t, w3t = transposes(weights, staged)
     u0, eps = u0.contiguous(), eps.contiguous()
     ys = None if ys is None else ys.contiguous()
     u1 = torch.empty_like(u0)
@@ -151,5 +221,101 @@ def fused_solve_rk4(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tens
     return u1
 
 
-# launches of the CUDA kernel since the last reset (a plain counter)
+def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dtype):
+    """K4 on CUDA tensors."""
+    bf16 = _precision(compute_dtype) == "default"
+    weights = kernel_operands(weights, u0, eps, ys, t0, dt, gbar)
+    b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
+    if gbar.shape != u0.shape:
+        raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
+    rows, staged, grid, n_params = _build.bwd_plan(n_in, h, n_out, nz, sd, b)
+    if rows == 0:
+        raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
+    a1, b1, a2, b2, a3, b3 = weights
+    w1t, w2t, w3t = transposes(weights, staged)
+    u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
+    ys = None if ys is None else ys.contiguous()
+    dev = u0.device
+    u0bar = torch.empty_like(u0)
+    epsbar = torch.empty_like(eps)
+    traj = torch.empty((steps, b, nz), dtype=torch.float32, device=dev)
+    partial = torch.empty((grid, n_params), dtype=torch.float32, device=dev)
+    grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
+    lib = _build.kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cnf_fused_solve_rk4_bwd(
+            _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2),
+            _ptr(a3), _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(dt),
+            _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(traj), _ptr(partial), _ptr(grads),
+            b, sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, steps,
+            int(bf16), stream,
+        )
+    _build.check(err, "fused_solve_rk4_bwd")
+    fused_solve_rk4_bwd.launches += 1
+    return u0bar, epsbar, split_grads(grads, n_in, h, n_out)
+
+
+def _bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dtype):
+    if u0.device.type == "cpu":
+        return _rk4_bwd_reference(u0, eps, ys, params_of(weights), t0, dt, nz, t_col, steps,
+                                  gbar, compute_dtype)
+    return _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dtype)
+
+
+def fused_solve_rk4_bwd(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tensor],
+                        params: Params, tspan, nz: int, t_col: Optional[int], steps: int,
+                        gbar: torch.Tensor, compute_dtype=None):
+    """The solve's backward: K4 for CUDA tensors, its plain version for CPU
+    tensors.  Arguments and result as :func:`fused_solve_rk4_bwd_reference`."""
+    if u0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_solve_rk4_bwd runs on CPU or CUDA tensors, got {u0.device}")
+    t0, dt = _times(u0, tspan, steps)
+    return _bwd(u0, eps, ys, weights_of(params), t0, dt, nz, t_col, steps, gbar, compute_dtype)
+
+
+class _FusedSolve(torch.autograd.Function):
+    """K3 forward, K4 backward, with the cotangent structure of the JAX rule
+    (``pallas_solve._fused_solve_bwd``): ``u0``, ``eps`` and the six weights
+    get real cotangents.  ``ys`` gets zeros: like the TPU kernel, K4 does not
+    carry the cotangent of the conditions.  ``t0`` and ``dt`` get none: the
+    steered end time is not differentiated, in the reference either."""
+
+    @staticmethod
+    def forward(ctx, u0, eps, ys, t0, dt, nz, t_col, steps, compute_dtype, *weights):
+        ctx.save_for_backward(u0, eps, ys, t0, dt, *weights)
+        ctx.static = (nz, t_col, steps, compute_dtype)
+        if u0.device.type == "cpu":
+            return _rk4_reference(u0, eps, ys, params_of(weights), t0, dt, nz, t_col, steps,
+                                  compute_dtype)
+        return _launch_fwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        u0, eps, ys, t0, dt, *weights = ctx.saved_tensors
+        nz, t_col, steps, compute_dtype = ctx.static
+        u0bar, epsbar, wbars = _bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar,
+                                    compute_dtype)
+        ysbar = None if ys is None else torch.zeros_like(ys)
+        return (u0bar, epsbar, ysbar, None, None, None, None, None, None, *wbars)
+
+
+def fused_solve_rk4(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tensor],
+                    params: Params, tspan, nz: int, t_col: Optional[int], steps: int,
+                    compute_dtype=None) -> torch.Tensor:
+    """Whole-solve forward, differentiable.  ``u0``: ``(B, state_dim)``;
+    ``eps``: ``(B, nz)``; ``ys``: ``(B, nconditions)`` or None;
+    ``tspan = (t0, t1)`` floats or scalar tensors; ``t_col``: the time column
+    of the net input (``nz``), or None for an autonomous net.  Returns ``u1``
+    ``(B, state_dim)``."""
+    if u0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_solve_rk4 runs on CPU or CUDA tensors, got {u0.device}")
+    _precision(compute_dtype)
+    t0, dt = _times(u0, tspan, steps)
+    return _FusedSolve.apply(u0, eps, ys, t0, dt, nz, t_col, steps, compute_dtype,
+                             *weights_of(params))
+
+
+# launches of the CUDA kernels since the last reset (plain counters)
 fused_solve_rk4.launches = 0
+fused_solve_rk4_bwd.launches = 0

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import SolverConfig
 
@@ -46,19 +47,24 @@ def _euler_step(f: ODEFunc, t, y: torch.Tensor, dt, args) -> torch.Tensor:
 
 def odeint_fixed(f: ODEFunc, y0: torch.Tensor, t0, t1, args,
                  cfg: SolverConfig) -> Tuple[torch.Tensor, SolverStats]:
-    """``cfg.fixed_steps`` steps of rk4 or euler.  ``cfg.remat`` (per-step
-    recompute in the backward) shapes only the backward's memory and comes
-    with the training slice (ROADMAP.md, Queue 1); the values here do not
-    depend on it."""
+    """``cfg.fixed_steps`` steps of rk4 or euler.  With ``cfg.remat`` and grad
+    enabled each step runs under ``torch.utils.checkpoint`` (non-reentrant):
+    the backward keeps only each step's input and recomputes the step's
+    stages, as ``jax.checkpoint`` of the scan body does in the JAX package.
+    That changes the backward's memory, not the values."""
     t0 = torch.as_tensor(t0, dtype=y0.dtype, device=y0.device)
     t1 = torch.as_tensor(t1, dtype=y0.dtype, device=y0.device)
     n = int(cfg.fixed_steps)
     dt = (t1 - t0) / n
     step = {"rk4": _rk4_step, "euler": _euler_step}[cfg.method]
     evals = {"rk4": 4, "euler": 1}[cfg.method]
+    remat = cfg.remat and torch.is_grad_enabled()
     y = y0
     for i in range(n):
-        y = step(f, t0 + i * dt, y, dt, args)
+        if remat:
+            y = checkpoint(step, f, t0 + i * dt, y, dt, args, use_reentrant=False)
+        else:
+            y = step(f, t0 + i * dt, y, dt, args)
     return y, SolverStats(evals * n, n, 0, dt)
 
 

@@ -1,0 +1,408 @@
+"""Training front-end: the sklearn/MLJ-style estimator facade.
+
+Counterpart of ``continuousnormalizingflows_tpu.train``: ``ICNFModel`` wraps
+an :class:`~continuousnormalizingflows_tpu_torch.models.icnf.ICNF` with an
+optimizer and exposes ``fit(X[, Y]) -> FitResult``, ``transform``,
+``score``, ``save`` and ``load``.  Defaults as the reference's MLJ facade:
+``batchsize = 1024``, ``epochs = 300``, weight decay 1e-4 before Adam(1e-3),
+static-shaped shuffled minibatches, the loss logged every 64 steps.
+
+Where the JAX package takes a PRNG key, this takes a ``torch.Generator``.
+One generator stream feeds, in order: the parameter init (when no params are
+given), each epoch's permutation, and each step's draws (the
+``batch_transform``'s, then the probe and the steered end time).  A fit
+with ``generator=FitResult.generator``, ``params`` and ``opt_state`` of an
+earlier fit continues its stream exactly.
+
+``steps_per_dispatch = k`` runs the steps in blocks of ``k`` and reads the
+losses back once per block (one host synchronisation per block instead of
+one per logged step).  The steps and their draws are the same for every
+``k``, so the trained parameters are the same bits.  The JAX package's
+memo of compiled steps has no counterpart (PyTorch runs eagerly), so its
+attribute rules reduce to one: ``_conditional`` follows ``icnf``.  The
+adaptive solvers' ``dt0="carry"`` has no fixed-step counterpart and waits
+for the adaptive slice; ``mesh=`` raises (ROADMAP.md, Queue 1: parallel).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from .config import Mode
+from .core import _device_of, inference, loss_with_stats
+from .dist import _shim_layout
+from .models.icnf import ICNF
+
+__all__ = ["default_optimizer", "ClippedAdam", "FitResult", "ICNFModel", "CondICNFModel"]
+
+Params = Dict[str, torch.Tensor]
+OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
+
+
+class ClippedAdam(torch.optim.Adam):
+    """Adam with coupled L2 weight decay (the gradient plus ``weight_decay *
+    param`` enters the moments: optax's ``add_decayed_weights`` then
+    ``adam``, not AdamW), after optional global-norm clipping by optax's
+    rule: every gradient is scaled by ``clip_norm / norm`` unless ``norm <
+    clip_norm`` (no epsilon)."""
+
+    def __init__(self, params, lr: float = 1e-3, weight_decay: float = 1e-4,
+                 clip_norm: Optional[float] = None) -> None:
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=weight_decay)
+        self.clip_norm = clip_norm
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if self.clip_norm is not None:
+            grads = [p.grad for group in self.param_groups for p in group["params"]
+                     if p.grad is not None]
+            if grads:
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                keep = norm < self.clip_norm
+                for g in grads:
+                    g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
+        return super().step(closure)
+
+
+def default_optimizer(learning_rate: float = 1e-3, weight_decay: float = 1e-4,
+                      clip_norm: Optional[float] = None) -> OptimizerFactory:
+    """``OptimiserChain(WeightDecay(1e-4), Adam(1e-3))`` equivalent
+    (reference core_icnf.jl:17-24), with optional global-norm gradient
+    clipping first.  Returns a factory: ``factory(tensors) -> optimizer``."""
+    return functools.partial(ClippedAdam, lr=learning_rate, weight_decay=weight_decay,
+                             clip_norm=clip_norm)
+
+
+def _table_to_matrix(X):
+    """Tables the way the reference MLJ facade takes them: anything with
+    ``to_numpy`` (pandas/polars DataFrames) or a dict of columns becomes an
+    ``(n, d)`` matrix; arrays and tensors pass through."""
+    if hasattr(X, "to_numpy"):
+        return np.asarray(X.to_numpy())
+    if isinstance(X, dict):
+        return np.stack([np.asarray(col) for col in X.values()], axis=1)
+    return X
+
+
+@dataclasses.dataclass
+class FitResult:
+    """The reference's ``fitresult`` + ``report``.  ``opt_state`` is the final
+    optimizer ``state_dict()`` and ``generator`` the advanced generator: pass
+    both back to ``fit(params=..., opt_state=..., generator=...)`` for an
+    exact resume.  With ``validation_data``: ``val_history`` is ``[(epoch,
+    val_nll), ...]``, ``best_params`` the parameters at the best validation
+    NLL (None if no evaluation was finite), ``best_val_nll``/``best_epoch``
+    its value and epoch; ``params`` stays the final parameters."""
+
+    params: Params
+    history: List[float]
+    stats: dict
+    opt_state: Any = None
+    generator: Optional[torch.Generator] = None
+    val_history: List[tuple] = dataclasses.field(default_factory=list)
+    best_params: Optional[Params] = None
+    best_val_nll: Optional[float] = None
+    best_epoch: Optional[int] = None
+
+
+class ICNFModel:
+    """Unconditional density estimator (reference ``ICNFModel``).
+
+    ``optimizer``: a factory ``tensors -> torch.optim.Optimizer`` (default
+    :func:`default_optimizer`).  ``generator``: the stream's start, copied at
+    each ``fit`` without its own generator (default: seed 0 on ``device``).
+    ``device``: where the data, the parameters and the training run (default:
+    the device of the ``params`` given to ``fit``, else the CPU)."""
+
+    def __init__(
+        self,
+        icnf: ICNF,
+        optimizer: Optional[OptimizerFactory] = None,
+        batchsize: int = 1024,
+        epochs: int = 300,
+        generator: Optional[torch.Generator] = None,
+        log_every: int = 64,
+        callback: Optional[Callable[[int, float], None]] = None,
+        val_callback: Optional[Callable[[int, float], None]] = None,
+        mesh=None,
+        steps_per_dispatch: int = 1,
+        batch_transform: Optional[Callable[[torch.Generator, torch.Tensor],
+                                           torch.Tensor]] = None,
+        eval_icnf: Optional[ICNF] = None,
+        device=None,
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (sharded training) is not ported yet (ROADMAP.md, Queue 1: parallel)"
+            )
+        if int(steps_per_dispatch) < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        if eval_icnf is not None and (
+            eval_icnf.config.nvariables != icnf.config.nvariables
+            or eval_icnf.config.nconditions != icnf.config.nconditions
+        ):
+            raise ValueError(
+                "eval_icnf must match the training icnf's nvariables/nconditions "
+                "(it evaluates the same params)"
+            )
+        self.icnf = icnf
+        self.optimizer = optimizer if optimizer is not None else default_optimizer()
+        self.batchsize = int(batchsize)
+        self.epochs = int(epochs)
+        self.generator = generator
+        self.log_every = log_every
+        self.callback = callback
+        # called as val_callback(epoch, val_nll) after each validation
+        self.val_callback = val_callback
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        # per-step data augmentation: xb = batch_transform(generator, xb)
+        self.batch_transform = batch_transform
+        # TestMode model for score()/validation; None evaluates with icnf
+        self.eval_icnf = eval_icnf
+        self.device = None if device is None else torch.device(device)
+
+    @property
+    def _conditional(self) -> bool:
+        return self.icnf.config.conditioned
+
+    # -- internals ---------------------------------------------------------
+
+    def _start_generator(self, device) -> torch.Generator:
+        """A copy of the constructor's generator (seed 0 on ``device`` by
+        default): every fit without ``generator=`` starts the same stream."""
+        if self.generator is None:
+            return torch.Generator(device=device).manual_seed(0)
+        g = torch.Generator(device=self.generator.device)
+        g.set_state(self.generator.get_state())
+        return g
+
+    def _batches(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """``(n // batchsize, batchsize)`` row indices of a fresh permutation
+        (static-shaped: the remainder rotates in through the next epochs'
+        permutations); the whole dataset as one batch when ``batchsize <= 0``
+        or ``>= n``."""
+        bs = self.batchsize
+        if bs <= 0 or bs >= n:
+            return torch.arange(n)[None, :]
+        perm = torch.randperm(n, generator=generator, device=generator.device)
+        nb = n // bs
+        return perm[: nb * bs].reshape(nb, bs)
+
+    def _step(self, params: Params, opt: torch.optim.Optimizer, generator: torch.Generator,
+              xb: torch.Tensor, yb: Optional[torch.Tensor]):
+        """One optimizer step on a minibatch; returns ``(loss, solver stats)``
+        with the loss left on the device."""
+        if self.batch_transform is not None:
+            xb = self.batch_transform(generator, xb)
+        opt.zero_grad(set_to_none=True)
+        l, stats = loss_with_stats(self.icnf, Mode.TRAIN, xb, params, generator, ys=yb)
+        l.backward()
+        opt.step()
+        return l.detach(), stats
+
+    def _device_for(self, params: Optional[Params]) -> torch.device:
+        if self.device is not None:
+            return self.device
+        if params is not None:
+            return _device_of(params)
+        return torch.device("cpu")
+
+    # -- public API --------------------------------------------------------
+
+    def fit(
+        self,
+        X,
+        Y=None,
+        params: Optional[Params] = None,
+        opt_state: Any = None,
+        generator: Optional[torch.Generator] = None,
+        validation_data=None,
+        eval_every: int = 1,
+        patience: Optional[int] = None,
+    ) -> FitResult:
+        """Run the epochs x minibatch maximum-likelihood loop (reference fit,
+        core_icnf.jl:32-58).  ``X``: ``(n, nvariables)``; ``Y``: ``(n,
+        nconditions)`` for conditional models.  ``params`` (copied, never
+        modified), ``opt_state`` and ``generator`` warm-start it.
+
+        ``validation_data``: held-out ``Xval`` (or ``(Xval, Yval)``); every
+        ``eval_every`` epochs its mean TestMode NLL (:meth:`score`) is taken
+        and the best parameters kept.  ``patience``: stop after this many
+        evaluations in a row without improvement (a non-finite NLL counts as
+        none).  Validation draws nothing from the generator, so a validated
+        run trains the same bits as an unvalidated one up to its stop."""
+        icnf = self.icnf
+        cfg = icnf.config
+        device = self._device_for(params)
+        xs_all = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=device)
+        if xs_all.ndim != 2 or xs_all.shape[1] != cfg.nvariables:
+            raise ValueError(f"X must be (n, {cfg.nvariables}), got {tuple(xs_all.shape)}")
+        ys_all = None
+        if self._conditional:
+            if Y is None:
+                raise ValueError("conditional model requires Y")
+            ys_all = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+            if ys_all.shape != (xs_all.shape[0], cfg.nconditions):
+                raise ValueError(
+                    f"Y must be (n, {cfg.nconditions}), got {tuple(ys_all.shape)}")
+        n = xs_all.shape[0]
+
+        val_active = validation_data is not None
+        xval = yval = None
+        if val_active:
+            if int(eval_every) < 1:
+                raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+            if isinstance(validation_data, (tuple, list)):
+                xval, yval = validation_data
+            else:
+                xval = validation_data
+            if self._conditional and yval is None:
+                raise ValueError("conditional model requires validation_data=(Xval, Yval)")
+        val_history: List[tuple] = []
+        best_params: Optional[Params] = None
+        best_val = float("inf")
+        best_epoch: Optional[int] = None
+        stale = 0
+
+        def epoch_end(epoch_done: int, params: Params) -> bool:
+            """Validation at an epoch boundary; True = stop early."""
+            nonlocal best_params, best_val, best_epoch, stale
+            if not val_active:
+                return False
+            if epoch_done % eval_every != 0 and epoch_done != self.epochs:
+                return False
+            vnll = self.score(xval, params, Y=yval)
+            val_history.append((epoch_done, vnll))
+            if self.val_callback is not None:
+                self.val_callback(epoch_done, vnll)
+            if vnll < best_val:  # NaN compares False: counts as stale below
+                best_val, best_epoch, stale = vnll, epoch_done, 0
+                best_params = {k: v.detach().clone() for k, v in params.items()}
+                return False
+            stale += 1
+            return patience is not None and stale >= patience
+
+        gen = generator if generator is not None else self._start_generator(device)
+        if params is None:
+            params = icnf.init(gen, device)
+        else:
+            params = {k: v.detach().to(device).clone() for k, v in params.items()}
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        opt = self.optimizer(list(params.values()))
+        if opt_state is not None:
+            opt.load_state_dict(opt_state)
+
+        history: List[float] = []
+        it = 0
+        epochs_run = 0
+        t_start = time.perf_counter()
+        last_loss = float("nan")
+        sol_stats = None
+        spd = self.steps_per_dispatch
+        for epoch in range(self.epochs):
+            batches = self._batches(gen, n)
+            for blk in range(0, batches.shape[0], spd):
+                losses = []
+                for idx in batches[blk: blk + spd]:
+                    l, sol_stats = self._step(params, opt, gen, xs_all[idx],
+                                              None if ys_all is None else ys_all[idx])
+                    losses.append(l)
+                logged = [j for j in range(len(losses)) if (it + j) % self.log_every == 0]
+                if logged:
+                    values = torch.stack(losses).tolist()  # one synchronisation per block
+                    for j in logged:
+                        last_loss = values[j]
+                        history.append(last_loss)
+                        if self.callback is not None:
+                            self.callback(it + j, last_loss)
+                it += len(losses)
+            epochs_run = epoch + 1
+            if epoch_end(epochs_run, params):
+                break
+        if it:
+            last_loss = float(l)
+        stats = {
+            "iterations": it,
+            "epochs": self.epochs,
+            "epochs_run": epochs_run,
+            "wall_time_s": time.perf_counter() - t_start,
+            "final_loss": last_loss,
+        }
+        if val_active:
+            stats.update(
+                best_val_nll=best_val if best_epoch is not None else float("nan"),
+                best_epoch=best_epoch,
+                stopped_early=epochs_run < self.epochs,
+                val_evals=len(val_history),
+            )
+        if sol_stats is not None:
+            # per-solve diagnostics of the last step
+            stats.update(nfe=int(sol_stats.nfe), naccept=int(sol_stats.naccept),
+                         nreject=int(sol_stats.nreject),
+                         dt_final=float(sol_stats.dt_final))
+        return FitResult(
+            params={k: v.detach() for k, v in params.items()}, history=history, stats=stats,
+            opt_state=opt.state_dict(), generator=gen, val_history=val_history,
+            best_params=best_params,
+            best_val_nll=(best_val if best_epoch is not None else None),
+            best_epoch=best_epoch,
+        )
+
+    def transform(self, X, params: Params, Y=None) -> torch.Tensor:
+        """TestMode densities ``exp(logpx)`` (reference transform,
+        core_icnf.jl:60-68) of a table, an ``(n, d)`` matrix, one ``(d,)``
+        sample, or a features-first ``(d, n)`` matrix (transposed with a
+        warning)."""
+        cfg = self.icnf.config
+        xs = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=_device_of(params))
+        if xs.ndim == 2:
+            xs = _shim_layout(xs, cfg.nvariables)
+        with torch.no_grad():
+            logpx = inference(self.icnf, Mode.TEST, xs, params,
+                              ys=Y if self._conditional else None)[0]
+        return torch.exp(logpx)
+
+    def score(self, X, params: Params, Y=None) -> float:
+        """Mean negative log-likelihood (nats) under the deterministic
+        TestMode exact trace, with ``eval_icnf`` when set."""
+        icnf_eval = self.eval_icnf if self.eval_icnf is not None else self.icnf
+        if self._conditional and Y is None:
+            raise ValueError("conditional model requires Y to score")
+        xs = torch.as_tensor(_table_to_matrix(X), dtype=icnf_eval.config.dtype,
+                             device=_device_of(params))
+        with torch.no_grad():
+            logpx = inference(icnf_eval, Mode.TEST, xs, params,
+                              ys=Y if self._conditional else None)[0]
+        return -float(torch.mean(logpx))
+
+    # -- persistence (reference MLJBase.save / machine(file)) ---------------
+
+    def save(self, path: str, result: FitResult) -> None:
+        """Params, optimizer state and step count of ``result`` to ``path``."""
+        from .utils.checkpoint import save_checkpoint
+
+        save_checkpoint(path, result.params, result.opt_state,
+                        step=result.stats.get("iterations", 0))
+
+    def load(self, path: str, map_location=None) -> Params:
+        from .utils.checkpoint import load_checkpoint
+
+        params, _opt, _step = load_checkpoint(path, map_location)
+        return params
+
+
+class CondICNFModel(ICNFModel):
+    """Conditional variant (reference ``CondICNFModel``): the same loop on
+    ``(X, Y)`` data."""
+
+    def __init__(self, icnf: ICNF, **kwargs) -> None:
+        if not icnf.config.conditioned:
+            raise ValueError("CondICNFModel requires nconditions > 0")
+        super().__init__(icnf, **kwargs)
