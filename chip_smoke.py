@@ -3,15 +3,18 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``continuousnormalizingflows_tpu_torch/csrc``,
-holds each (forward K1, K3 and backward K2, K4) against its plain PyTorch
-version at the flagship and tabular shapes in both precisions, drives the
-flagship RNODE's log-density and sampling path (65,536 samples) through the
-public entry points, then trains it with ``ICNFModel.fit`` (batch 65,536,
-32 steps through K3 + K4) and its FFJORD form (through K1 + K2), and checks
-that the kernels carried each path.  Imports nothing of JAX.  Exits
-non-zero, with no result line, when there is no CUDA device or any phase
-fails; on success the last line is ``{"ok": true, "device": {...}}``.  A detailed record goes to
-``chiprun_out/chip_smoke.json``.
+holds each (forward K1, K3, K5 and backward K2, K4, K6) against its plain
+PyTorch version at the flagship and a wide shape, drives the flagship
+RNODE's log-density and sampling path (65,536 samples) through the public
+entry points, trains it with ``ICNFModel.fit`` (batch 65,536, 32 steps
+through K3 + K4) and its FFJORD form (through K1 + K2), runs the
+reference-default adaptive stack (dopri5 at 1e-4, the HNW start, the
+backsolve and quadrature adjoints, the carried start) on the same model and
+batch, and the opt-in adaptive whole-solve route (K5 + K6), and checks that
+the kernels carried each path.  Imports nothing of JAX.  Exits non-zero,
+with no result line, when there is no CUDA device or any phase fails; on
+success the last line is ``{"ok": true, "device": {...}}``.  A detailed
+record of every phase is written as ``chip_smoke.json`` (see ``main``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 BATCH = 65_536
 STEPS = 32
 TABULAR_BATCH = 8_192
+WIDE_BATCH = 8_192  # K5/K6 at h = 128: 64 control groups
 TRAIN_POINTS = 4 * 65_536  # 4 steps an epoch at the flagship batch
 TRAIN_EPOCHS = 8
 
@@ -49,9 +53,24 @@ SLICE_TOL = (5e-4, 5e-5)
 BWD_TOL = {("stage", None): 1e-4, ("stage", torch.bfloat16): 3e-2,
            ("solve", None): 5e-4, ("solve", torch.bfloat16): 6e-2}
 # one train step's parameter gradients, fused vs unfused route, same draws:
-# the same fp32 32-step solve and its exact backward, by hand in one and by
-# autograd in the other, summed over 65,536 rows
+# the same fp32 32-step solve and its exact backward (or the same adaptive
+# solve and its backsolve adjoint, each stage and its VJP through K1/K2), by
+# hand in one and by autograd in the other, summed over 65,536 rows
 GRAD_TOL = 5e-4
+# K5/K6 vs their plain versions, per control group of 128 rows: a group whose
+# accept decision sits within rounding of the threshold may take another
+# step sequence (and move by O(tol)), so step statistics are compared first
+# and at most one group in 16 may differ; then the groups whose statistics
+# agree: u1 rtol 2e-4 / atol 2e-5 (a few fp32 dopri5 steps, sums in another
+# order), the backward per tensor to 5e-4 of its largest entry (as K4)
+ADAPTIVE_TOL = (2e-4, 2e-5)
+ADAPTIVE_BWD_TOL = 5e-4
+ADAPTIVE_SCFG = (1e-4, 1e-4, 0.01, 0.9, 0.2, 10.0, 16_384)  # the JAX kernel's controller
+SURVEY_SEEDS = (1, 2, 3, 4, 5)  # draws on which K5 and its plain version count their steps
+# one step's gradients, the fused adaptive route (exact discrete backward of
+# per-group steps) vs the unfused backsolve adjoint (global steps), both at
+# rtol = atol = 1e-6: two discretizations of one sensitivity, O(tol) apart
+ADAPTIVE_GRAD_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -318,63 +337,81 @@ def slice_phase(dev, record):
     return launches
 
 
-def train_phase(dev, record):
-    import continuousnormalizingflows_tpu_torch as cnf
-    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+def kernel_counters():
+    """The launch counter of every kernel, by name."""
+    from continuousnormalizingflows_tpu_torch.ops.fused_adaptive import (
+        fused_solve_dopri5, fused_solve_dopri5_bwd)
     from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
         fused_dynamics_vjp, fused_dynamics_vjp_bwd)
     from continuousnormalizingflows_tpu_torch.ops.fused_solve import (
         fused_solve_rk4, fused_solve_rk4_bwd)
+
+    return {"K1": fused_dynamics_vjp, "K2": fused_dynamics_vjp_bwd, "K3": fused_solve_rk4,
+            "K4": fused_solve_rk4_bwd, "K5": fused_solve_dopri5, "K6": fused_solve_dopri5_bwd}
+
+
+def counts():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+NO_LAUNCH = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+
+
+def timed_fit(name, icnf, data, epochs, want, dev, seed=7):
+    """One fit at batch BATCH, counted: the launch counts of every step must
+    be ``want``; returns (result, launches over the fit, train samples/s)."""
+    import continuousnormalizingflows_tpu_torch as cnf
+
+    marks = []
+
+    def on_step(_it, _loss):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), counts()))
+
+    params = icnf.init(torch.Generator().manual_seed(0), device=dev)
+    model = cnf.ICNFModel(icnf, batchsize=BATCH, epochs=epochs, log_every=1,
+                          callback=on_step, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed))
+    reset_counts()
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), counts()))
+    res = model.fit(data, params=params)
+    launches = counts()
+    for i in range(1, len(marks)):
+        step = {k: marks[i][1][k] - marks[i - 1][1][k] for k in want}
+        if step != want:
+            fail(f"{name}: step {i - 1} launched {step}, expected {want}")
+    hist = res.history
+    if res.stats["iterations"] != len(marks) - 1 or not all(map(math.isfinite, hist)):
+        fail(f"{name}: {res.stats['iterations']} steps, loss history {hist}")
+    # host clock between the ends of consecutive steps (each ends in a synchronize)
+    secs = sorted(b[0] - a[0] for a, b in zip(marks[1:], marks[2:]))
+    if len(secs) < 5:
+        fail(f"{name}: {len(secs)} timed steps, need at least 5")
+    rate = BATCH / secs[len(secs) // 2]
+    solver = {k: res.stats[k] for k in ("nfe", "naccept", "nreject")}
+    log(f"  {name}: {res.stats['iterations']} steps, launches {launches} "
+        f"(per step {want}) ok; loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
+        f"{rate:.1f} train samples/s (median of {len(secs)} steps: "
+        f"{secs[len(secs) // 2] * 1e3:.3f} ms; min {secs[0] * 1e3:.3f}, "
+        f"max {secs[-1] * 1e3:.3f}); last step's solve {solver}")
+    log(f"    loss history: {[round(v, 4) for v in hist]}")
+    return res, launches, rate
+
+
+def train_phase(dev, record):
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
     from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
-
-    counters = {"K1": fused_dynamics_vjp, "K2": fused_dynamics_vjp_bwd,
-                "K3": fused_solve_rk4, "K4": fused_solve_rk4_bwd}
-
-    def counts():
-        return {k: fn.launches for k, fn in counters.items()}
 
     solver = SolverConfig(method="rk4", gradient="backprop", fixed_steps=STEPS)
     x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), TRAIN_POINTS)
     ffjord = dict(naugments=0, lambda_1=0.0, lambda_2=0.0, lambda_3=0.0)
-
-    def fit(name, icnf, data, epochs, want):
-        """One fit, counted: the launch counts of every step must be ``want``;
-        returns (result, launches over the fit, train-step samples/s)."""
-        marks = []
-
-        def on_step(_it, _loss):
-            torch.cuda.synchronize()
-            marks.append((time.perf_counter(), counts()))
-
-        params = icnf.init(torch.Generator().manual_seed(0), device=dev)
-        model = cnf.ICNFModel(icnf, batchsize=BATCH, epochs=epochs, log_every=1,
-                              callback=on_step, device=dev,
-                              generator=torch.Generator(device=dev).manual_seed(7))
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        marks.append((time.perf_counter(), counts()))
-        res = model.fit(data, params=params)
-        launches = counts()
-        for i in range(1, len(marks)):
-            step = {k: marks[i][1][k] - marks[i - 1][1][k] for k in counters}
-            if step != want:
-                fail(f"{name}: step {i - 1} launched {step}, expected {want}")
-        hist = res.history
-        if res.stats["iterations"] != len(marks) - 1 or not all(map(math.isfinite, hist)):
-            fail(f"{name}: {res.stats['iterations']} steps, loss history {hist}")
-        # host clock between the ends of consecutive steps (each ends in a synchronize)
-        secs = sorted(b[0] - a[0] for a, b in zip(marks[1:], marks[2:]))
-        if len(secs) < 5:
-            fail(f"{name}: {len(secs)} timed steps, need at least 5")
-        rate = BATCH / secs[len(secs) // 2]
-        log(f"  {name}: {res.stats['iterations']} steps, launches {launches} "
-            f"(per step {want}) ok; loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
-            f"{rate:.1f} train samples/s (median of {len(secs)} steps: "
-            f"{secs[len(secs) // 2] * 1e3:.3f} ms; min {secs[0] * 1e3:.3f}, "
-            f"max {secs[-1] * 1e3:.3f})")
-        log(f"    loss history: {[round(v, 4) for v in hist]}")
-        return res, launches, rate
 
     def grads(icnf, params, seed):
         p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
@@ -382,18 +419,17 @@ def train_phase(dev, record):
         return list(torch.autograd.grad(loss, list(p.values())))
 
     out = {}
-    none = {k: 0 for k in counters}
     for form, kw, epochs, want in (
-        ("flagship RNODE", {}, TRAIN_EPOCHS, dict(none, K3=1, K4=1)),
+        ("flagship RNODE", {}, TRAIN_EPOCHS, dict(NO_LAUNCH, K3=1, K4=1)),
         # remat: each step's K1 launches run again in the backward
-        ("FFJORD form", ffjord, 2, dict(none, K1=8 * STEPS, K2=4 * STEPS)),
+        ("FFJORD form", ffjord, 2, dict(NO_LAUNCH, K1=8 * STEPS, K2=4 * STEPS)),
     ):
         fused = cnf.ICNF.create(nvariables=2, solver=solver, fused=True, **kw)
         plain = cnf.ICNF.create(nvariables=2, solver=solver, fused=False, **kw)
-        res, launches, rate = fit(f"{form} fused=True", fused, x, epochs, want)
+        res, launches, rate = timed_fit(f"{form} fused=True", fused, x, epochs, want, dev)
         if form == "flagship RNODE" and not res.history[-1] < res.history[0]:
             fail(f"{form}: the loss did not fall ({res.history[0]} -> {res.history[-1]})")
-        _res, _l, rate_plain = fit(f"{form} fused=False", plain, x, 2, none)
+        _res, _l, rate_plain = timed_fit(f"{form} fused=False", plain, x, 2, NO_LAUNCH, dev)
         err = compare_to_max(f"{form}: one step's parameter gradients, fused vs unfused",
                              grads(fused, res.params, 11), grads(plain, res.params, 11),
                              GRAD_TOL)
@@ -402,6 +438,326 @@ def train_phase(dev, record):
                          train_samples_per_s_unfused=rate_plain, grad_max_abs_err=err)
     record["train"] = out
     return {"rnode": out["flagship RNODE"]["launches"], "ffjord": out["FFJORD form"]["launches"]}
+
+
+def adaptive_draws(dev, b, nz, h, seed, spread):
+    """Inputs of K5/K6: random init, u0 from N(0, 0.25), probes, the cotangent
+    of u1 and a steered t1; with ``spread`` the weights doubled, each 128-row
+    group's rows scaled by its own factor of 0.1-10 and the first step half
+    the span."""
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+
+    sd, n_in = nz + 3, nz + 1
+    params = MLP((n_in, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    z0 = 0.5 * torch.randn((b, nz), generator=g, device=dev)
+    if spread:
+        params = {k: 2.0 * v for k, v in params.items()}
+        z0 = z0 * torch.logspace(-1, 1, b // 128, device=dev).repeat_interleave(128)[:, None]
+    u0 = torch.cat([z0, torch.zeros((b, 3), device=dev)], dim=-1)
+    gbar = torch.randn((b, sd), generator=g, device=dev)
+    span = (0.0, torch.tensor(1.05, device=dev))  # steered t1 as a device scalar
+    scfg = ADAPTIVE_SCFG[:2] + (0.5,) + ADAPTIVE_SCFG[3:] if spread else ADAPTIVE_SCFG
+    return (u0, eps, None, params, span, nz, nz, scfg), gbar
+
+
+def step_survey(name, dev, b, h, spread, seeds, bound):
+    """K5, its plain version and the plain version in float64, on the draws of
+    several seeds: per seed, the 128-row groups whose step statistics differ.
+    Fails where K5 and the plain version differ in more than ``bound`` of the
+    groups.  For ``bound=None`` it also prints group 0's error ratio of every
+    trial step in float32 and in float64."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    ratios, inner = [], fa._group_error_ratio
+    out = []
+    for seed in seeds:
+        args, _gbar = adaptive_draws(dev, b, 5, h, seed, spread)
+        wide = (args[0].double(), args[1].double(), None,
+                {k: v.double() for k, v in args[3].items()}) + args[4:]
+        st = fa.fused_solve_dopri5(*args, 64)[1]
+        seen = {}
+        for prec, a in (("fp32", args), ("fp64", wide)):
+            ratios.clear()
+            fa._group_error_ratio = lambda *x: ratios.append(inner(*x)) or ratios[-1]
+            try:
+                seen[prec] = fa.fused_solve_dopri5_reference(*a, 128)[1]
+            finally:
+                fa._group_error_ratio = inner
+            seen[prec + " ratios"] = [f"{float(r[0]):.3e}" for r in ratios]
+        differ = lambda x, y: int((x[:, :3] != y[:, :3]).any(dim=1).sum())
+        n, n64 = differ(st, seen["fp32"]), differ(seen["fp32"], seen["fp64"])
+        nfe = lambda x: f"{int(x[:, 0].min())}-{int(x[:, 0].max())}"
+        log(f"  steps {name} seed {seed}: K5 vs plain {n} of {st.shape[0]} groups differ, plain "
+            f"fp32 vs fp64 {n64}; NFE K5 {nfe(st)}, plain fp32 {nfe(seen['fp32'])}, fp64 "
+            f"{nfe(seen['fp64'])}")
+        if bound is None:
+            log(f"    group 0's trial error ratios: fp32 {seen['fp32 ratios']}, "
+                f"fp64 {seen['fp64 ratios']}")
+        elif n > bound * st.shape[0]:
+            fail(f"K5 {name} seed {seed}: {n} of {st.shape[0]} groups differ in their steps")
+        out.append(dict(seed=seed, groups=st.shape[0], k5_vs_plain=n, fp32_vs_fp64=n64))
+    return out
+
+
+def adaptive_kernel_phase(dev, record):
+    """K5 and K6 against their plain versions at the flagship and at h = 128."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    results, surveys = [], {}
+    # At the random init the h = 128 field is so smooth that the error ratios
+    # of its first trials from the fixed start (dt0 = 0.01 of the span) are
+    # float32 rounding (fp32 ~1e-5 against fp64 ~1e-8): whether the third
+    # step reaches t1 turns on that rounding in every group alike, and where
+    # the step counts agree the step sizes still differ by the rounding of
+    # the ratio, so u1 moves by O(tol) ("h128 random init" below).  The
+    # compared h = 128 case doubles the weights and starts at half the span,
+    # so every ratio is resolved in float32 (fp32 and fp64 within 1e-3), and
+    # spreads the groups over draw scales of 0.1-10, so each group takes its
+    # own steps and a decision on a rounding edge moves one group, not all.
+    for shape, h, b, spread in (("flagship", 24, BATCH, False), ("h128", 128, WIDE_BATCH, True)):
+        nz, n_in = 5, 6
+        sd = nz + 3
+        args, gbar = adaptive_draws(dev, b, nz, h, 1, spread)
+        group = fa.fused_adaptive_tile(b)
+        H, rows, smem, bwd_rows, smem_bwd = _build.adaptive_plan(n_in, h, nz, nz, sd, group)
+        path = f"row per thread, h padded to {H}" if H else f"tiled, {rows} rows a stage tile"
+        log(f"  plan K5/K6 {shape}: groups of {group} rows, {path}, {smem} B shared; "
+            f"K6 walk back {bwd_rows}-row tiles, {smem_bwd} B shared")
+        k5 = lambda: fa.fused_solve_dopri5(*args, 64)
+        k5_ref = lambda: fa.fused_solve_dopri5_reference(*args, group)
+        (u1, st), (u1_p, st_p) = k5(), k5_ref()
+        same = (st[:, :3] == st_p[:, :3]).all(dim=1)
+        n_diff = int((~same).sum())
+        log(f"  K5 {shape} B={b}: {n_diff} of {st.shape[0]} groups take other steps than the "
+            f"plain version; NFE {int(st[:, 0].min())}-{int(st[:, 0].max())}, accepted "
+            f"{int(st[:, 1].min())}-{int(st[:, 1].max())}, rejected {int(st[:, 2].max())} at most")
+        if n_diff * 16 > st.shape[0]:
+            fail(f"K5 {shape}: {n_diff} of {st.shape[0]} groups differ in their steps")
+        keep = same.repeat_interleave(group)
+        err5 = compare(f"K5 fused_solve_dopri5 {shape} B={b} (groups of equal steps)",
+                       u1[keep], u1_p[keep], *ADAPTIVE_TOL)
+        # the cotangent is zero on the groups of other steps, so every weight
+        # gradient sums over the groups of equal steps only and is compared
+        gbar = torch.where(keep[:, None], gbar, torch.zeros_like(gbar))
+        k6 = lambda: fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+        k6_ref = lambda: fa.fused_solve_dopri5_bwd_reference(*args, 64, gbar, group)
+        got, want = k6(), k6_ref()
+        if not torch.equal(got[3], st[:, 1].to(torch.int32)):
+            fail(f"K6 {shape}: the replay's accepted steps differ from K5's")
+        log(f"  K6 {shape}: the replay took K5's accepted steps in every group ok")
+        err6 = compare_to_max(f"K6 fused_solve_dopri5_bwd {shape} B={b}",
+                              [got[0][keep], got[1][keep], *got[2]],
+                              [want[0][keep], want[1][keep], *want[2]], ADAPTIVE_BWD_TOL)
+        again = k6()
+        if not all(torch.equal(a, c) for a, c in zip((got[0], got[1], *got[2]),
+                                                      (again[0], again[1], *again[2]))):
+            fail(f"K6 {shape}: two calls on the same inputs differ")
+        log(f"  K6 {shape}: two calls give the same bits ok")
+        pairs = {"k5": (k5, k5_ref, 10, 3), "k6": (k6, k6_ref, 5, 2)}
+        t = {k + sfx: [] for k in pairs for sfx in ("", "_plain")}
+        for order in (("plain", "kernel"), ("kernel", "plain")):
+            for which in order:
+                for k, (kern, plain, reps_k, reps_p) in pairs.items():
+                    if which == "plain":
+                        t[k + "_plain"].append(median_ms(plain, reps_p, warmup=1))
+                    else:
+                        t[k].append(median_ms(kern, reps_k))
+        ms = {k: statistics.median(v) for k, v in t.items()}
+        log(f"  time {shape} fp32: " + "; ".join(
+            f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
+        results.append(dict(shape=shape, batch=b, widths=[n_in, h, h, nz], groups=st.shape[0],
+                            groups_with_other_steps=n_diff, k5_max_abs_err=err5,
+                            k6_max_abs_err=err6, nfe_max=int(st[:, 0].max()), **ms))
+        surveys[shape] = step_survey(shape, dev, b, h, spread, SURVEY_SEEDS, 1 / 16)
+    surveys["h128 random init"] = step_survey("h128 random init", dev, WIDE_BATCH, 128, False,
+                                              SURVEY_SEEDS, None)
+    record["adaptive_kernels_vs_plain"] = results
+    record["adaptive_step_survey"] = surveys
+    return results
+
+
+class SolveSpy:
+    """Records the solver stats of every ``odeint_diff`` call of the core."""
+
+    def __init__(self):
+        from continuousnormalizingflows_tpu_torch import core
+
+        self.core, self.inner, self.stats = core, core.odeint_diff, []
+
+    def __enter__(self):
+        def spy(*a, **k):
+            out = self.inner(*a, **k)
+            self.stats.append(out[1])
+            return out
+
+        self.core.odeint_diff = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.core.odeint_diff = self.inner
+
+    def last(self):
+        s = self.stats[-1]
+        return dict(nfe=int(s.nfe), naccept=int(s.naccept), nreject=int(s.nreject))
+
+
+def adaptive_phase(dev, record):
+    """The reference-default stack, fused=False: dopri5 at 1e-4 with the HNW
+    start and the backsolve adjoint (and the quadrature adjoint, and the
+    carried start) at the flagship batch."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+
+    icnf = cnf.ICNF.create(nvariables=2)  # SolverConfig(): dopri5, 1e-4, adjoint, dt0="auto"
+    if icnf.config.solver != SolverConfig():
+        fail("the adaptive phase must run the default SolverConfig")
+    params = icnf.init(torch.Generator().manual_seed(0), device=dev)
+    x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), BATCH)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    ts = torch.linspace(0.0, 1.0, 5, device=dev)
+    calls = [
+        ("TEST logpdf", lambda: cnf.ICNFDist(icnf, params, Mode.TEST).logpdf(x)),
+        ("TRAIN logpdf", lambda: cnf.ICNFDist(icnf, params, Mode.TRAIN, gen(2)).logpdf(x)),
+        ("TRAIN sample_with_logpdf",
+         lambda: cnf.ICNFDist(icnf, params, Mode.TRAIN, gen(4)).sample_with_logpdf(n=BATCH)),
+        ("TRAIN sample trace_free",
+         lambda: cnf.ICNFDist(icnf, params, Mode.TRAIN, gen(5)).sample(BATCH, trace_free=True)),
+        ("TEST trajectory (5 times)", lambda: cnf.trajectory(icnf, x, params, ts)),
+    ]
+    outs, stats, rates = {}, {}, {}
+    with torch.no_grad():
+        reset_counts()
+        for name, fn in calls:
+            with SolveSpy() as spy:
+                outs[name] = fn()
+            stats[name] = (spy.last() if spy.stats else
+                           {k: int(getattr(outs[name][1], k)) for k in ("nfe", "naccept", "nreject")})
+        if counts() != NO_LAUNCH:
+            fail(f"the unfused adaptive calls launched kernels: {counts()}")
+        for name, fn in calls:
+            rates[name] = samples_per_s(f"{name} {stats[name]}", fn, BATCH)
+        for name, out in outs.items():
+            for p in (out if isinstance(out, tuple) else (out,)):
+                if isinstance(p, torch.Tensor) and not torch.isfinite(p).all():
+                    fail(f"{name}: non-finite output")
+        lp_test, lp_train = outs["TEST logpdf"], outs["TRAIN logpdf"]
+        s, lp = outs["TRAIN sample_with_logpdf"]
+        path, _ = outs["TEST trajectory (5 times)"]
+        if (lp_test.shape != (BATCH,) or lp_train.shape != (BATCH,) or s.shape != (BATCH, 2)
+                or lp.shape != (BATCH,) or outs["TRAIN sample trace_free"].shape != (BATCH, 2)
+                or path.shape != (5, BATCH, 5)):
+            fail("adaptive phase: output shapes")
+        if not torch.allclose(path[0, :, :2], x, rtol=1e-6, atol=1e-6):
+            fail("trajectory at t0 is not the data")
+        # the same 256 points on the card and on the CPU: the global error
+        # norm depends on the batch, so both sides solve the same batch
+        small = x[:256]
+        params_cpu = {k: v.cpu() for k, v in params.items()}
+        card = cnf.inference(icnf, Mode.TEST, small, params)
+        cpu = cnf.inference(icnf, Mode.TEST, small.cpu(), params_cpu)
+        if tuple(card[2][:3]) != tuple(cpu[2][:3]):
+            fail(f"TEST logpdf card vs CPU: steps {tuple(card[2][:3])} vs {tuple(cpu[2][:3])}")
+        err_cpu = compare("TEST logpdf card vs CPU (the same 256 points, the same steps "
+                          f"{tuple(cpu[2][:3])})", card[0].cpu(), cpu[0], *SLICE_TOL)
+    log(f"  TEST mean logpx {float(lp_test.mean()):.4f}")
+
+    # fused=True with the default solver: no whole-solve kernel applies, so
+    # every evaluation of the forward solve is a K1 launch and every VJP of
+    # the backsolve adjoint a K2 launch (its stage again through K1)
+    fused = cnf.ICNF.create(nvariables=2, fused=True)
+    grads, solves = {}, {}
+    for name, model in (("fused", fused), ("plain", icnf)):
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        before = counts()
+        l, st = cnf.loss_with_stats(model, Mode.TRAIN, x, p, gen(11))
+        grads[name] = list(torch.autograd.grad(l, list(p.values())))
+        moved = {k: counts()[k] - before[k] for k in before}
+        solves[name] = tuple(int(v) for v in st[:3])
+        log(f"  TRAIN loss and its gradients, fused={name == 'fused'}: launches {moved}, "
+            f"forward solve {solves[name]}")
+        if name == "fused" and (moved["K1"] == 0 or moved["K2"] == 0
+                                or any(moved[k] for k in ("K3", "K4", "K5", "K6"))):
+            fail(f"fused default stack: launches {moved}, expected K1 and K2 only")
+        if name == "plain" and moved != NO_LAUNCH:
+            fail(f"unfused default stack: launches {moved}")
+    if solves["fused"] != solves["plain"]:
+        fail(f"fused default stack: forward steps {solves['fused']} vs {solves['plain']}")
+    err_k12 = compare_to_max("default stack, fused (K1 + K2) vs unfused: one step's parameter "
+                             "gradients", grads["fused"], grads["plain"], GRAD_TOL)
+
+    data = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), TRAIN_POINTS)
+    fits = {}
+    for gradient in ("adjoint", "quadrature"):
+        for dt0 in ("auto", "carry"):
+            model = cnf.ICNF.create(nvariables=2, solver=SolverConfig(gradient=gradient, dt0=dt0))
+            name = f"fit gradient={gradient} dt0={dt0}"
+            res, _l, rate = timed_fit(name, model, data, 2, NO_LAUNCH, dev)
+            fits[name] = dict(train_samples_per_s=rate, history=res.history,
+                              last_step={k: res.stats[k] for k in ("nfe", "naccept", "nreject")})
+    record["adaptive"] = dict(samples_per_s=rates, solver_stats=stats, fits=fits,
+                              card_vs_cpu_max_abs_err=err_cpu, fused_grad_max_abs_err=err_k12)
+
+
+def adaptive_fused_phase(dev, record):
+    """fused=True, fused_adaptive=True: TRAIN logpdf and loss through K5, fit
+    through K5 + K6, one step's gradients against the unfused adjoint."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+
+    fused = cnf.ICNF.create(nvariables=2, fused=True, fused_adaptive=True)
+    params = fused.init(torch.Generator().manual_seed(0), device=dev)
+    x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), BATCH)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    calls = [("TRAIN logpdf", lambda: cnf.inference(fused, Mode.TRAIN, x, params, gen(2))),
+             ("TRAIN loss", lambda: cnf.loss_with_stats(fused, Mode.TRAIN, x, params, gen(6)))]
+    data = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), TRAIN_POINTS)
+    # the counted run of the main path
+    reset_counts()
+    outs = {}
+    with torch.no_grad():
+        for name, fn in calls:
+            before = counts()
+            outs[name] = fn()
+            moved = {k: counts()[k] - before[k] for k in before}
+            if moved != dict(NO_LAUNCH, K5=1):
+                fail(f"fused adaptive {name}: launches {moved}, expected one K5")
+    serving = counts()
+    res, fit_launches, rate = timed_fit("fused adaptive fit", fused, data, 2,
+                                        dict(NO_LAUNCH, K5=1, K6=1), dev)
+    launches = {k: serving[k] + fit_launches[k] for k in serving}
+    log(f"  launches on the fused adaptive path: {launches}")
+    if launches["K5"] == 0 or launches["K6"] == 0:
+        fail("a kernel of the fused adaptive path was not launched")
+    lp, _augs, st = outs["TRAIN logpdf"]
+    loss, _st = outs["TRAIN loss"]
+    if lp.shape != (BATCH,) or not torch.isfinite(lp).all() or not torch.isfinite(loss):
+        fail("fused adaptive: non-finite or misshapen output")
+    solve = {k: int(getattr(st, k)) for k in ("nfe", "naccept", "nreject")}
+    with torch.no_grad():
+        rates = {"TRAIN logpdf (fused adaptive)": samples_per_s(
+            f"TRAIN logpdf fused adaptive, worst group {solve}", calls[0][1], BATCH)}
+    # one step's gradients at rtol = atol = 1e-6, same draws
+    tight = SolverConfig(rtol=1e-6, atol=1e-6)
+    models = {"fused": cnf.ICNF.create(nvariables=2, solver=tight, fused=True,
+                                       fused_adaptive=True),
+              "plain": cnf.ICNF.create(nvariables=2, solver=tight)}
+    grads = {}
+    for name, model in models.items():
+        p = {k: v.detach().clone().requires_grad_() for k, v in res.params.items()}
+        l = cnf.loss(model, Mode.TRAIN, x, p, gen(11))
+        grads[name] = list(torch.autograd.grad(l, list(p.values())))
+    err = compare_to_max("fused adaptive vs unfused backsolve: one step's parameter "
+                         "gradients at rtol = atol = 1e-6", grads["fused"], grads["plain"],
+                         ADAPTIVE_GRAD_TOL)
+    record["adaptive_fused"] = dict(launches=launches, solve=solve, samples_per_s=rates,
+                                    train_samples_per_s=rate, history=res.history,
+                                    grad_max_abs_err=err)
+    return launches
 
 
 def main() -> None:
@@ -427,6 +783,7 @@ def main() -> None:
 
     log("[kernels] each kernel vs its plain PyTorch version")
     results = kernel_phase(dev, record)
+    adaptive_results = adaptive_kernel_phase(dev, record)
     log("[slice] flagship RNODE, fused=True, 65,536 samples, rk4-32")
     launches = slice_phase(dev, record)
     log("[train] ICNFModel.fit, batch 65,536, rk4-32: the flagship RNODE (K3 + K4) and "
@@ -435,6 +792,11 @@ def main() -> None:
     for path, want in (("rnode", ("K3", "K4")), ("ffjord", ("K1", "K2"))):
         if any(train[path][k] == 0 for k in want):
             fail(f"train {path}: a kernel of the path was not launched: {train[path]}")
+    log("[adaptive] flagship RNODE, the default SolverConfig (dopri5, rtol = atol = 1e-4, "
+        "HNW start, backsolve adjoint), fused=False, 65,536 samples")
+    adaptive_phase(dev, record)
+    log("[adaptive fused] fused=True, fused_adaptive=True: K5 forward, K6 backward")
+    fused_adaptive = adaptive_fused_phase(dev, record)
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
     kernels = [
@@ -458,6 +820,19 @@ def main() -> None:
              replaces="continuousnormalizingflows_tpu/ops/pallas_solve.py:206",
              launches=train["rnode"]["K4"], max_abs_err=flag["k4_max_abs_err"],
              ms=flag["k4"], plain_ms=flag["k4_plain"]),
+    ]
+    ad = {r["shape"]: r for r in adaptive_results}["flagship"]
+    kernels += [
+        dict(name="fused_adaptive_fwd", route="cuda",
+             source="continuousnormalizingflows_tpu_torch/csrc/fused_adaptive.cu",
+             replaces="continuousnormalizingflows_tpu/ops/pallas_adaptive.py:187",
+             launches=fused_adaptive["K5"], max_abs_err=ad["k5_max_abs_err"],
+             ms=ad["k5"], plain_ms=ad["k5_plain"]),
+        dict(name="fused_adaptive_bwd", route="cuda",
+             source="continuousnormalizingflows_tpu_torch/csrc/fused_adaptive_bwd.cu",
+             replaces="continuousnormalizingflows_tpu/ops/pallas_adaptive.py:258",
+             launches=fused_adaptive["K6"], max_abs_err=ad["k6_max_abs_err"],
+             ms=ad["k6"], plain_ms=ad["k6_plain"]),
     ]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

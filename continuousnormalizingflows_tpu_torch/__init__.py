@@ -3,21 +3,24 @@ an NVIDIA H100.
 
 The port of ``continuousnormalizingflows_tpu`` (JAX/Pallas on a TPU), which
 stays beside it as the reference.  Ported so far: the log-density and
-sampling path (config, the MLP dynamics net, the ICNF model, fixed-step
-solves with backprop gradients, ``inference``/``log_prob``/``loss``/
-``generate``, ``ICNFDist``/``CondICNFDist``) and training (``ICNFModel``,
-``CondICNFModel``, ``default_optimizer``, checkpoints).  Four CUDA kernels
-carry the stochastic modes: the fused dynamics stage and its backward
+sampling path (config, the MLP dynamics net, the ICNF model,
+``inference``/``log_prob``/``loss``/``generate``/``trajectory``,
+``ICNFDist``/``CondICNFDist``), training (``ICNFModel``,
+``CondICNFModel``, ``default_optimizer``, checkpoints), and the solvers:
+fixed-step rk4/euler with backprop, the reference-default adaptive dopri5
+(and tsit5) with the HNW start, the carried start and dense output, and
+the backsolve and quadrature adjoints.  Six CUDA kernels carry the
+stochastic modes: the fused dynamics stage and its backward
 (``ops.fused_dynamics``), the whole RK4 solve and its backward
-(``ops.fused_solve``).
+(``ops.fused_solve``), and the whole adaptive dopri5 solve and its backward
+(``ops.fused_adaptive``, opt-in with ``fused_adaptive=True``).
 
 Quick start::
 
     import torch
     import continuousnormalizingflows_tpu_torch as cnf
 
-    icnf = cnf.ICNF.create(nvariables=2, solver=cnf.SolverConfig(
-        method="rk4", gradient="backprop", fixed_steps=32), fused=True)
+    icnf = cnf.ICNF.create(nvariables=2)  # dopri5, rtol = atol = 1e-4, adjoint
     params = icnf.init(torch.Generator().manual_seed(0), device="cuda")
     d = cnf.ICNFDist(icnf, params, cnf.Mode.TRAIN)
     lp = d.logpdf(x)
@@ -26,7 +29,7 @@ Quick start::
 
 from .config import ICNFConfig, Mode, ProbeDist, SolverConfig, TraceEstimator
 from .core import (base_logpdf, generate, generate_with_logp, inference, log_prob, loss,
-                   loss_with_stats)
+                   loss_with_stats, trajectory)
 from .dist import CondICNFDist, ICNFDist
 from .models.icnf import ICNF, default_net
 from .models.nets import MLP, DynamicsNet
@@ -50,6 +53,7 @@ __all__ = [
     "generate_with_logp",
     "loss",
     "log_prob",
+    "trajectory",
     "base_logpdf",
     "ICNFDist",
     "CondICNFDist",

@@ -5,9 +5,10 @@ dataclasses, the same validation and the same derived sizes, with
 ``torch.float32`` as the default dtype.  Variant mapping (FFJORD, RNODE,
 ANODE, STEER, conditional, non-autonomous) is as in the JAX package.
 
-Options that belong to parts of the JAX package not yet ported are accepted
-by the validation, as there, and raise ``NotImplementedError`` where they
-would change what runs (see ``ROADMAP.md``, Queue 1).
+Options that belong to parts of the JAX package not yet ported (the
+multistep solver, ``feature_first``, the mesh axes) are accepted by the
+validation, as there, and raise ``NotImplementedError`` where they would
+change what runs (see ``ROADMAP.md``, Queue 1).
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import torch
 # log(2*pi), shared by the normal log-densities in core and utils.datasets
 LOG_2PI = 1.8378770664093453
 
-# The fixed-fraction starting step of the adaptive solvers (kept for parity
-# with the JAX config; no adaptive solver is ported yet).
+# The fixed-fraction starting step of the adaptive solvers: the start of the
+# whole-solve kernels, of every backward adjoint solve under dt0="auto", and
+# the fallback of a non-finite carried start.
 DEFAULT_FIXED_DT0 = 0.01
 
 # Hard cap on the multistep history ring (validation parity with JAX).
@@ -72,9 +74,12 @@ class ProbeDist(str, enum.Enum):
 class SolverConfig:
     """ODE solve and gradient configuration (fields as in the JAX package).
 
-    Only ``method in ("rk4", "euler")`` with ``gradient="backprop"`` runs in
-    this port so far; the adaptive methods and the continuous adjoints
-    validate here and raise ``NotImplementedError`` when solved."""
+    The default is the reference's stack: dopri5 at rtol = atol = 1e-4 with
+    the HNW starting step and the backsolve adjoint.  ``rk4``/``euler``
+    (``backprop`` or ``adjoint``), ``dopri5``/``tsit5`` (``adjoint`` or
+    ``quadrature``) and ``dt0`` as a float, ``"auto"`` or ``"carry"`` run;
+    ``method="abm"`` validates here and raises ``NotImplementedError`` when
+    solved."""
 
     method: str = "dopri5"
     rtol: float = 1.0e-4
@@ -148,7 +153,10 @@ class ICNFConfig:
     dtype: Any = torch.float32
     solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
     # Route Hutchinson-VJP solves of a 3-layer softplus MLP through the hand
-    # written CUDA kernels (whole-solve RK4, or the per-stage fused dynamics).
+    # written CUDA kernels (whole-solve RK4, or the per-stage fused dynamics);
+    # with fused_adaptive too, regularized dopri5 train solves take the
+    # adaptive whole-solve kernels (per-group step control: other answers
+    # than the global-norm solve, so opt-in, as in the JAX package).
     fused: bool = False
     fused_adaptive: bool = False
     layout: str = "batch_first"
@@ -206,11 +214,6 @@ class ICNFConfig:
             raise NotImplementedError(
                 "probe_axis/sweep_axis need parallel/, not ported yet "
                 "(ROADMAP.md, Queue 1: parallel)"
-            )
-        if self.fused_adaptive:
-            raise NotImplementedError(
-                "fused_adaptive needs the adaptive whole-solve kernels K5/K6, "
-                "not ported yet (ROADMAP.md, Queue 1: adaptive slice)"
             )
 
     # ---- derived sizes ----

@@ -11,10 +11,15 @@ route the solve then takes.
 Draw order per call: ``inference`` steer then probe; ``generate*`` base,
 steer, then probe (the trace-free path stops after steer, so the same seed
 gives it the same base draw and end time as the full path).
+
+``dt0`` (``inference``, ``loss``, ``loss_with_stats``): the carried starting
+step of the adaptive solvers (``SolverConfig.dt0 == "carry"``), a 0-d
+tensor such as the previous solve's ``abs(stats.dt_final)``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -24,8 +29,10 @@ from .models.icnf import ICNF
 from .models.nets import Params
 from .ops.adjoint import odeint_diff
 from .ops.dynamics import make_augmented_dynamics, make_field
+from .ops.fused_adaptive import (_scfg_tuple, fused_adaptive_applicable, fused_adaptive_tile,
+                                  fused_solve_dopri5, stats_from_rows)
 from .ops.fused_solve import fused_solve_applicable, fused_solve_rk4
-from .ops.ode import SolverStats
+from .ops.ode import SolverStats, eval_dense, odeint_dense
 
 __all__ = [
     "base_logpdf",
@@ -38,6 +45,7 @@ __all__ = [
     "loss",
     "loss_with_stats",
     "log_prob",
+    "trajectory",
 ]
 
 
@@ -94,13 +102,24 @@ def steer_t1(cfg: ICNFConfig, generator: torch.Generator, device) -> torch.Tenso
 
 
 def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
-           eps: Optional[torch.Tensor],
-           ys: Optional[torch.Tensor]) -> Tuple[torch.Tensor, SolverStats]:
-    """Solve the augmented state from ``t0`` to ``t1``.  The whole-solve kernel
-    route (K3) is taken when :func:`fused_solve_applicable`; otherwise the
-    dynamics (with the per-stage kernel K1 where it applies) go through
-    :func:`odeint_diff`."""
+           eps: Optional[torch.Tensor], ys: Optional[torch.Tensor],
+           dt0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, SolverStats]:
+    """Solve the augmented state from ``t0`` to ``t1``.  The adaptive
+    whole-solve route (K5, backward K6) is taken when
+    :func:`fused_adaptive_applicable` and the batch makes whole control
+    groups, then the fixed-step one (K3, backward K4) when
+    :func:`fused_solve_applicable`; otherwise the dynamics (with the
+    per-stage kernel K1 where it applies) go through :func:`odeint_diff`.
+    ``dt0`` (the carried start) reaches only that last route: the kernels'
+    controllers keep the fixed start, as in the JAX package."""
     cfg = icnf.config
+    if (eps is not None and fused_adaptive_applicable(cfg, icnf.net, mode)
+            and fused_adaptive_tile(u0.shape[0])):
+        t_col = None if cfg.autonomous else cfg.nz
+        # the node buffer is device memory: dense_max_nodes is honored as given
+        u1, rows = fused_solve_dopri5(u0, eps[0], ys, params, (t0, t1), cfg.nz, t_col,
+                                      _scfg_tuple(cfg.solver), cfg.solver.dense_max_nodes)
+        return u1, stats_from_rows(rows, cfg.dtype)
     if eps is not None and fused_solve_applicable(cfg, icnf.net, mode):
         steps = cfg.solver.fixed_steps
         cdt = torch.bfloat16 if icnf.net.precision != "highest" else None
@@ -110,8 +129,10 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
               - torch.as_tensor(t0, dtype=cfg.dtype, device=u0.device)) / steps
         return u1, SolverStats(4 * steps, steps, 0, dt)
     f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
-    return odeint_diff(f_aug, u0, t0, t1, {"params": params, "eps": eps, "ys": ys},
-                       cfg.solver)
+    args = {"params": params, "eps": eps, "ys": ys}
+    if dt0 is not None:
+        args["dt0"] = dt0
+    return odeint_diff(f_aug, u0, t0, t1, args, cfg.solver)
 
 
 def _split_terminal(cfg: ICNFConfig, mode: Mode, u1: torch.Tensor):
@@ -148,7 +169,8 @@ def _need_generator(mode: Mode, generator: Optional[torch.Generator]) -> None:
 
 
 def inference(icnf: ICNF, mode: Mode, xs, params: Params,
-              generator: Optional[torch.Generator] = None, ys=None):
+              generator: Optional[torch.Generator] = None, ys=None,
+              dt0: Optional[torch.Tensor] = None):
     """Forward solve x -> z; returns ``(logpx, (E, n, A), SolverStats)``.
 
     ``xs``: ``(batch, nvariables)`` or one ``(nvariables,)`` sample."""
@@ -165,7 +187,7 @@ def inference(icnf: ICNF, mode: Mode, xs, params: Params,
     if mode.regularized and cfg.steered:
         t1 = steer_t1(cfg, generator, device)
     eps = sample_probe(cfg, generator, batch, device) if mode.stochastic else None
-    u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys)
+    u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys, dt0)
     logpx, augs = _split_terminal(cfg, mode, u1)
     if single:
         logpx, augs = logpx[0], tuple(a[0] for a in augs)
@@ -202,9 +224,13 @@ def _generate_tracefree(icnf: ICNF, mode: Mode, params: Params, generator: torch
     if mode.regularized and cfg.steered:
         t1 = steer_t1(cfg, generator, device)
     field = make_field(cfg, icnf.net)
+    solver = cfg.solver
+    if solver.gradient == "quadrature":
+        # the z-only state needs no interpolant: backsolve is exact for sampling
+        solver = dataclasses.replace(solver, gradient="adjoint")
     z0, _stats = odeint_diff(
         lambda t, z, args: field(t, z, args["params"], args["ys"]),
-        z1, t1, t0, {"params": params, "ys": ys}, cfg.solver,
+        z1, t1, t0, {"params": params, "ys": ys}, solver,
     )
     return z0[..., : cfg.nvariables]
 
@@ -221,11 +247,12 @@ def generate(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator,
 
 
 def loss_with_stats(icnf: ICNF, mode: Mode, xs, params: Params,
-                    generator: Optional[torch.Generator] = None,
-                    ys=None) -> Tuple[torch.Tensor, SolverStats]:
+                    generator: Optional[torch.Generator] = None, ys=None,
+                    dt0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, SolverStats]:
     """``(mean(-logpx + l1*E + l2*n + l3*A), solver stats)``."""
     cfg = icnf.config
-    logpx, (e_acc, n_acc, a_term), stats = inference(icnf, mode, xs, params, generator, ys)
+    logpx, (e_acc, n_acc, a_term), stats = inference(icnf, mode, xs, params, generator, ys,
+                                                     dt0)
     l = torch.mean(
         -logpx + cfg.lambda_1 * e_acc + cfg.lambda_2 * n_acc + cfg.lambda_3 * a_term
     )
@@ -233,12 +260,39 @@ def loss_with_stats(icnf: ICNF, mode: Mode, xs, params: Params,
 
 
 def loss(icnf: ICNF, mode: Mode, xs, params: Params,
-         generator: Optional[torch.Generator] = None, ys=None) -> torch.Tensor:
+         generator: Optional[torch.Generator] = None, ys=None,
+         dt0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Regularized negative log-likelihood ``mean(-logpx + l1*E + l2*n + l3*A)``."""
-    return loss_with_stats(icnf, mode, xs, params, generator, ys)[0]
+    return loss_with_stats(icnf, mode, xs, params, generator, ys, dt0)[0]
 
 
 def log_prob(icnf: ICNF, mode: Mode, xs, params: Params,
              generator: Optional[torch.Generator] = None, ys=None) -> torch.Tensor:
     """Just ``logpx``."""
     return inference(icnf, mode, xs, params, generator, ys)[0]
+
+
+def trajectory(icnf: ICNF, xs, params: Params, ts, ys=None):
+    """The flow ``z(t)`` at the times ``ts`` (clamped to ``tspan``), read off
+    the dense output of one TEST-mode (exact trace) adaptive solve; a
+    fixed-step config solves with dopri5 for it.  Returns ``(path (len(ts),
+    batch, nz), SolverStats)``."""
+    cfg = icnf.config
+    device = _device_of(params)
+    xs, _single = _as_batch(torch.as_tensor(xs, dtype=cfg.dtype, device=device))
+    ys = _prep_ys(cfg, ys, device)
+    batch = xs.shape[0]
+    u0 = torch.cat(
+        [xs, torch.zeros((batch, cfg.n_aug_input + 3), dtype=cfg.dtype, device=device)], dim=-1
+    )
+    solver = cfg.solver
+    if solver.method not in ("dopri5", "tsit5", "abm"):
+        solver = dataclasses.replace(solver, method="dopri5", gradient="adjoint")
+    f_aug = make_augmented_dynamics(cfg, icnf.net, Mode.TEST)
+    t0, t1 = cfg.tspan
+    ts = torch.as_tensor(ts, dtype=cfg.dtype, device=device).reshape(-1)
+    with torch.no_grad():
+        _u1, stats, dense = odeint_dense(f_aug, u0, t0, t1,
+                                         {"params": params, "eps": None, "ys": ys}, solver)
+        path = torch.stack([eval_dense(dense, t) for t in ts])
+    return path[..., : cfg.nz], stats

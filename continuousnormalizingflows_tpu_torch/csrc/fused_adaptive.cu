@@ -1,0 +1,176 @@
+// K5 on Hopper: the whole adaptive Dormand-Prince 5(4) solve of the
+// augmented CNF state in one launch, one block per control group of rows.
+//
+// Replaces continuousnormalizingflows_tpu/ops/pallas_adaptive.py
+// _adaptive_fwd_kernel (public fused_solve_dopri5).  Each group runs its own
+// step sequence with the controller of adaptive.cuh; a group that does not
+// finish within max_steps NaN-poisons its rows of u1.  One stats row per
+// group: [nfe, naccept, nreject, dt_final].  Nothing is read back to the
+// host inside the call: t0 and t1 are device scalars (a steered t1 costs no
+// synchronisation) and the counts stay on the device.
+//
+// What bounds it on an H100: a trial step is 6 stages of ~3.4 kFLOP per row
+// at the flagship width (h = 24) against no device-memory traffic at all on
+// the row path (u0, eps and ys read once, u1 written once), so FMA issue
+// inside the SM, plus one block-wide reduction and two barriers per trial
+// step.  A group of 128 rows is one block of 128 threads, so a block is
+// small; 512 groups at the flagship batch (65,536) keep every SM busy.
+// Wider nets (h <= 128) take the tiled stage of stage.cuh, with the rows'
+// state in a device-memory scratch.
+//
+// C interface for ctypes: returns a cudaError_t (0 on success).
+
+#include "adaptive.cuh"
+
+namespace {
+
+using cnf::Ctl;
+using cnf::Nodes;
+using cnf::Solver;
+
+// The row path: thread r owns row r of the block's group.
+template <int H>
+__global__ void __launch_bounds__(cnf::kThreads)
+adaptive_fwd_rows(const float* __restrict__ u0, const float* __restrict__ eps,
+                  const float* __restrict__ ys, cnf::Weights gw, cnf::Dims d,
+                  const float* __restrict__ t0p, const float* __restrict__ t1p,
+                  float* __restrict__ u1, float* __restrict__ stats, int B, int sd, int nc,
+                  int t_col, Solver s) {
+  extern __shared__ __align__(16) float smem[];
+  const cnf::RowWeights w = cnf::stage_row_weights<H, false>(gw, d, smem);
+  float* p = smem + cnf::row_weight_floats(d, H);
+  Ctl& c = *reinterpret_cast<Ctl*>(p);
+  p += cnf::kCtlFloats;
+  float* red = p;
+  p += blockDim.x;
+  const int ld = cnf::adaptive_row_floats(d, sd);
+  float* row = p + threadIdx.x * ld;
+  float* U = row;
+  float* X = row + 9 * sd;
+  float* EPS = X + d.n_in + d.n_out;
+  const long r = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int nz = d.nz, ys_off = nz + (t_col >= 0 ? 1 : 0);
+  for (int col = 0; col < sd; ++col) U[col] = u0[r * sd + col];
+  for (int col = 0; col < nz; ++col) EPS[col] = eps[r * nz + col];
+  for (int j = 0; j < nc; ++j) X[ys_off + j] = ys[r * nc + j];
+  __syncthreads();  // the staged weights
+
+  cnf::solve_rows<H>(w, d, row, sd, t_col, *t0p, *t1p, s, c, red, Nodes{nullptr, nullptr, 0}, r,
+                     B);
+  const float nan = __int_as_float(0x7fc00000);
+  for (int col = 0; col < sd; ++col) u1[r * sd + col] = c.done ? U[col] : nan;
+  if (threadIdx.x == 0) {
+    float* st = stats + (long)blockIdx.x * 4;
+    st[0] = (float)c.nfe;
+    st[1] = (float)c.nacc;
+    st[2] = (float)(c.steps - c.nacc);
+    st[3] = c.dt;
+  }
+}
+
+// The tiled path: kThreads threads, the group's state in the scratch S
+// (B x 9 x sd floats).
+__global__ void __launch_bounds__(cnf::kThreads)
+adaptive_fwd_tiled(const float* __restrict__ u0, const float* __restrict__ eps,
+                   const float* __restrict__ ys, cnf::Weights gw, cnf::Dims d, bool staged,
+                   const float* __restrict__ t0p, const float* __restrict__ t1p,
+                   float* __restrict__ S, float* __restrict__ u1, float* __restrict__ stats,
+                   int B, int sd, int nc, int t_col, int g, int rows, Solver s) {
+  extern __shared__ __align__(16) float smem[];
+  float* p = smem;
+  const cnf::Weights w = cnf::stage_weights(gw, d, staged, p);
+  cnf::StageBufs sb;
+  p = cnf::carve_stage(p, rows, d, sb);
+  Ctl& c = *reinterpret_cast<Ctl*>(p);
+  p += cnf::kCtlFloats;
+  float* red = p;
+  const long row0 = (long)blockIdx.x * g;
+  const int ss = cnf::kStateVecs * sd;
+  float* Sg = S + row0 * ss;
+  for (int idx = threadIdx.x; idx < g * sd; idx += blockDim.x) {
+    const int r = idx / sd, col = idx - r * sd;
+    Sg[(long)r * ss + col] = u0[row0 * sd + idx];
+  }
+  __syncthreads();
+
+  cnf::solve_tiled(d, w, sb, rows, g, Sg, eps + row0 * d.nz, ys == nullptr ? ys : ys + row0 * nc,
+                   sd, nc, t_col, *t0p, *t1p, s, c, red, Nodes{nullptr, nullptr, 0}, row0, B);
+  const float nan = __int_as_float(0x7fc00000);
+  for (int idx = threadIdx.x; idx < g * sd; idx += blockDim.x) {
+    const int r = idx / sd, col = idx - r * sd;
+    u1[row0 * sd + idx] = c.done ? Sg[(long)r * ss + col] : nan;
+  }
+  if (threadIdx.x == 0) {
+    float* st = stats + (long)blockIdx.x * 4;
+    st[0] = (float)c.nfe;
+    st[1] = (float)c.nacc;
+    st[2] = (float)(c.steps - c.nacc);
+    st[3] = c.dt;
+  }
+}
+
+template <class K>
+cudaError_t set_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf::Weights& w,
+                   const cnf::Dims& d, const float* t0, const float* t1, float* S, float* u1,
+                   float* stats, int B, int sd, int nc, int t_col, int g, const Solver& s,
+                   cudaStream_t stream) {
+  const cnf::AdaptivePlan pl = cnf::adaptive_plan(d, sd, g);
+  if (pl.smem_fwd == 0) return cudaErrorInvalidValue;
+  const int grid = B / g;
+  if (pl.H == 0) {
+    cudaError_t err = set_smem(adaptive_fwd_tiled, pl.smem_fwd);
+    if (err != cudaSuccess) return err;
+    adaptive_fwd_tiled<<<grid, cnf::kThreads, pl.smem_fwd, stream>>>(
+        u0, eps, ys, w, d, pl.staged, t0, t1, S, u1, stats, B, sd, nc, t_col, g, pl.rows, s);
+    return cudaGetLastError();
+  }
+  auto kernel = adaptive_fwd_rows<32>;
+  if (pl.H == 8) kernel = adaptive_fwd_rows<8>;
+  if (pl.H == 16) kernel = adaptive_fwd_rows<16>;
+  if (pl.H == 24) kernel = adaptive_fwd_rows<24>;
+  cudaError_t err = set_smem(kernel, pl.smem_fwd);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, g, pl.smem_fwd, stream>>>(u0, eps, ys, w, d, t0, t1, u1, stats, B, sd, nc, t_col,
+                                            s);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Weights as for cnf_fused_solve_rk4_fwd (W*t read only on the tiled path
+// when the weights are not staged).  t0, t1: device scalars.  S: scratch of
+// B x 9 x sd floats (used by the tiled path).  stats: (B / group) x 4.  B
+// must be a multiple of group (<= 128, a multiple of 8).
+extern "C" int cnf_fused_adaptive_fwd(const float* u0, const float* eps, const float* ys,
+                                      const float* A1, const float* b1, const float* A2,
+                                      const float* b2, const float* A3, const float* b3,
+                                      const float* W1t, const float* W2t, const float* W3t,
+                                      const float* t0, const float* t1, float* S, float* u1,
+                                      float* stats, int B, int sd, int n_in, int h, int n_out,
+                                      int nz, int nc, int t_col, int group, int max_steps,
+                                      float rtol, float atol, float dt0f, float safety,
+                                      float min_f, float max_f, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (group <= 0 || group > cnf::kMaxGroup || B % group != 0) return cudaErrorInvalidValue;
+  const cnf::Weights w{W1t, W2t, W3t, A1, A2, A3, b1, b2, b3};
+  const cnf::Dims d{n_in, h, n_out, nz};
+  const Solver s{rtol, atol, dt0f, safety, min_f, max_f, max_steps};
+  return launch(u0, eps, ys, w, d, t0, t1, S, u1, stats, B, sd, nc, t_col, group, s,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The launch plan, for the wrapper's log: returns the forward's shared
+// bytes (0: does not fit); info = {H, rows, bwd_rows, smem_bwd}.
+extern "C" int cnf_adaptive_plan(int n_in, int h, int n_out, int nz, int sd, int group,
+                                 int* info) {
+  const cnf::AdaptivePlan pl = cnf::adaptive_plan(cnf::Dims{n_in, h, n_out, nz}, sd, group);
+  info[0] = pl.H;
+  info[1] = pl.rows;
+  info[2] = pl.bwd_rows;
+  info[3] = pl.smem_bwd;
+  return pl.smem_fwd;
+}

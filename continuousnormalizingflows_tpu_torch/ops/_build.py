@@ -20,7 +20,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["kernels", "check", "plan", "bwd_plan", "build_info"]
+__all__ = ["kernels", "check", "plan", "bwd_plan", "adaptive_plan", "build_info"]
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # argtypes of each C entry point, in the order of its C signature
 _SIGNATURES = {
@@ -39,8 +40,11 @@ _SIGNATURES = {
     "cnf_fused_solve_rk4_fwd": [_P] * 15 + [_I] * 10 + [_P],
     "cnf_fused_dynamics_bwd": [_P] * 20 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_bwd": [_P] * 20 + [_I] * 10 + [_P],
+    "cnf_fused_adaptive_fwd": [_P] * 17 + [_I] * 10 + [_F] * 6 + [_P],
+    "cnf_fused_adaptive_bwd": [_P] * 23 + [_I] * 11 + [_F] * 6 + [_P],
     "cnf_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_adaptive_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 # what the last build did: seconds, library path, compiler log
@@ -134,3 +138,15 @@ def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int):
     info = (ctypes.c_int * 3)()
     rows = kernels().cnf_bwd_plan(n_in, h, n_out, nz, sd, batch, info)
     return rows, bool(info[0]), int(info[1]), int(info[2])
+
+
+@functools.cache
+def adaptive_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, group: int):
+    """The adaptive kernels' launch shape for a control group of ``group``
+    rows: ``(H, rows, smem_fwd, bwd_rows, smem_bwd)``, where ``H > 0`` is the
+    row-per-thread path (K5 and K6's replay) and ``H == 0`` the tiled path
+    with ``rows`` rows a stage tile; ``bwd_rows``: rows of a tile of K6's walk
+    back; a byte count of 0 means the widths do not fit."""
+    info = (ctypes.c_int * 4)()
+    smem_fwd = kernels().cnf_adaptive_plan(n_in, h, n_out, nz, sd, group, info)
+    return int(info[0]), int(info[1]), smem_fwd, int(info[2]), int(info[3])

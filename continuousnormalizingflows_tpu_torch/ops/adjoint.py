@@ -1,28 +1,240 @@
-"""Differentiable ODE solve, dispatching on ``cfg.gradient``.
+"""Gradients through the ODE solve, dispatching on ``cfg.gradient``.
 
-Counterpart of ``continuousnormalizingflows_tpu.ops.adjoint.odeint_diff``.
-Only ``backprop`` (discretize-then-optimize: autograd through the fixed-step
-loop) is ported; the backsolve and quadrature adjoints raise
-``NotImplementedError``.
+Counterpart of ``continuousnormalizingflows_tpu.ops.adjoint``:
+
+* ``backprop``: autograd through the fixed-step loop (discretize, then
+  optimize).
+* ``adjoint`` (backsolve, the default): a ``torch.autograd.Function`` whose
+  forward solves under ``no_grad`` and whose backward integrates the
+  continuous adjoint state ``(y, a, q)`` from ``t1`` back to ``t0``::
+
+      d/dt (y, a, q) = (f(t, y), -a^T df/dy, -a^T df/dtheta)
+
+  with ``a(t1) = dL/dy1`` and ``q(t1) = 0``, giving ``a(t0) = dL/dy0`` and
+  ``q(t0) = dL/dtheta``.
+* ``quadrature``: the forward keeps the dense output of the solve; the
+  backward integrates ``(a, q)`` only, reading ``y(t)`` off the interpolant.
+
+Each evaluation of the backward takes the VJP of ``f`` with
+``torch.autograd.grad`` on a detached ``y`` and the differentiable args under
+``torch.enable_grad()``; with the fused dynamics (K1) that VJP is K2.  The
+Hutchinson probe ``eps`` and the carried starting step ``dt0`` are not
+differentiated (zero cotangent), as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Any, List, Tuple
 
 import torch
 
-from ..config import SolverConfig
-from .ode import SolverStats, odeint
+from ..config import DEFAULT_FIXED_DT0, SolverConfig
+from .ode import SolverStats, _leaves, eval_dense, odeint, odeint_dense
 
 __all__ = ["odeint_diff"]
 
+# args entries that get no cotangent on the continuous-adjoint paths: the
+# probe, and the carried starting step (a solver-control scalar)
+_NONDIFF_ARG_KEYS = ("eps", "dt0")
 
-def odeint_diff(f, y0: torch.Tensor, t0, t1, args,
-                cfg: SolverConfig) -> Tuple[torch.Tensor, SolverStats]:
+
+def _bwd_cfg(cfg: SolverConfig) -> SolverConfig:
+    """The backward solve keeps the fixed-fraction start where the forward
+    uses the HNW ``"auto"`` start (or the carry), as in the JAX package."""
+    if isinstance(cfg.dt0, str):
+        return dataclasses.replace(cfg, dt0=DEFAULT_FIXED_DT0)
+    return cfg
+
+
+def _bwd_dt0(args_nd):
+    """The carried starting step of the forward, reused by the backward solve."""
+    if isinstance(args_nd, dict):
+        return args_nd.get("dt0")
+    return None
+
+
+def _split_args(args) -> Tuple[Any, Any]:
+    """A dict ``args`` split into ``(differentiable, nondiff)``."""
+    if isinstance(args, dict) and any(k in args for k in _NONDIFF_ARG_KEYS):
+        nd = {k: v for k, v in args.items() if k in _NONDIFF_ARG_KEYS}
+        d = {k: v for k, v in args.items() if k not in _NONDIFF_ARG_KEYS}
+        return d, nd
+    return args, None
+
+
+def _merge_args(args_d, args_nd):
+    if args_nd is None:
+        return args_d
+    return {**args_d, **args_nd}
+
+
+def _flatten(tree) -> Tuple[List[torch.Tensor], Any]:
+    """Tensor leaves of nested dicts/tuples/lists (``None`` is no leaf) and a
+    function that rebuilds the tree from new leaves."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda leaves: leaves[0]
+    if tree is None:
+        return [], lambda leaves: None
+    if isinstance(tree, dict):
+        keys = list(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (tuple, list)):
+        keys = None
+        parts = [_flatten(v) for v in tree]
+    else:
+        raise TypeError(f"cannot differentiate through an argument of type {type(tree)}")
+    sizes = [len(p[0]) for p in parts]
+
+    def rebuild(leaves):
+        out, i = [], 0
+        for (_l, build), n in zip(parts, sizes):
+            out.append(build(leaves[i:i + n]))
+            i += n
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return [l for p in parts for l in p[0]], rebuild
+
+
+def _vdot(a, b) -> torch.Tensor:
+    return sum(torch.sum(x * y) for x, y in zip(a, b))
+
+
+def _vjp(f, t, y_leaves, build_y, d_leaves, build_d, args_nd, cot):
+    """``(f(t, y), a^T df/dy, a^T df/dargs)`` for ``a = cot`` (lists of leaves)."""
+    with torch.enable_grad():
+        y_ = [l.detach().requires_grad_() for l in y_leaves]
+        d_ = [l.detach().requires_grad_() for l in d_leaves]
+        dy, _ = _flatten(f(t, build_y(y_), _merge_args(build_d(d_), args_nd)))
+        grads = torch.autograd.grad(dy, y_ + d_, cot, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, y_ + d_)]
+    return [v.detach() for v in dy], grads[:len(y_)], grads[len(y_):]
+
+
+def _end_grads(ctx, f, t0, t1, y1, g, y0_rec, a0, build_y, args):
+    """``dL/dt1 = <g, f(t1, y1)>`` and ``dL/dt0 = -<a(t0), f(t0, y0)>``, each
+    only where that end requires grad."""
+    t0_bar = t1_bar = None
+    with torch.no_grad():
+        if ctx.needs_input_grad[1]:
+            t1_bar = _vdot(g, _flatten(f(t1, build_y(y1), args))[0]).to(t1.dtype)
+        if ctx.needs_input_grad[0]:
+            t0_bar = (-_vdot(a0, _flatten(f(t0, build_y(y0_rec), args))[0])).to(t0.dtype)
+    return t0_bar, t1_bar
+
+
+class _Backsolve(torch.autograd.Function):
+    """The backsolve adjoint.  Inputs after the statics: ``t0``, ``t1`` (0-d
+    tensors), the leaves of ``y0``, then those of the differentiable args."""
+
+    @staticmethod
+    def forward(ctx, t0, t1, static, *leaves):
+        f, cfg, n_y, build_y, build_d, args_nd, stats_out = static
+        y0 = build_y(list(leaves[:n_y]))
+        y1, stats = odeint(f, y0, t0, t1, _merge_args(build_d(list(leaves[n_y:])), args_nd),
+                           cfg)
+        stats_out.append(stats)
+        y1_leaves, _ = _flatten(y1)
+        ctx.static = static
+        ctx.save_for_backward(t0, t1, *y1_leaves, *leaves[n_y:])
+        return tuple(y1_leaves)
+
+    @staticmethod
+    def backward(ctx, *g):
+        f, cfg, n_y, build_y, build_d, args_nd, _stats = ctx.static
+        t0, t1, *saved = ctx.saved_tensors
+        y1, d_leaves = saved[:n_y], saved[n_y:]
+        g = [torch.zeros_like(y) if gi is None else gi for gi, y in zip(g, y1)]
+        n_d = len(d_leaves)
+
+        def aug_dyn(t, state, _args):
+            y, a = list(state[:n_y]), list(state[n_y:2 * n_y])
+            dy, a_y, a_d = _vjp(f, t, y, build_y, d_leaves, build_d, args_nd, a)
+            return tuple(dy) + tuple(-v for v in a_y) + tuple(-v for v in a_d)
+
+        state1 = tuple(y1) + tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
+        error_weight = None
+        if cfg.adjoint_seminorm and cfg.method in ("dopri5", "tsit5", "abm"):
+            # the parameter quadrature q never feeds back: out of the norm
+            error_weight = (True,) * (2 * n_y) + (False,) * n_d
+        with torch.no_grad():
+            state0, _nfe = odeint(aug_dyn, state1, t1, t0, None, _bwd_cfg(cfg), error_weight,
+                                  dt0_override=_bwd_dt0(args_nd))
+        state0 = _leaves(state0)
+        y0_rec, a0, q = state0[:n_y], state0[n_y:2 * n_y], state0[2 * n_y:]
+        full_args = _merge_args(build_d(list(d_leaves)), args_nd)
+        t0_bar, t1_bar = _end_grads(ctx, f, t0, t1, y1, g, y0_rec, a0, build_y, full_args)
+        return (t0_bar, t1_bar, None, *a0, *q)
+
+
+class _Quadrature(torch.autograd.Function):
+    """The interpolation (quadrature) adjoint: the forward keeps the dense
+    output, the backward integrates ``(a, q)`` with ``y(t)`` read off it."""
+
+    @staticmethod
+    def forward(ctx, t0, t1, static, *leaves):
+        f, cfg, n_y, build_y, build_d, args_nd, stats_out = static
+        y0 = build_y(list(leaves[:n_y]))
+        y1, stats, dense = odeint_dense(f, y0, t0, t1,
+                                        _merge_args(build_d(list(leaves[n_y:])), args_nd), cfg)
+        stats_out.append(stats)
+        y1_leaves, _ = _flatten(y1)
+        ctx.static, ctx.dense = static, dense
+        ctx.save_for_backward(t0, t1, *y1_leaves, *leaves[n_y:])
+        return tuple(y1_leaves)
+
+    @staticmethod
+    def backward(ctx, *g):
+        f, cfg, n_y, build_y, build_d, args_nd, _stats = ctx.static
+        dense = ctx.dense
+        t0, t1, *saved = ctx.saved_tensors
+        y1, d_leaves = saved[:n_y], saved[n_y:]
+        g = [torch.zeros_like(y) if gi is None else gi for gi, y in zip(g, y1)]
+        n_d = len(d_leaves)
+
+        def adj_dyn(t, state, _args):
+            y, _ = _flatten(eval_dense(dense, t))
+            _dy, a_y, a_d = _vjp(f, t, y, build_y, d_leaves, build_d, args_nd,
+                                 list(state[:n_y]))
+            return tuple(-v for v in a_y) + tuple(-v for v in a_d)
+
+        state1 = tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
+        error_weight = (True,) * n_y + (False,) * n_d if cfg.adjoint_seminorm else None
+        with torch.no_grad():
+            state0, _nfe = odeint(adj_dyn, state1, t1, t0, None, _bwd_cfg(cfg), error_weight,
+                                  dt0_override=_bwd_dt0(args_nd))
+            state0 = _leaves(state0)
+            y0_rec, _ = _flatten(eval_dense(dense, t0))
+        a0, q = state0[:n_y], state0[n_y:]
+        full_args = _merge_args(build_d(list(d_leaves)), args_nd)
+        t0_bar, t1_bar = _end_grads(ctx, f, t0, t1, y1, g, y0_rec, a0, build_y, full_args)
+        return (t0_bar, t1_bar, None, *a0, *q)
+
+
+def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig) -> Tuple[Any, SolverStats]:
+    """Differentiable solve.  ``backprop`` is autograd through a fixed-step
+    loop; ``adjoint`` (backsolve, any method) and ``quadrature`` (an
+    adaptive method's dense output) are continuous adjoints.  On those two,
+    the ``"eps"`` and ``"dt0"`` entries of a dict ``args`` get no cotangent
+    (``backprop`` differentiates the probe)."""
     if cfg.gradient == "backprop":
         return odeint(f, y0, t0, t1, args, cfg)
-    raise NotImplementedError(
-        f"gradient={cfg.gradient!r}: the continuous adjoints are not ported yet "
-        "(ROADMAP.md, Queue 1: adaptive slice)"
-    )
+    args_d, args_nd = _split_args(args)
+    y_leaves, build_y = _flatten(y0)
+    d_leaves, build_d = _flatten(args_d)
+    device = y_leaves[0].device
+    tdt = y_leaves[0].dtype if y_leaves[0].dtype.is_floating_point else torch.float32
+    t0, t1 = (torch.as_tensor(t, dtype=tdt, device=device) for t in (t0, t1))
+    needs = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (t0, t1, *y_leaves, *d_leaves))
+    if not needs:
+        # no cotangent can arrive: the plain solve, same values and stats
+        with torch.no_grad():
+            return odeint(f, y0, t0, t1, args, cfg)
+    stats_out: List[SolverStats] = []
+    fn = _Quadrature if cfg.gradient == "quadrature" else _Backsolve
+    static = (f, cfg, len(y_leaves), build_y, build_d, args_nd, stats_out)
+    y1 = fn.apply(t0, t1, static, *y_leaves, *d_leaves)
+    return build_y(list(y1)), stats_out[0]

@@ -94,7 +94,9 @@ def _probe_vjps(fn, z: torch.Tensor, eps: torch.Tensor, inputs):
     train = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (z, eps, *inputs))
     with torch.enable_grad():
-        zz = z if z.requires_grad else z.detach().requires_grad_()
+        # outside a recorded graph (e.g. an adjoint's forward under no_grad)
+        # z may be a no-grad view of a leaf: differentiate a detached copy
+        zz = z if train and z.requires_grad else z.detach().requires_grad_()
         dz = fn(zz)
         eps_j = torch.stack([
             torch.autograd.grad(dz, zz, e, create_graph=train, retain_graph=True)[0]

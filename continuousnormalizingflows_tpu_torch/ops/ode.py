@@ -1,59 +1,133 @@
-"""Fixed-step ODE integrators over tensors.
+"""ODE integrators over tensors and tuples of tensors.
 
-Counterpart of the fixed-step part of ``continuousnormalizingflows_tpu.ops.ode``:
+Counterpart of ``continuousnormalizingflows_tpu.ops.ode``:
 ``odeint(f, y0, t0, t1, args, cfg) -> (y1, SolverStats)`` with
-``f(t, y, args) -> dy``.  The JAX ``lax.scan`` is a Python loop here.  The
-adaptive methods (dopri5, tsit5, abm) raise ``NotImplementedError``.
+``f(t, y, args) -> dy``, where ``y`` is a tensor or a tuple of tensors (the
+adjoint's backward state ``(y, a, q...)`` is a tuple).
+
+* ``rk4`` / ``euler``: fixed steps, a Python loop in place of ``lax.scan``.
+* ``dopri5`` / ``tsit5``: embedded Runge-Kutta 5(4) with FSAL and the JAX
+  package's controller, error norm and failure policy.  The ``lax.while_loop``
+  becomes a Python loop whose ``t``, ``dt``, ``accept``, ``done`` and ``fail``
+  are device tensors (a steered end time is a device scalar); the loop reads
+  ``done | fail`` and ``accept`` back to the host once per trial step, in one
+  transfer.  The error norm is one RMS over every element of the batch, as in
+  the reference: the whole batch takes one step sequence.
+* dense output (``odeint_dense``, ``eval_dense``): the accepted nodes with
+  their FSAL derivatives, interpolated by cubic Hermite.
+
+The multistep solver (``abm``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import SolverConfig
+from ..config import DEFAULT_FIXED_DT0, SolverConfig
 
-__all__ = ["odeint", "odeint_fixed", "SolverStats"]
+__all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_dopri5_dense", "odeint_dense",
+           "eval_dense", "DenseSolution", "SolverStats", "DOPRI5", "TSIT5"]
 
-ODEFunc = Callable[[Any, torch.Tensor, Any], torch.Tensor]
+State = Any  # a tensor or a tuple of tensors
+ODEFunc = Callable[[Any, State, Any], State]
 
 
 class SolverStats(NamedTuple):
     """Per-solve diagnostics; ``int(stats)`` is the NFE.  Fixed-step methods
-    report ``naccept = steps, nreject = 0``."""
+    report ``naccept = steps, nreject = 0``.  The counts are ints, or 0-d
+    device tensors where reading them would cost a host synchronisation (the
+    whole-solve adaptive kernel's)."""
 
-    nfe: int
-    naccept: int
-    nreject: int
+    nfe: Any
+    naccept: Any
+    nreject: Any
     dt_final: torch.Tensor  # signed step size at exit
 
     def __int__(self) -> int:
         return int(self.nfe)
 
 
-def _rk4_step(f: ODEFunc, t, y: torch.Tensor, dt, args) -> torch.Tensor:
+# ---- tuple-state helpers (the JAX package's tree maps) ----
+
+def _leaves(y: State) -> Tuple[torch.Tensor, ...]:
+    return tuple(y) if isinstance(y, (tuple, list)) else (y,)
+
+
+def _like(y0: State, leaves) -> State:
+    return tuple(leaves) if isinstance(y0, (tuple, list)) else leaves[0]
+
+
+def _add_scaled(y: State, dt, terms) -> State:
+    """``y + sum_i (dt * c_i) * k_i``, skipping zero coefficients."""
+    terms = [(c, k) for c, k in terms if c != 0.0]
+    out = []
+    for i, leaf in enumerate(_leaves(y)):
+        acc = leaf
+        for c, k in terms:
+            acc = acc + dt * c * _leaves(k)[i]
+        out.append(acc)
+    return _like(y, out)
+
+
+def _scaled_sum(dt, terms) -> State:
+    terms = [(c, k) for c, k in terms if c != 0.0]
+    ref = terms[0][1]
+    out = []
+    for i in range(len(_leaves(ref))):
+        acc = dt * terms[0][0] * _leaves(terms[0][1])[i]
+        for c, k in terms[1:]:
+            acc = acc + dt * c * _leaves(k)[i]
+        out.append(acc)
+    return _like(ref, out)
+
+
+# ---- fixed-step methods ----
+
+def _rk4_step(f: ODEFunc, t, y: State, dt, args) -> State:
     k1 = f(t, y, args)
-    k2 = f(t + 0.5 * dt, y + dt * 0.5 * k1, args)
-    k3 = f(t + 0.5 * dt, y + dt * 0.5 * k2, args)
-    k4 = f(t + dt, y + dt * 1.0 * k3, args)
-    return y + dt * (1 / 6) * k1 + dt * (1 / 3) * k2 + dt * (1 / 3) * k3 + dt * (1 / 6) * k4
+    k2 = f(t + 0.5 * dt, _add_scaled(y, dt, [(0.5, k1)]), args)
+    k3 = f(t + 0.5 * dt, _add_scaled(y, dt, [(0.5, k2)]), args)
+    k4 = f(t + dt, _add_scaled(y, dt, [(1.0, k3)]), args)
+    return _add_scaled(y, dt, [(1 / 6, k1), (1 / 3, k2), (1 / 3, k3), (1 / 6, k4)])
 
 
-def _euler_step(f: ODEFunc, t, y: torch.Tensor, dt, args) -> torch.Tensor:
-    return y + dt * 1.0 * f(t, y, args)
+def _euler_step(f: ODEFunc, t, y: State, dt, args) -> State:
+    return _add_scaled(y, dt, [(1.0, f(t, y, args))])
 
 
-def odeint_fixed(f: ODEFunc, y0: torch.Tensor, t0, t1, args,
-                 cfg: SolverConfig) -> Tuple[torch.Tensor, SolverStats]:
+def _pop_dt0(args):
+    """Split the carried starting step (``args["dt0"]``, ``SolverConfig.dt0 ==
+    "carry"``) out of a dict ``args``: ``(args_without_dt0, dt0_or_None)``."""
+    if isinstance(args, dict) and "dt0" in args:
+        args = dict(args)
+        return args, args.pop("dt0")
+    return args, None
+
+
+def _time_dtype(y0: State) -> torch.dtype:
+    dt = _leaves(y0)[0].dtype
+    return dt if dt.is_floating_point else torch.float32
+
+
+def _times(y0: State, t0, t1):
+    leaf = _leaves(y0)[0]
+    tdt = _time_dtype(y0)
+    return (torch.as_tensor(t0, dtype=tdt, device=leaf.device),
+            torch.as_tensor(t1, dtype=tdt, device=leaf.device), tdt)
+
+
+def odeint_fixed(f: ODEFunc, y0: State, t0, t1, args,
+                 cfg: SolverConfig) -> Tuple[State, SolverStats]:
     """``cfg.fixed_steps`` steps of rk4 or euler.  With ``cfg.remat`` and grad
     enabled each step runs under ``torch.utils.checkpoint`` (non-reentrant):
     the backward keeps only each step's input and recomputes the step's
     stages, as ``jax.checkpoint`` of the scan body does in the JAX package.
     That changes the backward's memory, not the values."""
-    t0 = torch.as_tensor(t0, dtype=y0.dtype, device=y0.device)
-    t1 = torch.as_tensor(t1, dtype=y0.dtype, device=y0.device)
+    t0, t1, _tdt = _times(y0, t0, t1)
+    args, _dt0 = _pop_dt0(args)  # fixed steps: no starting-step choice
     n = int(cfg.fixed_steps)
     dt = (t1 - t0) / n
     step = {"rk4": _rk4_step, "euler": _euler_step}[cfg.method]
@@ -68,13 +142,321 @@ def odeint_fixed(f: ODEFunc, y0: torch.Tensor, t0, t1, args,
     return y, SolverStats(evals * n, n, 0, dt)
 
 
-def odeint(f: ODEFunc, y0: torch.Tensor, t0, t1, args,
-           cfg: SolverConfig) -> Tuple[torch.Tensor, SolverStats]:
-    """Dispatch on ``cfg.method``."""
-    if cfg.method in ("rk4", "euler"):
-        return odeint_fixed(f, y0, t0, t1, args, cfg)
-    raise NotImplementedError(
-        f"method={cfg.method!r}: the adaptive solvers are not ported yet "
-        "(ROADMAP.md, Queue 1: adaptive slice for dopri5/tsit5, multistep "
-        "solver for abm)"
+# ---- embedded Runge-Kutta 5(4) ----
+
+class _Tableau(NamedTuple):
+    name: str
+    C: tuple
+    A: tuple  # rows 1..s-1; the final combination is B
+    B: tuple  # solution weights (== the FSAL stage's row)
+    BERR: tuple  # B - B_hat over the s + 1 stages (FSAL stage included)
+    order: int
+
+
+_DP_B = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84)
+_DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40)
+DOPRI5 = _Tableau(
+    name="dopri5",
+    C=(0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0),
+    A=(
+        (1 / 5,),
+        (3 / 40, 9 / 40),
+        (44 / 45, -56 / 15, 32 / 9),
+        (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+        (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    ),
+    B=_DP_B,
+    BERR=tuple(b - b4 for b, b4 in zip(_DP_B + (0.0,), _DP_B4)),
+    order=5,
+)
+
+TSIT5 = _Tableau(
+    name="tsit5",
+    C=(0.0, 0.161, 0.327, 0.9, 0.9800255409045097, 1.0),
+    A=(
+        (0.161,),
+        (-0.008480655492356989, 0.335480655492357),
+        (2.8971530571054935, -6.359448489975075, 4.3622954328695815),
+        (5.325864828439257, -11.748883564062828, 7.4955393428898365, -0.09249506636175525),
+        (5.86145544294642, -12.92096931784711, 8.159367898576159, -0.071584973281401,
+         -0.028269050394068383),
+    ),
+    B=(0.09646076681806523, 0.01, 0.4798896504144996, 1.379008574103742,
+       -3.290069515436081, 2.324710524099774),
+    BERR=(-0.00178001105222577714, -0.0008164344596567469, 0.007880878010261995,
+          -0.1447110071732629, 0.5823571654525552, -0.45808210592918697,
+          0.015151515151515152),
+    order=5,
+)
+
+_TABLEAUS = {"dopri5": DOPRI5, "tsit5": TSIT5}
+
+# give-up threshold: a non-finite trial at |dt| below this fraction of the
+# span means the field itself is non-finite; exit and NaN-poison
+_DT_GIVE_UP = 1e-6
+
+
+def _erk_step(tab: _Tableau, f: ODEFunc, t, y: State, dt, k1: State, args):
+    """One embedded trial step from ``k1 = f(t, y)`` (FSAL): ``(y_new, err,
+    k_last)`` with ``k_last = f(t + dt, y_new)``."""
+    ks = [k1]
+    for i, row in enumerate(tab.A):
+        yi = _add_scaled(y, dt, zip(row, ks))
+        ks.append(f(t + tab.C[i + 1] * dt, yi, args))
+    y_new = _add_scaled(y, dt, zip(tab.B, ks))
+    k_last = f(t + dt, y_new, args)
+    ks.append(k_last)
+    err = _scaled_sum(dt, zip(tab.BERR, ks))
+    return y_new, err, k_last
+
+
+def _rms_error_ratio(err: State, y0: State, y1: State, rtol: float, atol: float,
+                     error_weight=None) -> torch.Tensor:
+    """RMS of ``err / (atol + rtol * max(|y0|, |y1|))`` over every element of
+    the leaves that ``error_weight`` marks (all when None): one scalar for the
+    whole batch.  Leaving a leaf out is the seminorm of the adjoint's
+    parameter quadrature."""
+    leaves = zip(_leaves(err), _leaves(y0), _leaves(y1))
+    weights = _leaves(error_weight) if error_weight is not None else None
+    sq_sum, count = 0.0, 0
+    for i, (e, a, b) in enumerate(leaves):
+        if weights is not None and not weights[i]:
+            continue
+        scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
+        r = (e / scale).to(torch.float32)
+        sq_sum = sq_sum + torch.sum(r * r)
+        count += r.numel()
+    return torch.sqrt(sq_sum / count)
+
+
+def _controller_factor(ratio, inv_order, safety, min_factor, max_factor, tdt):
+    """Non-finite-safe step factor: a NaN/Inf ratio is a hard reject with the
+    smallest factor.  Returns ``(finite, factor)``."""
+    finite = torch.isfinite(ratio)
+    safe = torch.where(finite, torch.clamp(ratio, min=1e-10), torch.ones_like(ratio))
+    factor = torch.clamp(safety * torch.pow(safe, -inv_order), min_factor, max_factor)
+    return finite, torch.where(finite, factor, torch.full_like(factor, min_factor)).to(tdt)
+
+
+def _wnorm(x: State, yref: State, cfg: SolverConfig) -> torch.Tensor:
+    s, c = 0.0, 0
+    for xe, ye in zip(_leaves(x), _leaves(yref)):
+        r = (xe / (cfg.atol + cfg.rtol * torch.abs(ye))).to(torch.float32)
+        s = s + torch.sum(r * r)
+        c += r.numel()
+    return torch.sqrt(s / c)
+
+
+def _initial_dt(f, t0, y0, f0, args, cfg, span, direction, err_order, tdt, override=None):
+    """Starting step: ``(dt_init, extra_nfe)``.  A carried ``override`` wins
+    (a non-finite or non-positive one falls back to the fixed fraction of the
+    span); a float ``cfg.dt0`` is that fraction of the span; ``"auto"`` is the
+    Hairer-Norsett-Wanner algorithm (one extra evaluation)."""
+    if override is not None:
+        raw = torch.abs(torch.as_tensor(override, dtype=tdt, device=span.device))
+        ok = torch.isfinite(raw) & (raw > 0)
+        dt = torch.where(ok, torch.minimum(raw, torch.abs(span)), DEFAULT_FIXED_DT0 * torch.abs(span))
+        return direction * dt, 0
+    if not isinstance(cfg.dt0, str):
+        return span * torch.as_tensor(float(cfg.dt0), dtype=tdt), 0
+    tiny = torch.tensor(1e-6, dtype=tdt, device=span.device)
+    d0 = _wnorm(y0, y0, cfg)
+    d1 = _wnorm(f0, y0, cfg)
+    h0 = torch.where(torch.minimum(d0, d1) < 1e-5, tiny,
+                     0.01 * d0 / torch.clamp(d1, min=1e-12)).to(tdt)
+    h0 = torch.minimum(h0, torch.abs(span))
+    y1 = _like(y0, [a + direction * h0 * b for a, b in zip(_leaves(y0), _leaves(f0))])
+    f1 = f(t0 + direction * h0, y1, args)
+    d2 = _wnorm(_like(f0, [a - b for a, b in zip(_leaves(f1), _leaves(f0))]), y0, cfg) / h0
+    dmax = torch.maximum(d1, d2)
+    h1 = torch.where(
+        dmax <= 1e-15,
+        torch.maximum(tiny, h0 * 1e-3),
+        torch.pow(torch.clamp(0.01 / torch.clamp(dmax, min=1e-12), min=1e-12), 1.0 / err_order),
+    ).to(tdt)
+    dt = torch.minimum(torch.minimum(100.0 * h0, h1), torch.abs(span))
+    dt = torch.where(torch.isfinite(dt), dt, DEFAULT_FIXED_DT0 * torch.abs(span))
+    return direction * dt, 1
+
+
+class _Loop(NamedTuple):
+    """What one adaptive solve ends with."""
+
+    y: State
+    dt: torch.Tensor
+    nfe: int
+    steps: int
+    nacc: int
+    done: bool
+
+
+def _adaptive_loop(f, y0, t0, t1, args, cfg, error_weight, dt0_override, on_accept=None):
+    """The embedded-RK loop shared by :func:`odeint_dopri5` and its dense
+    form.  ``on_accept(t_new, y_new, k_new)`` sees every accepted step."""
+    tab = _TABLEAUS.get(cfg.method, DOPRI5)
+    n_evals = len(tab.A) + 1  # new evaluations per trial step (FSAL)
+    t0, t1, tdt = _times(y0, t0, t1)
+    span = t1 - t0
+    direction = torch.sign(span)
+    tol_done = 1e-12 * torch.clamp(torch.abs(t1), min=1.0)
+    give_up = _DT_GIVE_UP * torch.abs(span)
+
+    k1 = f(t0, y0, args)
+    dt, nfe_init = _initial_dt(f, t0, y0, k1, args, cfg, span, direction, tab.order + 1, tdt,
+                               dt0_override)
+    t, y = t0, y0
+    nfe, steps, nacc, done = 1 + nfe_init, 0, 0, False
+    if on_accept is not None:
+        on_accept(t0, y0, k1)
+    while steps < cfg.max_steps:
+        dt_c = direction * torch.minimum(torch.abs(dt), torch.abs(t1 - t))
+        y5, err, k7 = _erk_step(tab, f, t, y, dt_c, k1, args)
+        ratio = _rms_error_ratio(err, y, y5, cfg.rtol, cfg.atol, error_weight)
+        finite, factor = _controller_factor(ratio, 1.0 / tab.order, cfg.safety,
+                                            cfg.min_factor, cfg.max_factor, tdt)
+        accept = finite & (ratio <= 1.0)
+        dt = dt_c * factor
+        t_new = torch.where(accept, t + dt_c, t)
+        done_t = accept & (torch.abs(t1 - t_new) <= tol_done)
+        fail_t = ~finite & (torch.abs(dt_c) <= give_up)
+        # the one host read of the trial step
+        stop, acc, done = torch.stack([done_t | fail_t, accept, done_t]).tolist()
+        nfe, steps = nfe + n_evals, steps + 1
+        t = t_new
+        if acc:
+            nacc += 1
+            y, k1 = y5, k7
+            if on_accept is not None:
+                on_accept(t, y, k1)
+        if stop:
+            break
+    return _Loop(y, dt, nfe, steps, nacc, done)
+
+
+def _poison(y: State, ok: bool) -> State:
+    return y if ok else _like(y, [torch.full_like(l, float("nan")) for l in _leaves(y)])
+
+
+def odeint_dopri5(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig, error_weight=None,
+                  dt0_override=None) -> Tuple[State, SolverStats]:
+    """Adaptive embedded Runge-Kutta (the tableau from ``cfg.method``).  The
+    result is NaN-poisoned when the step budget runs out or the field is
+    non-finite (never a silently truncated solve).  Not differentiable by
+    autograd: wrap it with :func:`.adjoint.odeint_diff`."""
+    args, popped = _pop_dt0(args)
+    if dt0_override is None:
+        dt0_override = popped
+    run = _adaptive_loop(f, y0, t0, t1, args, cfg, error_weight, dt0_override)
+    return _poison(run.y, run.done), SolverStats(run.nfe, run.nacc, run.steps - run.nacc, run.dt)
+
+
+# ---- dense output ----
+
+class DenseSolution(NamedTuple):
+    """Piecewise cubic Hermite interpolant of an adaptive solve over its
+    accepted nodes ``(t_j, y_j, f_j)``, in solve order.  ``s`` holds the
+    normalized node times ``(t - t0) / (t1 - t0)`` (increasing whichever way
+    the solve ran); ``ys``/``fs`` have the state's structure with a leading
+    node axis; ``n`` is the node count."""
+
+    s: torch.Tensor
+    ys: Any
+    fs: Any
+    n: int
+    t0: torch.Tensor
+    t1: torch.Tensor
+
+
+def eval_dense(dense: DenseSolution, t) -> State:
+    """The interpolant at scalar time ``t`` (clamped to the span).  Runs on
+    the device with no host read, so the quadrature adjoint can call it per
+    evaluation."""
+    span = dense.t1 - dense.t0
+    s = torch.clamp((torch.as_tensor(t, dtype=dense.s.dtype, device=dense.s.device) - dense.t0)
+                    / span, 0.0, 1.0)
+    i = torch.clamp(torch.searchsorted(dense.s, s.reshape(1), right=True) - 1, 0,
+                    dense.n - 2)[0]
+    s_a, s_b = dense.s[i], dense.s[i + 1]
+    h_s = s_b - s_a
+    theta = torch.clamp((s - s_a) / torch.where(h_s == 0, torch.ones_like(h_s), h_s), 0.0, 1.0)
+    h_t = h_s * span  # segment length in time units (f is dy/dt)
+
+    def interp(y_nodes, f_nodes):
+        ya, yb, fa, fb = y_nodes[i], y_nodes[i + 1], f_nodes[i], f_nodes[i + 1]
+        dy = yb - ya
+        th, ht = theta.to(ya.dtype), h_t.to(ya.dtype)
+        b = fa * ht
+        c = 3.0 * dy - (2.0 * fa + fb) * ht
+        d = -2.0 * dy + (fa + fb) * ht
+        return ya + th * (b + th * (c + th * d))
+
+    return _like(dense.ys, [interp(a, b) for a, b in zip(_leaves(dense.ys), _leaves(dense.fs))])
+
+
+def odeint_dopri5_dense(f: ODEFunc, y0: State, t0, t1, args,
+                        cfg: SolverConfig) -> Tuple[State, SolverStats, DenseSolution]:
+    """:func:`odeint_dopri5` that also returns a :class:`DenseSolution`.  At
+    most ``cfg.dense_max_nodes`` nodes are kept; a solve that accepts more
+    steps than that NaN-poisons the result and the nodes, as does budget
+    exhaustion (a truncated interpolant would give silently wrong
+    quadrature-adjoint gradients)."""
+    args, dt0_override = _pop_dt0(args)
+    max_nodes = int(cfg.dense_max_nodes)
+    t0_, t1_, _tdt = _times(y0, t0, t1)
+    span = t1_ - t0_
+    s_nodes: List[torch.Tensor] = []
+    y_nodes: List[State] = []
+    f_nodes: List[State] = []
+    count = [0]
+
+    def on_accept(t, y, k):
+        idx = min(count[0], max_nodes - 1)  # an overflowing node overwrites the last slot
+        for buf, v in ((s_nodes, (t - t0_) / span), (y_nodes, y), (f_nodes, k)):
+            if idx < len(buf):
+                buf[idx] = v
+            else:
+                buf.append(v)
+        count[0] += 1
+
+    run = _adaptive_loop(f, y0, t0_, t1_, args, cfg, None, dt0_override, on_accept)
+    n = count[0]
+    ok = run.done and n <= max_nodes
+    stack = lambda nodes: _like(y0, [_poison(torch.stack([_leaves(v)[j] for v in nodes]), ok)
+                                     for j in range(len(_leaves(y0)))])
+    dense = DenseSolution(torch.stack(s_nodes).to(_tdt), stack(y_nodes), stack(f_nodes),
+                          min(n, max_nodes), t0_, t1_)
+    nacc = n - 1
+    return (_poison(run.y, ok), SolverStats(run.nfe, nacc, run.steps - nacc, run.dt), dense)
+
+
+def _abm_unported(method: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"method={method!r}: the adaptive multistep solver is not ported yet "
+        "(ROADMAP.md, Queue 1: multistep solver)"
+    )
+
+
+def odeint(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig, error_weight=None,
+           dt0_override=None) -> Tuple[State, SolverStats]:
+    """Dispatch on ``cfg.method``.  ``error_weight`` marks the state leaves
+    that enter the adaptive error norm (the adjoint's seminorm; ignored by
+    fixed steps).  ``dt0_override``: an explicit starting step (the backward
+    adjoint solve's); ``args["dt0"]`` is the channel for calls that cross an
+    autograd boundary, and an explicit override wins over it."""
+    if cfg.method in _TABLEAUS:
+        return odeint_dopri5(f, y0, t0, t1, args, cfg, error_weight, dt0_override)
+    if cfg.method == "abm":
+        raise _abm_unported(cfg.method)
+    return odeint_fixed(f, y0, t0, t1, args, cfg)
+
+
+def odeint_dense(f: ODEFunc, y0: State, t0, t1, args,
+                 cfg: SolverConfig) -> Tuple[State, SolverStats, DenseSolution]:
+    """Dense-output dispatch: dopri5/tsit5 (``abm`` raises)."""
+    if cfg.method in _TABLEAUS:
+        return odeint_dopri5_dense(f, y0, t0, t1, args, cfg)
+    if cfg.method == "abm":
+        raise _abm_unported(cfg.method)
+    raise ValueError(
+        f"dense output needs an adaptive method (dopri5/tsit5/abm), got {cfg.method!r}"
     )

@@ -19,9 +19,10 @@ losses back once per block (one host synchronisation per block instead of
 one per logged step).  The steps and their draws are the same for every
 ``k``, so the trained parameters are the same bits.  The JAX package's
 memo of compiled steps has no counterpart (PyTorch runs eagerly), so its
-attribute rules reduce to one: ``_conditional`` follows ``icnf``.  The
-adaptive solvers' ``dt0="carry"`` has no fixed-step counterpart and waits
-for the adaptive slice; ``mesh=`` raises (ROADMAP.md, Queue 1: parallel).
+attribute rules reduce to one: ``_conditional`` follows ``icnf``.
+``dt0="carry"`` starts each step's adaptive solve (and its backward solve)
+from the previous step's final step size, a device tensor: no host
+synchronisation.  ``mesh=`` raises (ROADMAP.md, Queue 1: parallel).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from .config import Mode
 from .core import _device_of, inference, loss_with_stats
 from .dist import _shim_layout
 from .models.icnf import ICNF
+from .ops.fused_adaptive import fused_adaptive_applicable, fused_adaptive_tile
 
 __all__ = ["default_optimizer", "ClippedAdam", "FitResult", "ICNFModel", "CondICNFModel"]
 
@@ -195,14 +197,26 @@ class ICNFModel:
         nb = n // bs
         return perm[: nb * bs].reshape(nb, bs)
 
+    def _carry_dt(self, batch: int) -> bool:
+        """``dt0="carry"``: warm-start each step's embedded-RK solve from the
+        previous step's accepted step size.  Inert, so off, where the
+        adaptive whole-solve kernels take the step: their controllers keep
+        the fixed start (the JAX package passes the carry there unused)."""
+        cfg = self.icnf.config
+        s = cfg.solver
+        return (s.dt0 == "carry" and s.method in ("dopri5", "tsit5")
+                and not (fused_adaptive_applicable(cfg, self.icnf.net, Mode.TRAIN)
+                         and fused_adaptive_tile(batch)))
+
     def _step(self, params: Params, opt: torch.optim.Optimizer, generator: torch.Generator,
-              xb: torch.Tensor, yb: Optional[torch.Tensor]):
+              xb: torch.Tensor, yb: Optional[torch.Tensor], dt0: Optional[torch.Tensor]):
         """One optimizer step on a minibatch; returns ``(loss, solver stats)``
-        with the loss left on the device."""
+        with the loss left on the device.  ``dt0``: the carried start, or None."""
         if self.batch_transform is not None:
             xb = self.batch_transform(generator, xb)
         opt.zero_grad(set_to_none=True)
-        l, stats = loss_with_stats(self.icnf, Mode.TRAIN, xb, params, generator, ys=yb)
+        l, stats = loss_with_stats(self.icnf, Mode.TRAIN, xb, params, generator, ys=yb,
+                                   dt0=dt0)
         l.backward()
         opt.step()
         return l.detach(), stats
@@ -306,13 +320,21 @@ class ICNFModel:
         last_loss = float("nan")
         sol_stats = None
         spd = self.steps_per_dispatch
+        carry = self._carry_dt(n if self.batchsize <= 0 else min(self.batchsize, n))
+        # the carried start: 0 makes the first solve take the fixed-fraction
+        # start (the override's fallback); each later one the previous |dt|
+        tdt = cfg.dtype if cfg.dtype.is_floating_point else torch.float32
+        dt_prev = torch.zeros((), dtype=tdt, device=device)
         for epoch in range(self.epochs):
             batches = self._batches(gen, n)
             for blk in range(0, batches.shape[0], spd):
                 losses = []
                 for idx in batches[blk: blk + spd]:
                     l, sol_stats = self._step(params, opt, gen, xs_all[idx],
-                                              None if ys_all is None else ys_all[idx])
+                                              None if ys_all is None else ys_all[idx],
+                                              dt_prev if carry else None)
+                    if carry:
+                        dt_prev = torch.abs(sol_stats.dt_final).detach()
                     losses.append(l)
                 logged = [j for j in range(len(losses)) if (it + j) % self.log_every == 0]
                 if logged:

@@ -67,8 +67,7 @@ def test_icnf_validation_matches_jax(kwargs):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(layout="feature_first"), dict(probe_axis="model"), dict(sweep_axis="model"),
-     dict(fused_adaptive=True)],
+    [dict(layout="feature_first"), dict(probe_axis="model"), dict(sweep_axis="model")],
     ids=str,
 )
 def test_unported_options_raise(kwargs):

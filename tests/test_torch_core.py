@@ -199,11 +199,12 @@ def test_gaussian_mixture_logpdf_matches_jax():
 @pytest.mark.parametrize(
     "kw, msg",
     [
-        (dict(solver=SolverConfig()), "adaptive"),
-        (dict(solver=SolverConfig(method="dopri5", gradient="quadrature")), "adaptive"),
+        (dict(solver=SolverConfig(method="abm")), "adaptive"),
+        (dict(solver=SolverConfig(method="abm", gradient="quadrature")), "adaptive"),
     ],
 )
 def test_unported_solvers_raise(kw, msg):
+    """The multistep solver ("adaptive multistep") is the one still to port."""
     icnf = tcnf.ICNF.create(nvariables=2, **kw)
     params = icnf.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match=msg):

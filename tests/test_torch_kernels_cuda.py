@@ -222,3 +222,164 @@ def test_loss_gradients_flow_through_the_kernels(dev, form):
     moved = (fused_solve_rk4_bwd.launches - counts[0], fused_dynamics_vjp_bwd.launches - counts[1])
     assert moved == ((1, 0) if form == "rnode" else (0, 32))
     _close_to_max(grads["fused"], grads["plain"], 5e-4)
+
+
+# ---- K5 / K6: the adaptive whole solve and its backward ----
+#
+# Per control group of 128 rows the kernel and its plain version run the same
+# controller, but a group's step sequence can part where a decision sits on
+# a rounding edge: an error ratio within float32 rounding of 1.0, or a step
+# factor that decides whether a step reaches t1.  At the random init the
+# h = 128 field is so smooth that the error ratios of its first trials from
+# the fixed start are float32 rounding (about 1e-6 and 1e-5, against 1e-13
+# and 1e-8 in float64): whether the third step reaches t1 turns on that
+# rounding in every group alike, and equal step counts still carry step
+# sizes that differ by it, so u1 moves by O(tol) (chip_smoke.py's step survey
+# shows it).  So the h = 128 case doubles the weights, starts at half the
+# span (every ratio resolved: float32 and float64 within 1e-3) and spreads
+# the groups over draw scales of 0.1-10 (each group its own steps), on three
+# seeds.  The step statistics are compared first: at most one group
+# in 16 may take other steps, with at most one accepted step more or less and
+# u1 within 1e-3 (ten times the solve tolerance); the groups whose statistics
+# agree are held to rtol 2e-4 / atol 2e-5 for u1 (a few fp32 dopri5 steps,
+# sums in another order), and the backward per tensor to 5e-4 of its largest
+# entry, as K4, with the cotangent zero on the groups of other steps so the
+# weight gradients sum over groups of equal steps.  K6's replay must take
+# K5's steps in every group: that is the same code on the card.
+
+ADAPTIVE_SCFG = (1e-4, 1e-4, 0.01, 0.9, 0.2, 10.0, 16_384)
+
+
+def _adaptive_case(case, dev, seed=5):
+    nz, nc, t_col, span, h, b = 5, 0, 5, (0.0, torch.tensor(1.05, device=dev)), 24, 2048
+    if case == "conditioned":
+        nc = 2
+    if case == "reversed":
+        span = (torch.tensor(1.05, device=dev), 0.0)
+    if case == "wide":  # h = 128 takes the tiled path, the gate's widest hidden layer
+        h, b = 128, 8192
+    if case == "small":  # one group of 16 rows
+        b = 16
+    n_in = nz + 1 + nc
+    params = _params((n_in, h, h, nz), dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
+                    torch.zeros((b, 3), device=dev)], dim=-1)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    scfg = ADAPTIVE_SCFG
+    if case == "wide":
+        params = {k: 2.0 * v for k, v in params.items()}
+        u0 = u0 * torch.logspace(-1, 1, b // 128, device=dev).repeat_interleave(128)[:, None]
+        scfg = ADAPTIVE_SCFG[:2] + (0.5,) + ADAPTIVE_SCFG[3:]
+    ys = torch.randn((b, nc), generator=g, device=dev) if nc else None
+    gbar = torch.randn((b, nz + 3), generator=g, device=dev)
+    return (u0, eps, ys, params, span, nz, t_col, scfg), gbar
+
+
+@pytest.mark.parametrize("case", ["flagship", "conditioned", "reversed", "wide", "small"])
+def test_fused_adaptive_kernels_match_plain(dev, case):
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    for seed in ((1, 2, 5) if case == "wide" else (5,)):
+        args, gbar = _adaptive_case(case, dev, seed)
+        group = fa.fused_adaptive_tile(args[0].shape[0])
+        before = fa.fused_solve_dopri5.launches
+        u1, rows = fa.fused_solve_dopri5(*args, 64)
+        torch.cuda.synchronize()
+        assert fa.fused_solve_dopri5.launches == before + 1
+        u1_p, rows_p = fa.fused_solve_dopri5_reference(*args, group)
+        same = (rows[:, :3] == rows_p[:, :3]).all(dim=1)
+        other = (~same).repeat_interleave(group)
+        assert int((~same).sum()) * 16 <= rows.shape[0], seed
+        assert bool(((rows[:, 1] - rows_p[:, 1]).abs() <= 1).all())
+        torch.testing.assert_close(u1[other], u1_p[other], rtol=1e-3, atol=1e-3)
+        keep = same.repeat_interleave(group)
+        torch.testing.assert_close(u1[keep], u1_p[keep], rtol=2e-4, atol=2e-5)
+        gbar = torch.where(keep[:, None], gbar, torch.zeros_like(gbar))
+        before = fa.fused_solve_dopri5_bwd.launches
+        got = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+        torch.cuda.synchronize()
+        assert fa.fused_solve_dopri5_bwd.launches == before + 1
+        # K6's replay took K5's steps in every group
+        assert torch.equal(got[3], rows[:, 1].to(torch.int32))
+        want = fa.fused_solve_dopri5_bwd_reference(*args, 64, gbar, group)
+        _close_to_max([got[0][keep], got[1][keep], *got[2]],
+                      [want[0][keep], want[1][keep], *want[2]], 5e-4)
+        again = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+        assert all(torch.equal(a, b) for a, b in zip((got[0], got[1], *got[2], got[3]),
+                                                     (again[0], again[1], *again[2], again[3])))
+
+
+def test_fused_adaptive_poison_on_the_card(dev):
+    """A node buffer too small NaN-poisons the backward (the forward stays
+    finite); a spent step budget NaN-poisons the forward."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    args, gbar = _adaptive_case("small", dev)
+    tight = args[:-1] + ((1e-6, 1e-6) + ADAPTIVE_SCFG[2:],)
+    u1, rows = fa.fused_solve_dopri5(*tight, 2)
+    assert torch.isfinite(u1).all() and int(rows[0, 1]) > 2
+    got = fa.fused_solve_dopri5_bwd(*tight, 2, gbar)
+    assert all(torch.isnan(t).all() for t in (got[0], got[1], *got[2]))
+    spent = args[:-1] + (ADAPTIVE_SCFG[:6] + (2,),)
+    u1, rows = fa.fused_solve_dopri5(*spent, 64)
+    assert torch.isnan(u1).all() and rows[0, 0] == 13 and rows[0, 1] + rows[0, 2] == 2
+
+
+def test_fused_adaptive_training_route(dev):
+    """fused=True, fused_adaptive=True: a TRAIN loss is one K5 launch and its
+    gradient one K6 launch; at rtol = atol = 1e-5 the discrete backward and
+    the unfused continuous adjoint agree (same draws) to 1e-3 of the largest
+    entry: both approximate the same sensitivity to O(tol) (the plain
+    versions agree to 6e-6 on the CPU).  Data from the flagship's mixture:
+    on N(0, 1) draws at 1e-6 some groups stall at float32 resolution and
+    give up (NaN), in the plain version and the kernel alike."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+
+    solver = SolverConfig(rtol=1e-5, atol=1e-5)
+    fused = cnf.ICNF.create(nvariables=2, solver=solver, fused=True, fused_adaptive=True)
+    plain = cnf.ICNF.create(nvariables=2, solver=solver)
+    params = {k: v.requires_grad_() for k, v in
+              fused.init(torch.Generator().manual_seed(0), device=dev).items()}
+    x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), 1024)
+    grads = {}
+    for name, icnf in (("fused", fused), ("plain", plain)):
+        before = (fa.fused_solve_dopri5.launches, fa.fused_solve_dopri5_bwd.launches)
+        loss = cnf.loss(icnf, Mode.TRAIN, x, params, torch.Generator(device=dev).manual_seed(2))
+        grads[name] = torch.autograd.grad(loss, list(params.values()))
+        moved = (fa.fused_solve_dopri5.launches - before[0],
+                 fa.fused_solve_dopri5_bwd.launches - before[1])
+        assert moved == ((1, 1) if name == "fused" else (0, 0))
+    _close_to_max(grads["fused"], grads["plain"], 1e-3)
+
+
+def test_default_stack_fused_stage_route(dev):
+    """fused=True with the default SolverConfig (dopri5, backsolve adjoint):
+    no whole-solve kernel applies, so the forward's evaluations launch K1 and
+    the adjoint's VJPs K2, never K5/K6; the gradients equal the fused=False
+    ones (same draws, the same steps) to 5e-4 of the largest entry, as the
+    rk4 routes."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    fused = cnf.ICNF.create(nvariables=2, fused=True)
+    plain = cnf.ICNF.create(nvariables=2)
+    params = {k: v.requires_grad_() for k, v in
+              fused.init(torch.Generator().manual_seed(0), device=dev).items()}
+    x = torch.randn((512, 2), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    kernels = (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fa.fused_solve_dopri5,
+               fa.fused_solve_dopri5_bwd)
+    grads, steps = {}, {}
+    for name, icnf in (("fused", fused), ("plain", plain)):
+        before = [k.launches for k in kernels]
+        loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x, params,
+                                       torch.Generator(device=dev).manual_seed(2))
+        grads[name] = torch.autograd.grad(loss, list(params.values()))
+        moved = [k.launches - b for k, b in zip(kernels, before)]
+        steps[name] = tuple(int(v) for v in st[:3])
+        if name == "fused":
+            assert moved[0] > 0 and moved[1] > 0 and moved[2:] == [0, 0]
+        else:
+            assert moved == [0, 0, 0, 0]
+    assert steps["fused"] == steps["plain"]
+    _close_to_max(grads["fused"], grads["plain"], 5e-4)

@@ -107,6 +107,31 @@ def test_fit_matches_jax_fit(same_draws_and_batches, fused):
         np.testing.assert_allclose(a["b"], b["b"], rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("spd", [1, 2], ids=["per_step", "blocks_of_2"])
+def test_carry_fit_matches_jax_fit(same_draws_and_batches, spd):
+    """The reference-default adaptive stack (dopri5, 1e-4, backsolve adjoint)
+    with ``dt0="carry"``: each step's forward and backward solves start from
+    the previous step's final step size (the first from the fixed start).
+    Held step for step over 3 steps, as the fixed-step fit above; adaptive
+    adjoint fits are chaotically marginal over long runs (ROADMAP, Queue 3),
+    so no longer history is compared."""
+    jicnf = jcnf.ICNF.create(nvariables=2, solver=JSolver(dt0="carry"))
+    jparams = jax.device_get(jicnf.init(jax.random.PRNGKey(0)))
+    x = np.array(jdata.gaussian_mixture(jax.random.PRNGKey(1), N), np.float32)
+    jres = jcnf.ICNFModel(jicnf, batchsize=BATCH, epochs=1, log_every=1,
+                          steps_per_dispatch=spd).fit(x, params=jparams)
+    ticnf = tcnf.ICNF.create(nvariables=2, solver=SolverConfig(dt0="carry"))
+    tres = tcnf.ICNFModel(ticnf, batchsize=BATCH, epochs=1, log_every=1,
+                          steps_per_dispatch=spd).fit(x, params=params_from_jax(jparams))
+    assert tres.stats["iterations"] == jres.stats["iterations"] == 3
+    for key in ("nfe", "naccept", "nreject"):
+        assert tres.stats[key] == jres.stats[key]
+    np.testing.assert_allclose(tres.history, jres.history, rtol=1e-5)
+    for a, b in zip(params_to_jax(tres.params), jax.device_get(jres.params)):
+        np.testing.assert_allclose(a["w"], b["w"], rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(a["b"], b["b"], rtol=1e-4, atol=1e-6)
+
+
 # ---- the facade's own contracts (port only, small) ----
 
 def _small(nconditions=0, fused=False):
