@@ -11,9 +11,12 @@ through K3 + K4) and its FFJORD form (through K1 + K2), runs the
 reference-default adaptive stack (dopri5 at 1e-4, the HNW start, the
 backsolve and quadrature adjoints, the carried start) on the same model and
 batch, and the opt-in adaptive whole-solve route (K5 + K6), and checks that
-the kernels carried each path.  Imports nothing of JAX.  Exits non-zero,
-with no result line, when there is no CUDA device or any phase fails; on
-success the last line is ``{"ok": true, "device": {...}}``.  A detailed
+the kernels carried each path.  The kernels line (third from last) gives
+each kernel's bound: the least time the card could take for its work, fp32
+FMAs at the published peak or bytes at the memory rate.  Imports nothing of
+JAX.  Exits non-zero, with no result line, when there is no CUDA device or
+any phase fails; on success the last line is ``{"ok": true, "device":
+{...}}``.  A detailed
 record of every phase is written as ``chip_smoke.json`` (see ``main``).
 """
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -71,6 +75,72 @@ SURVEY_SEEDS = (1, 2, 3, 4, 5)  # draws on which K5 and its plain version count 
 # per-group steps) vs the unfused backsolve adjoint (global steps), both at
 # rtol = atol = 1e-6: two discretizations of one sensitivity, O(tol) apart
 ADAPTIVE_GRAD_TOL = 1e-3
+# the card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
+# fp32 outside the tensor cores, and HBM3
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def stage_fmas(n_in: int, h: int, nz: int) -> int:
+    """FMAs of one stage forward per row (n_out = nz): the three layers, then
+    the probe VJP u2 = A3^T eps, u1 = A2^T d2, e_z = (A1^T d1)[:nz]."""
+    return n_in * h + h * h + h * nz + nz * h + h * h + h * nz
+
+
+def stage_bwd_fmas(n_in: int, h: int, nz: int, nxb: int) -> int:
+    """FMAs (and bias adds) of one stage backward per row: the six products
+    (d1bar, d2bar, epsbar, z2_t, z1_t, xbar[:nxb]) and the weight gradients'
+    outer products and bias sums."""
+    products = nz * h + h * h + h * nz + nz * h + h * h + h * nxb
+    wgrads = h * n_in + h * nz + 2 * h * h + 2 * nz * h + 2 * h + nz
+    return products + wgrads
+
+
+def param_count(n_in: int, h: int, nz: int) -> int:
+    return h * n_in + h + h * h + h + nz * h + nz
+
+
+def solve_fmas(n_in: int, h: int, nz: int, stages: float, backward: bool) -> float:
+    """FMAs per row of ``stages`` stage forwards inside one solve (and, with
+    ``backward``, their backwards).  eps is fixed over a solve, so a row
+    needs u2 = A3^T eps once, and the backward's two terms linear in u2bar
+    (epsbar += u2bar A3^T, dA3 += eps^T u2bar) once, on the sum of u2bar over
+    the stages: h adds a stage (an issue slot each, as an FMA)."""
+    fmas = stages * (stage_fmas(n_in, h, nz) - h * nz) + h * nz
+    if backward:
+        fmas += stages * (stage_bwd_fmas(n_in, h, nz, nz) - 2 * h * nz + h) + 2 * h * nz
+    return fmas
+
+
+def kernel_bounds(n_in, h, nz, b, nfe_rows=0, accepted_rows=0):
+    """Each kernel's (bound_ms, bound_by) on these inputs: K1/K2 one stage of
+    b rows, K3/K4 a STEPS-step rk4 solve (4 stage forwards, and for K4 4
+    backwards, a step: what the function needs, not the recompute), K5 the
+    stage forwards of the trial steps these inputs took (nfe_rows: NFE x rows
+    summed over the control groups), K6 the six stage forwards and backwards
+    of each accepted step (accepted_rows).  Floats: the inputs read once,
+    the outputs written once, the weights and their gradients."""
+    sd, P = nz + 3, param_count(n_in, h, nz)
+    fwd = stage_fmas(n_in, h, nz)
+    return {
+        "K1": bound(b * fwd, b * (n_in + nz + 2 * nz + 3) + P),
+        "K2": bound(b * (fwd + stage_bwd_fmas(n_in, h, nz, n_in)),
+                    b * (n_in + nz + 2 * nz + 3 + n_in + nz) + 2 * P),
+        "K3": bound(b * solve_fmas(n_in, h, nz, STEPS * 4, False), b * (2 * sd + nz) + P),
+        "K4": bound(b * solve_fmas(n_in, h, nz, STEPS * 4, True),
+                    b * (3 * sd + 2 * nz) + 2 * P),
+        "K5": bound(b * solve_fmas(n_in, h, nz, nfe_rows / b, False), b * (2 * sd + nz) + P),
+        "K6": bound(b * solve_fmas(n_in, h, nz, 6 * accepted_rows / b, True),
+                    b * (3 * sd + 2 * nz) + 2 * P),
+    }
+
+
+def bound(fmas: float, floats: float):
+    """(bound_ms, bound_by): the larger of the operations over the fp32 peak
+    (2 FLOP an FMA) and the bytes (4 a float, each read or written once)
+    over the memory rate."""
+    ops_ms, bytes_ms = 2 * fmas / FP32_FLOPS * 1e3, 4 * floats / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def log(msg: str) -> None:
@@ -88,6 +158,18 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, e.g.
+    fused_solve_rk4_bwd_rows<24, 0> (H = 24, fp32)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled[:72]
+    start = m.end() + int(m.group(1))
+    name = mangled[m.end():start]
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start:])
+    return name + (f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>" if args else "")
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -176,9 +258,13 @@ def kernel_phase(dev, record):
             path = f"row per thread, h padded to {h_pad}" if h_pad else "tiled"
             log(f"  plan {kname} {shape}: {path}, {rows} rows/block, weights in smem: {staged}")
         for kname, sd in (("K2", 0), ("K4", nz + 3)):
-            rows, staged, grid, n_params = _build.bwd_plan(n_in, h, nz, nz, sd, b)
-            log(f"  plan {kname} {shape}: tiled, {rows} rows/tile, grid {grid}, "
-                f"{n_params} params, weights in smem: {staged}")
+            rows, staged, grid, n_params, h_pad = _build.bwd_plan(n_in, h, nz, nz, sd, b)
+            path = (f"row per thread, h padded to {h_pad}, {rows} threads/block" if h_pad
+                    else f"tiled, {rows} rows/tile")
+            log(f"  plan {kname} {shape}: {path}, grid {grid}, {n_params} params, "
+                f"weights in smem: {staged}")
+            record.setdefault("bwd_plans", {})[f"{kname} {shape}"] = dict(
+                path="row" if h_pad else "tiled", H=h_pad, rows=rows, grid=grid)
         for cdt in (None, torch.bfloat16):
             prec = "fp32" if cdt is None else "bf16"
             stage = lambda: fused_dynamics_vjp(x, eps, params, nz, cdt)
@@ -221,6 +307,21 @@ def kernel_phase(dev, record):
             ms = {k: statistics.median(v) for k, v in t.items()}
             log(f"  time {shape} {prec}: " + "; ".join(
                 f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
+            # K4's rate: the work the function needs (its bound's) and the
+            # work as designed (the trajectory and the k1..k3 recompute: 11
+            # stage forwards and 4 backwards a step; the row path keeps u2
+            # for the 4 forwards before the backwards)
+            fwd, bwd = stage_fmas(n_in, h, nz), stage_bwd_fmas(n_in, h, nz, nz)
+            need = 2 * b * solve_fmas(n_in, h, nz, STEPS * 4, True)
+            if record["bwd_plans"][f"K4 {shape}"]["H"]:
+                done = 2 * b * (STEPS * (11 * fwd - 4 * h * nz + 4 * bwd) + h * nz)
+            else:
+                done = 2 * b * STEPS * (11 * fwd + 4 * bwd)
+            k4_bound = kernel_bounds(n_in, h, nz, b)["K4"][0]
+            log(f"  K4 {shape} {prec}: {need / ms['k4'] / 1e6:.1f} GFLOP/s of needed work "
+                f"({need / 1e9:.1f} GFLOP), {done / ms['k4'] / 1e6:.1f} GFLOP/s as designed "
+                f"({done / 1e9:.1f} GFLOP); {k4_bound / ms['k4'] * 100:.2f} % of its "
+                f"{k4_bound:.4f} ms fp32 bound")
             results.append(dict(shape=shape, precision=prec, batch=b, widths=[n_in, h, h, nz],
                                 k1_max_abs_err=err1, k2_max_abs_err=err2, k3_max_abs_err=err3,
                                 k4_max_abs_err=err4, **ms))
@@ -569,6 +670,8 @@ def adaptive_kernel_phase(dev, record):
         log(f"  time {shape} fp32: " + "; ".join(
             f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
         results.append(dict(shape=shape, batch=b, widths=[n_in, h, h, nz], groups=st.shape[0],
+                            nfe_rows=int(st[:, 0].sum()) * group,
+                            accepted_rows=int(st[:, 1].sum()) * group,
                             groups_with_other_steps=n_diff, k5_max_abs_err=err5,
                             k6_max_abs_err=err6, nfe_max=int(st[:, 0].max()), **ms))
         surveys[shape] = step_survey(shape, dev, b, h, spread, SURVEY_SEEDS, 1 / 16)
@@ -776,9 +879,12 @@ def main() -> None:
     _build.kernels()
     info = _build.build_info
     log(f"[build] {info['seconds']:.1f} s -> {info['path']}")
+    entry = ""
     for line in info["log"].splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel_label(line.split("'")[1] if "'" in line else line)
         if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+            log(f"  ptxas: {entry}: {line.strip()}")
     record["build_seconds"] = info["seconds"]
 
     log("[kernels] each kernel vs its plain PyTorch version")
@@ -799,40 +905,32 @@ def main() -> None:
     fused_adaptive = adaptive_fused_phase(dev, record)
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
-    kernels = [
-        dict(name="fused_dynamics_fwd", route="cuda",
-             source="continuousnormalizingflows_tpu_torch/csrc/fused_dynamics.cu",
-             replaces="continuousnormalizingflows_tpu/ops/pallas_kernels.py:118",
-             launches=launches["K1"], max_abs_err=flag["k1_max_abs_err"],
-             ms=flag["k1"], plain_ms=flag["k1_plain"]),
-        dict(name="fused_solve_rk4_fwd", route="cuda",
-             source="continuousnormalizingflows_tpu_torch/csrc/fused_solve.cu",
-             replaces="continuousnormalizingflows_tpu/ops/pallas_solve.py:176",
-             launches=launches["K3"], max_abs_err=flag["k3_max_abs_err"],
-             ms=flag["k3"], plain_ms=flag["k3_plain"]),
-        dict(name="fused_dynamics_bwd", route="cuda",
-             source="continuousnormalizingflows_tpu_torch/csrc/fused_dynamics_bwd.cu",
-             replaces="continuousnormalizingflows_tpu/ops/pallas_kernels.py:182",
-             launches=train["ffjord"]["K2"], max_abs_err=flag["k2_max_abs_err"],
-             ms=flag["k2"], plain_ms=flag["k2_plain"]),
-        dict(name="fused_solve_rk4_bwd", route="cuda",
-             source="continuousnormalizingflows_tpu_torch/csrc/fused_solve_bwd.cu",
-             replaces="continuousnormalizingflows_tpu/ops/pallas_solve.py:206",
-             launches=train["rnode"]["K4"], max_abs_err=flag["k4_max_abs_err"],
-             ms=flag["k4"], plain_ms=flag["k4_plain"]),
-    ]
     ad = {r["shape"]: r for r in adaptive_results}["flagship"]
-    kernels += [
-        dict(name="fused_adaptive_fwd", route="cuda",
-             source="continuousnormalizingflows_tpu_torch/csrc/fused_adaptive.cu",
-             replaces="continuousnormalizingflows_tpu/ops/pallas_adaptive.py:187",
-             launches=fused_adaptive["K5"], max_abs_err=ad["k5_max_abs_err"],
-             ms=ad["k5"], plain_ms=ad["k5_plain"]),
-        dict(name="fused_adaptive_bwd", route="cuda",
-             source="continuousnormalizingflows_tpu_torch/csrc/fused_adaptive_bwd.cu",
-             replaces="continuousnormalizingflows_tpu/ops/pallas_adaptive.py:258",
-             launches=fused_adaptive["K6"], max_abs_err=ad["k6_max_abs_err"],
-             ms=ad["k6"], plain_ms=ad["k6_plain"]),
+    bounds = kernel_bounds(*(flag["widths"][i] for i in (0, 1, 3)), flag["batch"],
+                           ad["nfe_rows"], ad["accepted_rows"])
+    rows = [  # (K, name, source file, TPU kernel, launches on the main path, its results)
+        ("K1", "fused_dynamics_fwd", "fused_dynamics.cu", "pallas_kernels.py:118",
+         launches["K1"], flag),
+        ("K3", "fused_solve_rk4_fwd", "fused_solve.cu", "pallas_solve.py:176", launches["K3"],
+         flag),
+        ("K2", "fused_dynamics_bwd", "fused_dynamics_bwd.cu", "pallas_kernels.py:182",
+         train["ffjord"]["K2"], flag),
+        ("K4", "fused_solve_rk4_bwd", "fused_solve_bwd.cu", "pallas_solve.py:206",
+         train["rnode"]["K4"], flag),
+        ("K5", "fused_adaptive_fwd", "fused_adaptive.cu", "pallas_adaptive.py:187",
+         fused_adaptive["K5"], ad),
+        ("K6", "fused_adaptive_bwd", "fused_adaptive_bwd.cu", "pallas_adaptive.py:258",
+         fused_adaptive["K6"], ad),
+    ]
+    # no single PyTorch call computes a fused stage with its probe VJP, or a
+    # whole solve, or their backwards: library_ms is null for every kernel
+    kernels = [
+        dict(name=name, route="cuda", source=f"continuousnormalizingflows_tpu_torch/csrc/{src}",
+             replaces=f"continuousnormalizingflows_tpu/ops/{tpu}", launches=n,
+             max_abs_err=res[f"{k.lower()}_max_abs_err"], ms=res[k.lower()],
+             plain_ms=res[f"{k.lower()}_plain"], bound_ms=bounds[k][0], bound_by=bounds[k][1],
+             library_ms=None)
+        for k, name, src, tpu, n, res in rows
     ]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -134,14 +134,13 @@ extern "C" int cnf_fused_dynamics_bwd(const float* x, const float* eps, const fl
                               partial, grads, B, st);
 }
 
-// The backward kernels' launch plan for these widths and batch (sd: the
-// whole-solve kernel's state width, 0 for the single stage): returns rows per
-// tile and sets info[0] = weights staged in shared memory, info[1] = grid
-// (rows of the partial-sum buffer), info[2] = P, the parameter count.
-extern "C" int cnf_bwd_plan(int n_in, int h, int n_out, int nz, int sd, int B, int* info) {
+// This kernel's launch plan for these widths and batch (the whole-solve
+// backward's is cnf_solve_bwd_plan): returns rows per tile and sets info[0] =
+// weights staged in shared memory, info[1] = grid (rows of the partial-sum
+// buffer), info[2] = P, the parameter count.
+extern "C" int cnf_bwd_plan(int n_in, int h, int n_out, int nz, int B, int* info) {
   const cnf::Dims d{n_in, h, n_out, nz};
-  const int extra = sd ? cnf::solve_bwd_extra(sd, nz) : 0;
-  const cnf::BwdPlan pl = cnf::make_bwd_plan(d, extra);
+  const cnf::BwdPlan pl = cnf::make_bwd_plan(d, 0);
   info[0] = pl.staged ? 1 : 0;
   info[1] = pl.rows ? cnf::bwd_grid(B, pl.rows) : 0;
   info[2] = (int)pl.P;

@@ -145,32 +145,12 @@ fused_solve_rk4_rows(const float* __restrict__ u0, const float* __restrict__ eps
   const int nz = d.nz;
   const int ys_off = nz + (t_col >= 0 ? 1 : 0);
   const float t0 = *t0p, dt = *dtp;
-  const float half = 0.5f * dt;
   for (int c = 0; c < sd; ++c) U[c] = u0[row * sd + c];
   for (int c = 0; c < nz; ++c) EPS[c] = eps[row * nz + c];
   for (int j = 0; j < nc; ++j) X[ys_off + j] = ys[row * nc + j];
 
-  for (int i = 0; i < steps; ++i) {
-    const float t = t0 + (float)i * dt;
-    for (int c = 0; c < nz; ++c) X[c] = U[c];
-    if (t_col >= 0) X[t_col] = t;
-    // stages at (t, u), (t + dt/2, u + dt/2 k1), (t + dt/2, u + dt/2 k2), (t + dt, u + dt k3)
-    for (int st = 0; st < 4; ++st) {
-      float dv, ry, re;
-      cnf::row_stage<H, BF16>(w, d, X, EPS, Y, nullptr, dv, ry, re);
-      const float step = st == 2 ? dt : half;
-      for (int c = 0; c < sd; ++c) {
-        const float k = c < nz ? Y[c] : c == nz ? -dv : c == nz + 1 ? ry : re;
-        if (st == 3) {
-          U[c] = U[c] + (dt / 6.0f) * (ACC[c] + k);  // u + dt/6 (k1 + 2 k2 + 2 k3 + k4)
-        } else {
-          ACC[c] = st == 0 ? k : ACC[c] + 2.0f * k;
-          if (c < nz) X[c] = U[c] + step * k;
-        }
-      }
-      if (st < 3 && t_col >= 0) X[t_col] = t + step;
-    }
-  }
+  for (int i = 0; i < steps; ++i)
+    cnf::row_rk4_step<H, BF16>(w, d, X, EPS, Y, U, ACC, sd, t_col, t0 + (float)i * dt, dt);
   for (int c = 0; c < sd; ++c) u1[row * sd + c] = U[c];
 }
 

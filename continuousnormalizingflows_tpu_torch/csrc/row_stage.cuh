@@ -169,6 +169,37 @@ __device__ __forceinline__ void row_stage(const RowWeights& w, const Dims& d, co
   re = sqrtf(ee + 1e-20f);
 }
 
+// One RK4 step of one row from time t: u <- u + dt/6 (k1 + 2 k2 + 2 k3 + k4)
+// over the first ncols state columns of U (sd: the whole state
+// [z, dlogp, E, n]; nz: the z columns, the only ones a stage reads).  X is
+// the net input with ys in place, ACC scratch of ncols floats.  The step of
+// K3's row path, and of the trajectory K4's row path walks back.
+template <int H, bool BF16>
+__device__ __forceinline__ void row_rk4_step(const RowWeights& w, const Dims& d, float* X,
+                                             const float* eps, float* Y, float* U, float* ACC,
+                                             int ncols, int t_col, float t, float dt) {
+  const int nz = d.nz;
+  const float half = 0.5f * dt;
+  for (int c = 0; c < nz; ++c) X[c] = U[c];
+  if (t_col >= 0) X[t_col] = t;
+  // stages at (t, u), (t + dt/2, u + dt/2 k1), (t + dt/2, u + dt/2 k2), (t + dt, u + dt k3)
+  for (int st = 0; st < 4; ++st) {
+    float dv, ry, re;
+    row_stage<H, BF16>(w, d, X, eps, Y, nullptr, dv, ry, re);
+    const float step = st == 2 ? dt : half;
+    for (int c = 0; c < ncols; ++c) {
+      const float k = c < nz ? Y[c] : c == nz ? -dv : c == nz + 1 ? ry : re;
+      if (st == 3) {
+        U[c] = U[c] + (dt / 6.0f) * (ACC[c] + k);
+      } else {
+        ACC[c] = st == 0 ? k : ACC[c] + 2.0f * k;
+        if (c < nz) X[c] = U[c] + step * k;
+      }
+    }
+    if (st < 3 && t_col >= 0) X[t_col] = t + step;
+  }
+}
+
 // Launch shape of a kernel: the row path (H > 0, `rows` threads per block,
 // one row each) or the tiled path (H == 0, `rows` rows per block).
 struct Choice {

@@ -43,7 +43,8 @@ _SIGNATURES = {
     "cnf_fused_adaptive_fwd": [_P] * 17 + [_I] * 10 + [_F] * 6 + [_P],
     "cnf_fused_adaptive_bwd": [_P] * 23 + [_I] * 11 + [_F] * 6 + [_P],
     "cnf_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
-    "cnf_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_bwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_solve_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_adaptive_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
 }
 
@@ -132,12 +133,18 @@ def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
 @functools.cache
 def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int):
     """The backward kernels' launch shape (``sd``: the whole-solve kernel's
-    state width, 0 for the single stage): ``(rows per tile, weights staged in
-    shared memory, grid, parameter count)``; the wrapper allocates the
-    ``(grid, parameter count)`` buffer of per-block weight-gradient sums."""
-    info = (ctypes.c_int * 3)()
-    rows = kernels().cnf_bwd_plan(n_in, h, n_out, nz, sd, batch, info)
-    return rows, bool(info[0]), int(info[1]), int(info[2])
+    state width, 0 for the single stage): ``(rows per block, weights staged
+    in shared memory, grid, parameter count, H)``, where ``H > 0`` is K4's
+    row-per-thread path (h <= 32, one row a thread, hidden width padded to
+    ``H``) and ``H == 0`` the tiled path (K2 always); the wrapper allocates
+    the ``(grid, parameter count)`` buffer of per-block weight-gradient sums.
+    Each kernel's source plans its own launch: K2's ``cnf_bwd_plan``, K4's
+    ``cnf_solve_bwd_plan``."""
+    info = (ctypes.c_int * 4)()  # zeros: K2's plan leaves H at 0
+    lib = kernels()
+    rows = (lib.cnf_solve_bwd_plan(n_in, h, n_out, nz, sd, batch, info) if sd
+            else lib.cnf_bwd_plan(n_in, h, n_out, nz, batch, info))
+    return rows, bool(info[0]), int(info[1]), int(info[2]), int(info[3])
 
 
 @functools.cache

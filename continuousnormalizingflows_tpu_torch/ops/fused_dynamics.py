@@ -229,7 +229,7 @@ def _launch_bwd(x, eps, weights, nz, cotangents, compute_dtype):
     if [tuple(c.shape) for c in cotangents] != shapes:
         raise ValueError(f"cotangent shapes {[tuple(c.shape) for c in cotangents]}, "
                          f"expected {shapes}")
-    rows, staged, grid, n_params = _build.bwd_plan(n_in, h, n_out, nz, 0, b)
+    rows, staged, grid, n_params, _h_pad = _build.bwd_plan(n_in, h, n_out, nz, 0, b)
     if rows == 0:
         raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
     a1, b1, a2, b2, a3, b3 = weights

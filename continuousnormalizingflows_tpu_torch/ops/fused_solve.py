@@ -228,7 +228,7 @@ def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dt
     b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
     if gbar.shape != u0.shape:
         raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
-    rows, staged, grid, n_params = _build.bwd_plan(n_in, h, n_out, nz, sd, b)
+    rows, staged, grid, n_params, _h_pad = _build.bwd_plan(n_in, h, n_out, nz, sd, b)
     if rows == 0:
         raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
     a1, b1, a2, b2, a3, b3 = weights
@@ -238,7 +238,8 @@ def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dt
     dev = u0.device
     u0bar = torch.empty_like(u0)
     epsbar = torch.empty_like(eps)
-    traj = torch.empty((steps, b, nz), dtype=torch.float32, device=dev)
+    # scratch of the step trajectory, steps x B x nz floats in the layout of the path
+    traj = torch.empty((steps * b * nz,), dtype=torch.float32, device=dev)
     partial = torch.empty((grid, n_params), dtype=torch.float32, device=dev)
     grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
     lib = _build.kernels()

@@ -136,16 +136,29 @@ SOLVE_CASES = {
     "reversed": dict(kw={}, span=(1.0, 0.0)),
     "conditioned": dict(kw=dict(nconditions=2), span=(0.0, 1.0)),
     "bf16": dict(kw={}, span=(0.0, 1.0)),
+    # the edges of K4's row-per-thread path on the card, whose plain twin this
+    # is: hidden widths 8 and 32 (h <= 32), and a batch of 13 rows, which the
+    # JAX kernel takes padded to whole tiles with a zero cotangent
+    "h8_conditioned": dict(kw=dict(nconditions=2), span=(0.0, 1.0), h=8),
+    "h8_autonomous": dict(kw=dict(autonomous=True), span=(0.0, 1.0), h=8),
+    "h32_conditioned": dict(kw=dict(nconditions=2), span=(0.0, 1.0), h=32),
+    "h32_autonomous": dict(kw=dict(autonomous=True), span=(0.0, 1.0), h=32),
+    "ragged_conditioned": dict(kw=dict(nconditions=2), span=(0.0, 1.0), b=13),
+    "ragged_autonomous": dict(kw=dict(autonomous=True), span=(1.0, 0.0), b=13),
 }
 
 
 def _solve_setup(case, b=16):
     kw = SOLVE_CASES[case]["kw"]
+    b = SOLVE_CASES[case].get("b", b)
     jicnf = jcnf.ICNF.create(
         nvariables=2, solver=JSolver(method="rk4", gradient="backprop", fixed_steps=STEPS,
                                      remat=False), **kw)
     cfg = jicnf.config
     jparams = jax.device_get(jicnf.init(jax.random.PRNGKey(0)))
+    if "h" in SOLVE_CASES[case]:
+        h = SOLVE_CASES[case]["h"]
+        jparams = jax.device_get(JMLP((cfg.n_in, h, h, cfg.nz)).init(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(2)
     u0 = (0.5 * rng.standard_normal((b, cfg.state_dim))).astype(np.float32)
     eps = rng.standard_normal((b, cfg.nz)).astype(np.float32)
@@ -160,17 +173,23 @@ def test_solve_backward_matches_jax_kernel(case):
     span = SOLVE_CASES[case]["span"]
     bf16 = case == "bf16"
     nz = cfg.nz
+    t_col = None if cfg.autonomous else nz
+    # the JAX kernel takes whole tiles; rows with a zero cotangent add nothing
+    b = u0.shape[0]
+    jrows = [None if a is None else np.pad(a, ((0, -b % TILE), (0, 0)))
+             for a in (u0, eps, ys, gbar)]
 
     def f(u, e, p):
-        return jax_solve(u, e, ys, p, span, nz, nz, STEPS, TILE, jnp.bfloat16 if bf16 else None)
+        return jax_solve(u, e, jrows[2], p, span, nz, t_col, STEPS, TILE,
+                         jnp.bfloat16 if bf16 else None)
 
     ubar, ebar, pbar = jax.jit(lambda u, e, p, g: jax.vjp(f, u, e, p)[1](g))(
-        u0, eps, jparams, gbar)
+        jrows[0], jrows[1], jparams, jrows[3])
     got = fused_solve_rk4_bwd_reference(
         torch.from_numpy(u0), torch.from_numpy(eps),
-        None if ys is None else torch.from_numpy(ys), params_from_jax(jparams), span, nz, nz,
+        None if ys is None else torch.from_numpy(ys), params_from_jax(jparams), span, nz, t_col,
         STEPS, torch.from_numpy(gbar), torch.bfloat16 if bf16 else None)
-    _close_to_max(_flat_port(got), _flat_jax(ubar, ebar, pbar),
+    _close_to_max(_flat_port(got), _flat_jax(ubar[:b], ebar[:b], pbar),
                   SOLVE_TOL["bf16" if bf16 else None])
 
 

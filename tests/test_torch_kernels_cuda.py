@@ -158,6 +158,12 @@ def _solve_case(case, dev):
         nc, h = 3, 28
     if case == "ffjord":  # h = 12, nz = 2: the FFJORD form's net
         nz, t_col, h = 2, 2, 12
+    # the edges of K4's row path: h = 8, 16 (H exact) and 32 (its widest), h = 33
+    # (the tiled path), and batches of 1, 127 and 129 rows (ragged blocks of 64)
+    if case in ("h8", "h16", "h32", "h33"):
+        h = int(case[1:])
+    if case in ("b1", "b127", "b129"):
+        b = int(case[1:])
     if case == "tabular":
         nz, t_col, h, b = 43, 43, 176, 300
     if case == "widest":
@@ -175,7 +181,7 @@ def _solve_case(case, dev):
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize(
     "case", ["plain", "conditioned", "autonomous", "reversed", "padded", "ffjord", "tabular",
-             "widest"]
+             "widest", "h8", "h16", "h32", "h33", "b1", "b127", "b129"]
 )
 def test_fused_solve_bwd_kernel_matches_plain(dev, case, cdt):
     args, gbar = _solve_case(case, dev)
@@ -188,9 +194,10 @@ def test_fused_solve_bwd_kernel_matches_plain(dev, case, cdt):
     _close_to_max(_flat(got), _flat(want), SOLVE_BWD_TOL[cdt])
 
 
-def test_backward_kernels_are_deterministic(dev):
+@pytest.mark.parametrize("case", ["plain", "tabular"])  # K4's row path, then its tiled path
+def test_backward_kernels_are_deterministic(dev, case):
     """Weight gradients are summed in a fixed order: two calls, same bits."""
-    args, gbar = _solve_case("plain", dev)
+    args, gbar = _solve_case(case, dev)
     first = _flat(fused_solve_rk4_bwd(*args, 32, gbar))
     second = _flat(fused_solve_rk4_bwd(*args, 32, gbar))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -200,6 +207,21 @@ def test_backward_kernels_are_deterministic(dev):
     first = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot))
     second = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_bwd_plan_names_the_path(dev):
+    """K4 (sd > 0) takes the row-per-thread path for h <= 32, one row a
+    thread in blocks of 64, and the tiled path for wider nets; K2 (sd = 0)
+    always the tiled one."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    for h, n_in, nz in ((8, 6, 5), (12, 3, 2), (16, 8, 5), (24, 6, 5), (28, 9, 5), (32, 6, 5)):
+        rows, staged, grid, n_params, h_pad = _build.bwd_plan(n_in, h, nz, nz, nz + 3, 1000)
+        assert (rows, staged, grid, h_pad) == (64, True, 16, -(-h // 8) * 8), h
+        assert n_params == h * n_in + h + h * h + h + nz * h + nz
+        assert _build.bwd_plan(n_in, h, nz, nz, 0, 1000)[4] == 0
+    assert _build.bwd_plan(6, 33, 5, 5, 8, 1000)[4] == 0
+    assert _build.bwd_plan(44, 176, 43, 43, 46, 1000)[4] == 0
 
 
 @pytest.mark.parametrize("form", ["rnode", "ffjord"])
