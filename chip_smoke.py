@@ -16,8 +16,10 @@ each kernel's bound: the least time the card could take for its work, fp32
 FMAs at the published peak or bytes at the memory rate.  Imports nothing of
 JAX.  Exits non-zero, with no result line, when there is no CUDA device or
 any phase fails; on success the last line is ``{"ok": true, "device":
-{...}}``.  A detailed
-record of every phase is written as ``chip_smoke.json`` (see ``main``).
+{...}}``.  A detailed record of every phase is written as
+``chiprun_out/chip_smoke.json``, and everything printed (the compiler's
+register and spill counts of every kernel included) as
+``chiprun_out/chip_smoke.log``.
 """
 
 from __future__ import annotations
@@ -143,12 +145,23 @@ def bound(fmas: float, floats: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+LOG_LINES: list = []  # everything logged, also written to chiprun_out/chip_smoke.log
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    LOG_LINES.append(msg)
+
+
+def write_log() -> None:
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.log").write_text("\n".join(LOG_LINES) + "\n")
 
 
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
+    write_log()
     sys.exit(1)
 
 
@@ -185,6 +198,27 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def spread_ms(name: str, fn, reps: int, calls: int = 5):
+    """``calls`` separate timed calls of :func:`median_ms`: how far a kernel's
+    time moves between measurements of the same code on the same card."""
+    times = sorted(median_ms(fn, reps) for _ in range(calls))
+    log(f"  spread {name}: {calls} timed calls of {reps} launches each, median ms min "
+        f"{times[0]:.4f}, median {times[calls // 2]:.4f}, max {times[-1]:.4f}")
+    return times
+
+
+def clocks_under_load(fn, launches: int) -> str:
+    """The SM clock and power draw ``nvidia-smi`` reads while ``launches``
+    calls of ``fn`` are queued on the card."""
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    torch.cuda.synchronize()
+    return out.stdout.strip().splitlines()[0]
 
 
 def compare(name: str, got, want, rtol: float, atol: float) -> float:
@@ -322,11 +356,72 @@ def kernel_phase(dev, record):
                 f"({need / 1e9:.1f} GFLOP), {done / ms['k4'] / 1e6:.1f} GFLOP/s as designed "
                 f"({done / 1e9:.1f} GFLOP); {k4_bound / ms['k4'] * 100:.2f} % of its "
                 f"{k4_bound:.4f} ms fp32 bound")
+            if shape == "flagship" and cdt is None:
+                record["spread_ms"] = dict(k2=spread_ms("K2 flagship fp32", stage_bwd, 20),
+                                           k4=spread_ms("K4 flagship fp32", solve_bwd, 3))
+                record["under_load"] = clocks_under_load(solve_bwd, 40)
+                log("  nvidia-smi with 40 K4 launches queued (clocks.sm, power.draw, "
+                    f"power.limit, temperature): {record['under_load']}")
             results.append(dict(shape=shape, precision=prec, batch=b, widths=[n_in, h, h, nz],
                                 k1_max_abs_err=err1, k2_max_abs_err=err2, k3_max_abs_err=err3,
                                 k4_max_abs_err=err4, **ms))
     record["kernels_vs_plain"] = results
+    record["k2_ffjord_widths"] = ffjord_stage_phase(dev)
     return results
+
+
+def ffjord_stage_phase(dev):
+    """K1 and K2 at the widths the FFJORD-form train step launches them at
+    (3 -> 12 -> 12 -> 2, the hidden width padded to 16 on the row path), at
+    the flagship batch: against their plain versions, timed, beside their
+    bounds."""
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
+        fused_dynamics_vjp, fused_dynamics_vjp_bwd, fused_dynamics_vjp_bwd_reference,
+        mlp3_forward_vjp_reference)
+
+    n_in, h, nz, b = 3, 12, 2, BATCH
+    params = MLP((n_in, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((b, n_in), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    cot = (torch.randn((b, nz), generator=g, device=dev),
+           torch.randn((b, nz), generator=g, device=dev),
+           *torch.randn((3, b), generator=g, device=dev))
+    rows, staged, grid, n_params, h_pad = _build.bwd_plan(n_in, h, nz, nz, 0, b)
+    path = (f"row per thread, h padded to {h_pad}, {rows} threads/block" if h_pad
+            else f"tiled, {rows} rows/tile")
+    log(f"  plan K2 FFJORD widths: {path}, grid {grid}, {n_params} params")
+    bounds = kernel_bounds(n_in, h, nz, b)
+    out = []
+    for cdt in (None, torch.bfloat16):
+        prec = "fp32" if cdt is None else "bf16"
+        k1 = lambda: fused_dynamics_vjp(x, eps, params, nz, cdt)
+        k1_ref = lambda: mlp3_forward_vjp_reference(x, eps, params, nz, cdt)
+        k2 = lambda: fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)
+        k2_ref = lambda: fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot, cdt)
+        err1 = compare(f"K1 fused_dynamics FFJORD widths {prec} B={b}", k1(), k1_ref(),
+                       *TOL[("stage", cdt)])
+        err2 = compare_to_max(f"K2 fused_dynamics_bwd FFJORD widths {prec} B={b}", flat(k2()),
+                              flat(k2_ref()), BWD_TOL[("stage", cdt)])
+        t = {k: [] for k in ("k1", "k1_plain", "k2", "k2_plain")}
+        for order in (("plain", "kernel"), ("kernel", "plain")):  # the two versions in turns
+            for which in order:
+                if which == "plain":
+                    t["k1_plain"].append(median_ms(k1_ref, 10))
+                    t["k2_plain"].append(median_ms(k2_ref, 10))
+                else:
+                    t["k1"].append(median_ms(k1, 20))
+                    t["k2"].append(median_ms(k2, 20))
+        ms = {k: statistics.median(v) for k, v in t.items()}
+        log(f"  time FFJORD widths {prec}: K1 {ms['k1']:.4f} ms vs plain {ms['k1_plain']:.4f} ms "
+            f"(bound {bounds['K1'][0]:.4f} ms, {bounds['K1'][1]}); K2 {ms['k2']:.4f} ms vs "
+            f"plain {ms['k2_plain']:.4f} ms (bound {bounds['K2'][0]:.4f} ms, {bounds['K2'][1]})")
+        out.append(dict(precision=prec, batch=b, widths=[n_in, h, h, nz], k1_max_abs_err=err1,
+                        k2_max_abs_err=err2, k1_bound_ms=bounds["K1"][0],
+                        k2_bound_ms=bounds["K2"][0], **ms))
+    return out
 
 
 def host_seconds(fn):
@@ -480,9 +575,11 @@ def timed_fit(name, icnf, data, epochs, want, dev, seed=7):
                           generator=torch.Generator(device=dev).manual_seed(seed))
     reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     marks.append((time.perf_counter(), counts()))
     res = model.fit(data, params=params)
     launches = counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     for i in range(1, len(marks)):
         step = {k: marks[i][1][k] - marks[i - 1][1][k] for k in want}
         if step != want:
@@ -500,7 +597,8 @@ def timed_fit(name, icnf, data, epochs, want, dev, seed=7):
         f"(per step {want}) ok; loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
         f"{rate:.1f} train samples/s (median of {len(secs)} steps: "
         f"{secs[len(secs) // 2] * 1e3:.3f} ms; min {secs[0] * 1e3:.3f}, "
-        f"max {secs[-1] * 1e3:.3f}); last step's solve {solver}")
+        f"max {secs[-1] * 1e3:.3f}); last step's solve {solver}; peak device memory over the "
+        f"fit {peak_mib:.1f} MiB")
     log(f"    loss history: {[round(v, 4) for v in hist]}")
     return res, launches, rate
 
@@ -623,10 +721,17 @@ def adaptive_kernel_phase(dev, record):
         sd = nz + 3
         args, gbar = adaptive_draws(dev, b, nz, h, 1, spread)
         group = fa.fused_adaptive_tile(b)
-        H, rows, smem, bwd_rows, smem_bwd = _build.adaptive_plan(n_in, h, nz, nz, sd, group)
+        H, rows, smem, bwd_rows, smem_bwd, walk_h, walk_blocks = _build.adaptive_plan(
+            n_in, h, nz, nz, sd, group)
         path = f"row per thread, h padded to {H}" if H else f"tiled, {rows} rows a stage tile"
-        log(f"  plan K5/K6 {shape}: groups of {group} rows, {path}, {smem} B shared; "
-            f"K6 walk back {bwd_rows}-row tiles, {smem_bwd} B shared")
+        walk = (f"row per thread, h padded to {walk_h}, {bwd_rows} threads/block" if walk_h
+                else f"tiled, {bwd_rows}-row tiles")
+        log(f"  plan K5/K6 {shape}: groups of {group} rows; K5 and K6's replay {path}, grid "
+            f"{b // group}, {smem} B shared; K6's walk back {walk}, grid "
+            f"{b // group * walk_blocks}, {smem_bwd} B shared")
+        record.setdefault("bwd_plans", {})[f"K6 walk {shape}"] = dict(
+            path="row" if walk_h else "tiled", H=walk_h, rows=bwd_rows,
+            grid=b // group * walk_blocks)
         k5 = lambda: fa.fused_solve_dopri5(*args, 64)
         k5_ref = lambda: fa.fused_solve_dopri5_reference(*args, group)
         (u1, st), (u1_p, st_p) = k5(), k5_ref()
@@ -669,6 +774,8 @@ def adaptive_kernel_phase(dev, record):
         ms = {k: statistics.median(v) for k, v in t.items()}
         log(f"  time {shape} fp32: " + "; ".join(
             f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
+        if shape == "flagship":
+            record["spread_ms"]["k6"] = spread_ms("K6 flagship fp32", k6, 5)
         results.append(dict(shape=shape, batch=b, widths=[n_in, h, h, nz], groups=st.shape[0],
                             nfe_rows=int(st[:, 0].sum()) * group,
                             accepted_rows=int(st[:, 1].sum()) * group,
@@ -932,9 +1039,8 @@ def main() -> None:
              library_ms=None)
         for k, name, src, tpu, n, res in rows
     ]
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
+    write_log()
+    (Path("chiprun_out") / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,8 +26,7 @@
 // a wide state do not fit in shared memory beside the stage buffers).
 #pragma once
 
-#include "row_stage.cuh"
-#include "stage_bwd.cuh"
+#include "row_stage_bwd.cuh"
 
 namespace cnf {
 
@@ -72,7 +71,7 @@ struct Ctl {
 
 // Where K6's replay records the accepted steps (traj == nullptr in K5).
 struct Nodes {
-  float* traj;  // (max_nodes, B, nz): z of u at the start of each accepted step
+  float* traj;  // (max_nodes, nz, B): z of u at the start of each accepted step
   float* tdt;   // (groups, max_nodes, 2): its t and dt
   int max_nodes;
 };
@@ -243,7 +242,7 @@ __device__ void solve_rows(const RowWeights& w, const Dims& d, float* row, int s
     if (c.accept) {
       if (nodes.traj != nullptr) {
         const long idx = min(c.nacc - 1, nodes.max_nodes - 1);
-        for (int col = 0; col < nz; ++col) nodes.traj[(idx * B + grow) * nz + col] = U[col];
+        for (int col = 0; col < nz; ++col) nodes.traj[(idx * nz + col) * B + grow] = U[col];
       }
       for (int col = 0; col < sd; ++col) {
         U[col] = U5[col];
@@ -348,7 +347,7 @@ __device__ inline void solve_tiled(const Dims& d, const Weights& w, const StageB
       for (int e = tid; e < g * sd; e += nt) {
         const int r = e / sd, col = e - r * sd;
         float* Sr = S + (long)r * ss;
-        if (nodes.traj != nullptr && col < nz) nodes.traj[(idx * B + row0 + r) * nz + col] = Sr[col];
+        if (nodes.traj != nullptr && col < nz) nodes.traj[(idx * nz + col) * B + row0 + r] = Sr[col];
         Sr[col] = Sr[8 * sd + col];
         Sr[sd + col] = Sr[7 * sd + col];
       }
@@ -357,22 +356,36 @@ __device__ inline void solve_tiled(const Dims& d, const Weights& w, const StageB
   }
 }
 
-// Per-row floats of K6's walk beyond the stage backward's buffers: the
+// Per-row floats of K6's tiled walk beyond the stage backward's buffers: the
 // state cotangent a (sd), and the z columns of the 6 stage inputs, the 5
 // stage outputs that build them, the 6 input cotangents and epsbar.
 __host__ __device__ inline int adaptive_bwd_extra(int sd, int nz) {
   return odd(sd) + 18 * odd(nz);
 }
 
-// Launch plan of K5 and K6 for a group of g rows.
+// Floats of a thread's own row in K6's walk on the row path: the row_stage
+// input X (n_in), eps, y and e_z of the stage being taken back, the node's z,
+// the 5 stage outputs k_0..k_4 that build the stage inputs, the 6 input
+// cotangents vbar_0..vbar_5, epsbar (nz each), and the state cotangent a (sd).
+__host__ __device__ inline int adaptive_walk_row_ld(const Dims& d, int sd) {
+  return odd(d.n_in + d.n_out + 15 * d.nz + sd);
+}
+
+// Launch plan of K5 and K6 for a group of g rows.  With its walk on the row
+// path K6 is two kernels, the replay with K5's block shape and shared memory,
+// then the walk; with the tiled walk it is one, whose blocks hold the larger
+// of the two's shared memory.
 struct AdaptivePlan {
-  int H;          // > 0: the row path (blockDim g), 0: the tiled path (blockDim kThreads)
-  int rows;       // tiled path: rows of a stage tile
-  int smem_fwd;   // bytes of the forward, and of K6's replay (0: does not fit)
-  bool staged;    // tiled path and K6's walk: weights in shared memory
-  int bwd_rows;   // K6's walk: rows of a tile (0: does not fit)
-  bool acc_smem;  // K6's walk: weight-gradient partial sums in shared memory
-  int smem_bwd;   // bytes of K6: the replay and the walk share the memory
+  int H;            // > 0: the row path (blockDim g), 0: the tiled path (blockDim kThreads)
+  int rows;         // tiled path: rows of a stage tile
+  int smem_fwd;     // bytes of the forward, and of K6's replay (0: does not fit)
+  bool staged;      // tiled path and K6's tiled walk: weights in shared memory
+  int walk_H;       // K6's walk: > 0 the row path (blocks of bwd_rows threads, one row
+                    // each, never across two groups), 0 the tiled path (a block a group)
+  int bwd_rows;     // K6's walk: rows of a block (row path) or of a tile (0: does not fit)
+  int walk_blocks;  // K6's walk: blocks a group (the partial sums have a row a block)
+  bool acc_smem;    // K6's tiled walk: weight-gradient partial sums in shared memory
+  int smem_bwd;     // bytes of K6's walk kernel (tiled: of the replay and the walk)
 };
 
 inline AdaptivePlan adaptive_plan(const Dims& d, int sd, int g) {
@@ -397,12 +410,21 @@ inline AdaptivePlan adaptive_plan(const Dims& d, int sd, int g) {
   }
   const long P = param_count(d);
   pl.acc_smem = P <= kAccSmemFloats;
+  const RowBwdPlan rp = row_bwd_plan(d, adaptive_walk_row_ld(d, sd));
+  if (rp.H) {
+    pl.walk_H = rp.H;
+    pl.bwd_rows = kRowBwdThreads;
+    pl.walk_blocks = (g + kRowBwdThreads - 1) / kRowBwdThreads;
+    pl.smem_bwd = rp.smem_bytes;
+    return pl;
+  }
   const long fixed2 = (pl.staged ? wf : 0) + (pl.acc_smem ? P : 0);
   const long per_row2 = bwd_floats_per_row(d) + adaptive_bwd_extra(sd, d.nz);
   long rows2 = (kBlockBudgetBytes / 4 - fixed2) / per_row2;
   rows2 = rows2 > g ? g : (rows2 < 1 ? 1 : rows2);
   const long bytes2 = 4 * (fixed2 + rows2 * per_row2);
   pl.bwd_rows = bytes2 <= kSmemMax ? (int)rows2 : 0;
+  pl.walk_blocks = 1;
   pl.smem_bwd = pl.bwd_rows ? (int)(bytes2 > pl.smem_fwd ? bytes2 : pl.smem_fwd) : 0;
   return pl;
 }

@@ -109,11 +109,6 @@ adaptive_fwd_tiled(const float* __restrict__ u0, const float* __restrict__ eps,
   }
 }
 
-template <class K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf::Weights& w,
                    const cnf::Dims& d, const float* t0, const float* t1, float* S, float* u1,
                    float* stats, int B, int sd, int nc, int t_col, int g, const Solver& s,
@@ -122,7 +117,7 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
   if (pl.smem_fwd == 0) return cudaErrorInvalidValue;
   const int grid = B / g;
   if (pl.H == 0) {
-    cudaError_t err = set_smem(adaptive_fwd_tiled, pl.smem_fwd);
+    cudaError_t err = cnf::set_smem(adaptive_fwd_tiled, pl.smem_fwd);
     if (err != cudaSuccess) return err;
     adaptive_fwd_tiled<<<grid, cnf::kThreads, pl.smem_fwd, stream>>>(
         u0, eps, ys, w, d, pl.staged, t0, t1, S, u1, stats, B, sd, nc, t_col, g, pl.rows, s);
@@ -132,7 +127,7 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
   if (pl.H == 8) kernel = adaptive_fwd_rows<8>;
   if (pl.H == 16) kernel = adaptive_fwd_rows<16>;
   if (pl.H == 24) kernel = adaptive_fwd_rows<24>;
-  cudaError_t err = set_smem(kernel, pl.smem_fwd);
+  cudaError_t err = cnf::set_smem(kernel, pl.smem_fwd);
   if (err != cudaSuccess) return err;
   kernel<<<grid, g, pl.smem_fwd, stream>>>(u0, eps, ys, w, d, t0, t1, u1, stats, B, sd, nc, t_col,
                                             s);
@@ -163,8 +158,9 @@ extern "C" int cnf_fused_adaptive_fwd(const float* u0, const float* eps, const f
                 static_cast<cudaStream_t>(stream));
 }
 
-// The launch plan, for the wrapper's log: returns the forward's shared
-// bytes (0: does not fit); info = {H, rows, bwd_rows, smem_bwd}.
+// The launch plan of K5 and K6, which the wrapper reads to size K6's
+// partial-sum buffer: returns the forward's shared bytes (0: does not fit);
+// info = {H, rows, bwd_rows, smem_bwd, walk_H, walk_blocks} (AdaptivePlan).
 extern "C" int cnf_adaptive_plan(int n_in, int h, int n_out, int nz, int sd, int group,
                                  int* info) {
   const cnf::AdaptivePlan pl = cnf::adaptive_plan(cnf::Dims{n_in, h, n_out, nz}, sd, group);
@@ -172,5 +168,7 @@ extern "C" int cnf_adaptive_plan(int n_in, int h, int n_out, int nz, int sd, int
   info[1] = pl.rows;
   info[2] = pl.bwd_rows;
   info[3] = pl.smem_bwd;
+  info[4] = pl.walk_H;
+  info[5] = pl.walk_blocks;
   return pl.smem_fwd;
 }

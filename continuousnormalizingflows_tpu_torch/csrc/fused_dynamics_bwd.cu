@@ -4,23 +4,36 @@
 // Replaces continuousnormalizingflows_tpu/ops/pallas_kernels.py _bwd_kernel
 // (custom-VJP rule _fused_bwd).  Each block takes tiles of rows in turn
 // (tiles b, b + grid, ...): it loads x, eps and the five cotangents of its
-// tile, recomputes the stage's forward with every intermediate kept in
-// shared memory (stage_bwd.cuh stage_fwd_keep), runs the hand-derived
-// backward chain with its second-order gate terms (stage_bwd), writes xbar
-// and epsbar, and adds the tile's weight-gradient terms to its own row of a
-// (grid, P) buffer of partial sums.  A second kernel adds those rows in a
-// fixed order, so the gradients are the same bits on every run.
+// tile, recomputes the stage's forward with every intermediate kept, runs
+// the hand-derived backward chain with its second-order gate terms, writes
+// xbar and epsbar, and adds the tile's weight-gradient terms to its own row
+// of a (grid, P) buffer of partial sums.  A second kernel adds those rows in
+// a fixed order, so the gradients are the same bits on every run.
+//
+// Two paths, chosen from the widths (bwd_shape below):
+//   * h <= 24, one row per thread in tiles of 64 rows
+//     (fused_dynamics_bwd_rows): the stage and its backward with the
+//     accumulators in registers and the intermediates in per-row
+//     shared-memory columns (row_stage_bwd.cuh: row_stage_keep,
+//     row_stage_bwd), then, after one block synchronisation, the tile's
+//     weight-gradient sums (row_accumulate_wgrads).  The tiled design it
+//     replaces at these widths synchronised its block after each of seven
+//     products, most of whose threads idled in the products with N = nz, and
+//     summed the weight gradients with scalar shared-memory reads.
+//   * wider nets, tiles of rows per block through the products of stage.cuh
+//     and stage_bwd.cuh (fused_dynamics_bwd_kernel).  That includes 24 < h <=
+//     32: padded to 32, a block of the row path takes 122 KB of shared
+//     memory, an SM holds one (two warps), and the tiled path is faster
+//     there (kStageRowMaxH below).
 //
 // What bounds it on an H100: per row the backward is ~3x the forward's
 // products (recompute, the six backward products, the six outer products of
 // the weight gradients) against ~100 bytes of device traffic, so, like K1,
-// FMA and shared-memory issue inside the SM.  This first version takes the
-// tiled path of stage.cuh at every width (no row-per-thread path): simple
-// and right first.
+// FMA and shared-memory issue inside the SM.
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
-#include "stage_bwd.cuh"
+#include "row_stage_bwd.cuh"
 
 namespace {
 
@@ -88,17 +101,149 @@ fused_dynamics_bwd_kernel(const float* __restrict__ x, const float* __restrict__
     for (long q = tid; q < P; q += nt) partial[(long)blockIdx.x * P + q] = acc[q];
 }
 
+
+// ---- the row path (h <= 24) ----
+
+// The widest padded hidden width that takes the row path.  Measured on an
+// H100 at batch 65,536 (PERF.md section 6): at H = 8, 16 and 24 the row path
+// takes 0.55-0.65 of the tiled path's time, at H = 32 1.24 of it.
+constexpr int kStageRowMaxH = 24;
+
+// Floats of a thread's own row: y, e_z, xbar, epsbar.
+__host__ __device__ inline int stage_row_ld(const cnf::Dims& d) {
+  return cnf::odd(d.n_out + d.n_in + 2 * d.nz);
+}
+
+// One row per thread, tiles of kRowBwdThreads rows.  Shared memory: the
+// staged weights, the block's P weight-gradient sums, the column buffers of
+// row_stage_bwd.cuh, then each thread's own row (odd stride).
+template <int H, bool BF16>
+__global__ void __launch_bounds__(cnf::kRowBwdThreads)
+fused_dynamics_bwd_rows(const float* __restrict__ x, const float* __restrict__ eps,
+                        cnf::Weights gw, cnf::Dims d, const float* __restrict__ ybar,
+                        const float* __restrict__ ezbar, const float* __restrict__ divbar,
+                        const float* __restrict__ rzbar, const float* __restrict__ rjbar,
+                        float* __restrict__ xbar, float* __restrict__ epsbar,
+                        float* __restrict__ partial, int B) {
+  extern __shared__ __align__(16) float smem[];
+  const cnf::RowWeights w = cnf::stage_row_weights<H, BF16>(gw, d, smem);
+  const long P = cnf::param_count(d);
+  float* acc = smem + cnf::round4(cnf::row_weight_floats(d, H));
+  float* cols = acc + cnf::round4(P);
+  cnf::RowCols c;
+  float* own = cnf::carve_row_cols(cols, H, d, c);
+  const int nz = d.nz, n_in = d.n_in, n_out = d.n_out;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* Y = own + tid * stage_row_ld(d);
+  float* E = Y + n_out;
+  float* XB = E + nz;
+  float* EPSB = XB + n_in;
+  constexpr int ld = cnf::kRowLd;
+  const int units = cnf::row_bwd_units(d, H);
+  const cnf::RowCols my = c.at(tid);
+  my.ONE[0] = 1.0f;
+  my.ZERO[0] = 0.0f;
+  // each entry of acc is zeroed, summed and written by the same thread
+  for (long q = tid; q < P; q += nt) acc[q] = 0.0f;
+  __syncthreads();  // the staged weights
+
+  for (long row0 = (long)blockIdx.x * nt; row0 < B; row0 += (long)gridDim.x * nt) {
+    const int R = (long)B - row0 < nt ? (int)((long)B - row0) : nt;  // ragged last tile
+    const int R4 = (R + 3) & ~3;
+    // the rows past the batch that the weight-gradient pass reads add zeros
+    // (ONE and ZERO, the last two units, stay)
+    if (tid >= R && tid < R4)
+      for (int u = 0; u < units - 2; ++u) cols[u * ld + tid] = 0.0f;
+    if (tid < R) {
+      const long row = row0 + tid;
+      for (int i = 0; i < n_in; ++i) my.X[i * ld] = x[row * n_in + i];
+      for (int k = 0; k < nz; ++k) {
+        my.EPS[k * ld] = eps[row * nz + k];
+        my.EB[k * ld] = ezbar[row * nz + k];
+        EPSB[k] = 0.0f;
+      }
+      for (int o = 0; o < n_out; ++o) my.YB[o * ld] = ybar[row * n_out + o];
+      cnf::row_keep_u2<H, BF16>(w, d, my);
+      float dv, ry, re;
+      cnf::row_stage_keep<H, BF16>(w, d, my, Y, E, dv, ry, re);
+      cnf::row_stage_bwd<H, BF16, true>(w, d, my, Y, E, ry, re, divbar[row], rzbar[row],
+                                        rjbar[row], n_in, XB, EPSB);
+      for (int i = 0; i < n_in; ++i) xbar[row * n_in + i] = XB[i];
+      for (int k = 0; k < nz; ++k) epsbar[row * nz + k] = EPSB[k];
+    }
+    __syncthreads();
+    cnf::row_accumulate_wgrads<H, BF16>(d, c, R4, acc);
+    __syncthreads();  // the next tile overwrites the columns
+  }
+  for (long q = tid; q < P; q += nt) partial[(long)blockIdx.x * P + q] = acc[q];
+}
+
+// ---- plan and dispatch ----
+
+// K2's launch shape for these widths and batch: the row path (H > 0;
+// pl.rows threads a block, one row each, the weights staged) or the tiled
+// path (H == 0; pl.rows rows a tile, 0 when one row does not fit).  Either
+// way a block takes tiles in turn and the grid is capped at what the card
+// holds at once (row_bwd_grid, bwd_grid).  The launch and cnf_bwd_plan both
+// read it: the grid is the row count of the caller's partial-sum buffer.
+struct StageBwdShape {
+  int H;
+  int grid;
+  cnf::BwdPlan pl;
+};
+
+// CNF_K2_ONE_BLOCK_A_TILE builds the row path's other grid, a block for every
+// tile, for the measurement that chose between the two (chip_profile.py
+// k2-grid; the result is in PERF.md section 6).  No build of the package defines
+// it.
+StageBwdShape bwd_shape(const cnf::Dims& d, int B) {
+  const cnf::RowBwdPlan rp = cnf::row_bwd_plan(d, stage_row_ld(d));
+  if (rp.H && rp.H <= kStageRowMaxH) {
+#ifdef CNF_K2_ONE_BLOCK_A_TILE
+    const int grid = (B + cnf::kRowBwdThreads - 1) / cnf::kRowBwdThreads;
+#else
+    const int grid = cnf::row_bwd_grid(B, rp.smem_bytes);
+#endif
+    return StageBwdShape{rp.H, grid,
+                         cnf::BwdPlan{true, false, cnf::kRowBwdThreads, rp.smem_bytes,
+                                      cnf::param_count(d)}};
+  }
+  const cnf::BwdPlan pl = cnf::make_bwd_plan(d, 0);
+  return StageBwdShape{0, pl.rows ? cnf::bwd_grid(B, pl.rows) : 0, pl};
+}
+
+template <int H, bool BF16>
+cudaError_t launch_rows(const float* x, const float* eps, const cnf::Weights& w,
+                        const cnf::Dims& d, const float* ybar, const float* ezbar,
+                        const float* divbar, const float* rzbar, const float* rjbar,
+                        float* xbar, float* epsbar, float* partial, int B, int grid,
+                        int smem_bytes, cudaStream_t stream) {
+  const cudaError_t err = cnf::set_smem(fused_dynamics_bwd_rows<H, BF16>, smem_bytes);
+  if (err != cudaSuccess) return err;
+  fused_dynamics_bwd_rows<H, BF16><<<grid, cnf::kRowBwdThreads, smem_bytes, stream>>>(
+      x, eps, w, d, ybar, ezbar, divbar, rzbar, rjbar, xbar, epsbar, partial, B);
+  return cudaGetLastError();
+}
+
 template <bool BF16>
 cudaError_t launch(const float* x, const float* eps, const cnf::Weights& w, const cnf::Dims& d,
                    const float* ybar, const float* ezbar, const float* divbar,
                    const float* rzbar, const float* rjbar, float* xbar, float* epsbar,
                    float* partial, float* grads, int B, cudaStream_t stream) {
-  const cnf::BwdPlan pl = cnf::make_bwd_plan(d, 0);
+  const StageBwdShape shape = bwd_shape(d, B);
+  const cnf::BwdPlan& pl = shape.pl;
+  const int grid = shape.grid;
+  if (shape.H) {
+    auto rows = launch_rows<24, BF16>;
+    if (shape.H == 8) rows = launch_rows<8, BF16>;
+    if (shape.H == 16) rows = launch_rows<16, BF16>;
+    const cudaError_t err = rows(x, eps, w, d, ybar, ezbar, divbar, rzbar, rjbar, xbar, epsbar,
+                                 partial, B, grid, pl.smem_bytes, stream);
+    if (err != cudaSuccess) return err;
+    return cnf::launch_reduce(partial, grid, pl.P, grads, stream);
+  }
   if (pl.rows == 0) return cudaErrorInvalidValue;
-  const int grid = cnf::bwd_grid(B, pl.rows);
-  cudaError_t err = cudaFuncSetAttribute(fused_dynamics_bwd_kernel<BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         pl.smem_bytes);
+  cudaError_t err = cnf::set_smem(fused_dynamics_bwd_kernel<BF16>, pl.smem_bytes);
   if (err != cudaSuccess) return err;
   fused_dynamics_bwd_kernel<BF16><<<grid, cnf::kThreads, pl.smem_bytes, stream>>>(
       x, eps, w, d, pl.staged, pl.acc_smem, ybar, ezbar, divbar, rzbar, rjbar, xbar, epsbar,
@@ -135,14 +280,16 @@ extern "C" int cnf_fused_dynamics_bwd(const float* x, const float* eps, const fl
 }
 
 // This kernel's launch plan for these widths and batch (the whole-solve
-// backward's is cnf_solve_bwd_plan): returns rows per tile and sets info[0] =
+// backward's is cnf_solve_bwd_plan): returns rows per tile (the row path:
+// threads a block, one row each; 0: the widths do not fit) and sets info[0] =
 // weights staged in shared memory, info[1] = grid (rows of the partial-sum
-// buffer), info[2] = P, the parameter count.
+// buffer), info[2] = P, the parameter count, info[3] = H of the row path
+// (0: the tiled path).
 extern "C" int cnf_bwd_plan(int n_in, int h, int n_out, int nz, int B, int* info) {
-  const cnf::Dims d{n_in, h, n_out, nz};
-  const cnf::BwdPlan pl = cnf::make_bwd_plan(d, 0);
-  info[0] = pl.staged ? 1 : 0;
-  info[1] = pl.rows ? cnf::bwd_grid(B, pl.rows) : 0;
-  info[2] = (int)pl.P;
-  return pl.rows;
+  const StageBwdShape shape = bwd_shape(cnf::Dims{n_in, h, n_out, nz}, B);
+  info[0] = shape.pl.staged ? 1 : 0;
+  info[1] = shape.grid;
+  info[2] = (int)shape.pl.P;
+  info[3] = shape.H;
+  return shape.pl.rows;
 }

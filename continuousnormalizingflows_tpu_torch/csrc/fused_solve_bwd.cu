@@ -57,20 +57,6 @@
 
 namespace {
 
-// The cotangent dub of column c of the stage output du = [y, -div, |y|, |e_z|]
-// as the stage backward reads it; ebar = 0 (e_z is not an output of a step).
-__device__ __forceinline__ void set_cotangent(const cnf::BwdBufs& b, int r, int c, int nz,
-                                              float dub) {
-  if (c < nz) {
-    b.YB[r * b.f.ldy + c] = dub;
-    b.EB[r * b.f.ldz + c] = 0.0f;
-  } else if (c == nz) {
-    b.CT[r * 3 + 0] = -dub;
-  } else {
-    b.CT[r * 3 + (c - nz)] = dub;  // nz + 1 -> |y|, nz + 2 -> |e_z|
-  }
-}
-
 template <bool BF16>
 __global__ void __launch_bounds__(cnf::kThreads)
 fused_solve_rk4_bwd_kernel(const float* __restrict__ u0, const float* __restrict__ eps,
@@ -216,7 +202,7 @@ fused_solve_rk4_bwd_kernel(const float* __restrict__ u0, const float* __restrict
         const int r = idx / sd, c = idx - r * sd;
         const float a = A[r * lds + c];
         AN[r * lds + c] = a;
-        set_cotangent(b, r, c, nz, (dt / 6.0f) * a);
+        cnf::set_cotangent(b, r, c, nz, (dt / 6.0f) * a);
       }
       __syncthreads();
 
@@ -237,11 +223,11 @@ fused_solve_rk4_bwd_kernel(const float* __restrict__ u0, const float* __restrict
             AN[r * lds + c] = AN[r * lds + c] + vb;
             EPSB[r * ldz + c] += b.EPB[r * ldz + c];
             if (st > 0) {
-              set_cotangent(b, r, c, nz, ca * a + cv * vb);
+              cnf::set_cotangent(b, r, c, nz, ca * a + cv * vb);
               s.X[r * ldx + c] = vnext[r * ldz + c];
             }
           } else if (st > 0) {
-            set_cotangent(b, r, c, nz, ca * a);  // vb is 0 past the z columns
+            cnf::set_cotangent(b, r, c, nz, ca * a);  // vb is 0 past the z columns
           }
         }
         if (st == 1 && t_col >= 0)
@@ -305,13 +291,10 @@ solve_traj_rows(const float* __restrict__ u0, const float* __restrict__ eps,
   }
 }
 
-// The dub of state column c of a stage's output du = [y, -div, |y|, |e_z|]:
-// ybar into this row's YB column, the rest into (divbar, rzbar, rjbar).
-__device__ __forceinline__ void set_row_cotangent(const cnf::RowCols& my, int c, int nz,
-                                                  float dub, float (&ct)[3]) {
-  if (c < nz) my.YB[c * cnf::kRowLd] = dub;
-  else if (c == nz) ct[0] = -dub;
-  else ct[c - nz] = dub;  // nz + 1 -> |y|, nz + 2 -> |e_z|
+// Floats of a thread's own row in the walk back: the row_stage input, its
+// output, e_z, the RK4 stage inputs, the cotangents.
+__host__ __device__ inline int solve_row_ld(const cnf::Dims& d, int sd) {
+  return cnf::odd(d.n_in + d.n_out + 8 * d.nz + 2 * sd);
 }
 
 // The walk back, one row per thread (kRowBwdThreads rows a block).  Shared
@@ -337,7 +320,7 @@ fused_solve_rk4_bwd_rows(const float* __restrict__ eps, const float* __restrict_
   float* own = cnf::carve_row_cols(cols, H, d, c);
   const int nz = d.nz, n_in = d.n_in;
   const int tid = threadIdx.x, nt = blockDim.x;
-  float* X = own + tid * cnf::row_bwd_row_ld(d, sd);
+  float* X = own + tid * solve_row_ld(d, sd);
   float* EPS = X + n_in;
   float* Y = EPS + nz;
   float* E = Y + d.n_out;
@@ -411,7 +394,7 @@ fused_solve_rk4_bwd_rows(const float* __restrict__ eps, const float* __restrict_
       if (t_col >= 0) my.X[t_col * ld] = t + dt;
       for (int k = 0; k < sd; ++k) {
         AN[k] = A[k];
-        set_row_cotangent(my, k, nz, (dt / 6.0f) * A[k], ct);
+        cnf::set_row_cotangent(my, k, nz, (dt / 6.0f) * A[k], ct);
       }
     }
 
@@ -423,7 +406,7 @@ fused_solve_rk4_bwd_rows(const float* __restrict__ eps, const float* __restrict_
       if (active) {
         float dv, ry, re;
         cnf::row_stage_keep<H, BF16>(w, d, my, Y, E, dv, ry, re);
-        cnf::row_stage_bwd<H, BF16>(w, d, my, Y, E, ry, re, ct[0], ct[1], ct[2], XB, EPSB);
+        cnf::row_stage_bwd<H, BF16>(w, d, my, Y, E, ry, re, ct[0], ct[1], ct[2], nz, XB, EPSB);
         for (int k = 0; k < nz; ++k) AN[k] = AN[k] + XB[k];  // a_new += vb = xbar[:nz]
       }
       __syncthreads();
@@ -436,10 +419,10 @@ fused_solve_rk4_bwd_rows(const float* __restrict__ eps, const float* __restrict_
         const float* vnext = st == 3 ? V2 : st == 2 ? V1 : UZ;
         for (int k = 0; k < sd; ++k) {
           if (k < nz) {
-            set_row_cotangent(my, k, nz, ca * A[k] + cv * XB[k], ct);
+            cnf::set_row_cotangent(my, k, nz, ca * A[k] + cv * XB[k], ct);
             my.X[k * ld] = vnext[k];
           } else {
-            set_row_cotangent(my, k, nz, ca * A[k], ct);  // vb is 0 past the z columns
+            cnf::set_row_cotangent(my, k, nz, ca * A[k], ct);  // vb is 0 past the z columns
           }
         }
         if (st == 1 && t_col >= 0) my.X[t_col * ld] = t;
@@ -497,7 +480,7 @@ struct SolveBwdShape {
 };
 
 SolveBwdShape solve_bwd_shape(const cnf::Dims& d, int sd, int B) {
-  const cnf::RowBwdPlan rp = cnf::row_bwd_plan(d, sd);
+  const cnf::RowBwdPlan rp = cnf::row_bwd_plan(d, solve_row_ld(d, sd));
   if (rp.H)
     return SolveBwdShape{rp.H, (B + cnf::kRowBwdThreads - 1) / cnf::kRowBwdThreads,
                          cnf::BwdPlan{true, false, cnf::kRowBwdThreads, rp.smem_bytes,

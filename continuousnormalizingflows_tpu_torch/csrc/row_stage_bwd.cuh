@@ -1,7 +1,8 @@
 // The backward of one dynamics stage (stage.cuh) with one row per thread:
-// the path of the whole-solve RK4 backward (fused_solve_bwd.cu, K4) for
-// narrow nets (h <= 32), beside the tiled stage_bwd.cuh that K2, K6 and K4
-// at wider nets take.
+// the path for narrow nets of the per-stage backward (fused_dynamics_bwd.cu,
+// K2: h <= 24), the whole-solve RK4 backward (fused_solve_bwd.cu, K4: h <= 32)
+// and the walk of the adaptive solve's backward (fused_adaptive_bwd.cu, K6:
+// h <= 32), beside the tiled stage_bwd.cuh that the three take at wider nets.
 //
 // The chain is the one written at the top of stage_bwd.cuh, with the same
 // sums in the same order, so for one row the two paths do the same
@@ -16,8 +17,8 @@
 //     kRowBwdThreads + 4: a thread's own accesses fall on distinct banks,
 //     and the float4 reads of the weight-gradient pass (4 rows of one unit)
 //     from 8 threads of distinct units fall on distinct bank groups;
-//   * u2 = A3^T eps does not depend on the stage input (eps is fixed for the
-//     whole solve), so the caller computes it once per row.
+//   * u2 = A3^T eps does not depend on the stage input (eps is fixed for a
+//     whole solve), so the caller computes it once per row (row_keep_u2).
 // These columns take ~1.5 KB a row at h = 24, so an SM holds two blocks of
 // 64 rows: 4 warps, one a scheduler.  Nothing hides a stall, which sets the
 // shape of the code below (see the notes at load_col and dots).
@@ -75,31 +76,40 @@ __host__ __device__ inline int row_bwd_units(const Dims& d, int H) {
   return 11 * H + d.n_in + 2 * d.nz + d.n_out + 2;
 }
 
-// per-thread row of the caller's own state (K4: the row_stage input, its
-// output, e_z, the RK4 stage inputs, the cotangents)
-__host__ __device__ inline int row_bwd_row_ld(const Dims& d, int sd) {
-  return odd(d.n_in + d.n_out + 8 * d.nz + 2 * sd);
-}
-
 __host__ __device__ inline long round4(long n) { return (n + 3) & ~3L; }
 
-// Launch plan of the row path of K4: H > 0 and the block's shared-memory
-// bytes when the widths take it (h <= 32, the staged weights within
-// kStageWeightsBytes, the block within 227 KB), else H = 0 (tiled path).
+// Launch plan of a kernel on the row path: H > 0 and the block's
+// shared-memory bytes when the widths take it (h <= 32, the staged weights
+// within kStageWeightsBytes, the block within 227 KB), else H = 0 (tiled
+// path).  A block holds the staged weights, its P weight-gradient sums, the
+// column buffers and, per thread, own_ld floats of the caller's own state.
 struct RowBwdPlan {
   int H;
   int smem_bytes;
 };
 
-inline RowBwdPlan row_bwd_plan(const Dims& d, int sd) {
+inline RowBwdPlan row_bwd_plan(const Dims& d, int own_ld) {
   const int H = row_H(d.h);
-  if (H == 0 || sd == 0) return RowBwdPlan{0, 0};
+  if (H == 0) return RowBwdPlan{0, 0};
   const long wf = row_weight_floats(d, H);
   if (4 * wf > kStageWeightsBytes) return RowBwdPlan{0, 0};
   const long floats = round4(wf) + round4(param_count(d)) + (long)row_bwd_units(d, H) * kRowLd +
-                      (long)kRowBwdThreads * row_bwd_row_ld(d, sd);
+                      (long)kRowBwdThreads * own_ld;
   if (4 * floats > kRowBwdSmemBytes) return RowBwdPlan{0, 0};
   return RowBwdPlan{H, (int)(4 * floats)};
+}
+
+// Blocks of a launch whose blocks take 64-row tiles in turn: a block for
+// every tile, at most as many as the card holds at once, so the weights are
+// staged, and a row of partial sums written, once a block and not once a
+// tile.  An SM holds what its 228 KB of shared memory allow (a block takes
+// 1 KB beyond its own), at most 4: 4 blocks of 64 threads fit its registers
+// whatever a thread takes.
+inline int row_bwd_grid(int B, int smem_bytes) {
+  const long tiles = ((long)B + kRowBwdThreads - 1) / kRowBwdThreads;
+  long per_sm = 228L * 1024 / (smem_bytes + 1024);
+  per_sm = per_sm < 1 ? 1 : per_sm > 4 ? 4 : per_sm;
+  return (int)(tiles < kSMs * per_sm ? tiles : kSMs * per_sm);
 }
 
 // Carves the column buffers for widths d from p (16-byte aligned); returns
@@ -265,21 +275,27 @@ __device__ __forceinline__ void row_stage_keep(const RowWeights& w, const Dims& 
   re = sqrtf(ee + 1e-20f);
 }
 
-// The backward of the stage whose row_stage_keep just ran, for one row with
-// ebar = 0 (e_z is not an output of a solve step).  Reads ybar from YB and
-// the cotangents divbar, rzbar, rjbar; writes ybar_t (YB), ebar_t (EB),
-// u1bar (G1), u2bar (G2), z1_t (U1) and z2_t (Z2), the first nz entries of
-// xbar to xb, and adds epsbar to epsb.
-template <int H, bool BF16>
+// The backward of the stage whose row_stage_keep just ran, for one row.
+// Reads ybar from YB, the cotangents divbar, rzbar, rjbar and, with EBAR,
+// ebar from EB (K2: e_z is an output of the stage; without it ebar = 0, as in
+// a solve step, whose output holds no e_z: K4, K6); writes ybar_t (YB),
+// ebar_t (EB), u1bar (G1), u2bar (G2), z1_t (U1) and z2_t (Z2), the first
+// nxb entries of xbar to xb (nz in a solve, n_in for K2), and adds epsbar to
+// epsb.
+template <int H, bool BF16, bool EBAR = false>
 __device__ __forceinline__ void row_stage_bwd(const RowWeights& w, const Dims& d,
                                               const RowCols& c, const float* y, const float* e,
                                               float ry, float re, float divbar, float rzbar,
-                                              float rjbar, float* xb, float* epsb) {
+                                              float rjbar, int nxb, float* xb, float* epsb) {
   const int nz = d.nz;
   // merge the cotangents of |y|, |e_z| and div into those of y and e_z
   for (int o = 0; o < d.n_out; ++o) c.YB[o * kRowLd] += rzbar * y[o] / ry;
-  for (int i = 0; i < nz; ++i)
-    c.EB[i * kRowLd] = divbar * c.EPS[i * kRowLd] + rjbar * e[i] / re;
+  for (int i = 0; i < nz; ++i) {
+    if constexpr (EBAR)
+      c.EB[i * kRowLd] = c.EB[i * kRowLd] + divbar * c.EPS[i * kRowLd] + rjbar * e[i] / re;
+    else
+      c.EB[i * kRowLd] = divbar * c.EPS[i * kRowLd] + rjbar * e[i] / re;
+  }
 
   float a[H], g[H], s[H], v[H];
   // probe-VJP path: d1bar = ebar_t A1[:, :nz]^T (the first nz rows of W1t)
@@ -337,8 +353,18 @@ __device__ __forceinline__ void row_stage_bwd(const RowWeights& w, const Dims& d
     c.U1[j * kRowLd] = z;
     g[j] = rnd<BF16>(z);
   }
-  // xbar[:nz] = z1_t A1
-  dots<H>(g, w.W1t, nz, [&](int n, float dot) { xb[n] = dot; });
+  // xbar[:nxb] = z1_t A1
+  dots<H>(g, w.W1t, nxb, [&](int n, float dot) { xb[n] = dot; });
+}
+
+// The dub of state column c of a solve stage's output du = [y, -div, |y|,
+// |e_z|]: ybar into this row's YB column, the rest into (divbar, rzbar,
+// rjbar).
+__device__ __forceinline__ void set_row_cotangent(const RowCols& my, int c, int nz, float dub,
+                                                  float (&ct)[3]) {
+  if (c < nz) my.YB[c * kRowLd] = dub;
+  else if (c == nz) ct[0] = -dub;
+  else ct[c - nz] = dub;  // nz + 1 -> |y|, nz + 2 -> |e_z|
 }
 
 // Adds the weight-gradient terms of the stage just taken back, summed over

@@ -114,6 +114,13 @@ inline Plan make_plan(const Dims& d, int extra_floats_per_row) {
   return Plan{staged, (int)rows, (int)bytes};
 }
 
+// Lets a kernel take `bytes` of dynamic shared memory (above 48 KB a launch
+// needs this first).
+template <class K>
+cudaError_t set_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 // Copies the weights into shared memory at p (when staged) and returns the
 // pointers the products read.  The forward matrices are transposed from the
 // nn.Linear layout on the way, so a staged call needs no W*t copies.

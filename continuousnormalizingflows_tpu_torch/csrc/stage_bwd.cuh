@@ -1,8 +1,12 @@
 // The backward of one dynamics stage (stage.cuh) for a tile of rows held in
 // shared memory, with the weight gradients summed into a per-block
-// accumulator.  Shared by the per-stage backward kernel
-// (fused_dynamics_bwd.cu, K2) and the whole-solve RK4 backward kernel
-// (fused_solve_bwd.cu, K4).
+// accumulator: the tiled path of the per-stage backward kernel
+// (fused_dynamics_bwd.cu, K2), the whole-solve RK4 backward kernel
+// (fused_solve_bwd.cu, K4) and the walk of the adaptive solve's backward
+// (fused_adaptive_bwd.cu, K6).  The three take it for nets wider than h = 32,
+// or where a block of the row-per-thread path (row_stage_bwd.cuh) does not
+// fit in shared memory; narrower nets take that path.  The chain rule below,
+// param_count, bwd_grid and the reduction of the partial sums serve both.
 //
 // The chain is the one of the TPU kernels (pallas_kernels.py _bwd_kernel,
 // pallas_solve.py _stage_vjp).  With the forward intermediates of the row
@@ -44,7 +48,8 @@
 namespace cnf {
 
 constexpr long kAccSmemFloats = 4096;  // weight-gradient accumulator kept in shared memory
-constexpr int kMaxGrid = 264;          // blocks of a backward launch (2 per SM of an H100)
+constexpr int kSMs = 132;              // streaming multiprocessors of an H100
+constexpr int kMaxGrid = 2 * kSMs;     // blocks of a tiled backward launch (2 per SM)
 
 // Shared-memory buffers of one backward stage, on top of the forward's.
 struct BwdBufs {
@@ -124,6 +129,19 @@ inline BwdPlan make_bwd_plan(const Dims& d, int extra_floats_per_row) {
 inline int bwd_grid(int B, int rows) {
   const long tiles = ((long)B + rows - 1) / rows;
   return tiles < kMaxGrid ? (int)tiles : kMaxGrid;
+}
+
+// The cotangent dub of column c of a solve stage's output du = [y, -div, |y|,
+// |e_z|] as stage_bwd reads it; ebar = 0 (e_z is not an output of a step).
+__device__ __forceinline__ void set_cotangent(const BwdBufs& b, int r, int c, int nz, float dub) {
+  if (c < nz) {
+    b.YB[r * b.f.ldy + c] = dub;
+    b.EB[r * b.f.ldz + c] = 0.0f;
+  } else if (c == nz) {
+    b.CT[r * 3 + 0] = -dub;
+  } else {
+    b.CT[r * 3 + (c - nz)] = dub;  // nz + 1 -> |y|, nz + 2 -> |e_z|
+  }
 }
 
 // The forward of one stage, keeping what the backward reads: s1, h1, s2, h2,

@@ -9,6 +9,7 @@ for a reproducible one.  ``Mode.TEST`` (default) is exact and deterministic.
 
 from __future__ import annotations
 
+import numbers
 import warnings
 from typing import Optional
 
@@ -20,6 +21,20 @@ from .models.icnf import ICNF
 from .models.nets import Params
 
 __all__ = ["ICNFDist", "CondICNFDist"]
+
+
+def _check_sample_args(what: str, n, generator) -> int:
+    """The port's order is ``(n, generator=None)``, the reverse of the JAX
+    package's ``(key, n)``: a call carried over by position gets an error
+    that names it."""
+    if (isinstance(n, bool) or not isinstance(n, numbers.Integral)
+            or not (generator is None or isinstance(generator, torch.Generator))):
+        raise TypeError(
+            f"{what}(n, generator=None) takes the number of samples first and an optional "
+            f"torch.Generator second (the reverse of the JAX package's {what}(key, n)); got "
+            f"n={type(n).__name__}, generator={type(generator).__name__}"
+        )
+    return int(n)
 
 
 def _shim_layout(x: torch.Tensor, nvariables: int) -> torch.Tensor:
@@ -76,11 +91,13 @@ class ICNFDist:
                trace_free: bool = False) -> torch.Tensor:
         """``(n, nvariables)`` samples; ``trace_free=True`` integrates only the
         bare field."""
+        n = _check_sample_args("sample", n, generator)
         return generate(self.icnf, self.mode, self.params, generator or self.generator, n,
                         ys=self._ys_for(n), trace_free=trace_free)
 
     def sample_with_logpdf(self, n: int, generator: Optional[torch.Generator] = None):
         """``(samples, logpdf)`` from ONE reversed solve."""
+        n = _check_sample_args("sample_with_logpdf", n, generator)
         return generate_with_logp(self.icnf, self.mode, self.params,
                                   generator or self.generator, n, ys=self._ys_for(n))
 

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "cnf_fused_dynamics_bwd": [_P] * 20 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_bwd": [_P] * 20 + [_I] * 10 + [_P],
     "cnf_fused_adaptive_fwd": [_P] * 17 + [_I] * 10 + [_F] * 6 + [_P],
-    "cnf_fused_adaptive_bwd": [_P] * 23 + [_I] * 11 + [_F] * 6 + [_P],
+    "cnf_fused_adaptive_bwd": [_P] * 24 + [_I] * 11 + [_F] * 6 + [_P],
     "cnf_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_bwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_solve_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
@@ -134,13 +134,14 @@ def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
 def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int):
     """The backward kernels' launch shape (``sd``: the whole-solve kernel's
     state width, 0 for the single stage): ``(rows per block, weights staged
-    in shared memory, grid, parameter count, H)``, where ``H > 0`` is K4's
-    row-per-thread path (h <= 32, one row a thread, hidden width padded to
-    ``H``) and ``H == 0`` the tiled path (K2 always); the wrapper allocates
-    the ``(grid, parameter count)`` buffer of per-block weight-gradient sums.
-    Each kernel's source plans its own launch: K2's ``cnf_bwd_plan``, K4's
-    ``cnf_solve_bwd_plan``."""
-    info = (ctypes.c_int * 4)()  # zeros: K2's plan leaves H at 0
+    in shared memory, grid, parameter count, H)``, where ``H > 0`` is the
+    row-per-thread path (K4: h <= 32, K2: h <= 24; one row a thread in blocks
+    of ``rows`` threads, hidden width padded to ``H``) and ``H == 0`` the
+    tiled path;
+    the wrapper allocates the ``(grid, parameter count)`` buffer of per-block
+    weight-gradient sums.  Each kernel's source plans its own launch: K2's
+    ``cnf_bwd_plan``, K4's ``cnf_solve_bwd_plan``."""
+    info = (ctypes.c_int * 4)()
     lib = kernels()
     rows = (lib.cnf_solve_bwd_plan(n_in, h, n_out, nz, sd, batch, info) if sd
             else lib.cnf_bwd_plan(n_in, h, n_out, nz, batch, info))
@@ -150,10 +151,16 @@ def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int):
 @functools.cache
 def adaptive_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, group: int):
     """The adaptive kernels' launch shape for a control group of ``group``
-    rows: ``(H, rows, smem_fwd, bwd_rows, smem_bwd)``, where ``H > 0`` is the
-    row-per-thread path (K5 and K6's replay) and ``H == 0`` the tiled path
-    with ``rows`` rows a stage tile; ``bwd_rows``: rows of a tile of K6's walk
-    back; a byte count of 0 means the widths do not fit."""
-    info = (ctypes.c_int * 4)()
+    rows: ``(H, rows, smem_fwd, bwd_rows, smem_bwd, walk_H, walk_blocks)``,
+    where ``H > 0`` is the row-per-thread path (K5 and K6's replay) and ``H ==
+    0`` the tiled path with ``rows`` rows a stage tile.  K6's walk back:
+    ``walk_H > 0`` is its row-per-thread path, a kernel of its own after the
+    replay (blocks of ``bwd_rows`` threads, one row each), ``walk_H == 0``
+    its tiled path, in the replay's kernel (``bwd_rows`` rows a tile); it
+    takes ``walk_blocks`` blocks a group, and the wrapper allocates a row of
+    weight-gradient sums for each.  ``smem_bwd``: the shared bytes of the
+    kernel that walks.  A byte count of 0 means the widths do not fit."""
+    info = (ctypes.c_int * 6)()
     smem_fwd = kernels().cnf_adaptive_plan(n_in, h, n_out, nz, sd, group, info)
-    return int(info[0]), int(info[1]), smem_fwd, int(info[2]), int(info[3])
+    return (int(info[0]), int(info[1]), smem_fwd, int(info[2]), int(info[3]), int(info[4]),
+            int(info[5]))

@@ -18,7 +18,9 @@ chain rule, ``kbar_i = dt b_i a + dt sum_{m > i} a_mi vbar_m``, with the
 stage VJP of :mod:`.fused_dynamics`.  The accept decisions and step sizes
 are not differentiated.  A group that accepted more steps than the buffer
 holds, or did not finish, NaN-poisons its rows of ``u0bar``/``epsbar`` and
-every weight gradient.
+every weight gradient.  On the card, for hidden widths <= 32, the replay
+and the walk are two kernels: the replay one block a group like K5, the
+walk one row a thread in blocks of 64 rows within a group.
 
 **The route is the semantics here.**  Per-group step control gives other
 answers than the global-norm solve of :mod:`.ode` (by O(tol)), so the same
@@ -412,11 +414,14 @@ def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, 
     u0bar = torch.empty_like(u0)
     epsbar = torch.empty_like(eps)
     state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
-    traj = torch.empty((max_nodes, b, nz), dtype=torch.float32, device=dev)
+    traj = torch.empty((max_nodes, nz, b), dtype=torch.float32, device=dev)
     tdt = torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_groups, n_params), dtype=torch.float32, device=dev)
+    # a row of weight-gradient partial sums for each block of the walk back
+    walk_blocks = _build.adaptive_plan(n_in, h, n_out, nz, sd, group)[6]
+    partial = torch.empty((n_groups * walk_blocks, n_params), dtype=torch.float32, device=dev)
     grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
     nacc = torch.empty((n_groups,), dtype=torch.int32, device=dev)
+    done = torch.empty((n_groups,), dtype=torch.int32, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -424,7 +429,7 @@ def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, 
             _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
             _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(t1), _ptr(gbar),
             _ptr(u0bar), _ptr(epsbar), _ptr(state), _ptr(traj), _ptr(tdt), _ptr(partial),
-            _ptr(grads), _ptr(nacc), b, sd, n_in, h, n_out, nz, nc,
+            _ptr(grads), _ptr(nacc), _ptr(done), b, sd, n_in, h, n_out, nz, nc,
             -1 if t_col is None else t_col, group, max_nodes, *_solver_args(scfg), stream,
         )
     _build.check(err, "fused_adaptive_bwd")

@@ -67,12 +67,16 @@ def _flat_jax(xbar, epsbar, pbar):
     return [np.asarray(xbar), np.asarray(epsbar), *(v.numpy() for v in port.values())]
 
 
-# (n_in, h, nz): the flagship stage, a ragged width, the tabular width
-STAGE_SHAPES = {"flagship": (6, 24, 5), "ragged": (5, 20, 4), "tabular": (44, 176, 43)}
+# (n_in, h, nz): the flagship stage, a ragged width, the tabular width, and the
+# FFJORD form's net on a 13-row batch (a ragged last tile on both sides)
+STAGE_SHAPES = {"flagship": (6, 24, 5), "ragged": (5, 20, 4), "tabular": (44, 176, 43),
+                "ffjord": (3, 12, 2)}
+STAGE_BATCH = {"ffjord": 13}
 
 
 def _stage_setup(shape):
     n_in, h, nz = STAGE_SHAPES[shape]
+    B = STAGE_BATCH.get(shape, 32)
     jparams = jax.device_get(JMLP((n_in, h, h, nz)).init(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(1)
     x = rng.standard_normal((B, n_in)).astype(np.float32)
@@ -85,7 +89,7 @@ def _stage_setup(shape):
 
 @pytest.mark.parametrize("shape, prec", [("flagship", None), ("ragged", None),
                                          ("tabular", None), ("flagship", "bf16"),
-                                         ("tabular", "bf16")])
+                                         ("tabular", "bf16"), ("ffjord", None)])
 def test_stage_backward_matches_jax_kernel(shape, prec):
     jparams, x, eps, cot, nz = _stage_setup(shape)
     jcdt = None if prec is None else jnp.bfloat16

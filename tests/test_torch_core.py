@@ -215,3 +215,32 @@ def test_stochastic_mode_needs_generator():
     _j, _jp, ticnf, tparams = _models()
     with pytest.raises(ValueError, match="Generator"):
         tcnf.inference(ticnf, Mode.TRAIN, torch.zeros(4, 2), tparams)
+
+
+@pytest.mark.parametrize("method", ["sample", "sample_with_logpdf", "rand"])
+@pytest.mark.parametrize("conditioned", [False, True], ids=["plain", "conditioned"])
+def test_sample_argument_order_is_named(method, conditioned):
+    """The port takes ``(n, generator=None)``, the reverse of the JAX
+    package's ``(key, n)``: a call in JAX's order, or a generator that is not
+    one, raises a TypeError that names the port's order; the right order gives
+    what a direct call of the core gives for the same generator."""
+    if conditioned:
+        _j, _jp, ticnf, tparams = _models(nconditions=3)
+        d = tcnf.CondICNFDist(ticnf, tparams, np.ones((1, 3), np.float32), Mode.TRAIN)
+    else:
+        _j, _jp, ticnf, tparams = _models()
+        d = tcnf.ICNFDist(ticnf, tparams, Mode.TRAIN)
+    call = getattr(d, method)
+    name = "sample" if method == "rand" else method
+    for args, kw in (((torch.Generator().manual_seed(0), 4), {}), ((4,), dict(generator=4))):
+        with pytest.raises(TypeError, match=rf"{name}\(n, generator=None\)"):
+            call(*args, **kw)
+    got = call(4, torch.Generator().manual_seed(9))
+    core_fn = tcore.generate_with_logp if method == "sample_with_logpdf" else tcore.generate
+    want = core_fn(ticnf, Mode.TRAIN, tparams, torch.Generator().manual_seed(9), 4,
+                   ys=d._ys_for(4))
+    if method == "sample_with_logpdf":
+        assert got[0].shape == (4, 2) and got[1].shape == (4,)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert got.shape == (4, 2) and torch.equal(got, want)

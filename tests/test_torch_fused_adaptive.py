@@ -95,6 +95,14 @@ def test_single_group_matches_jax(conditioned):
     _check(_run_both(*_make(16, nconditions=2 if conditioned else 0)))
 
 
+@pytest.mark.parametrize("conditioned", [False, True])
+def test_group_of_72_rows_matches_jax(conditioned):
+    """B = 72: one control group in both packages (on the card K6 walks it as
+    a 64-row block and an 8-row one; the twin and the JAX kernel take it
+    whole), stats, values and gradients."""
+    _check(_run_both(*_make(72, nconditions=2 if conditioned else 0)))
+
+
 def test_four_groups_of_eight_match_jax_per_group(monkeypatch):
     """B = 32 as 4 groups of 8 rows on both sides (the JAX test's forced
     8-row tiles): every group matches its JAX tile, stats and values."""

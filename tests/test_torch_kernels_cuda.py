@@ -146,6 +146,40 @@ def test_fused_dynamics_bwd_kernel_matches_plain(dev, n_in, h, nz, b, cdt):
     _close_to_max(_flat(got), _flat(want), BWD_TOL[cdt])
 
 
+# K2's row path at its widths (h = 8, 16, 24 exact; h = 12, the FFJORD form's net
+# 3 -> 12 -> 12 -> 2, padded to 16) and the tiled path past it (h = 32, where a
+# block of the row path would leave an SM two warps, and h = 33); a conditioned
+# net input (nz = 5, the time and 2 conditions: xbar has n_in = 8
+# columns), a non-zero ezbar; batches around the 64-row tile, and one longer than
+# a full grid of tiles (264 blocks of 64 rows), so that blocks take a second tile
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 63, 64, 65, 127, 1000, 20000])
+@pytest.mark.parametrize("h", [8, 12, 16, 24, 32, 33])
+def test_fused_dynamics_bwd_paths_and_edges(dev, h, b, cdt):
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    n_in, nz = (3, 2) if h == 12 else (8, 5)
+    rows, _staged, grid, _n, h_pad = _build.bwd_plan(n_in, h, nz, nz, 0, b)
+    assert h_pad == (0 if h > 24 else -(-h // 8) * 8)
+    # blocks take tiles in turn: at most what the card holds at once (2-4 blocks
+    # on each of 132 SMs by the row path's shared memory, 2 on the tiled path)
+    resident = 528 if h == 12 else {0: 264, 8: 528, 16: 396, 24: 264}[h_pad]
+    assert grid == min(-(-b // rows), resident)
+    params = _params((n_in, h, h, nz), dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((b, n_in), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    cot = (torch.randn((b, nz), generator=g, device=dev),
+           torch.randn((b, nz), generator=g, device=dev),
+           *torch.randn((3, b), generator=g, device=dev))
+    before = fused_dynamics_vjp_bwd.launches
+    got = fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)
+    torch.cuda.synchronize()
+    assert fused_dynamics_vjp_bwd.launches == before + 1
+    want = fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot, cdt)
+    _close_to_max(_flat(got), _flat(want), BWD_TOL[cdt])
+
+
 def _solve_case(case, dev):
     nz, nc, t_col, span, h, b = 5, 0, 5, (0.0, 1.0), 24, 999
     if case == "conditioned":
@@ -194,9 +228,13 @@ def test_fused_solve_bwd_kernel_matches_plain(dev, case, cdt):
     _close_to_max(_flat(got), _flat(want), SOLVE_BWD_TOL[cdt])
 
 
-@pytest.mark.parametrize("case", ["plain", "tabular"])  # K4's row path, then its tiled path
+# K2's and K4's row path, then their tiled path; K6's walk on its row path (h = 24),
+# then on its tiled path (h = 128)
+@pytest.mark.parametrize("case", ["plain", "tabular"])
 def test_backward_kernels_are_deterministic(dev, case):
     """Weight gradients are summed in a fixed order: two calls, same bits."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
     args, gbar = _solve_case(case, dev)
     first = _flat(fused_solve_rk4_bwd(*args, 32, gbar))
     second = _flat(fused_solve_rk4_bwd(*args, 32, gbar))
@@ -207,21 +245,46 @@ def test_backward_kernels_are_deterministic(dev, case):
     first = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot))
     second = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    args, gbar = _adaptive_case("flagship" if case == "plain" else "wide", dev)
+    first = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+    second = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+    assert all(torch.equal(a, b) for a, b in zip((first[0], first[1], *first[2], first[3]),
+                                                 (second[0], second[1], *second[2], second[3])))
 
 
 def test_bwd_plan_names_the_path(dev):
-    """K4 (sd > 0) takes the row-per-thread path for h <= 32, one row a
-    thread in blocks of 64, and the tiled path for wider nets; K2 (sd = 0)
-    always the tiled one."""
+    """K4 (sd > 0) and K6's walk take the row-per-thread path for h <= 32,
+    K2 (sd = 0) for h <= 24: one row a thread in blocks of 64; wider nets
+    the tiled path.  K2's blocks take tiles in turn (at most what the card
+    holds at once); K4's and K6's grids have a block for every 64 rows, K6's
+    within a control group (a 72-row group: a 64-row block and an 8-row
+    one)."""
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     for h, n_in, nz in ((8, 6, 5), (12, 3, 2), (16, 8, 5), (24, 6, 5), (28, 9, 5), (32, 6, 5)):
-        rows, staged, grid, n_params, h_pad = _build.bwd_plan(n_in, h, nz, nz, nz + 3, 1000)
-        assert (rows, staged, grid, h_pad) == (64, True, 16, -(-h // 8) * 8), h
+        h_pad = -(-h // 8) * 8
+        rows, staged, grid, n_params, got_h = _build.bwd_plan(n_in, h, nz, nz, nz + 3, 1000)
+        assert (rows, staged, grid, got_h) == (64, True, 16, h_pad), h
         assert n_params == h * n_in + h + h * h + h + nz * h + nz
-        assert _build.bwd_plan(n_in, h, nz, nz, 0, 1000)[4] == 0
-    assert _build.bwd_plan(6, 33, 5, 5, 8, 1000)[4] == 0
-    assert _build.bwd_plan(44, 176, 43, 43, 46, 1000)[4] == 0
+        k2 = _build.bwd_plan(n_in, h, nz, nz, 0, 1000)
+        if h <= 24:
+            assert k2 == (64, True, 16, n_params, h_pad)
+            # 4, 4, 3 and 2 blocks of these widths fit an SM's shared memory
+            assert _build.bwd_plan(n_in, h, nz, nz, 0, 65_536)[2] == {8: 528, 12: 528, 16: 396,
+                                                                      24: 264}[h]
+        else:
+            assert k2[1:] == (True, -(-1000 // k2[0]), n_params, 0)
+        for group, blocks in ((8, 1), (64, 1), (72, 2), (128, 2)):
+            plan = _build.adaptive_plan(n_in, h, nz, nz, nz + 3, group)
+            assert plan[0] == h_pad and plan[3] == 64 and plan[5:] == (h_pad, blocks), (h, group)
+            # shared memory of a walk block: two blocks an SM up to h = 24
+            assert 0 < plan[4] <= (113 if h <= 24 else 227) * 1024
+    for sd in (0, 8):
+        assert _build.bwd_plan(6, 33, 5, 5, sd, 1000)[4] == 0
+        assert _build.bwd_plan(44, 176, 43, 43, 46 if sd else 0, 1000)[4] == 0
+    for h in (33, 128):
+        plan = _build.adaptive_plan(6, h, 5, 5, 8, 128)
+        assert plan[0] == 0 and plan[5:] == (0, 1) and plan[3] > 0
 
 
 @pytest.mark.parametrize("form", ["rnode", "ffjord"])
@@ -272,8 +335,8 @@ def test_loss_gradients_flow_through_the_kernels(dev, form):
 ADAPTIVE_SCFG = (1e-4, 1e-4, 0.01, 0.9, 0.2, 10.0, 16_384)
 
 
-def _adaptive_case(case, dev, seed=5):
-    nz, nc, t_col, span, h, b = 5, 0, 5, (0.0, torch.tensor(1.05, device=dev)), 24, 2048
+def _adaptive_case(case, dev, seed=5, h=24, b=2048):
+    nz, nc, t_col, span = 5, 0, 5, (0.0, torch.tensor(1.05, device=dev))
     if case == "conditioned":
         nc = 2
     if case == "reversed":
@@ -282,6 +345,8 @@ def _adaptive_case(case, dev, seed=5):
         h, b = 128, 8192
     if case == "small":  # one group of 16 rows
         b = 16
+    if case == "two blocks":  # one group of 72 rows: two blocks of K6's walk
+        b = 72
     n_in = nz + 1 + nc
     params = _params((n_in, h, h, nz), dev)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -289,55 +354,87 @@ def _adaptive_case(case, dev, seed=5):
                     torch.zeros((b, 3), device=dev)], dim=-1)
     eps = torch.randn((b, nz), generator=g, device=dev)
     scfg = ADAPTIVE_SCFG
-    if case == "wide":
+    if h > 32:  # the tiled path: see the note above
+        group = min(b, 128)
         params = {k: 2.0 * v for k, v in params.items()}
-        u0 = u0 * torch.logspace(-1, 1, b // 128, device=dev).repeat_interleave(128)[:, None]
+        u0 = u0 * torch.logspace(-1, 1, b // group, device=dev).repeat_interleave(group)[:, None]
         scfg = ADAPTIVE_SCFG[:2] + (0.5,) + ADAPTIVE_SCFG[3:]
     ys = torch.randn((b, nc), generator=g, device=dev) if nc else None
     gbar = torch.randn((b, nz + 3), generator=g, device=dev)
     return (u0, eps, ys, params, span, nz, t_col, scfg), gbar
 
 
+def _check_adaptive_kernels(args, gbar, seed=None):
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    group = fa.fused_adaptive_tile(args[0].shape[0])
+    before = fa.fused_solve_dopri5.launches
+    u1, rows = fa.fused_solve_dopri5(*args, 64)
+    torch.cuda.synchronize()
+    assert fa.fused_solve_dopri5.launches == before + 1
+    u1_p, rows_p = fa.fused_solve_dopri5_reference(*args, group)
+    same = (rows[:, :3] == rows_p[:, :3]).all(dim=1)
+    other = (~same).repeat_interleave(group)
+    assert int((~same).sum()) * 16 <= rows.shape[0], seed
+    assert bool(((rows[:, 1] - rows_p[:, 1]).abs() <= 1).all())
+    torch.testing.assert_close(u1[other], u1_p[other], rtol=1e-3, atol=1e-3)
+    keep = same.repeat_interleave(group)
+    torch.testing.assert_close(u1[keep], u1_p[keep], rtol=2e-4, atol=2e-5)
+    gbar = torch.where(keep[:, None], gbar, torch.zeros_like(gbar))
+    before = fa.fused_solve_dopri5_bwd.launches
+    got = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+    torch.cuda.synchronize()
+    assert fa.fused_solve_dopri5_bwd.launches == before + 1
+    # K6's replay took K5's steps in every group
+    assert torch.equal(got[3], rows[:, 1].to(torch.int32))
+    want = fa.fused_solve_dopri5_bwd_reference(*args, 64, gbar, group)
+    _close_to_max([got[0][keep], got[1][keep], *got[2]],
+                  [want[0][keep], want[1][keep], *want[2]], 5e-4)
+    again = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+    assert all(torch.equal(a, b) for a, b in zip((got[0], got[1], *got[2], got[3]),
+                                                 (again[0], again[1], *again[2], again[3])))
+
+
 @pytest.mark.parametrize("case", ["flagship", "conditioned", "reversed", "wide", "small"])
 def test_fused_adaptive_kernels_match_plain(dev, case):
-    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
-
     for seed in ((1, 2, 5) if case == "wide" else (5,)):
         args, gbar = _adaptive_case(case, dev, seed)
-        group = fa.fused_adaptive_tile(args[0].shape[0])
-        before = fa.fused_solve_dopri5.launches
-        u1, rows = fa.fused_solve_dopri5(*args, 64)
-        torch.cuda.synchronize()
-        assert fa.fused_solve_dopri5.launches == before + 1
-        u1_p, rows_p = fa.fused_solve_dopri5_reference(*args, group)
-        same = (rows[:, :3] == rows_p[:, :3]).all(dim=1)
-        other = (~same).repeat_interleave(group)
-        assert int((~same).sum()) * 16 <= rows.shape[0], seed
-        assert bool(((rows[:, 1] - rows_p[:, 1]).abs() <= 1).all())
-        torch.testing.assert_close(u1[other], u1_p[other], rtol=1e-3, atol=1e-3)
-        keep = same.repeat_interleave(group)
-        torch.testing.assert_close(u1[keep], u1_p[keep], rtol=2e-4, atol=2e-5)
-        gbar = torch.where(keep[:, None], gbar, torch.zeros_like(gbar))
-        before = fa.fused_solve_dopri5_bwd.launches
-        got = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
-        torch.cuda.synchronize()
-        assert fa.fused_solve_dopri5_bwd.launches == before + 1
-        # K6's replay took K5's steps in every group
-        assert torch.equal(got[3], rows[:, 1].to(torch.int32))
-        want = fa.fused_solve_dopri5_bwd_reference(*args, 64, gbar, group)
-        _close_to_max([got[0][keep], got[1][keep], *got[2]],
-                      [want[0][keep], want[1][keep], *want[2]], 5e-4)
-        again = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
-        assert all(torch.equal(a, b) for a, b in zip((got[0], got[1], *got[2], got[3]),
-                                                     (again[0], again[1], *again[2], again[3])))
+        _check_adaptive_kernels(args, gbar, seed)
 
 
-def test_fused_adaptive_poison_on_the_card(dev):
-    """A node buffer too small NaN-poisons the backward (the forward stays
-    finite); a spent step budget NaN-poisons the forward."""
+# K6's walk on its row path (h = 8, 24, 32: 64-row blocks, one row a thread) and on
+# its tiled path (h = 128), on groups of 8 rows (one ragged block), 72 (a 64-row
+# block and an 8-row one), 128 (two blocks) and 3 x 128
+@pytest.mark.parametrize("case", ["conditioned", "reversed"])
+@pytest.mark.parametrize("b", [8, 72, 128, 384])
+@pytest.mark.parametrize("h", [8, 24, 32, 128])
+def test_fused_adaptive_walk_paths_and_groups(dev, h, b, case):
+    """With one or three groups, a single group whose accept decision sits on
+    a rounding edge (K5 and its plain version part, see the note above) would
+    leave too little to compare: the draw is the first of four seeds on which
+    K5 and the plain version take the same steps in every group."""
     from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
 
-    args, gbar = _adaptive_case("small", dev)
+    group = fa.fused_adaptive_tile(b)
+    for seed in (5, 6, 7, 8):
+        args, gbar = _adaptive_case(case, dev, seed, h=h, b=b)
+        rows = fa.fused_solve_dopri5(*args, 64)[1]
+        rows_p = fa.fused_solve_dopri5_reference(*args, group)[1]
+        if bool((rows[:, :3] == rows_p[:, :3]).all()):
+            break
+    else:
+        pytest.fail("no draw of four on which K5 and its plain version take the same steps")
+    _check_adaptive_kernels(args, gbar, seed)
+
+
+@pytest.mark.parametrize("case", ["small", "two blocks"])
+def test_fused_adaptive_poison_on_the_card(dev, case):
+    """A node buffer too small NaN-poisons the backward (the forward stays
+    finite): every row of the group and the sums of each of its walk blocks;
+    a spent step budget NaN-poisons the forward."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    args, gbar = _adaptive_case(case, dev)
     tight = args[:-1] + ((1e-6, 1e-6) + ADAPTIVE_SCFG[2:],)
     u1, rows = fa.fused_solve_dopri5(*tight, 2)
     assert torch.isfinite(u1).all() and int(rows[0, 1]) > 2
