@@ -4,16 +4,20 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py [row ...]
     python3 chip_profile.py k2-grid
     python3 chip_profile.py widths
+    python3 chip_profile.py fwd-widths
+    python3 chip_profile.py sass
 
 Each row runs the flagship 2-D RNODE (or its FFJORD form) at 65,536 samples
 under ``torch.profiler``: 2 warm-up steps or calls, then 3 profiled ones.  Per
 row it prints the device kernels per step, the summed device time of those
 kernels ("busy"), the host wall time of the profiled steps (inflated by the
-profiler), the idle share ``1 - busy / wall`` and the top kernels, and
-writes every row to ``chiprun_out/chip_profile.json``.  With no arguments
-it runs every row.  The kernels build at first use, as in ``chip_smoke.py``.
-K6 shows as its two kernels, ``adaptive_replay`` and ``walk_rows`` (above h =
-32 as one, ``adaptive_bwd``), K4 as ``solve_traj_rows`` and
+profiler), the idle share ``1 - busy / wall``, the device time of each of
+K1-K6 by its kernels' names and the top kernels, and writes every row to
+``chiprun_out/chip_profile.json``.  With no arguments it runs every row.
+Every run keeps the card busy for 10 s before its first measurement.  The
+kernels build at first use, as in ``chip_smoke.py``.  K6 shows as its two
+kernels, ``adaptive_replay`` and ``walk_rows`` (above h = 32 as one,
+``adaptive_bwd``), K4 as ``solve_traj_rows`` and
 ``fused_solve_rk4_bwd_rows``.
 
 ``k2-grid`` is the measurement behind K2's launch shape on its row path:
@@ -22,13 +26,22 @@ block for every 64-row tile instead of at most 264 blocks that take tiles in
 turn) and times K2 in both builds, in turns, at the flagship and the FFJORD
 widths.  ``widths`` times K2 and K6 at every hidden width of the row path and
 just past it (h = 8 ... 33), by the device time of their kernels: the
-measurement behind the rule that h <= 32 takes that path.  Imports nothing
-of JAX.
+measurement behind the rule that h <= 32 takes that path; beside K6 it
+counts K5's steps, which K6 replays.  ``fwd-widths`` does the same for the
+forward kernels K1 and K3 (h = 8, 12, 16, 24, 32, fp32 and bf16).  Run from
+two checkouts in one call, ``widths`` and ``fwd-widths`` compare two
+commits width by width, and so do the rows.  ``sass`` reads the instruction
+mix (``cuobjdump -sass``) and the registers, local memory and resident
+blocks an SM (``cuobjdump -res-usage``) of the forward row kernels in the
+built library.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -41,6 +54,20 @@ BATCH = 65_536
 WARMUP, ACTIVE = 2, 3
 
 
+# each kernel's launches by name, row and tiled paths (the reduction of the
+# backwards' weight-gradient partial sums, shared by K2, K4 and K6, in none)
+KERNELS = {"K1": ("fused_dynamics_fwd_rows", "fused_dynamics_fwd_kernel"),
+           "K2": ("fused_dynamics_bwd_rows", "fused_dynamics_bwd_kernel"),
+           "K3": ("fused_solve_rk4_rows", "fused_solve_rk4_kernel"),
+           "K4": ("solve_traj_rows", "fused_solve_rk4_bwd_rows", "fused_solve_rk4_bwd_kernel"),
+           "K5": ("adaptive_fwd_rows", "adaptive_fwd_tiled"),
+           "K6": ("adaptive_replay", "walk_rows", "adaptive_bwd")}
+
+
+def is_kernel(name, k):
+    return any(re.search(rf"\b{n}[<(]", name) for n in KERNELS[k])
+
+
 def summarize(prof, wall_s):
     events = prof.key_averages()
     # device events that carry a host op's name are annotations (ProfilerStep*,
@@ -50,8 +77,10 @@ def summarize(prof, wall_s):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ACTIVE
     wall_ms = wall_s * 1e3 / ACTIVE
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    per_step = {k: sum(e.self_device_time_total for e in kernels if is_kernel(e.key, k))
+                / 1e3 / ACTIVE for k in KERNELS}
     return dict(kernels_per_step=sum(e.count for e in kernels) / ACTIVE, busy_ms=busy_ms,
-                wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms,
+                wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms, kernel_ms=per_step,
                 top=[(e.key[:70], e.self_device_time_total / 1e3 / ACTIVE, e.count / ACTIVE)
                      for e in top])
 
@@ -238,13 +267,156 @@ def widths(dev):
         span = (0.0, torch.tensor(1.05, device=dev))
         fn = lambda: fa.fused_solve_dopri5_bwd(u0, eps, None, params, span, nz, nz, scfg, 64, gbar)
         nacc = fn()[3]
+        with torch.no_grad():  # K5's steps, which K6 replays: its work depends on them
+            rows = fa.fused_solve_dopri5(u0, eps, None, params, span, nz, nz, scfg, 64)[1]
+        steps = dict(nfe=int(rows[:, 0].sum()), nfe_max=int(rows[:, 0].max()),
+                     accepted_total=int(rows[:, 1].sum()))
         plan = _build.adaptive_plan(n_in, h, nz, nz, nz + 3, 128)
         ms = sorted(device_ms(fn, K6_KERNELS, reps=5) for _ in range(3))
         out[f"K6 h={h}"] = dict(plan=list(plan), ms=ms[1], min=ms[0], max=ms[2],
-                                accepted=[int(nacc.min()), int(nacc.max())])
+                                accepted=[int(nacc.min()), int(nacc.max())], **steps)
         print(f"widths K6 {n_in}->{h}->{h}->{nz} fp32 B={BATCH} (plan {plan}; accepted steps "
-              f"{int(nacc.min())}-{int(nacc.max())} a group): device ms {ms[1]:.4f} "
-              f"(min {ms[0]:.4f}, max {ms[2]:.4f})", flush=True)
+              f"{int(nacc.min())}-{int(nacc.max())} a group; over all groups NFE {steps['nfe']}, "
+              f"at most {steps['nfe_max']} a group, accepted {steps['accepted_total']}): device ms "
+              f"{ms[1]:.4f} (min {ms[0]:.4f}, max {ms[2]:.4f})", flush=True)
+    return out
+
+
+def warm_card(dev, seconds=10.0):
+    """Keeps the card busy for ``seconds`` before a measurement: device times
+    taken in a fresh process and after a minute of launches differ by
+    1.3-1.7x (PERF.md section 6), so every run starts here."""
+    a = torch.randn((4096, 4096), device=dev)
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        for _ in range(20):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+
+
+def fwd_inputs(dev, n_in, h, nz):
+    """K1's and K3's inputs at batch BATCH: (x, eps, params), and K3's u0 and
+    steered span."""
+    x, eps, params, _nz, _cot = stage_inputs(dev, n_in, h, nz)
+    g = torch.Generator(device=dev).manual_seed(2)
+    u0 = torch.cat([0.5 * torch.randn((BATCH, nz), generator=g, device=dev),
+                    torch.zeros((BATCH, 3), device=dev)], dim=-1)
+    return x, eps, params, u0, (0.0, torch.tensor(1.05, device=dev))
+
+
+def fwd_calls(dev, n_in, h, nz, cdt):
+    """{"K1": one stage, "K3": a 32-step solve} at these widths; K3's net
+    input is [z, t]: n_in = nz + 1."""
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp
+    from continuousnormalizingflows_tpu_torch.ops.fused_solve import fused_solve_rk4
+
+    x, eps, params, u0, span = fwd_inputs(dev, n_in, h, nz)
+    return {"K1": lambda: fused_dynamics_vjp(x, eps, params, nz, cdt),
+            "K3": lambda: fused_solve_rk4(u0, eps, None, params, span, nz, nz, 32, cdt)}
+
+
+FWD_SHAPES = {8: (6, 5), 12: (3, 2), 16: (6, 5), 24: (6, 5), 32: (6, 5)}  # h: (n_in, nz)
+
+
+def fwd_widths(dev):
+    """K1 and K3 over the hidden widths of the forward row path at batch
+    65,536, fp32 and bf16 (h = 12 at the FFJORD form's widths 3 -> 12 -> 12
+    -> 2, the rest 6 -> h -> h -> 5): device ms of each kernel's launches,
+    with the H its plan names.  Run from two checkouts in one call, it
+    compares their kernels width by width."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    out = {}
+    for h, (n_in, nz) in FWD_SHAPES.items():
+        for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
+            calls = fwd_calls(dev, n_in, h, nz, cdt)
+            for k, fn in calls.items():
+                rows, _staged, h_pad = _build.plan(n_in, h, nz, nz, nz + 3 if k == "K3" else 0)
+                ms = sorted(device_ms(fn, KERNELS[k], reps=30 if k == "K1" else 10)
+                            for _ in range(3))
+                out[f"{k} h={h} {prec}"] = dict(H=h_pad, rows=rows, ms=ms[1], min=ms[0],
+                                                max=ms[2])
+                print(f"fwd-widths {k} {n_in}->{h}->{h}->{nz} {prec} B={BATCH} (H = {h_pad}, "
+                      f"{rows} threads a block): device ms {ms[1]:.4f} (min {ms[0]:.4f}, "
+                      f"max {ms[2]:.4f})", flush=True)
+    return out
+
+
+SASS_KERNELS = ("fused_dynamics_fwd_rows", "fused_solve_rk4_rows")
+
+
+def _opcode_mix(lines):
+    """Counts of the SASS instructions of one function by opcode (MUFU by
+    its function: MUFU.EX2, MUFU.RCP, ...)."""
+    mix = {}
+    for line in lines:
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)"
+                      r"((?:\.[A-Z0-9_]+)*)", line)
+        if m:
+            op = m.group(1) + ("." + m.group(2).split(".")[1] if m.group(1) == "MUFU" else "")
+            mix[op] = mix.get(op, 0) + 1
+    return mix
+
+
+def sass(dev):
+    """The forward row kernels of the built library (K1
+    ``fused_dynamics_fwd_rows<H, bf16>``, K3 ``fused_solve_rk4_rows<H,
+    bf16>``): registers and local memory (spills), resident blocks an SM at
+    the plan's block and shared memory for the flagship (h = 24) and FFJORD
+    (h = 12) widths, and the instruction mix (printed for the kernels those
+    widths take, all of them in the JSON).  Stage copies in the code =
+    MUFU.EX2 / 2H (one exponential a gate, 2H gates a stage)."""
+    from chip_smoke import kernel_label
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    _build.kernels()
+    lib = _build.build_info["path"]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                         check=True).stdout
+    usage = {}
+    for name, body in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", res):
+        usage[kernel_label(name)] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", body)}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\s*\n", text)
+    out = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        label = kernel_label(name)
+        if not label.startswith(SASS_KERNELS):
+            continue
+        mix = _opcode_mix(body.splitlines())
+        H = int(re.search(r"<(\d+)", label).group(1))
+        copies = mix.get("MUFU.EX2", 0) / (2 * H)
+        out[label] = dict(usage=usage.get(label, {}), mix=mix, instructions=sum(mix.values()),
+                          stage_copies=copies)
+    for h, (n_in, nz) in ((24, (6, 5)), (12, (3, 2))):
+        for sd, name in ((0, "fused_dynamics_fwd_rows"), (nz + 3, "fused_solve_rk4_rows")):
+            rows, _staged, H = _build.plan(n_in, h, nz, nz, sd)
+            wf = n_in * H + 2 * H * H + nz * H + 2 * H + nz
+            smem = 4 * (wf + (rows * ((2 * sd + n_in + nz + nz) | 1) if sd else 0))
+            for bf16 in (0, 1):
+                label = f"{name}<{H}, {bf16}>"
+                if label not in out:
+                    continue
+                regs = out[label]["usage"].get("REG", 0)
+                warps = -(-rows // 32)
+                by_regs = 65536 // (-(-regs * 32 // 256) * 256 * warps) if regs else 0
+                by_smem = 228 * 1024 // (smem + 1024)
+                blocks = min(by_regs, by_smem, 64 // warps, 32)
+                out[label][f"h={h}"] = dict(threads=rows, smem_bytes=smem, resident_blocks=blocks,
+                                            by_registers=by_regs, by_shared_memory=by_smem)
+    for label, r in sorted(out.items()):
+        if not any(k.startswith("h=") for k in r):
+            continue
+        top = sorted(r["mix"].items(), key=lambda kv: -kv[1])[:14]
+        mufu = {op: n for op, n in r["mix"].items() if op.startswith("MUFU")}
+        shapes = "; ".join(f"{k}: {v['threads']} threads, {v['smem_bytes']} B shared, "
+                           f"{v['resident_blocks']} blocks an SM (registers allow "
+                           f"{v['by_registers']}, shared memory {v['by_shared_memory']})"
+                           for k, v in r.items() if k.startswith("h="))
+        print(f"sass {label}: {r['usage']}; {r['instructions']} instructions, "
+              f"{r['stage_copies']:.2f} stage copies; {shapes}; {mufu}; top "
+              + ", ".join(f"{op} {n}" for op, n in top), flush=True)
     return out
 
 
@@ -257,17 +429,21 @@ def main() -> None:
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     _build.kernels()
+    warm_card(dev)
     table = rows(dev)
     wanted = sys.argv[1:] or list(table)
     out = {"device": torch.cuda.get_device_name(0)}
-    for name, mode in (("k2-grid", k2_grid), ("widths", widths)):
+    for name, mode in (("sass", sass), ("k2-grid", k2_grid), ("widths", widths),
+                       ("fwd-widths", fwd_widths)):
         if name in wanted:
             wanted.remove(name)
             out[name] = mode(dev)
     for name in wanted:
         r = out[name] = table[name]()
         print(f"{name}: {r['kernels_per_step']:.0f} kernels, busy {r['busy_ms']:.3f} ms of "
-              f"{r['wall_ms']:.3f} ms profiled wall, idle share {r['idle_share']:.3f}; top "
+              f"{r['wall_ms']:.3f} ms profiled wall, idle share {r['idle_share']:.3f}; "
+              + "".join(f"{k} {ms:.3f} ms, " for k, ms in r["kernel_ms"].items() if ms)
+              + "top "
               + ", ".join(f"{k} {ms:.3f} ms ({n:.0f}x)" for k, ms, n in r["top"]), flush=True)
     Path("chiprun_out").mkdir(exist_ok=True)
     Path("chiprun_out/chip_profile.json").write_text(json.dumps(out, indent=1, default=str))

@@ -372,7 +372,7 @@ def kernel_phase(dev, record):
 
 def ffjord_stage_phase(dev):
     """K1 and K2 at the widths the FFJORD-form train step launches them at
-    (3 -> 12 -> 12 -> 2, the hidden width padded to 16 on the row path), at
+    (3 -> 12 -> 12 -> 2; on the row path K1 takes H = 12, K2 pads to 16), at
     the flagship batch: against their plain versions, timed, beside their
     bounds."""
     from continuousnormalizingflows_tpu_torch.models.nets import MLP

@@ -15,16 +15,19 @@ stochastic modes: the fused dynamics stage and its backward
 (``ops.fused_solve``), and the whole adaptive dopri5 solve and its backward
 (``ops.fused_adaptive``, opt-in with ``fused_adaptive=True``).
 
-Quick start::
+The entry points run on the card unless asked for the CPU: ``init`` and
+``ICNFModel`` take ``device="cpu"`` for that (without CUDA they raise
+otherwise), and ``ICNFDist``, ``inference``, ``generate`` and the rest run
+where their params are.  Quick start::
 
     import torch
     import continuousnormalizingflows_tpu_torch as cnf
 
     icnf = cnf.ICNF.create(nvariables=2)  # dopri5, rtol = atol = 1e-4, adjoint
-    params = icnf.init(torch.Generator().manual_seed(0), device="cuda")
+    params = icnf.init(torch.Generator().manual_seed(0))  # on the card
     d = cnf.ICNFDist(icnf, params, cnf.Mode.TRAIN)
     lp = d.logpdf(x)
-    fit = cnf.ICNFModel(icnf, batchsize=65_536, epochs=8, device="cuda").fit(x)
+    fit = cnf.ICNFModel(icnf, batchsize=65_536, epochs=8).fit(x)
 """
 
 from .config import ICNFConfig, Mode, ProbeDist, SolverConfig, TraceEstimator

@@ -38,7 +38,20 @@ __all__ = [
     "ProbeDist",
     "SolverConfig",
     "ICNFConfig",
+    "resolve_device",
 ]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` as given, the card when
+    it is None.  The port runs on the card unless asked for the CPU
+    (``device="cpu"``); without CUDA, a call that asks for the card raises,
+    and never carries on on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the port runs on the card unless asked for the '
+                           'CPU; pass device="cpu" to run there')
+    return device
 
 
 class Mode(enum.Enum):

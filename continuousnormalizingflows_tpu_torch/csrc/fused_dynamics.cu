@@ -102,15 +102,25 @@ cudaError_t launch(const float* x, const float* eps, const cnf::Weights& w, cons
         x, eps, w, d, c.staged, y, ez, div, reg_z, reg_j, B, c.rows);
     return cudaGetLastError();
   }
-  auto kernel = fused_dynamics_fwd_rows<32, BF16>;
-  if (c.H == 8) kernel = fused_dynamics_fwd_rows<8, BF16>;
-  if (c.H == 16) kernel = fused_dynamics_fwd_rows<16, BF16>;
-  if (c.H == 24) kernel = fused_dynamics_fwd_rows<24, BF16>;
+  // H = 4, 8, ..., 32 (row_fwd_H)
+  decltype(&fused_dynamics_fwd_rows<4, BF16>) const kernels[] = {
+      fused_dynamics_fwd_rows<4, BF16>,  fused_dynamics_fwd_rows<8, BF16>,
+      fused_dynamics_fwd_rows<12, BF16>, fused_dynamics_fwd_rows<16, BF16>,
+      fused_dynamics_fwd_rows<20, BF16>, fused_dynamics_fwd_rows<24, BF16>,
+      fused_dynamics_fwd_rows<28, BF16>, fused_dynamics_fwd_rows<32, BF16>};
+  const auto kernel = kernels[c.H / 4 - 1];
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          c.smem_bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, c.rows, c.smem_bytes, stream>>>(x, eps, w, d, y, ez, div, reg_z, reg_j, B);
   return cudaGetLastError();
+}
+
+// sigmoid and softplus of n values through stage.cuh's gates
+__global__ void gates_kernel(const float* __restrict__ z, float* __restrict__ sig,
+                             float* __restrict__ sp, int n) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) cnf::gates(z[i], sig[i], sp[i]);
 }
 
 }  // namespace
@@ -132,14 +142,23 @@ extern "C" int cnf_fused_dynamics_fwd(const float* x, const float* eps, const fl
               : launch<false>(x, eps, w, d, y, ez, div, reg_z, reg_j, B, st);
 }
 
+// The gates every stage takes (stage.cuh), on n values: for the test that
+// holds them to their stated error.
+extern "C" int cnf_gates(const float* z, float* sig, float* sp, int n, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gates_kernel<<<(n + 255) / 256, 256, 0, st>>>(z, sig, sp, n);
+  return cudaGetLastError();
+}
+
 extern "C" const char* cnf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The launch shape the kernels take for these widths (sd: the whole-solve
+// The launch shape K1 and K3 take for these widths (sd: the whole-solve
 // kernel's state width, 0 for the single stage): returns rows per block and
 // sets info[0] = weights staged in shared memory, info[1] = H of the row path
-// (0: tiled path).
+// (row_fwd_H; 0: tiled path).
 extern "C" int cnf_plan(int n_in, int h, int n_out, int nz, int sd, int* info) {
   const cnf::Choice c = cnf::choose(cnf::Dims{n_in, h, n_out, nz}, sd);
   info[0] = c.staged ? 1 : 0;

@@ -170,10 +170,13 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
         u0, eps, ys, w, d, c.staged, t0, dt, u1, B, sd, nc, t_col, steps, c.rows);
     return cudaGetLastError();
   }
-  auto kernel = fused_solve_rk4_rows<32, BF16>;
-  if (c.H == 8) kernel = fused_solve_rk4_rows<8, BF16>;
-  if (c.H == 16) kernel = fused_solve_rk4_rows<16, BF16>;
-  if (c.H == 24) kernel = fused_solve_rk4_rows<24, BF16>;
+  // H = 4, 8, ..., 32 (row_fwd_H)
+  decltype(&fused_solve_rk4_rows<4, BF16>) const kernels[] = {
+      fused_solve_rk4_rows<4, BF16>,  fused_solve_rk4_rows<8, BF16>,
+      fused_solve_rk4_rows<12, BF16>, fused_solve_rk4_rows<16, BF16>,
+      fused_solve_rk4_rows<20, BF16>, fused_solve_rk4_rows<24, BF16>,
+      fused_solve_rk4_rows<28, BF16>, fused_solve_rk4_rows<32, BF16>};
+  const auto kernel = kernels[c.H / 4 - 1];
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          c.smem_bytes);
   if (err != cudaSuccess) return err;

@@ -9,8 +9,12 @@
 // of H registers, and every weight row is read from shared memory as float4
 // broadcasts (all threads of a warp read the same address), so a product
 // issues one 16-byte load per 4 FMAs.  The weights are staged once per block,
-// zero-padded to H (a multiple of 8) in every hidden dimension; padded units
-// have zero weights in and out, so they add exact zeros and change nothing.
+// zero-padded to H in every hidden dimension: a multiple of 4 for the
+// forward kernels K1 and K3 (row_fwd_H), of 8 for the backwards and the
+// adaptive kernels (row_H).  Padded units have zero weights in and out, so
+// they add exact zeros (fmaf(a, 0, acc) == acc) and a net gives the same bits
+// at either H: K3 and K4's trajectory, which share row_rk4_step, compute the
+// same states.
 //
 // Sums run over the same index in the same order as stage.cuh, so the two
 // paths give the same result for the same row.
@@ -22,9 +26,17 @@ namespace cnf {
 
 constexpr int kRowMaxH = 32;
 
-// H for a hidden width h (0: too wide for this path)
+// H for a hidden width h (0: too wide for this path): a multiple of 8, for
+// the backwards' 8 x 8 dA2 grid (row_stage_bwd.cuh), and for K5 and K6,
+// whose replay must take K5's steps
 __host__ __device__ inline int row_H(int h) {
   return h <= 8 ? 8 : h <= 16 ? 16 : h <= 24 ? 24 : h <= kRowMaxH ? 32 : 0;
+}
+
+// H of the forward kernels K1 and K3: h rounded up to the float4 of a weight
+// row (h = 12, the FFJORD form's width, takes 12, not 16)
+__host__ __device__ inline int row_fwd_H(int h) {
+  return h <= kRowMaxH ? (h + 3) / 4 * 4 : 0;
 }
 
 __host__ __device__ inline long row_weight_floats(const Dims& d, int H) {
@@ -91,7 +103,8 @@ __device__ __forceinline__ void axpy_row(float a, const float* row, float (&acc)
   }
 }
 
-// sum_k v[k] * row[k], in order of k
+// sum_k v[k] * row[k], in order of k: one chain of H FMAs.  Units padded
+// with zeros add exact zeros at its end, so the dot does not depend on H.
 template <int H>
 __device__ __forceinline__ float dot_row(const float (&v)[H], const float* row) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
@@ -212,7 +225,7 @@ struct Choice {
 // sd: state width of the whole-solve kernel (its per-row state lives in
 // shared memory), 0 for the single-stage kernel.
 inline Choice choose(const Dims& d, int sd) {
-  const int H = row_H(d.h);
+  const int H = row_fwd_H(d.h);
   const long wf = H ? row_weight_floats(d, H) : 0;
   if (H && 4 * wf <= kStageWeightsBytes) {
     const long per_thread = sd ? odd(2 * sd + d.n_in + d.n_out + d.nz) : 0;

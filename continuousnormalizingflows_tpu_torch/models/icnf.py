@@ -97,5 +97,6 @@ class ICNF:
         return cls(config=cfg, net=net if net is not None else default_net(cfg, precision))
 
     def init(self, generator: torch.Generator, device=None) -> Params:
-        """Fresh dynamics-net parameters, drawn from ``generator``."""
+        """Fresh dynamics-net parameters, drawn from ``generator``, on
+        ``device`` (default: the card; ``device="cpu"`` for the CPU)."""
         return self.net.init(generator, device)

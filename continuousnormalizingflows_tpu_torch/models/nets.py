@@ -22,14 +22,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import resolve_device
+
 __all__ = ["DynamicsNet", "MLP", "Params", "linear", "mlp_layers"]
 
 Params = Dict[str, torch.Tensor]
 
 
 class DynamicsNet(nn.Module):
-    """Interface: ``n_in``/``n_out`` widths, ``init(generator) -> params``
-    and ``apply(params, x) -> y`` over ``(..., n_in) -> (..., n_out)``."""
+    """Interface: ``n_in``/``n_out`` widths, ``init(generator, device=None)
+    -> params`` (on the card unless ``device`` says otherwise, e.g.
+    ``device="cpu"``) and ``apply(params, x) -> y`` over ``(..., n_in) ->
+    (..., n_out)``."""
 
     n_in: int
     n_out: int
@@ -94,14 +98,16 @@ class MLP(DynamicsNet):
         )
 
     def init(self, generator: torch.Generator, device=None) -> Params:
+        """Fresh parameters drawn on ``generator``'s device, then moved to
+        ``device`` (default: the card), so one seed gives the same
+        parameters on every device."""
+        device = resolve_device(device)
         params = {}
         for i, (w_in, w_out) in enumerate(zip(self.widths[:-1], self.widths[1:])):
             params[f"layers.{i}.weight"] = _glorot_uniform(generator, w_in, w_out, self.dtype)
             params[f"layers.{i}.bias"] = torch.zeros(w_out, dtype=self.dtype,
                                                      device=generator.device)
-        if device is not None:
-            params = {k: v.to(device) for k, v in params.items()}
-        return params
+        return {k: v.to(device) for k, v in params.items()}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x

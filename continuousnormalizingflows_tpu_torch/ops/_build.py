@@ -46,6 +46,7 @@ _SIGNATURES = {
     "cnf_bwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_solve_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_adaptive_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_gates": [_P] * 3 + [_I, _P],
 }
 
 # what the last build did: seconds, library path, compiler log
@@ -120,11 +121,11 @@ def check(err: int, what: str) -> None:
 
 @functools.cache
 def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
-    """The kernels' launch shape for these widths (``sd``: the whole-solve
+    """K1's and K3's launch shape for these widths (``sd``: the whole-solve
     kernel's state width, 0 for the single stage): ``(rows per block,
     weights staged in shared memory, H)``, where ``H > 0`` is the
-    row-per-thread path with hidden width padded to ``H`` and ``H == 0`` the
-    tiled path."""
+    row-per-thread path with hidden width padded to ``H`` (a multiple of 4)
+    and ``H == 0`` the tiled path."""
     info = (ctypes.c_int * 2)()
     rows = kernels().cnf_plan(n_in, h, n_out, nz, sd, info)
     return rows, bool(info[0]), int(info[1])

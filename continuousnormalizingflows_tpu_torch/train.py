@@ -35,7 +35,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from .config import Mode
+from .config import Mode, resolve_device
 from .core import _device_of, inference, loss_with_stats
 from .dist import _shim_layout
 from .models.icnf import ICNF
@@ -120,8 +120,10 @@ class ICNFModel:
     ``optimizer``: a factory ``tensors -> torch.optim.Optimizer`` (default
     :func:`default_optimizer`).  ``generator``: the stream's start, copied at
     each ``fit`` without its own generator (default: seed 0 on ``device``).
-    ``device``: where the data, the parameters and the training run (default:
-    the device of the ``params`` given to ``fit``, else the CPU)."""
+    ``device``: where the data, the parameters and the training run
+    (default: the card; ``device="cpu"`` trains on the CPU, and without CUDA
+    ``fit`` raises unless asked for it).  ``params`` given to ``fit`` are
+    copied to it."""
 
     def __init__(
         self,
@@ -168,7 +170,12 @@ class ICNFModel:
         self.batch_transform = batch_transform
         # TestMode model for score()/validation; None evaluates with icnf
         self.eval_icnf = eval_icnf
-        self.device = None if device is None else torch.device(device)
+        self._device = None if device is None else torch.device(device)
+
+    @property
+    def device(self) -> torch.device:
+        """Where ``fit`` runs (raises without CUDA unless given the CPU)."""
+        return resolve_device(self._device)
 
     @property
     def _conditional(self) -> bool:
@@ -221,13 +228,6 @@ class ICNFModel:
         opt.step()
         return l.detach(), stats
 
-    def _device_for(self, params: Optional[Params]) -> torch.device:
-        if self.device is not None:
-            return self.device
-        if params is not None:
-            return _device_of(params)
-        return torch.device("cpu")
-
     # -- public API --------------------------------------------------------
 
     def fit(
@@ -254,7 +254,7 @@ class ICNFModel:
         run trains the same bits as an unvalidated one up to its stop."""
         icnf = self.icnf
         cfg = icnf.config
-        device = self._device_for(params)
+        device = self.device
         xs_all = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=device)
         if xs_all.ndim != 2 or xs_all.shape[1] != cfg.nvariables:
             raise ValueError(f"X must be (n, {cfg.nvariables}), got {tuple(xs_all.shape)}")

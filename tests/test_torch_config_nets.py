@@ -124,7 +124,7 @@ def test_params_round_trip():
     for a, b in zip(jparams, back):
         np.testing.assert_array_equal(np.asarray(a["w"]), b["w"])
         np.testing.assert_array_equal(np.asarray(a["b"]), b["b"])
-    tparams = tcnf.MLP((6, 24, 24, 5)).init(torch.Generator().manual_seed(0))
+    tparams = tcnf.MLP((6, 24, 24, 5)).init(torch.Generator().manual_seed(0), device="cpu")
     again = params_from_jax(params_to_jax(tparams))
     for k in tparams:
         torch.testing.assert_close(again[k], tparams[k], rtol=0, atol=0)
@@ -132,7 +132,7 @@ def test_params_round_trip():
 
 def test_glorot_init_shapes_and_bounds():
     widths = (6, 24, 24, 5)
-    tparams = tcnf.MLP(widths).init(torch.Generator().manual_seed(0))
+    tparams = tcnf.MLP(widths).init(torch.Generator().manual_seed(0), device="cpu")
     jparams = jcnf.MLP(widths).init(jax.random.PRNGKey(0))
     for i, (w_in, w_out) in enumerate(zip(widths[:-1], widths[1:])):
         w = tparams[f"layers.{i}.weight"]
@@ -142,7 +142,7 @@ def test_glorot_init_shapes_and_bounds():
         assert float(w.std()) > 0.4 * limit  # uniform(-l, l) has std l/sqrt(3)
         assert torch.all(tparams[f"layers.{i}.bias"] == 0)
     # one seed, one draw
-    again = tcnf.MLP(widths).init(torch.Generator().manual_seed(0))
+    again = tcnf.MLP(widths).init(torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(again[k], tparams[k]) for k in tparams)
 
 

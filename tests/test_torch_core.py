@@ -206,9 +206,33 @@ def test_gaussian_mixture_logpdf_matches_jax():
 def test_unported_solvers_raise(kw, msg):
     """The multistep solver ("adaptive multistep") is the one still to port."""
     icnf = tcnf.ICNF.create(nvariables=2, **kw)
-    params = icnf.init(torch.Generator().manual_seed(0))
+    params = icnf.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match=msg):
         tcnf.inference(icnf, Mode.TEST, torch.zeros(4, 2), params)
+
+
+@pytest.mark.parametrize("entry", ["ICNF.init", "MLP.init"])
+def test_init_runs_on_the_card_unless_asked_for_the_cpu(entry, monkeypatch):
+    """``init`` puts the params on the card by default; without CUDA it
+    raises an error that names ``device="cpu"``, and ``device="cpu"`` gives
+    the same params on the CPU.  ``ICNFDist`` and ``inference`` follow the
+    params' device."""
+    icnf = tcnf.ICNF.create(nvariables=2, solver=SolverConfig(method="rk4", gradient="backprop",
+                                                              fixed_steps=STEPS))
+    init = icnf.init if entry == "ICNF.init" else icnf.net.init
+    asked = []
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.Tensor, "to", lambda t, device, *a, **k: asked.append(device) or t)
+        init(torch.Generator().manual_seed(0))
+    assert asked and all(torch.device(d) == torch.device("cuda") for d in asked)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init(torch.Generator().manual_seed(0))
+    params = init(torch.Generator().manual_seed(0), device="cpu")
+    assert all(v.device.type == "cpu" for v in params.values())
+    lp = tcnf.ICNFDist(icnf, params, Mode.TEST).logpdf(torch.zeros(4, 2))
+    assert lp.device.type == "cpu" and lp.shape == (4,)
 
 
 def test_stochastic_mode_needs_generator():

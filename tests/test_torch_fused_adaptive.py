@@ -214,7 +214,8 @@ def test_core_route_and_fit_take_the_adaptive_twin():
     assert torch.equal(u1, want)
     assert (int(stats.nfe), int(stats.naccept)) == (int(rows[:, 0].max()), int(rows[:, 1].max()))
     carry = dataclasses.replace(ticnf.config, solver=SolverConfig(dt0="carry"))
-    model = tcnf.ICNFModel(dataclasses.replace(ticnf, config=carry), batchsize=16, epochs=1)
+    model = tcnf.ICNFModel(dataclasses.replace(ticnf, config=carry), batchsize=16, epochs=1,
+                           device="cpu")
     assert not model._carry_dt(16) and model._carry_dt(12)
     res = model.fit(torch.from_numpy(u0[:32, :2]), params=p)
     assert res.stats["iterations"] == 1 and np.isfinite(res.stats["final_loss"])

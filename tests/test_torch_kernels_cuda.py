@@ -110,6 +110,132 @@ def test_fused_solve_kernel_matches_plain(dev, case, cdt):
     torch.testing.assert_close(u1, ref, rtol=rtol, atol=atol)
 
 
+# K1 and K3 at every width of their row path (h padded to H, a multiple of 4:
+# h = 4 ... 32) and past it (h = 33, the tiled path); the FFJORD form's widths
+# at h = 12 (3 -> 12 -> 12 -> 2), a conditioned net input (nz = 5, the time
+# and 2 conditions) elsewhere; batches ragged against the 256-row block
+FWD_WIDTHS = [4, 8, 12, 16, 20, 24, 28, 32, 33]
+
+
+def _fwd_widths(h):
+    return (3, 2, 0) if h == 12 else (8, 5, 2)  # n_in, nz, conditions
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 257, 1000])
+@pytest.mark.parametrize("h", FWD_WIDTHS)
+def test_fused_dynamics_row_widths(dev, h, b, cdt):
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    n_in, nz, _nc = _fwd_widths(h)
+    assert _build.plan(n_in, h, nz, nz, 0)[2] == (0 if h > 32 else -(-h // 4) * 4)
+    params = _params((n_in, h, h, nz), dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((b, n_in), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    before = fused_dynamics_vjp.launches
+    out = fused_dynamics_vjp(x, eps, params, nz, cdt)
+    torch.cuda.synchronize()
+    assert fused_dynamics_vjp.launches == before + 1
+    ref = mlp3_forward_vjp_reference(x, eps, params, nz, cdt)
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, rtol=TOL[cdt][0], atol=TOL[cdt][1])
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 257, 1000])
+@pytest.mark.parametrize("h", FWD_WIDTHS)
+def test_fused_solve_row_widths(dev, h, b, cdt):
+    """K3 at each width against its plain version, and twice: the same bits."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    n_in, nz, nc = _fwd_widths(h)
+    assert _build.plan(n_in, h, nz, nz, nz + 3)[2] == (0 if h > 32 else -(-h // 4) * 4)
+    params = _params((n_in, h, h, nz), dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    u0 = 0.5 * torch.randn((b, nz + 3), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    ys = torch.randn((b, nc), generator=g, device=dev) if nc else None
+    span = (0.0, torch.tensor(1.05, device=dev))
+    before = fused_solve_rk4.launches
+    u1 = fused_solve_rk4(u0, eps, ys, params, span, nz, nz, 32, cdt)
+    torch.cuda.synchronize()
+    assert fused_solve_rk4.launches == before + 1
+    ref = fused_solve_rk4_reference(u0, eps, ys, params, span, nz, nz, 32, cdt)
+    torch.testing.assert_close(u1, ref, rtol=SOLVE_TOL[cdt][0], atol=SOLVE_TOL[cdt][1])
+    assert torch.equal(u1, fused_solve_rk4(u0, eps, ys, params, span, nz, nz, 32, cdt))
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n_in, nz", [(3, 2), (6, 5)])
+def test_zero_padded_units_give_the_same_bits(dev, n_in, nz, cdt):
+    """A net of h = 16 whose units 12-15 have zero weights in and out runs at
+    H = 16, the h = 12 net at H = 12: padded units add exact zeros at the end
+    of every sum over hidden units, so K1 and K3 give the same bits (and K4's
+    trajectory, at the backwards' H = 16, takes K3's states)."""
+    small = _params((n_in, 12, 12, nz), dev)
+    padded = {}
+    for key, v in small.items():
+        w = torch.zeros(tuple(16 if d == 12 else d for d in v.shape), device=dev)
+        w[tuple(slice(0, d) for d in v.shape)] = v
+        padded[key] = w
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((1000, n_in), generator=g, device=dev)
+    eps = torch.randn((1000, nz), generator=g, device=dev)
+    u0 = 0.5 * torch.randn((1000, nz + 3), generator=g, device=dev)
+    span = (0.0, torch.tensor(1.05, device=dev))
+    for a, b in zip(fused_dynamics_vjp(x, eps, small, nz, cdt),
+                    fused_dynamics_vjp(x, eps, padded, nz, cdt)):
+        assert torch.equal(a, b)
+    solve = lambda p: fused_solve_rk4(u0, eps, None, p, span, nz, nz, 32, cdt)
+    assert torch.equal(solve(small), solve(padded))
+
+
+def test_gates_within_their_stated_error(dev):
+    """stage.cuh's gates (sigmoid and softplus from ex2.approx, rcp.approx
+    and a polynomial log1p) over z in [-90, 90], both sides of 0, the
+    subnormal range of e^-|z| and the specials, against float64: sigmoid
+    within 2.5e-7 absolute; sigmoid and softplus within 6e-7 + 8e-8 |z|
+    relative for z < 0 and 6e-7 for z >= 0, wherever the float64 value is a
+    normal float (>= 2^-125 here, to stay off the edge); below, results
+    flush to zero.  The errors are printed."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    z = torch.cat([torch.linspace(-90.0, 90.0, 2_000_001, dtype=torch.float64),
+                   torch.logspace(-45, 2, 20_000, dtype=torch.float64),
+                   -torch.logspace(-45, 2, 20_000, dtype=torch.float64),
+                   torch.linspace(-104.0, -86.0, 20_001, dtype=torch.float64)]).float().to(dev)
+    specials = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan")], device=dev)
+    z = torch.cat([z, specials])
+    sig, sp = torch.empty_like(z), torch.empty_like(z)
+    _build.check(_build.kernels().cnf_gates(z.data_ptr(), sig.data_ptr(), sp.data_ptr(),
+                                            z.numel(), torch.cuda.current_stream().cuda_stream),
+                 "gates")
+    torch.cuda.synchronize()
+    n = z.numel() - specials.numel()
+    # 0, -0 -> (1/2, log 2); inf -> (1, inf); -inf -> (0, 0); nan -> (nan, nan)
+    assert sig[n:n + 2].tolist() == [0.5, 0.5] and sig[n + 2:n + 4].tolist() == [1.0, 0.0]
+    assert abs(sp[n] - 0.6931471805599453) <= 6e-7 and sp[n] == sp[n + 1]
+    assert sp[n + 2:n + 4].tolist() == [float("inf"), 0.0]
+    assert bool(sig[-1].isnan()) and bool(sp[-1].isnan())
+    z64, sig, sp = z[:n].double(), sig[:n].double(), sp[:n].double()
+    e = torch.exp(-z64.abs())
+    sig64 = torch.where(z64 >= 0, 1 / (1 + e), e / (1 + e))
+    sp64 = z64.clamp_min(0) + torch.log1p(e)
+    bound = 6e-7 + 8e-8 * (-z64).clamp_min(0)
+    normal = 2.0 ** -125
+    err = {}
+    for name, got, want in (("sigmoid", sig, sig64), ("softplus", sp, sp64)):
+        diff = (got - want).abs()
+        big = want >= normal
+        rel = diff[big] / want[big]
+        err[name] = (float(diff.max()), float(rel.max()), float((rel / bound[big]).max()))
+        assert bool((rel <= bound[big]).all()), (name, err[name])
+        assert bool((diff[~big] <= normal).all()), name
+    assert err["sigmoid"][0] <= 2.5e-7, err
+    print(f"gates vs float64: (max abs, max rel, max rel / bound) {err}")
+
+
 BWD_TOL = {None: 1e-4, torch.bfloat16: 3e-2}
 SOLVE_BWD_TOL = {None: 5e-4, torch.bfloat16: 6e-2}
 

@@ -98,7 +98,7 @@ def test_fit_matches_jax_fit(same_draws_and_batches, fused):
     x = np.array(jdata.gaussian_mixture(jax.random.PRNGKey(1), N), np.float32)
     jres = jcnf.ICNFModel(jicnf, batchsize=BATCH, epochs=1, log_every=1).fit(x, params=jparams)
     ticnf = tcnf.ICNF.create(nvariables=2, solver=_solver(), fused=fused)
-    tres = tcnf.ICNFModel(ticnf, batchsize=BATCH, epochs=1, log_every=1).fit(
+    tres = tcnf.ICNFModel(ticnf, batchsize=BATCH, epochs=1, log_every=1, device="cpu").fit(
         x, params=params_from_jax(jparams))
     assert tres.stats["iterations"] == jres.stats["iterations"] == 3
     np.testing.assert_allclose(tres.history, jres.history, rtol=1e-5)
@@ -122,7 +122,8 @@ def test_carry_fit_matches_jax_fit(same_draws_and_batches, spd):
                           steps_per_dispatch=spd).fit(x, params=jparams)
     ticnf = tcnf.ICNF.create(nvariables=2, solver=SolverConfig(dt0="carry"))
     tres = tcnf.ICNFModel(ticnf, batchsize=BATCH, epochs=1, log_every=1,
-                          steps_per_dispatch=spd).fit(x, params=params_from_jax(jparams))
+                          steps_per_dispatch=spd, device="cpu").fit(
+        x, params=params_from_jax(jparams))
     assert tres.stats["iterations"] == jres.stats["iterations"] == 3
     for key in ("nfe", "naccept", "nreject"):
         assert tres.stats[key] == jres.stats[key]
@@ -151,7 +152,7 @@ def _equal(p, q):
 def test_steps_per_dispatch_bit_parity(fused):
     x = _x()
     runs = [tcnf.ICNFModel(_small(fused=fused), batchsize=16, epochs=2, log_every=1,
-                           steps_per_dispatch=k).fit(x) for k in (1, 4)]
+                           steps_per_dispatch=k, device="cpu").fit(x) for k in (1, 4)]
     assert runs[0].stats["iterations"] == runs[1].stats["iterations"] == 12
     assert _equal(runs[0].params, runs[1].params)
     assert runs[0].history == runs[1].history
@@ -159,7 +160,7 @@ def test_steps_per_dispatch_bit_parity(fused):
 
 def test_resume_is_exact():
     x = _x()
-    model = tcnf.ICNFModel(_small(), batchsize=32, epochs=2)
+    model = tcnf.ICNFModel(_small(), batchsize=32, epochs=2, device="cpu")
     whole = model.fit(x)
     model.epochs = 1
     first = model.fit(x)
@@ -170,11 +171,11 @@ def test_resume_is_exact():
 
 def test_fit_leaves_given_params_untouched_and_logs():
     x = _x()
-    params = _small().init(torch.Generator().manual_seed(1))
+    params = _small().init(torch.Generator().manual_seed(1), device="cpu")
     before = {k: v.clone() for k, v in params.items()}
     seen = []
     res = tcnf.ICNFModel(_small(), batchsize=32, epochs=2, log_every=2,
-                         callback=lambda it, l: seen.append(it)).fit(x, params=params)
+                         callback=lambda it, l: seen.append(it), device="cpu").fit(x, params=params)
     assert _equal(params, before)
     assert seen == [0, 2, 4] and len(res.history) == 3
     assert all(np.isfinite(res.history))
@@ -185,10 +186,10 @@ def test_fit_leaves_given_params_untouched_and_logs():
 
 def test_validation_tracks_best_and_keeps_the_stream():
     x, xval = _x(), _x(48, seed=6)
-    plain = tcnf.ICNFModel(_small(), batchsize=32, epochs=3).fit(x)
+    plain = tcnf.ICNFModel(_small(), batchsize=32, epochs=3, device="cpu").fit(x)
     evals = []
     val = tcnf.ICNFModel(_small(), batchsize=32, epochs=3,
-                         val_callback=lambda e, v: evals.append(e)).fit(
+                         val_callback=lambda e, v: evals.append(e), device="cpu").fit(
         x, validation_data=xval, eval_every=2)
     assert evals == [2, 3] and [e for e, _ in val.val_history] == [2, 3]
     assert _equal(plain.params, val.params)  # validation draws nothing
@@ -204,7 +205,7 @@ def test_early_stopping_on_patience():
     best parameters."""
     x, xval = _x(), _x(48, seed=6)
     model = tcnf.ICNFModel(_small(), optimizer=tcnf.default_optimizer(learning_rate=1.0),
-                           batchsize=32, epochs=6)
+                           batchsize=32, epochs=6, device="cpu")
     res = model.fit(x, validation_data=xval, patience=2)
     assert res.stats["stopped_early"]
     assert res.stats["epochs_run"] == len(res.val_history) == 2
@@ -216,7 +217,7 @@ def test_early_stopping_on_patience():
 
 def test_save_load_round_trip(tmp_path):
     x = _x()
-    model = tcnf.ICNFModel(_small(), batchsize=32, epochs=1)
+    model = tcnf.ICNFModel(_small(), batchsize=32, epochs=1, device="cpu")
     res = model.fit(x)
     model.save(str(tmp_path / "ckpt"), res)
     params = model.load(str(tmp_path / "ckpt"))
@@ -238,21 +239,40 @@ def test_conditional_model():
     x = _x()
     y = torch.randn((96, 1), generator=torch.Generator().manual_seed(2))
     icnf = _small(nconditions=1)
-    model = tcnf.CondICNFModel(icnf, batchsize=32, epochs=1)
+    model = tcnf.CondICNFModel(icnf, batchsize=32, epochs=1, device="cpu")
     res = model.fit(x, y)
     assert res.stats["iterations"] == 3 and np.isfinite(res.stats["final_loss"])
     assert model.transform(x[:4], res.params, Y=y[:4]).shape == (4,)
     with pytest.raises(ValueError, match="requires Y"):
         model.fit(x)
     with pytest.raises(ValueError, match="nconditions"):
-        tcnf.CondICNFModel(_small())
+        tcnf.CondICNFModel(_small(), device="cpu")
 
 
 def test_rejects_bad_input_and_unported_options():
     with pytest.raises(NotImplementedError, match="Queue 1: parallel"):
-        tcnf.ICNFModel(_small(), mesh=object())
+        tcnf.ICNFModel(_small(), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match=r"X must be \(n, 2\)"):
-        tcnf.ICNFModel(_small(), epochs=1).fit(torch.zeros(8, 3))
+        tcnf.ICNFModel(_small(), epochs=1, device="cpu").fit(torch.zeros(8, 3))
+
+
+@pytest.mark.parametrize("conditional", [False, True], ids=["ICNFModel", "CondICNFModel"])
+def test_fit_runs_on_the_card_unless_asked_for_the_cpu(conditional, monkeypatch):
+    """The model's device is the card by default; without CUDA ``fit`` raises
+    an error that names ``device="cpu"`` (it never carries on on the CPU),
+    and ``device="cpu"`` trains there."""
+    icnf = _small(nconditions=1) if conditional else _small()
+    model_cls = tcnf.CondICNFModel if conditional else tcnf.ICNFModel
+    data = (_x(), torch.zeros((96, 1))) if conditional else (_x(),)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert model_cls(icnf).device == torch.device("cuda")
+    assert model_cls(icnf, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        model_cls(icnf, batchsize=32, epochs=1).fit(*data)
+    res = model_cls(icnf, batchsize=32, epochs=1, device="cpu").fit(*data)
+    assert res.stats["iterations"] == 3
+    assert all(v.device.type == "cpu" for v in res.params.values())
 
 
 def test_batch_transform_and_eval_icnf():
@@ -263,15 +283,17 @@ def test_batch_transform_and_eval_icnf():
         seen.append(tuple(xb.shape))
         return xb
 
-    plain = tcnf.ICNFModel(_small(), batchsize=32, epochs=1).fit(x)
-    hooked = tcnf.ICNFModel(_small(), batchsize=32, epochs=1, batch_transform=identity).fit(x)
+    plain = tcnf.ICNFModel(_small(), batchsize=32, epochs=1, device="cpu").fit(x)
+    hooked = tcnf.ICNFModel(_small(), batchsize=32, epochs=1, batch_transform=identity,
+                            device="cpu").fit(x)
     assert seen == [(32, 2)] * 3 and _equal(plain.params, hooked.params)
     noisy = tcnf.ICNFModel(_small(), batchsize=32, epochs=1, batch_transform=lambda g, xb: xb
-                           + 0.01 * torch.randn(xb.shape, generator=g)).fit(x)
+                           + 0.01 * torch.randn(xb.shape, generator=g), device="cpu").fit(x)
     assert not _equal(plain.params, noisy.params)
     fine = tcnf.ICNF.create(nvariables=2, solver=_solver(16))
-    model = tcnf.ICNFModel(_small(), eval_icnf=fine)
+    model = tcnf.ICNFModel(_small(), eval_icnf=fine, device="cpu")
     assert model.score(x, plain.params) == -float(
         tcnf.ICNFDist(fine, plain.params).logpdf(x).mean())
     with pytest.raises(ValueError, match="eval_icnf"):
-        tcnf.ICNFModel(_small(), eval_icnf=tcnf.ICNF.create(nvariables=3, solver=_solver()))
+        tcnf.ICNFModel(_small(), eval_icnf=tcnf.ICNF.create(nvariables=3, solver=_solver()),
+                       device="cpu")
