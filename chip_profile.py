@@ -5,6 +5,7 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py k2-grid
     python3 chip_profile.py widths
     python3 chip_profile.py fwd-widths
+    python3 chip_profile.py adaptive-widths
     python3 chip_profile.py sass
 
 Each row runs the flagship 2-D RNODE (or its FFJORD form) at 65,536 samples
@@ -28,12 +29,14 @@ widths.  ``widths`` times K2 and K6 at every hidden width of the row path and
 just past it (h = 8 ... 33), by the device time of their kernels: the
 measurement behind the rule that h <= 32 takes that path; beside K6 it
 counts K5's steps, which K6 replays.  ``fwd-widths`` does the same for the
-forward kernels K1 and K3 (h = 8, 12, 16, 24, 32, fp32 and bf16).  Run from
-two checkouts in one call, ``widths`` and ``fwd-widths`` compare two
-commits width by width, and so do the rows.  ``sass`` reads the instruction
-mix (``cuobjdump -sass``) and the registers, local memory and resident
-blocks an SM (``cuobjdump -res-usage``) of the forward row kernels in the
-built library.  Imports nothing of JAX.
+forward kernels K1 and K3 (h = 8, 12, 16, 24, 32, fp32 and bf16), and
+``adaptive-widths`` for K5 alone (h = 8 ... 33 and 128, two tolerances, with
+its cost a stage evaluation and its fixed cost) and K6's replay.  Run from
+two checkouts in one call, the width modes compare two commits width by
+width, and so do the rows.  ``sass`` reads the instruction mix (``cuobjdump
+-sass``), the registers, local memory and resident blocks an SM
+(``cuobjdump -res-usage``) and the spills (the build's ptxas lines) of the
+row kernels of K1, K3, K5 and K6's replay in the built library.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ KERNELS = {"K1": ("fused_dynamics_fwd_rows", "fused_dynamics_fwd_kernel"),
            "K3": ("fused_solve_rk4_rows", "fused_solve_rk4_kernel"),
            "K4": ("solve_traj_rows", "fused_solve_rk4_bwd_rows", "fused_solve_rk4_bwd_kernel"),
            "K5": ("adaptive_fwd_rows", "adaptive_fwd_tiled"),
-           "K6": ("adaptive_replay", "walk_rows", "adaptive_bwd")}
+           "K6": ("adaptive_replay", "adaptive_replay_tiled", "walk_rows", "adaptive_bwd")}
 
 
 def is_kernel(name, k):
@@ -342,7 +345,8 @@ def fwd_widths(dev):
     return out
 
 
-SASS_KERNELS = ("fused_dynamics_fwd_rows", "fused_solve_rk4_rows")
+SASS_KERNELS = ("fused_dynamics_fwd_rows", "fused_solve_rk4_rows", "adaptive_fwd_rows",
+                "adaptive_replay")
 
 
 def _opcode_mix(lines):
@@ -359,18 +363,22 @@ def _opcode_mix(lines):
 
 
 def sass(dev):
-    """The forward row kernels of the built library (K1
+    """The row kernels of the forward solves in the built library (K1
     ``fused_dynamics_fwd_rows<H, bf16>``, K3 ``fused_solve_rk4_rows<H,
-    bf16>``): registers and local memory (spills), resident blocks an SM at
-    the plan's block and shared memory for the flagship (h = 24) and FFJORD
-    (h = 12) widths, and the instruction mix (printed for the kernels those
-    widths take, all of them in the JSON).  Stage copies in the code =
-    MUFU.EX2 / 2H (one exponential a gate, 2H gates a stage)."""
-    from chip_smoke import kernel_label
+    bf16>``, K5 ``adaptive_fwd_rows<H>`` and K6's replay
+    ``adaptive_replay<H>``): registers and local memory, spill bytes (the
+    build's ptxas lines), resident blocks an SM at the plan's block and
+    shared memory for the flagship (h = 24) and FFJORD (h = 12) widths
+    (K5's and the replay's: a 128-row control group a block), and the
+    instruction mix (printed for the kernels those widths take, all of them
+    in the JSON).  Stage copies in the code = MUFU.EX2 / 2H (one exponential
+    a gate, 2H gates a stage)."""
+    from chip_smoke import kernel_label, ptxas_usage, resident_blocks
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     _build.kernels()
     lib = _build.build_info["path"]
+    ptxas = ptxas_usage(_build.build_info["log"])
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
                          check=True).stdout
@@ -385,26 +393,29 @@ def sass(dev):
         if not label.startswith(SASS_KERNELS):
             continue
         mix = _opcode_mix(body.splitlines())
-        H = int(re.search(r"<(\d+)", label).group(1))
-        copies = mix.get("MUFU.EX2", 0) / (2 * H)
+        m = re.search(r"<(\d+)", label)  # no H: the tiled replay
+        H = int(m.group(1)) if m else 0
+        copies = mix.get("MUFU.EX2", 0) / (2 * H) if H else None
         out[label] = dict(usage=usage.get(label, {}), mix=mix, instructions=sum(mix.values()),
-                          stage_copies=copies)
+                          stage_copies=copies,
+                          spill_bytes=[ptxas.get(label, {}).get(k) for k in ("spill_stores",
+                                                                             "spill_loads")])
     for h, (n_in, nz) in ((24, (6, 5)), (12, (3, 2))):
+        shapes = []
         for sd, name in ((0, "fused_dynamics_fwd_rows"), (nz + 3, "fused_solve_rk4_rows")):
             rows, _staged, H = _build.plan(n_in, h, nz, nz, sd)
             wf = n_in * H + 2 * H * H + nz * H + 2 * H + nz
             smem = 4 * (wf + (rows * ((2 * sd + n_in + nz + nz) | 1) if sd else 0))
-            for bf16 in (0, 1):
-                label = f"{name}<{H}, {bf16}>"
-                if label not in out:
-                    continue
-                regs = out[label]["usage"].get("REG", 0)
-                warps = -(-rows // 32)
-                by_regs = 65536 // (-(-regs * 32 // 256) * 256 * warps) if regs else 0
-                by_smem = 228 * 1024 // (smem + 1024)
-                blocks = min(by_regs, by_smem, 64 // warps, 32)
-                out[label][f"h={h}"] = dict(threads=rows, smem_bytes=smem, resident_blocks=blocks,
-                                            by_registers=by_regs, by_shared_memory=by_smem)
+            shapes += [(f"{name}<{H}, {bf16}>", rows, smem) for bf16 in (0, 1)]
+        H, _rows, smem = _build.adaptive_plan(n_in, h, nz, nz, nz + 3, 128)[:3]
+        shapes += [(f"{name}<{H}>", 128, smem) for name in ("adaptive_fwd_rows", "adaptive_replay")]
+        for label, threads, smem in shapes:
+            if label not in out:
+                continue
+            blocks, by_regs, by_smem = resident_blocks(out[label]["usage"].get("REG", 0),
+                                                       threads, smem)
+            out[label][f"h={h}"] = dict(threads=threads, smem_bytes=smem, resident_blocks=blocks,
+                                        by_registers=by_regs, by_shared_memory=by_smem)
     for label, r in sorted(out.items()):
         if not any(k.startswith("h=") for k in r):
             continue
@@ -414,9 +425,73 @@ def sass(dev):
                            f"{v['resident_blocks']} blocks an SM (registers allow "
                            f"{v['by_registers']}, shared memory {v['by_shared_memory']})"
                            for k, v in r.items() if k.startswith("h="))
-        print(f"sass {label}: {r['usage']}; {r['instructions']} instructions, "
-              f"{r['stage_copies']:.2f} stage copies; {shapes}; {mufu}; top "
-              + ", ".join(f"{op} {n}" for op, n in top), flush=True)
+        print(f"sass {label}: {r['usage']}; spill bytes (stores, loads; None: built earlier) "
+              f"{r['spill_bytes']}; "
+              f"{r['instructions']} instructions, {r['stage_copies']:.2f} stage copies; "
+              f"{shapes}; {mufu}; top " + ", ".join(f"{op} {n}" for op, n in top), flush=True)
+    return out
+
+
+# hidden width: (n_in, nz) of K5's widths; h = 12 is the FFJORD form (3 -> 12 ->
+# 12 -> 2, state 5), h = 33 and 128 take the tiled path
+ADAPTIVE_WIDTHS = {8: (6, 5), 12: (3, 2), 16: (6, 5), 24: (6, 5), 32: (6, 5), 33: (6, 5),
+                   128: (6, 5)}
+
+
+def adaptive_widths(dev):
+    """K5 alone over the hidden widths (batch 65,536; 8,192 at h = 128) at
+    rtol = atol = 1e-4 and 1e-6: device ms of K5's kernel beside its NFE
+    summed over the 128-row groups, and, where K6's replay is a kernel of its
+    own (h <= 32), the replay's device ms.  Per width, the line through the
+    two tolerances' (mean NFE a group, ms) gives K5's cost a stage evaluation
+    (slope) and its fixed cost (intercept); it holds where every group takes
+    the same NFE (a launch waits for its slowest group).  Run from two
+    checkouts in one call, it compares their K5 width by width."""
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    out = {}
+    for h, (n_in, nz) in ADAPTIVE_WIDTHS.items():
+        b, sd = (8_192 if h == 128 else BATCH), nz + 3
+        params = MLP((n_in, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
+        g = torch.Generator(device=dev).manual_seed(2)
+        u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
+                        torch.zeros((b, 3), device=dev)], dim=-1)
+        eps = torch.randn((b, nz), generator=g, device=dev)
+        gbar = torch.randn((b, sd), generator=g, device=dev)
+        span = (0.0, torch.tensor(1.05, device=dev))
+        plan = _build.adaptive_plan(n_in, h, nz, nz, sd, 128)
+        path = f"row, H = {plan[0]}" if plan[0] else f"tiled, {plan[1]} rows a tile"
+        points = []
+        for tol in (1e-4, 1e-6):
+            args = (u0, eps, None, params, span, nz, nz, (tol, tol, 0.01, 0.9, 0.2, 10.0, 16_384))
+            k5 = lambda: fa.fused_solve_dopri5(*args, 128)
+            st = k5()[1]
+            nfe = int(st[:, 0].sum())
+            ms = sorted(device_ms(k5, KERNELS["K5"], reps=10) for _ in range(3))
+            row = out[f"K5 h={h} tol={tol:g}"] = dict(
+                path=path, batch=b, groups=st.shape[0], nfe=nfe, nfe_max=int(st[:, 0].max()),
+                accepted=int(st[:, 1].sum()), ms=ms[1], min=ms[0], max=ms[2])
+            replay = ""
+            if plan[0]:
+                k6 = lambda: fa.fused_solve_dopri5_bwd(*args, 128, gbar)
+                if not torch.equal(k6()[3], st[:, 1].to(torch.int32)):
+                    raise SystemExit(f"adaptive-widths h={h} tol={tol:g}: the replay's accepted "
+                                     f"steps differ from K5's")
+                rms = sorted(device_ms(k6, ("adaptive_replay",), reps=5) for _ in range(3))
+                row.update(replay_ms=rms[1], replay_min=rms[0], replay_max=rms[2])
+                replay = f"; K6's replay {rms[1]:.4f} (min {rms[0]:.4f}, max {rms[2]:.4f})"
+            points.append((nfe / st.shape[0], ms[1]))
+            print(f"adaptive-widths K5 {n_in}->{h}->{h}->{nz} tol {tol:g} B={b} ({path}): NFE "
+                  f"{nfe} over {st.shape[0]} groups (at most {row['nfe_max']} a group), accepted "
+                  f"{row['accepted']}; device ms {ms[1]:.4f} (min {ms[0]:.4f}, max {ms[2]:.4f})"
+                  f"{replay}", flush=True)
+        (n1, t1), (n2, t2) = points
+        slope = (t2 - t1) / (n2 - n1) if n2 != n1 else float("nan")
+        out[f"K5 h={h} line"] = dict(us_per_nfe=slope * 1e3, intercept_us=(t1 - slope * n1) * 1e3)
+        print(f"adaptive-widths K5 h={h}: {slope * 1e3:.3f} us a stage evaluation (mean NFE a "
+              f"group {n1:.2f} -> {n2:.2f}), fixed {(t1 - slope * n1) * 1e3:.3f} us", flush=True)
     return out
 
 
@@ -434,7 +509,7 @@ def main() -> None:
     wanted = sys.argv[1:] or list(table)
     out = {"device": torch.cuda.get_device_name(0)}
     for name, mode in (("sass", sass), ("k2-grid", k2_grid), ("widths", widths),
-                       ("fwd-widths", fwd_widths)):
+                       ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths)):
         if name in wanted:
             wanted.remove(name)
             out[name] = mode(dev)

@@ -185,6 +185,40 @@ def kernel_label(mangled: str) -> str:
     return name + (f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>" if args else "")
 
 
+def ptxas_usage(log: str) -> dict:
+    """{kernel label: {"registers", "spill_stores", "spill_loads"}} from the
+    ptxas lines of a build log (empty when an earlier process built the
+    library)."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = kernel_label(m.group(1))
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = kernel_label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(props, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def resident_blocks(regs: int, threads: int, smem: int):
+    """Blocks an SM of an H100 holds of a kernel with ``regs`` registers a
+    thread, ``threads`` a block and ``smem`` bytes of shared memory: (blocks,
+    what the registers allow, what the shared memory allows).  65,536
+    registers an SM, given out 256 a warp at a time; 228 KB of shared memory,
+    1 KB of it reserved a block; 64 warps and 32 blocks at most."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-regs * 32 // 256) * 256 * warps) if regs else 0
+    by_smem = 228 * 1024 // (smem + 1024)
+    return min(by_regs, by_smem, 64 // warps, 32), by_regs, by_smem
+
+
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median of per-call CUDA-event times after ``warmup`` calls."""
     for _ in range(warmup):
@@ -729,6 +763,21 @@ def adaptive_kernel_phase(dev, record):
         log(f"  plan K5/K6 {shape}: groups of {group} rows; K5 and K6's replay {path}, grid "
             f"{b // group}, {smem} B shared; K6's walk back {walk}, grid "
             f"{b // group * walk_blocks}, {smem_bwd} B shared")
+        usage = ptxas_usage(_build.build_info.get("log", ""))
+        for name in ("adaptive_fwd_rows", "adaptive_replay"):
+            if not H:
+                break
+            u = usage.get(f"{name}<{H}>")
+            if u is None:
+                log(f"  {name}<{H}> {shape}: no ptxas lines (the library was built earlier)")
+                continue
+            blocks, by_regs, by_smem = resident_blocks(u["registers"], group, smem)
+            log(f"  {name}<{H}> {shape}: row path, H = {H}, {u['registers']} registers, spill "
+                f"bytes {u.get('spill_stores')} stored / {u.get('spill_loads')} loaded, "
+                f"{blocks} resident blocks an SM (registers allow {by_regs}, shared memory "
+                f"{by_smem})")
+            record.setdefault("adaptive_row_kernels", {})[f"{name}<{H}> {shape}"] = dict(
+                u, resident_blocks=blocks)
         record.setdefault("bwd_plans", {})[f"K6 walk {shape}"] = dict(
             path="row" if walk_h else "tiled", H=walk_h, rows=bwd_rows,
             grid=b // group * walk_blocks)
@@ -742,6 +791,11 @@ def adaptive_kernel_phase(dev, record):
             f"{int(st[:, 1].min())}-{int(st[:, 1].max())}, rejected {int(st[:, 2].max())} at most")
         if n_diff * 16 > st.shape[0]:
             fail(f"K5 {shape}: {n_diff} of {st.shape[0]} groups differ in their steps")
+        again = k5()
+        if not all(torch.equal(a.view(torch.int32), c.view(torch.int32))
+                   for a, c in zip((u1, st), again)):
+            fail(f"K5 {shape}: two calls on the same inputs differ")
+        log(f"  K5 {shape}: two calls give the same bits in u1 and the stats ok")
         keep = same.repeat_interleave(group)
         err5 = compare(f"K5 fused_solve_dopri5 {shape} B={b} (groups of equal steps)",
                        u1[keep], u1_p[keep], *ADAPTIVE_TOL)
@@ -776,9 +830,12 @@ def adaptive_kernel_phase(dev, record):
             f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
         if shape == "flagship":
             record["spread_ms"]["k6"] = spread_ms("K6 flagship fp32", k6, 5)
+        nfe_rows, accepted_rows = int(st[:, 0].sum()) * group, int(st[:, 1].sum()) * group
+        bounds = kernel_bounds(n_in, h, nz, b, nfe_rows, accepted_rows)
+        log(f"  bound {shape}: K5 {bounds['K5'][0]:.4f} ms ({bounds['K5'][1]}), K6 "
+            f"{bounds['K6'][0]:.4f} ms ({bounds['K6'][1]}) for the steps these inputs took")
         results.append(dict(shape=shape, batch=b, widths=[n_in, h, h, nz], groups=st.shape[0],
-                            nfe_rows=int(st[:, 0].sum()) * group,
-                            accepted_rows=int(st[:, 1].sum()) * group,
+                            nfe_rows=nfe_rows, accepted_rows=accepted_rows,
                             groups_with_other_steps=n_diff, k5_max_abs_err=err5,
                             k6_max_abs_err=err6, nfe_max=int(st[:, 0].max()), **ms))
         surveys[shape] = step_survey(shape, dev, b, h, spread, SURVEY_SEEDS, 1 / 16)

@@ -20,7 +20,8 @@
 // compiler can differ between the two kernels.
 //
 // Two paths, as for K3: one row per thread with the row's state in shared
-// memory for h <= 32 (solve_rows: blockDim.x == group), one tile of rows at
+// memory for h <= 32 (solve_rows: blockDim.x == group, h padded to a
+// multiple of 4 as in K1 and K3, four 128-row groups an SM), one tile of rows at
 // a time through stage.cuh for wider nets (solve_tiled: the rows' state,
 // 9 x state_dim floats each, in a device-memory scratch, because 128 rows of
 // a wide state do not fit in shared memory beside the stage buffers).
@@ -33,6 +34,21 @@ namespace cnf {
 constexpr int kCtlFloats = 12;  // shared floats reserved for a Ctl
 constexpr int kMaxGroup = 128;  // rows of a control group, at most
 constexpr long kSmemMax = 227L * 1024;
+// Resident blocks an SM that the row kernels (K5's and K6's replay) are
+// compiled for: 4 x 128 threads leave a thread 128 registers, and 4 x 52 KB
+// of shared memory at the flagship fit an SM, so the 512 groups of a
+// 65,536-row batch run in one wave on 132 SMs.
+constexpr int kRowGroupsPerSM = 4;
+
+// The dynamic shared memory of a row kernel, and the SM's largest shared
+// memory carveout, so that kRowGroupsPerSM blocks fit beside each other.
+template <typename K>
+cudaError_t set_row_smem(K kernel, int bytes) {
+  const cudaError_t err = set_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
 
 // Dormand-Prince 5(4) in float32, each constant rounded from its double
 // value, as the JAX package's Python floats are.  Constant memory: the
@@ -197,6 +213,15 @@ __device__ __forceinline__ void row_eval(const RowWeights& w, const Dims& d, flo
 // thread's row holds u0 in U, eps in EPS and the conditions in X on entry;
 // on return U holds the state at exit and c the counts.  Row `grow` of the
 // batch (B rows) is this thread's, for the node buffer.
+//
+// Every evaluation goes through the one row_eval call below, so the code
+// holds one copy of the stage, as K3's row kernel does (three inlined
+// copies, a body of ~13k instructions, made K5 1.11x slower at h = 24 on an
+// H100): evaluation i = 0 is k_0 at (t0, u0), i = 1..5 the trial
+// step's stage inputs, i = 6 the FSAL stage at u5.  Two barriers a decision
+// (i = 0: the start, i = 6: a trial step): thread 0 writes c only between
+// them, and every thread reads c only after the second and before it next
+// reaches the first.
 template <int H>
 __device__ void solve_rows(const RowWeights& w, const Dims& d, float* row, int sd, int t_col,
                            float t0, float t1, const Solver& s, Ctl& c, float* red,
@@ -209,37 +234,42 @@ __device__ void solve_rows(const RowWeights& w, const Dims& d, float* row, int s
   float* Y = X + d.n_in;
   const float* EPS = Y + d.n_out;
   const float span = __fadd_rn(t1, -t0);
-
-  for (int col = 0; col < nz; ++col) X[col] = U[col];
-  row_eval<H>(w, d, X, EPS, Y, K, t_col, t0);
-  if (threadIdx.x == 0) {
-    ctl_start(c, t0, span, s);
-    ctl_clamp(c, t1, span);
-  }
-  __syncthreads();
-  while (running(c, s)) {
-    const float t = c.t, dtc = c.dtc;
+  float t = t0, dtc = 0.0f;
+  int i = 0;
 #pragma unroll 1
-    for (int i = 1; i < 6; ++i) {
+  for (;;) {
+    float te = t0;
+    if (i == 0) {
+      for (int col = 0; col < nz; ++col) X[col] = U[col];
+    } else if (i < 6) {
       for (int col = 0; col < nz; ++col) X[col] = stage_input(i, U[col], K + col, sd, dtc);
-      row_eval<H>(w, d, X, EPS, Y, K + i * sd, t_col, __fadd_rn(t, __fmul_rn(kDpC[i], dtc)));
+      te = __fadd_rn(t, __fmul_rn(kDpC[i], dtc));
+    } else {
+      for (int col = 0; col < sd; ++col) {
+        U5[col] = step_solution(U[col], K + col, sd, dtc);
+        if (col < nz) X[col] = U5[col];
+      }
+      te = __fadd_rn(t, dtc);
     }
-    for (int col = 0; col < sd; ++col) {
-      U5[col] = step_solution(U[col], K + col, sd, dtc);
-      if (col < nz) X[col] = U5[col];
+    row_eval<H>(w, d, X, EPS, Y, K + i * sd, t_col, te);
+    if (i > 0 && i < 6) {
+      ++i;
+      continue;
     }
-    row_eval<H>(w, d, X, EPS, Y, K + 6 * sd, t_col, __fadd_rn(t, dtc));
-    float sum = 0.0f;
-    for (int col = 0; col < sd; ++col)
-      sum = __fadd_rn(sum, scaled_err_sq(U[col], U5[col], K + col, sd, dtc, s));
-    red[threadIdx.x] = sum;
+    if (i == 6) {
+      float sum = 0.0f;
+      for (int col = 0; col < sd; ++col)
+        sum = __fadd_rn(sum, scaled_err_sq(U[col], U5[col], K + col, sd, dtc, s));
+      red[threadIdx.x] = sum;
+    }
     __syncthreads();
     if (threadIdx.x == 0) {
-      group_decide(c, red, blockDim.x, sd, s, t1, span, nodes);
+      if (i == 0) ctl_start(c, t0, span, s);
+      else group_decide(c, red, blockDim.x, sd, s, t1, span, nodes);
       ctl_clamp(c, t1, span);
     }
     __syncthreads();
-    if (c.accept) {
+    if (i == 6 && c.accept) {
       if (nodes.traj != nullptr) {
         const long idx = min(c.nacc - 1, nodes.max_nodes - 1);
         for (int col = 0; col < nz; ++col) nodes.traj[(idx * nz + col) * B + grow] = U[col];
@@ -249,7 +279,10 @@ __device__ void solve_rows(const RowWeights& w, const Dims& d, float* row, int s
         K[col] = K[6 * sd + col];
       }
     }
-    __syncthreads();  // every thread has read c before thread 0 writes it again
+    if (!running(c, s)) break;
+    t = c.t;
+    dtc = c.dtc;
+    i = 1;
   }
 }
 
@@ -376,7 +409,8 @@ __host__ __device__ inline int adaptive_walk_row_ld(const Dims& d, int sd) {
 // then the walk; with the tiled walk it is one, whose blocks hold the larger
 // of the two's shared memory.
 struct AdaptivePlan {
-  int H;            // > 0: the row path (blockDim g), 0: the tiled path (blockDim kThreads)
+  int H;            // > 0: the row path (blockDim g, h padded to a multiple of 4),
+                    // 0: the tiled path (blockDim kThreads)
   int rows;         // tiled path: rows of a stage tile
   int smem_fwd;     // bytes of the forward, and of K6's replay (0: does not fit)
   bool staged;      // tiled path and K6's tiled walk: weights in shared memory
@@ -392,7 +426,7 @@ inline AdaptivePlan adaptive_plan(const Dims& d, int sd, int g) {
   AdaptivePlan pl{};
   const long wf = weight_floats(d);
   pl.staged = 4 * wf <= kStageWeightsBytes;
-  const int H = row_H(d.h);
+  const int H = row_fwd_H(d.h);
   const long wr = H ? row_weight_floats(d, H) : 0;
   const long row_bytes = 4 * (wr + kCtlFloats + g + (long)g * adaptive_row_floats(d, sd));
   if (H && 4 * wr <= kStageWeightsBytes && row_bytes <= kSmemMax) {

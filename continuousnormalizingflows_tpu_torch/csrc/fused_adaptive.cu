@@ -11,10 +11,13 @@
 //
 // What bounds it on an H100: a trial step is 6 stages of ~3.4 kFLOP per row
 // at the flagship width (h = 24) against no device-memory traffic at all on
-// the row path (u0, eps and ys read once, u1 written once), so FMA issue
-// inside the SM, plus one block-wide reduction and two barriers per trial
-// step.  A group of 128 rows is one block of 128 threads, so a block is
-// small; 512 groups at the flagship batch (65,536) keep every SM busy.
+// the row path (u0, eps and ys read once, u1 written once), so instruction
+// issue inside the SM (the FMAs, the weights' shared-memory loads and the
+// address arithmetic around them), plus one block-wide reduction and two
+// barriers per trial step.  A group of 128 rows is one block of 128 threads, compiled for four
+// blocks an SM (128 registers a thread) with one copy of the stage in its
+// code (adaptive.cuh), so the 512 groups of the flagship batch (65,536) run
+// in one wave on the 132 SMs.
 // Wider nets (h <= 128) take the tiled stage of stage.cuh, with the rows'
 // state in a device-memory scratch.
 //
@@ -30,7 +33,7 @@ using cnf::Solver;
 
 // The row path: thread r owns row r of the block's group.
 template <int H>
-__global__ void __launch_bounds__(cnf::kThreads)
+__global__ void __launch_bounds__(cnf::kMaxGroup, cnf::kRowGroupsPerSM)
 adaptive_fwd_rows(const float* __restrict__ u0, const float* __restrict__ eps,
                   const float* __restrict__ ys, cnf::Weights gw, cnf::Dims d,
                   const float* __restrict__ t0p, const float* __restrict__ t1p,
@@ -123,11 +126,12 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
         u0, eps, ys, w, d, pl.staged, t0, t1, S, u1, stats, B, sd, nc, t_col, g, pl.rows, s);
     return cudaGetLastError();
   }
-  auto kernel = adaptive_fwd_rows<32>;
-  if (pl.H == 8) kernel = adaptive_fwd_rows<8>;
-  if (pl.H == 16) kernel = adaptive_fwd_rows<16>;
-  if (pl.H == 24) kernel = adaptive_fwd_rows<24>;
-  cudaError_t err = cnf::set_smem(kernel, pl.smem_fwd);
+  // H = 4, 8, ..., 32 (row_fwd_H)
+  decltype(&adaptive_fwd_rows<4>) const kernels[] = {
+      adaptive_fwd_rows<4>,  adaptive_fwd_rows<8>,  adaptive_fwd_rows<12>, adaptive_fwd_rows<16>,
+      adaptive_fwd_rows<20>, adaptive_fwd_rows<24>, adaptive_fwd_rows<28>, adaptive_fwd_rows<32>};
+  const auto kernel = kernels[pl.H / 4 - 1];
+  cudaError_t err = cnf::set_row_smem(kernel, pl.smem_fwd);
   if (err != cudaSuccess) return err;
   kernel<<<grid, g, pl.smem_fwd, stream>>>(u0, eps, ys, w, d, t0, t1, u1, stats, B, sd, nc, t_col,
                                             s);

@@ -266,15 +266,15 @@ adaptive_bwd(const float* __restrict__ u0, const float* __restrict__ eps,
   if (threadIdx.x == 0) nacc_out[blockIdx.x] = nacc;
 }
 
-// The row walk's first kernel: the replay alone, with K5's shared memory.
-// Writes the group's accepted-step count and whether it finished.
+// The row walk's first kernel: the replay alone.  Writes the group's
+// accepted-step count and whether it finished.
 template <int H>
-__global__ void __launch_bounds__(cnf::kThreads)
-adaptive_replay(const float* __restrict__ u0, const float* __restrict__ eps,
-                const float* __restrict__ ys, cnf::Weights gw, cnf::Dims d, cnf::AdaptivePlan pl,
-                const float* __restrict__ t0p, const float* __restrict__ t1p,
-                float* __restrict__ S, Nodes nodes, int* __restrict__ nacc_out,
-                int* __restrict__ done_out, int B, int sd, int nc, int t_col, int g, Solver sv) {
+__device__ __forceinline__ void replay_only(const float* u0, const float* eps, const float* ys,
+                                            const cnf::Weights& gw, const cnf::Dims& d,
+                                            const cnf::AdaptivePlan& pl, const float* t0p,
+                                            const float* t1p, float* S, const Nodes& nodes,
+                                            int* nacc_out, int* done_out, int B, int sd, int nc,
+                                            int t_col, int g, const Solver& sv) {
   extern __shared__ __align__(16) float smem[];
   int nacc, done;
   replay_group<H>(u0, eps, ys, gw, d, pl, *t0p, *t1p, S, nodes, B, sd, nc, t_col, g, sv, smem,
@@ -283,6 +283,31 @@ adaptive_replay(const float* __restrict__ u0, const float* __restrict__ eps,
     nacc_out[blockIdx.x] = nacc;
     done_out[blockIdx.x] = done;
   }
+}
+
+// On the row path, with K5's block, shared memory and launch bounds.
+template <int H>
+__global__ void __launch_bounds__(cnf::kMaxGroup, cnf::kRowGroupsPerSM)
+adaptive_replay(const float* __restrict__ u0, const float* __restrict__ eps,
+                const float* __restrict__ ys, cnf::Weights gw, cnf::Dims d, cnf::AdaptivePlan pl,
+                const float* __restrict__ t0p, const float* __restrict__ t1p,
+                float* __restrict__ S, Nodes nodes, int* __restrict__ nacc_out,
+                int* __restrict__ done_out, int B, int sd, int nc, int t_col, int g, Solver sv) {
+  replay_only<H>(u0, eps, ys, gw, d, pl, t0p, t1p, S, nodes, nacc_out, done_out, B, sd, nc,
+                 t_col, g, sv);
+}
+
+// On the tiled path, as K5 runs it: nets whose rows do not fit K5's row path
+// but whose walk fits the row walk.
+__global__ void __launch_bounds__(cnf::kThreads)
+adaptive_replay_tiled(const float* __restrict__ u0, const float* __restrict__ eps,
+                      const float* __restrict__ ys, cnf::Weights gw, cnf::Dims d,
+                      cnf::AdaptivePlan pl, const float* __restrict__ t0p,
+                      const float* __restrict__ t1p, float* __restrict__ S, Nodes nodes,
+                      int* __restrict__ nacc_out, int* __restrict__ done_out, int B, int sd,
+                      int nc, int t_col, int g, Solver sv) {
+  replay_only<0>(u0, eps, ys, gw, d, pl, t0p, t1p, S, nodes, nacc_out, done_out, B, sd, nc,
+                 t_col, g, sv);
 }
 
 // The walk on the row path: one row per thread, kRowBwdThreads rows a block,
@@ -422,23 +447,24 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
   const int threads = pl.H > 0 ? g : cnf::kThreads;  // K5's block shape
   cudaError_t err;
   if (pl.walk_H == 0) {
-    auto kernel = adaptive_bwd<0>;
-    if (pl.H == 8) kernel = adaptive_bwd<8>;
-    if (pl.H == 16) kernel = adaptive_bwd<16>;
-    if (pl.H == 24) kernel = adaptive_bwd<24>;
-    if (pl.H == 32) kernel = adaptive_bwd<32>;
+    // H = 0 (the tiled replay), 4, 8, ..., 32 (row_fwd_H)
+    decltype(&adaptive_bwd<0>) const kernels[] = {
+        adaptive_bwd<0>,  adaptive_bwd<4>,  adaptive_bwd<8>,  adaptive_bwd<12>, adaptive_bwd<16>,
+        adaptive_bwd<20>, adaptive_bwd<24>, adaptive_bwd<28>, adaptive_bwd<32>};
+    const auto kernel = kernels[pl.H / 4];
     err = cnf::set_smem(kernel, pl.smem_bwd);
     if (err != cudaSuccess) return err;
     kernel<<<groups, threads, pl.smem_bwd, stream>>>(u0, eps, ys, w, d, pl, t0, t1, gbar, u0bar,
                                                      epsbar, S, nodes, partial, nacc, B, sd, nc,
                                                      t_col, g, P, s);
   } else {
-    auto replay = adaptive_replay<0>;
-    if (pl.H == 8) replay = adaptive_replay<8>;
-    if (pl.H == 16) replay = adaptive_replay<16>;
-    if (pl.H == 24) replay = adaptive_replay<24>;
-    if (pl.H == 32) replay = adaptive_replay<32>;
-    err = cnf::set_smem(replay, pl.smem_fwd);
+    // H = 0 (the tiled replay), 4, 8, ..., 32 (row_fwd_H)
+    decltype(&adaptive_replay_tiled) const replays[] = {
+        adaptive_replay_tiled, adaptive_replay<4>,  adaptive_replay<8>,
+        adaptive_replay<12>,   adaptive_replay<16>, adaptive_replay<20>,
+        adaptive_replay<24>,   adaptive_replay<28>, adaptive_replay<32>};
+    const auto replay = replays[pl.H / 4];
+    err = pl.H ? cnf::set_row_smem(replay, pl.smem_fwd) : cnf::set_smem(replay, pl.smem_fwd);
     if (err != cudaSuccess) return err;
     replay<<<groups, threads, pl.smem_fwd, stream>>>(u0, eps, ys, w, d, pl, t0, t1, S, nodes,
                                                      nacc, done, B, sd, nc, t_col, g, s);

@@ -10,11 +10,11 @@
 // broadcasts (all threads of a warp read the same address), so a product
 // issues one 16-byte load per 4 FMAs.  The weights are staged once per block,
 // zero-padded to H in every hidden dimension: a multiple of 4 for the
-// forward kernels K1 and K3 (row_fwd_H), of 8 for the backwards and the
-// adaptive kernels (row_H).  Padded units have zero weights in and out, so
-// they add exact zeros (fmaf(a, 0, acc) == acc) and a net gives the same bits
-// at either H: K3 and K4's trajectory, which share row_rk4_step, compute the
-// same states.
+// forward kernels K1, K3, K5 and K6's replay (row_fwd_H), of 8 for the
+// backwards (row_H).  Padded units have zero weights in and out, so they add
+// exact zeros (fmaf(a, 0, acc) == acc) and a net gives the same bits at
+// either H: K3 and K4's trajectory, which share row_rk4_step, compute the
+// same states, and K6's walk recomputes K5's stages.
 //
 // Sums run over the same index in the same order as stage.cuh, so the two
 // paths give the same result for the same row.
@@ -26,15 +26,14 @@ namespace cnf {
 
 constexpr int kRowMaxH = 32;
 
-// H for a hidden width h (0: too wide for this path): a multiple of 8, for
-// the backwards' 8 x 8 dA2 grid (row_stage_bwd.cuh), and for K5 and K6,
-// whose replay must take K5's steps
+// H of the backwards for a hidden width h (0: too wide for this path): a
+// multiple of 8, for their 8 x 8 dA2 grid (row_stage_bwd.cuh)
 __host__ __device__ inline int row_H(int h) {
   return h <= 8 ? 8 : h <= 16 ? 16 : h <= 24 ? 24 : h <= kRowMaxH ? 32 : 0;
 }
 
-// H of the forward kernels K1 and K3: h rounded up to the float4 of a weight
-// row (h = 12, the FFJORD form's width, takes 12, not 16)
+// H of the forward kernels K1, K3, K5 and K6's replay: h rounded up to the
+// float4 of a weight row (h = 12, the FFJORD form's width, takes 12, not 16)
 __host__ __device__ inline int row_fwd_H(int h) {
   return h <= kRowMaxH ? (h + 3) / 4 * 4 : 0;
 }

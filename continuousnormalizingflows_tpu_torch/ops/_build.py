@@ -153,14 +153,17 @@ def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int):
 def adaptive_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, group: int):
     """The adaptive kernels' launch shape for a control group of ``group``
     rows: ``(H, rows, smem_fwd, bwd_rows, smem_bwd, walk_H, walk_blocks)``,
-    where ``H > 0`` is the row-per-thread path (K5 and K6's replay) and ``H ==
-    0`` the tiled path with ``rows`` rows a stage tile.  K6's walk back:
-    ``walk_H > 0`` is its row-per-thread path, a kernel of its own after the
-    replay (blocks of ``bwd_rows`` threads, one row each), ``walk_H == 0``
-    its tiled path, in the replay's kernel (``bwd_rows`` rows a tile); it
-    takes ``walk_blocks`` blocks a group, and the wrapper allocates a row of
-    weight-gradient sums for each.  ``smem_bwd``: the shared bytes of the
-    kernel that walks.  A byte count of 0 means the widths do not fit."""
+    where ``H > 0`` is the row-per-thread path (K5 and K6's replay, hidden
+    width padded to ``H``, a multiple of 4) and ``H == 0`` the tiled path with
+    ``rows`` rows a stage tile.  K6's walk back: ``walk_H > 0`` is its
+    row-per-thread path (hidden width padded to a multiple of 8: padded units
+    add exact zeros, so it recomputes K5's stages bit for bit), a kernel of
+    its own after the replay (blocks of ``bwd_rows`` threads, one row each),
+    ``walk_H == 0`` its tiled path, in the replay's kernel (``bwd_rows`` rows
+    a tile); it takes ``walk_blocks`` blocks a group, and the wrapper
+    allocates a row of weight-gradient sums for each.  ``smem_bwd``: the
+    shared bytes of the kernel that walks.  A byte count of 0 means the
+    widths do not fit."""
     info = (ctypes.c_int * 6)()
     smem_fwd = kernels().cnf_adaptive_plan(n_in, h, n_out, nz, sd, group, info)
     return (int(info[0]), int(info[1]), smem_fwd, int(info[2]), int(info[3]), int(info[4]),
