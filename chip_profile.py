@@ -10,7 +10,9 @@ and serving calls of PERF.md section 5.
 
 Each row runs the flagship 2-D RNODE (or its FFJORD form) at 65,536 samples
 under ``torch.profiler``: 2 warm-up steps or calls, then 3 profiled ones.  Per
-row it prints the device kernels per step, the summed device time of those
+row it prints the device kernels per step (and, where unfused adaptive
+solves run, per trial step of them, forward and backward solves counted
+together), the summed device time of those
 kernels ("busy"), the host wall time of the profiled steps (inflated by the
 profiler), the idle share ``1 - busy / wall``, the device time of each of
 K1-K6 by its kernels' names and the top kernels, and writes every row to
@@ -88,21 +90,46 @@ def summarize(prof, wall_s):
                      for e in top])
 
 
+TRIALS = [0]  # trial steps of the unfused adaptive loops (dopri5/tsit5 and abm) so far
+
+
+def count_trials():
+    """Count the trial steps of every unfused adaptive solve (forward and
+    backward) from here on."""
+    from continuousnormalizingflows_tpu_torch.ops import ode
+
+    for name in ("_adaptive_loop", "_abm_loop"):
+        loop = getattr(ode, name)
+
+        def counted(*a, _loop=loop, **k):
+            run = _loop(*a, **k)
+            TRIALS[0] += run.steps
+            return run
+
+        setattr(ode, name, counted)
+
+
 def profiled(step):
     """``step(callback)`` runs WARMUP + ACTIVE steps, calling ``callback``
     after each."""
-    marks = []
+    marks, trials = [], []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=WARMUP, active=ACTIVE, repeat=1)) as prof:
         def callback(*_):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
+            trials.append(TRIALS[0])
             prof.step()
 
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        trials.append(TRIALS[0])
         step(callback)
-    return summarize(prof, marks[WARMUP + ACTIVE] - marks[WARMUP])
+    out = summarize(prof, marks[WARMUP + ACTIVE] - marks[WARMUP])
+    n = (trials[WARMUP + ACTIVE] - trials[WARMUP]) / ACTIVE
+    out["trial_steps_per_step"] = n
+    out["kernels_per_trial_step"] = out["kernels_per_step"] / n if n else None
+    return out
 
 
 def fit_row(dev, data, **create):
@@ -145,6 +172,8 @@ def rows(dev):
     x = data[:BATCH]
     rk4 = SolverConfig(method="rk4", gradient="backprop", fixed_steps=32)
     ffjord = dict(naugments=0, lambda_1=0.0, lambda_2=0.0, lambda_3=0.0)
+    # bench.py's abm + quadrature row: the reference's VCABM with QuadratureAdjoint
+    abm = SolverConfig(method="abm", rtol=1e-4, atol=1e-4, gradient="quadrature")
     return {
         "rk4 flagship, fused": fit_row(dev, data, solver=rk4, fused=True),
         "rk4 FFJORD form, fused": fit_row(dev, data, solver=rk4, fused=True, **ffjord),
@@ -155,11 +184,14 @@ def rows(dev):
         "default stack, quadrature adjoint": fit_row(
             dev, data, solver=SolverConfig(gradient="quadrature")),
         "fused_adaptive=True (K5 + K6)": fit_row(dev, data, fused=True, fused_adaptive=True),
+        "abm + quadrature, unfused": fit_row(dev, data, solver=abm),
+        "abm + quadrature, fused=True (K1 + K2)": fit_row(dev, data, solver=abm, fused=True),
         "serving rk4 TEST logpdf, fused": call_row(dev, x, Mode.TEST, solver=rk4, fused=True),
         "serving rk4 TRAIN logpdf, fused (K3)": call_row(dev, x, Mode.TRAIN, solver=rk4,
                                                          fused=True),
         "serving default stack TEST logpdf": call_row(dev, x, Mode.TEST),
         "serving default stack TRAIN logpdf": call_row(dev, x, Mode.TRAIN),
+        "serving abm TEST logpdf": call_row(dev, x, Mode.TEST, solver=abm),
     }
 
 
@@ -504,6 +536,7 @@ def main() -> None:
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     _build.kernels()
+    count_trials()
     warm_card(dev)
     table = rows(dev)
     wanted = sys.argv[1:] or list(table)
@@ -515,8 +548,10 @@ def main() -> None:
             out[name] = mode(dev)
     for name in wanted:
         r = out[name] = table[name]()
-        print(f"{name}: {r['kernels_per_step']:.0f} kernels, busy {r['busy_ms']:.3f} ms of "
-              f"{r['wall_ms']:.3f} ms profiled wall, idle share {r['idle_share']:.3f}; "
+        per_trial = (f" ({r['kernels_per_trial_step']:.1f} a trial step of "
+                     f"{r['trial_steps_per_step']:.1f})" if r["kernels_per_trial_step"] else "")
+        print(f"{name}: {r['kernels_per_step']:.0f} kernels{per_trial}, busy {r['busy_ms']:.3f} "
+              f"ms of {r['wall_ms']:.3f} ms profiled wall, idle share {r['idle_share']:.3f}; "
               + "".join(f"{k} {ms:.3f} ms, " for k, ms in r["kernel_ms"].items() if ms)
               + "top "
               + ", ".join(f"{k} {ms:.3f} ms ({n:.0f}x)" for k, ms, n in r["top"]), flush=True)

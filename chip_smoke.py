@@ -10,8 +10,11 @@ entry points, trains it with ``ICNFModel.fit`` (batch 65,536, 32 steps
 through K3 + K4) and its FFJORD form (through K1 + K2), runs the
 reference-default adaptive stack (dopri5 at 1e-4, the HNW start, the
 backsolve and quadrature adjoints, the carried start) on the same model and
-batch, and the opt-in adaptive whole-solve route (K5 + K6), and checks that
-the kernels carried each path.  The kernels line (third from last) gives
+batch, the opt-in adaptive whole-solve route (K5 + K6), the reference's
+default stack (abm with the quadrature adjoint, unfused and through K1 +
+K2) and the rest of the model surface (the planar net, the exact sweep,
+the Hutchinson JVP, a CondLayer, a from_torch net, custom distributions),
+and checks that the kernels carried each path.  The kernels line (third from last) gives
 each kernel's bound: the least time the card could take for its work, fp32
 FMAs at the published peak or bytes at the memory rate.  Imports nothing of
 JAX.  Exits non-zero, with no result line, when there is no CUDA device or
@@ -77,6 +80,8 @@ SURVEY_SEEDS = (1, 2, 3, 4, 5)  # draws on which K5 and its plain version count 
 # per-group steps) vs the unfused backsolve adjoint (global steps), both at
 # rtol = atol = 1e-6: two discretizations of one sensitivity, O(tol) apart
 ADAPTIVE_GRAD_TOL = 1e-3
+# bench.py's abm + quadrature row: the reference's VCABM with QuadratureAdjoint
+ABM_SOLVER = dict(method="abm", rtol=1e-4, atol=1e-4, gradient="quadrature")
 # the card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
 # fp32 outside the tensor cores, and HBM3
 FP32_FLOPS = 67e12
@@ -594,7 +599,8 @@ NO_LAUNCH = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
 
 def timed_fit(name, icnf, data, epochs, want, dev, seed=7):
     """One fit at batch BATCH, counted: the launch counts of every step must
-    be ``want``; returns (result, launches over the fit, train samples/s)."""
+    be ``want`` (or, where ``want`` is a function of a step's counts, make it
+    true); returns (result, launches over the fit, train samples/s)."""
     import continuousnormalizingflows_tpu_torch as cnf
 
     marks = []
@@ -614,10 +620,11 @@ def timed_fit(name, icnf, data, epochs, want, dev, seed=7):
     res = model.fit(data, params=params)
     launches = counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    expected = want.__doc__ if callable(want) else want
     for i in range(1, len(marks)):
-        step = {k: marks[i][1][k] - marks[i - 1][1][k] for k in want}
-        if step != want:
-            fail(f"{name}: step {i - 1} launched {step}, expected {want}")
+        step = {k: marks[i][1][k] - marks[i - 1][1][k] for k in NO_LAUNCH}
+        if not (want(step) if callable(want) else step == want):
+            fail(f"{name}: step {i - 1} launched {step}, expected {expected}")
     hist = res.history
     if res.stats["iterations"] != len(marks) - 1 or not all(map(math.isfinite, hist)):
         fail(f"{name}: {res.stats['iterations']} steps, loss history {hist}")
@@ -628,7 +635,7 @@ def timed_fit(name, icnf, data, epochs, want, dev, seed=7):
     rate = BATCH / secs[len(secs) // 2]
     solver = {k: res.stats[k] for k in ("nfe", "naccept", "nreject")}
     log(f"  {name}: {res.stats['iterations']} steps, launches {launches} "
-        f"(per step {want}) ok; loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
+        f"(per step {expected}) ok; loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
         f"{rate:.1f} train samples/s (median of {len(secs)} steps: "
         f"{secs[len(secs) // 2] * 1e3:.3f} ms; min {secs[0] * 1e3:.3f}, "
         f"max {secs[-1] * 1e3:.3f}); last step's solve {solver}; peak device memory over the "
@@ -1027,6 +1034,213 @@ def adaptive_fused_phase(dev, record):
     return launches
 
 
+def k1_k2_only(step):
+    """K1 and K2 launched, no other kernel"""
+    return step["K1"] > 0 and step["K2"] > 0 and not any(
+        step[k] for k in ("K3", "K4", "K5", "K6"))
+
+
+def solve_stats(st):
+    return {k: int(getattr(st, k)) for k in ("nfe", "naccept", "nreject")}
+
+
+def card_vs_cpu(name, icnf, mode, x, params, seed=None):
+    """One ``inference`` of the same 256 points on the card and on the CPU,
+    with the same draws (a CPU generator on both sides): the same steps
+    (the global error norm depends on the batch, so both solve one batch)
+    and log-densities within SLICE_TOL."""
+    import continuousnormalizingflows_tpu_torch as cnf
+
+    small = x[:256]
+    params_cpu = {k: v.detach().cpu() for k, v in params.items()}
+    gen = (lambda: None) if seed is None else (lambda: torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        card = cnf.inference(icnf, mode, small, params, gen())
+        cpu = cnf.inference(icnf, mode, small.cpu(), params_cpu, gen())
+    if solve_stats(card[2]) != solve_stats(cpu[2]):
+        fail(f"{name}: card vs CPU steps {solve_stats(card[2])} vs {solve_stats(cpu[2])}")
+    return compare(f"{name}: card vs CPU (the same 256 points, the same steps "
+                   f"{tuple(solve_stats(cpu[2]).values())})", card[0].cpu(), cpu[0], *SLICE_TOL)
+
+
+def loss_grads(icnf, x, params, generator, mode=None):
+    """One loss and its parameter gradients: (loss, grads, solver stats)."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode
+
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    l, st = cnf.loss_with_stats(icnf, mode or Mode.TRAIN, x, p, generator)
+    return l.detach(), list(torch.autograd.grad(l, list(p.values()))), st
+
+
+def abm_phase(dev, record):
+    """The reference's default stack: abm (adaptive order) with the
+    quadrature adjoint at bench.py's abm + quadrature row, on the flagship
+    at 65,536 samples; unfused, and fused through K1 + K2."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+
+    solver = SolverConfig(**ABM_SOLVER)
+    icnf = cnf.ICNF.create(nvariables=2, solver=solver)
+    if icnf.net.widths != (6, 24, 24, 5) or icnf.net.precision != "highest":
+        fail("the abm phase must run the flagship net in full float32")
+    params = icnf.init(torch.Generator().manual_seed(0), device=dev)
+    x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), BATCH)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    ts = torch.linspace(0.0, 1.0, 5, device=dev)
+    calls = [
+        ("TEST logpdf", lambda: cnf.ICNFDist(icnf, params, Mode.TEST).logpdf(x)),
+        ("TRAIN logpdf", lambda: cnf.ICNFDist(icnf, params, Mode.TRAIN, gen(2)).logpdf(x)),
+        ("TRAIN sample_with_logpdf",
+         lambda: cnf.ICNFDist(icnf, params, Mode.TRAIN, gen(4)).sample_with_logpdf(n=BATCH)),
+        ("TEST trajectory (5 times)", lambda: cnf.trajectory(icnf, x, params, ts)),
+    ]
+    outs, stats, rates = {}, {}, {}
+    with torch.no_grad():
+        reset_counts()
+        for name, fn in calls:
+            with SolveSpy() as spy:
+                outs[name] = fn()
+            stats[name] = spy.last() if spy.stats else solve_stats(outs[name][1])
+        if counts() != NO_LAUNCH:
+            fail(f"the unfused abm calls launched kernels: {counts()}")
+        for name, fn in calls:
+            rates[name] = samples_per_s(f"{name} {stats[name]}", fn, BATCH)
+        for name, out in outs.items():
+            for p in (out if isinstance(out, tuple) else (out,)):
+                if isinstance(p, torch.Tensor) and not torch.isfinite(p).all():
+                    fail(f"abm {name}: non-finite output")
+        s, lp = outs["TRAIN sample_with_logpdf"]
+        path, _ = outs["TEST trajectory (5 times)"]
+        if (outs["TEST logpdf"].shape != (BATCH,) or outs["TRAIN logpdf"].shape != (BATCH,)
+                or s.shape != (BATCH, 2) or lp.shape != (BATCH,) or path.shape != (5, BATCH, 5)):
+            fail("abm phase: output shapes")
+        if not torch.allclose(path[0, :, :2], x, rtol=1e-6, atol=1e-6):
+            fail("abm trajectory at t0 is not the data")
+    err_cpu = card_vs_cpu("abm TEST logpdf", icnf, Mode.TEST, x, params)
+    log(f"  TEST mean logpx {float(outs['TEST logpdf'].mean()):.4f}")
+
+    # fused=True: every forward evaluation is a K1 launch, every VJP of the
+    # quadrature adjoint a K2 launch (its stage again through K1); the
+    # counted run of this path: counts at 0 just before, read just after
+    fused = cnf.ICNF.create(nvariables=2, solver=solver, fused=True)
+    grads, solves = {}, {}
+    for name, model in (("plain", icnf), ("fused", fused)):
+        reset_counts()
+        _l, grads[name], st = loss_grads(model, x, params, gen(11))
+        moved = counts()
+        solves[name] = solve_stats(st)
+        log(f"  TRAIN loss and its gradients, fused={name == 'fused'}: launches {moved}, "
+            f"forward solve {solves[name]}")
+        if name == "fused" and not k1_k2_only(moved):
+            fail(f"fused abm + quadrature: launches {moved}, expected K1 and K2 only")
+        if name == "plain" and moved != NO_LAUNCH:
+            fail(f"unfused abm + quadrature: launches {moved}")
+        if name == "fused":
+            launches = moved
+    if solves["fused"] != solves["plain"]:
+        fail(f"fused abm: forward steps {solves['fused']} vs {solves['plain']}")
+    err_k12 = compare_to_max("abm + quadrature, fused (K1 + K2) vs unfused: one step's "
+                             "parameter gradients", grads["fused"], grads["plain"], GRAD_TOL)
+
+    data = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), TRAIN_POINTS)
+    fits = {}
+    for name, model, want in (("fit abm + quadrature", icnf, NO_LAUNCH),
+                              ("fit abm + quadrature, fused=True", fused, k1_k2_only)):
+        res, fit_launches, rate = timed_fit(name, model, data, 2, want, dev)
+        fits[name] = dict(train_samples_per_s=rate, history=res.history, launches=fit_launches,
+                          last_step={k: res.stats[k] for k in ("nfe", "naccept", "nreject")})
+
+    # the order cap at a tight tolerance against dopri5: NFE of TEST logpdf
+    orders = {}
+    with torch.no_grad():
+        for name, tight in (("dopri5", SolverConfig(rtol=1e-6, atol=1e-6)),
+                            *((f"abm{k}", SolverConfig(method="abm", rtol=1e-6, atol=1e-6,
+                                                       abm_order=k, gradient="quadrature"))
+                              for k in (4, 8, 12))):
+            model = cnf.ICNF.create(nvariables=2, solver=tight)
+            (lp_k, _a, st), sec = host_seconds(lambda: cnf.inference(model, Mode.TEST, x, params))
+            if not torch.isfinite(lp_k).all():
+                fail(f"TEST logpdf at 1e-6, {name}: non-finite")
+            orders[name] = dict(solve_stats(st), seconds=sec)
+            log(f"  TEST logpdf at rtol = atol = 1e-6, {name}: {orders[name]}")
+    record["abm"] = dict(solver_stats=stats, samples_per_s=rates, card_vs_cpu_max_abs_err=err_cpu,
+                         fused_launches=launches, fused_forward=solves["fused"],
+                         fused_grad_max_abs_err=err_k12, fits=fits, orders_at_1e6=orders)
+    return launches
+
+
+def nets_phase(dev, record):
+    """The rest of the model surface on the card at 65,536 samples: the
+    planar net (analytic trace), the exact sweep (unchunked and in blocks),
+    its Frobenius regularizer, the Hutchinson JVP, a CondLayer, a
+    from_torch net and a logistic base with a uniform probe; each against
+    the CPU on 256 points."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch import distributions as dists
+    from continuousnormalizingflows_tpu_torch.config import ICNFConfig, Mode, TraceEstimator
+    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+
+    cfg = ICNFConfig(nvariables=2)
+    mlp3 = cnf.MLP((cfg.n_in, 24, 24, 24, cfg.n_out))
+    module = torch.nn.Sequential(torch.nn.Linear(cfg.n_in, 24), torch.nn.Tanh(),
+                                 torch.nn.Linear(24, 24), torch.nn.Tanh(),
+                                 torch.nn.Linear(24, cfg.n_out))
+    cases = [  # (name, model, modes: TEST logpdf and/or TRAIN loss with gradients)
+        ("Planar (analytic planar trace)",
+         cnf.ICNF(config=cfg, net=cnf.Planar(cfg.n_in, cfg.n_out)), ("test", "train")),
+        ("MLP 3 hidden layers, exact sweep",
+         cnf.ICNF(config=cfg, net=mlp3), ("test",)),
+        ("MLP 3 hidden layers, exact sweep, exact_chunk=2",
+         cnf.ICNF(config=ICNFConfig(nvariables=2, exact_chunk=2), net=mlp3), ("test",)),
+        ("MLP 3 hidden layers, trace=EXACT, lambda_2 = 0.01 (Frobenius sweep)",
+         cnf.ICNF(config=ICNFConfig(nvariables=2, trace=TraceEstimator.EXACT), net=mlp3),
+         ("train",)),
+        ("HUTCH_JVP", cnf.ICNF.create(nvariables=2, trace=TraceEstimator.HUTCH_JVP), ("train",)),
+        ("CondLayer(MLP)", cnf.ICNF(config=cfg, net=cnf.CondLayer(
+            cnf.MLP((cfg.n_in + 2, 24, 24, cfg.n_out)), torch.tensor([0.5, -1.0]))),
+         ("test", "train")),
+        ("from_torch(Linear-Tanh x2-Linear)",
+         cnf.ICNF(config=cfg, net=cnf.from_torch(module, cfg.n_in, cfg.n_out)),
+         ("test", "train")),
+        ("logistic() base, uniform_probe()",
+         cnf.ICNF.create(nvariables=2, base_dist=dists.logistic(),
+                         probe_dist=dists.uniform_probe()), ("test", "train")),
+    ]
+    x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), BATCH)
+    out, test_lp = {}, {}
+    reset_counts()
+    for name, icnf, modes in cases:
+        params = icnf.init(torch.Generator().manual_seed(0), device=dev)
+        row = {}
+        if "test" in modes:
+            with torch.no_grad():
+                (lp, _a, st), sec = host_seconds(lambda: cnf.inference(icnf, Mode.TEST, x, params))
+            if lp.shape != (BATCH,) or not torch.isfinite(lp).all():
+                fail(f"{name}: TEST logpdf non-finite or misshapen")
+            row["test"] = dict(solve_stats(st), samples_per_s=BATCH / sec)
+            test_lp[name] = lp
+            row["test_card_vs_cpu"] = card_vs_cpu(f"{name} TEST", icnf, Mode.TEST, x, params)
+        if "train" in modes:
+            (l, grads, st), sec = host_seconds(
+                lambda: loss_grads(icnf, x, params, torch.Generator(device=dev).manual_seed(3)))
+            if not torch.isfinite(l) or not all(torch.isfinite(g).all() for g in grads):
+                fail(f"{name}: TRAIN loss or gradients non-finite")
+            row["train"] = dict(solve_stats(st), loss=float(l), train_samples_per_s=BATCH / sec)
+            row["train_card_vs_cpu"] = card_vs_cpu(f"{name} TRAIN", icnf, Mode.TRAIN, x, params,
+                                                   seed=5)
+        log(f"  {name} (one call each): " + "; ".join(
+            f"{m} {row[m]}" for m in ("test", "train") if m in row))
+        out[name] = row
+    if counts() != NO_LAUNCH:
+        fail(f"the nets phase launched kernels: {counts()}")
+    compare("exact sweep unchunked vs exact_chunk=2 (65,536 points)",
+            test_lp["MLP 3 hidden layers, exact sweep, exact_chunk=2"],
+            test_lp["MLP 3 hidden layers, exact sweep"], *SLICE_TOL)
+    record["nets"] = out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -1067,6 +1281,12 @@ def main() -> None:
     adaptive_phase(dev, record)
     log("[adaptive fused] fused=True, fused_adaptive=True: K5 forward, K6 backward")
     fused_adaptive = adaptive_fused_phase(dev, record)
+    log("[abm] flagship RNODE, SolverConfig(method='abm', rtol = atol = 1e-4, "
+        "gradient='quadrature'), 65,536 samples: unfused, and fused (K1 + K2)")
+    abm_phase(dev, record)
+    log("[nets] Planar, the exact sweep, HUTCH_JVP, CondLayer, from_torch, custom "
+        "distributions, 65,536 samples, against the CPU on 256 points")
+    nets_phase(dev, record)
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
     ad = {r["shape"]: r for r in adaptive_results}["flagship"]

@@ -3,13 +3,17 @@ an NVIDIA H100.
 
 The port of ``continuousnormalizingflows_tpu`` (JAX/Pallas on a TPU), which
 stays beside it as the reference.  Ported so far: the log-density and
-sampling path (config, the MLP dynamics net, the ICNF model,
+sampling path (config, the ICNF model,
 ``inference``/``log_prob``/``loss``/``generate``/``trajectory``,
 ``ICNFDist``/``CondICNFDist``), training (``ICNFModel``,
 ``CondICNFModel``, ``default_optimizer``, checkpoints), and the solvers:
 fixed-step rk4/euler with backprop, the reference-default adaptive dopri5
 (and tsit5) with the HNW start, the carried start and dense output, and
-the backsolve and quadrature adjoints.  Six CUDA kernels carry the
+the adaptive-order multistep ``abm`` (Adams-Bashforth-Moulton), the
+backsolve and quadrature adjoints; every trace estimator (the exact sweep,
+the planar and MLP analytic traces, Hutchinson by VJP or JVP); the nets
+``MLP``, ``Planar``, ``CondLayer`` and ``from_torch``; and custom base,
+probe and steer distributions (``distributions``).  Six CUDA kernels carry the
 stochastic modes: the fused dynamics stage and its backward
 (``ops.fused_dynamics``), the whole RK4 solve and its backward
 (``ops.fused_solve``), and the whole adaptive dopri5 solve and its backward
@@ -30,12 +34,14 @@ where their params are.  Quick start::
     fit = cnf.ICNFModel(icnf, batchsize=65_536, epochs=8).fit(x)
 """
 
+from . import distributions
 from .config import ICNFConfig, Mode, ProbeDist, SolverConfig, TraceEstimator
 from .core import (base_logpdf, generate, generate_with_logp, inference, log_prob, loss,
                    loss_with_stats, trajectory)
 from .dist import CondICNFDist, ICNFDist
+from .distributions import CustomDist
 from .models.icnf import ICNF, default_net
-from .models.nets import MLP, DynamicsNet
+from .models.nets import MLP, CondLayer, DynamicsNet, Planar, from_torch, planar_h
 from .train import CondICNFModel, FitResult, ICNFModel, default_optimizer
 
 __version__ = "0.1.0"
@@ -45,11 +51,17 @@ __all__ = [
     "ICNFConfig",
     "Mode",
     "ProbeDist",
+    "CustomDist",
+    "distributions",
     "SolverConfig",
     "TraceEstimator",
     "MLP",
+    "Planar",
+    "CondLayer",
     "DynamicsNet",
     "default_net",
+    "from_torch",
+    "planar_h",
     "inference",
     "loss_with_stats",
     "generate",

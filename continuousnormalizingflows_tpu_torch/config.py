@@ -5,10 +5,10 @@ dataclasses, the same validation and the same derived sizes, with
 ``torch.float32`` as the default dtype.  Variant mapping (FFJORD, RNODE,
 ANODE, STEER, conditional, non-autonomous) is as in the JAX package.
 
-Options that belong to parts of the JAX package not yet ported (the
-multistep solver, ``feature_first``, the mesh axes) are accepted by the
-validation, as there, and raise ``NotImplementedError`` where they would
-change what runs (see ``ROADMAP.md``, Queue 1).
+Options that belong to parts of the JAX package not ported
+(``feature_first``, a TPU lane layout, and the mesh axes) raise
+``NotImplementedError`` when the config is built (see ``ROADMAP.md``,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -87,12 +87,12 @@ class ProbeDist(str, enum.Enum):
 class SolverConfig:
     """ODE solve and gradient configuration (fields as in the JAX package).
 
-    The default is the reference's stack: dopri5 at rtol = atol = 1e-4 with
-    the HNW starting step and the backsolve adjoint.  ``rk4``/``euler``
-    (``backprop`` or ``adjoint``), ``dopri5``/``tsit5`` (``adjoint`` or
-    ``quadrature``) and ``dt0`` as a float, ``"auto"`` or ``"carry"`` run;
-    ``method="abm"`` validates here and raises ``NotImplementedError`` when
-    solved."""
+    The default is the JAX package's stack: dopri5 at rtol = atol = 1e-4
+    with the HNW starting step and the backsolve adjoint.  ``rk4``/``euler``
+    (``backprop`` or ``adjoint``), ``dopri5``/``tsit5``/``abm`` (``adjoint``
+    or ``quadrature``; ``abm`` with ``quadrature`` is the reference's VCABM
+    with ``QuadratureAdjoint``) and ``dt0`` as a float, ``"auto"`` or
+    ``"carry"`` (``abm`` takes the fixed-fraction start for both) run."""
 
     method: str = "dopri5"
     rtol: float = 1.0e-4

@@ -49,38 +49,34 @@ __all__ = [
 ]
 
 
-def _custom_dist_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"a custom {what} needs distributions.py, not ported yet (ROADMAP.md, "
-        "Queue 1: distributions)"
-    )
-
-
 def _draw(fn, generator: torch.Generator, device) -> torch.Tensor:
     return fn(generator.device).to(device)
 
 
 def base_logpdf(cfg: ICNFConfig, z: torch.Tensor) -> torch.Tensor:
-    """Standard-normal log-density over the augmented dimension ``nz``."""
+    """Base log-density over the augmented dimension ``nz``: the config's
+    ``base_dist``, or the standard normal (``base_dist=None``) in closed
+    form."""
     if cfg.base_dist is not None:
-        raise _custom_dist_unported("base_dist")
+        return cfg.base_dist.logpdf_fn(z)
     return -0.5 * (cfg.nz * LOG_2PI + torch.sum(torch.square(z), dim=-1))
 
 
 def sample_base(cfg: ICNFConfig, generator: torch.Generator, n: int, device) -> torch.Tensor:
     """``(n, nz)`` base samples for the generate path."""
     if cfg.base_dist is not None:
-        raise _custom_dist_unported("base_dist")
+        return cfg.base_dist.sample_fn(generator, (n, cfg.nz), cfg.dtype).to(device)
     return _draw(lambda d: torch.randn((n, cfg.nz), generator=generator, dtype=cfg.dtype,
                                        device=d), generator, device)
 
 
 def sample_probe(cfg: ICNFConfig, generator: torch.Generator, batch: int,
                  device) -> torch.Tensor:
-    """Fresh Hutchinson probes, ``(nprobes, batch, nz)``."""
+    """Fresh Hutchinson probes, ``(nprobes, batch, nz)``: Gaussian,
+    Rademacher, or the config's custom ``probe_dist``."""
     shape = (cfg.nprobes, batch, cfg.nz)
     if not isinstance(cfg.probe_dist, ProbeDist):
-        raise _custom_dist_unported("probe_dist")
+        return cfg.probe_dist.sample_fn(generator, shape, cfg.dtype).to(device)
     if cfg.probe_dist is ProbeDist.RADEMACHER:
         fn = lambda d: 2.0 * torch.randint(0, 2, shape, generator=generator, device=d).to(
             cfg.dtype) - 1.0
@@ -90,14 +86,16 @@ def sample_probe(cfg: ICNFConfig, generator: torch.Generator, batch: int,
 
 
 def steer_t1(cfg: ICNFConfig, generator: torch.Generator, device) -> torch.Tensor:
-    """STEER end time ``t1' = t1 + |t1 - t0| * r``, ``r ~ U(-rate, rate)``, as a
+    """STEER end time ``t1' = t1 + |t1 - t0| * r`` with ``r`` from the
+    config's ``steer_dist``, or ``U(-rate, rate)`` (``steer_dist=None``), as a
     scalar tensor on ``device`` (no host synchronisation)."""
-    if cfg.steer_dist is not None:
-        raise _custom_dist_unported("steer_dist")
     t0, t1 = cfg.tspan
-    u = _draw(lambda d: torch.rand((), generator=generator, dtype=cfg.dtype, device=d),
-              generator, device)
-    r = (2.0 * u - 1.0) * cfg.steer_rate
+    if cfg.steer_dist is not None:
+        r = cfg.steer_dist.sample_fn(generator, (), cfg.dtype).to(device)
+    else:
+        u = _draw(lambda d: torch.rand((), generator=generator, dtype=cfg.dtype, device=d),
+                  generator, device)
+        r = (2.0 * u - 1.0) * cfg.steer_rate
     return t1 + abs(t1 - t0) * r
 
 

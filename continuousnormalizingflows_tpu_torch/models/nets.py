@@ -9,12 +9,15 @@ the JAX package: ``init(generator)`` returns a fresh parameter dict and
 ``utils.convert`` maps it to and from the JAX ``[{"w": (in, out), "b"}]``
 layout.
 
-Only ``MLP`` is ported.  ``Planar``, ``CondLayer`` and ``from_flax`` come with
-the ROADMAP's Queue 1 item on nets.
+``MLP`` (the reference default), ``Planar`` (planar-flow dynamics, params
+``u``, ``w``, ``b``, the same layout as JAX's) with ``planar_h``,
+``CondLayer`` (appends a constant condition to the input) and
+``from_torch`` (any ``nn.Module``, in place of JAX's ``from_flax``).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -24,7 +27,8 @@ from torch import nn
 
 from ..config import resolve_device
 
-__all__ = ["DynamicsNet", "MLP", "Params", "linear", "mlp_layers"]
+__all__ = ["DynamicsNet", "MLP", "Planar", "CondLayer", "planar_h", "from_torch", "Params",
+           "linear", "mlp_layers"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -123,3 +127,113 @@ def mlp_layers(params: Params) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """``[(weight (out, in), bias (out,)), ...]`` of an MLP parameter dict."""
     n = len(params) // 2
     return [(params[f"layers.{i}.weight"], params[f"layers.{i}.bias"]) for i in range(n)]
+
+
+class Planar(DynamicsNet):
+    """Planar-flow dynamics ``u * act(w . x + b)`` (the reference
+    ``PlanarLayer``): params ``u`` ``(n_out,)``, ``w`` ``(n_in,)`` and, with
+    ``use_bias``, a scalar ``b``, as in the JAX package."""
+
+    def __init__(self, n_in: int, n_out: Optional[int] = None,
+                 activation: Callable[[torch.Tensor], torch.Tensor] = torch.tanh,
+                 use_bias: bool = True, dtype=torch.float32) -> None:
+        super().__init__()
+        self.n_in = int(n_in)
+        self.n_out = int(n_out) if n_out is not None else int(n_in)
+        self.activation = activation
+        self.use_bias = use_bias
+        self.dtype = dtype
+        self.u = nn.Parameter(torch.zeros(self.n_out, dtype=dtype))
+        self.w = nn.Parameter(torch.zeros(self.n_in, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros((), dtype=dtype)) if use_bias else None
+
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        """Glorot-uniform ``u`` (as a ``(1, n_out)`` matrix) and ``w`` (as
+        ``(n_in, 1)``), a zero ``b``; drawn on ``generator``'s device, then
+        moved to ``device`` (default: the card)."""
+        device = resolve_device(device)
+        params = {"u": _glorot_uniform(generator, 1, self.n_out, self.dtype)[:, 0],
+                  "w": _glorot_uniform(generator, self.n_in, 1, self.dtype)[0]}
+        if self.use_bias:
+            params["b"] = torch.zeros((), dtype=self.dtype, device=generator.device)
+        return {k: v.to(device) for k, v in params.items()}
+
+    def _pre(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``w . x + b`` over the last axis, in full float32."""
+        h = x @ params["w"]
+        return h + params["b"] if self.use_bias else h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = {"w": self.w, "b": self.b}
+        return self.activation(self._pre(params, x))[..., None] * self.u
+
+
+def planar_h(net: Planar, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The scalar activation before ``u``, ``act(w . x + b)`` (the reference's
+    ``pl_h``)."""
+    return net.activation(net._pre(params, x))
+
+
+class CondLayer(DynamicsNet):
+    """A net whose input gets a constant condition ``ys`` appended (the
+    reference ``CondLayer``): the wrapped net sees ``[x, ys]``; a scalar
+    ``ys`` is one column.  Its params are the wrapped net's."""
+
+    def __init__(self, net: DynamicsNet, ys) -> None:
+        super().__init__()
+        ys = torch.as_tensor(ys)
+        if ys.ndim == 0:
+            ys = ys.reshape(1, 1)
+        elif ys.ndim == 1:
+            ys = ys[None, :]
+        self.net = net
+        self.ys = ys
+        self.n_in = net.n_in - ys.shape[-1]
+        self.n_out = net.n_out
+        if self.n_in <= 0:
+            raise ValueError("conditioning width must be smaller than net input")
+
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        return self.net.init(generator, device)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        ys = self.ys.to(device=x.device, dtype=x.dtype)
+        return self.net.apply(params, torch.cat(
+            [x, ys.expand(x.shape[:-1] + (ys.shape[-1],))], dim=-1))
+
+
+class _TorchNet(DynamicsNet):
+    def __init__(self, module: nn.Module, n_in: int, n_out: int) -> None:
+        super().__init__()
+        self.module = module
+        self.n_in = int(n_in)
+        self.n_out = int(n_out)
+
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        """Fresh parameters in the module's own initialization: a copy of the
+        module on the CPU gets ``reset_parameters()`` on every submodule that
+        has one, with the CPU's global RNG seeded from one draw of
+        ``generator`` and restored afterwards; parameters of submodules
+        without ``reset_parameters`` keep the module's values.  The module
+        itself is not changed; the parameters go to ``device`` (default: the
+        card)."""
+        device = resolve_device(device)
+        seed = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+        fresh = copy.deepcopy(self.module).to("cpu")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            for m in fresh.modules():
+                if callable(getattr(m, "reset_parameters", None)):
+                    m.reset_parameters()
+        return {k: v.detach().to(device) for k, v in fresh.named_parameters()}
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(self.module, params, (x,))
+
+
+def from_torch(module: nn.Module, n_in: int, n_out: int) -> DynamicsNet:
+    """Wrap an ``nn.Module`` (``forward(x: (..., n_in)) -> (..., n_out)``) as
+    a dynamics net, as the reference takes any Lux layer (JAX:
+    ``from_flax``).  ``apply`` runs the module on the given parameters through
+    ``torch.func.functional_call``."""
+    return _TorchNet(module, n_in, n_out)

@@ -5,10 +5,14 @@ row ``u = [z (nz), dlogp, E, n]``; the derivative is
 ``du = [dz, -tr(J) estimate, |dz|, |eps^T J|]``, with the two regularizer
 columns zero unless the mode and the lambdas ask for them.
 
-Ported branches: the fused Hutchinson-VJP stage (K1, :mod:`.fused_dynamics`),
-the plain Hutchinson VJP (``torch.autograd.grad``), and the analytic exact trace
-of 1- and 2-hidden-layer MLPs.  The Hutchinson JVP and the generic exact
-sweep raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+The branches, in the JAX package's order: the fused Hutchinson-VJP stage
+(K1, :mod:`.fused_dynamics`); the planar net's analytic trace (with its
+exact Frobenius ``reg_j``); the analytic trace of 1- and 2-hidden-layer
+MLPs; the generic exact sweep (one JVP a basis row, in blocks of
+``exact_chunk`` rows when it is set); the Hutchinson VJP
+(``torch.autograd.grad``) and the Hutchinson JVP.  The JVPs run in forward
+mode (``torch.autograd.forward_ad``), whose results stay differentiable by
+autograd, also under the non-reentrant checkpoint of ``remat``.
 """
 
 from __future__ import annotations
@@ -16,10 +20,11 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.autograd.forward_ad as fwad
 import torch.nn.functional as F
 
 from ..config import ICNFConfig, Mode, TraceEstimator
-from ..models.nets import MLP, DynamicsNet, Params, linear, mlp_layers
+from ..models.nets import MLP, DynamicsNet, Params, Planar, linear, mlp_layers
 from .fused_dynamics import MAX_HIDDEN, _row_norm, fused_dynamics_vjp
 
 __all__ = ["make_augmented_dynamics", "make_field", "fused_dynamics_applicable"]
@@ -54,9 +59,66 @@ def _mlp_exact_applicable(net) -> bool:
 
 
 def _act_and_deriv(act, z: torch.Tensor):
+    """``(act(z), act'(z))`` of an elementwise activation.  The derivative
+    comes from autograd (``create_graph`` where ``z`` is in a graph), so it
+    stays differentiable, also under a non-reentrant checkpoint."""
     if act is F.softplus:
         return F.softplus(z), torch.sigmoid(z)
-    return torch.func.jvp(act, (z,), (torch.ones_like(z),))
+    train = torch.is_grad_enabled() and z.requires_grad
+    with torch.enable_grad():
+        zz = z if train else z.detach().requires_grad_()
+        a = act(zz)
+        (d,) = torch.autograd.grad(a.sum(), zz, create_graph=train)
+    return (a, d) if train else (a.detach(), d.detach())
+
+
+def _planar_trace(net: Planar, params: Params, x_full: torch.Tensor, nz: int, reg: bool):
+    """Analytic ``(dz, tr(J_z), ||J_z||_F)`` of planar dynamics
+    ``u * act(w . x + b)``: ``J_z = act' u[:nz] w[:nz]^T`` has rank one, so
+    ``tr = (u[:nz] . w[:nz]) act'`` and ``||J_z||_F = |act'| ||u[:nz]||
+    ||w[:nz]||`` (None unless ``reg``)."""
+    a, d = _act_and_deriv(net.activation, net._pre(params, x_full))
+    u, w = params["u"], params["w"]
+    dz = a[..., None] * u
+    div = torch.sum(u[:nz] * w[:nz]) * d
+    fro = torch.abs(d) * torch.linalg.norm(u[:nz]) * torch.linalg.norm(w[:nz]) if reg else None
+    return dz, div, fro
+
+
+def _jvps(fn, z: torch.Tensor, tangents: torch.Tensor):
+    """``(fn(z), J tangents)`` for a stack of tangents ``(C, B, nz)``: one
+    forward-mode pass over ``C`` copies of the batch (the net maps any
+    leading axes).  Differentiable where ``z`` or what ``fn`` closes over
+    requires grad; plain values otherwise.  Forward mode is switched on
+    explicitly: an ``autograd.Function``'s forward (the adjoints' forward
+    solve) runs with it off."""
+    with fwad._set_fwd_grad_enabled(True), fwad.dual_level():
+        zd = fwad.make_dual(z.expand(tangents.shape).contiguous(), tangents.contiguous())
+        out = fwad.unpack_dual(fn(zd))
+    return out.primal[0], out.tangent
+
+
+def _exact_sweep(fn, z: torch.Tensor, nz: int, chunk: int, reg: bool):
+    """``(dz, tr(J), sum J^2 or None)`` by JVPs along the basis rows: all
+    ``nz`` at once when ``chunk == 0``, else in blocks of ``chunk`` rows
+    (peak memory ``(chunk, B, nz)``), the last block's overrun rows zero."""
+    eye = torch.eye(nz, dtype=z.dtype, device=z.device)
+    batch = z.shape[:-1]
+    if chunk == 0:
+        dz, jcols = _jvps(fn, z, eye[:, None, :].expand((nz,) + batch + (nz,)))
+        div = torch.einsum("ibi->b", jcols)
+        return dz, div, torch.sum(torch.square(jcols), dim=(0, 2)) if reg else None
+    chunk = min(chunk, nz)
+    nblocks = -(-nz // chunk)
+    basis_all = torch.cat([eye, eye.new_zeros((nblocks * chunk - nz, nz))])
+    div = fro = torch.zeros(batch, dtype=z.dtype, device=z.device)
+    for o in range(0, nblocks * chunk, chunk):
+        basis = basis_all[o:o + chunk]
+        dz, jrows = _jvps(fn, z, basis[:, None, :].expand((chunk,) + batch + (nz,)))
+        div = div + torch.einsum("cbj,cj->b", jrows, basis)
+        if reg:
+            fro = fro + torch.sum(torch.square(jrows), dim=(0, 2))
+    return dz, div, fro if reg else None
 
 
 def _mlp_exact_trace(net: MLP, params: Params, x_full: torch.Tensor, nz: int):
@@ -150,32 +212,35 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
 
         return f_aug_fused
 
-    if estimator is TraceEstimator.HUTCH_JVP:
-        raise NotImplementedError(
-            "the Hutchinson JVP estimator is not ported yet (ROADMAP.md, "
-            "Queue 1: exact sweep and JVP)"
-        )
-    if estimator is TraceEstimator.EXACT and (compute_reg_j or not _mlp_exact_applicable(net)):
-        raise NotImplementedError(
-            "the generic exact-trace sweep is not ported yet; only the analytic "
-            "trace of 1- and 2-hidden-layer MLPs is (ROADMAP.md, Queue 1: exact "
-            "sweep and JVP)"
-        )
+    planar = isinstance(net, Planar)
+    mlp_exact = _mlp_exact_applicable(net) and not compute_reg_j
 
     def f_aug(t, u: torch.Tensor, args: Args) -> torch.Tensor:
         params = args["params"]
         ys = args.get("ys")
         z = u[..., :nz]
         zero = torch.zeros(z.shape[:-1], dtype=u.dtype, device=u.device)
-        if estimator is TraceEstimator.EXACT:
+        g = lambda zz: field(t, zz, params, ys)
+        reg_j = zero
+        if estimator is TraceEstimator.EXACT and planar:
+            dz, div, fro = _planar_trace(net, params, _net_input(cfg, t, z, ys), nz,
+                                         compute_reg_j)
+            reg_j = fro if compute_reg_j else zero
+        elif estimator is TraceEstimator.EXACT and mlp_exact:
             dz, div = _mlp_exact_trace(net, params, _net_input(cfg, t, z, ys), nz)
-            reg_j = zero
-        else:  # HUTCH_VJP: one shared forward, one VJP per probe
+        elif estimator is TraceEstimator.EXACT:
+            dz, div, fro = _exact_sweep(g, z, nz, cfg.exact_chunk, compute_reg_j)
+            reg_j = torch.sqrt(fro) if compute_reg_j else zero
+        elif estimator is TraceEstimator.HUTCH_VJP:  # one shared forward, one VJP a probe
             eps = args["eps"]
-            dz, eps_j = _probe_vjps(lambda zz: field(t, zz, params, ys), z, eps,
-                                    (*params.values(), ys))
+            dz, eps_j = _probe_vjps(g, z, eps, (*params.values(), ys))
             div = torch.mean(torch.sum(eps_j * eps, dim=-1), dim=0)
             reg_j = torch.mean(_row_norm(eps_j), dim=0) if compute_reg_j else zero
+        else:  # HUTCH_JVP: J eps by forward mode
+            eps = args["eps"]
+            dz, j_eps = _jvps(g, z, eps)
+            div = torch.mean(torch.sum(eps * j_eps, dim=-1), dim=0)
+            reg_j = torch.mean(_row_norm(j_eps), dim=0) if compute_reg_j else zero
         reg_z = _row_norm(dz) if compute_reg_z else zero
         return torch.cat(
             [dz, -div[..., None], reg_z[..., None], reg_j[..., None]], dim=-1

@@ -13,10 +13,14 @@ adjoint's backward state ``(y, a, q...)`` is a tuple).
   ``done | fail`` and ``accept`` back to the host once per trial step, in one
   transfer.  The error norm is one RMS over every element of the batch, as in
   the reference: the whole batch takes one step sequence.
+* ``abm``: variable-step, variable-order Adams-Bashforth-Moulton PECE (the
+  reference's VCABM class), two evaluations a trial step, the order moved
+  among ``{k-1, k, k+1}`` by their Milne error estimates.  The order is a
+  host ``int``; the loop reads accept, the order move, ``done`` and
+  ``fail`` back in one transfer a trial step.
 * dense output (``odeint_dense``, ``eval_dense``): the accepted nodes with
-  their FSAL derivatives, interpolated by cubic Hermite.
-
-The multistep solver (``abm``) raises ``NotImplementedError``.
+  their FSAL (``abm``: PECE second-evaluate) derivatives, interpolated by
+  cubic Hermite.
 """
 
 from __future__ import annotations
@@ -26,10 +30,11 @@ from typing import Any, Callable, List, NamedTuple, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import DEFAULT_FIXED_DT0, SolverConfig
+from ..config import ABM_MAX_ORDER, DEFAULT_FIXED_DT0, SolverConfig
 
-__all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_dopri5_dense", "odeint_dense",
-           "eval_dense", "DenseSolution", "SolverStats", "DOPRI5", "TSIT5"]
+__all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_abm", "odeint_dopri5_dense",
+           "odeint_abm_dense", "odeint_dense", "eval_dense", "DenseSolution", "SolverStats",
+           "DOPRI5", "TSIT5"]
 
 State = Any  # a tensor or a tuple of tensors
 ODEFunc = Callable[[Any, State, Any], State]
@@ -393,16 +398,15 @@ def eval_dense(dense: DenseSolution, t) -> State:
     return _like(dense.ys, [interp(a, b) for a, b in zip(_leaves(dense.ys), _leaves(dense.fs))])
 
 
-def odeint_dopri5_dense(f: ODEFunc, y0: State, t0, t1, args,
-                        cfg: SolverConfig) -> Tuple[State, SolverStats, DenseSolution]:
-    """:func:`odeint_dopri5` that also returns a :class:`DenseSolution`.  At
-    most ``cfg.dense_max_nodes`` nodes are kept; a solve that accepts more
-    steps than that NaN-poisons the result and the nodes, as does budget
-    exhaustion (a truncated interpolant would give silently wrong
-    quadrature-adjoint gradients)."""
-    args, dt0_override = _pop_dt0(args)
+def _dense_solve(run, y0: State, t0, t1, cfg: SolverConfig):
+    """Run an adaptive loop (``run(t0, t1, on_accept) -> _Loop``) keeping its
+    accepted nodes: ``(y1, stats, DenseSolution)``.  At most
+    ``cfg.dense_max_nodes`` nodes are kept; a solve that accepts more steps
+    than that NaN-poisons the result and the nodes, as does budget exhaustion
+    (a truncated interpolant would give silently wrong quadrature-adjoint
+    gradients)."""
     max_nodes = int(cfg.dense_max_nodes)
-    t0_, t1_, _tdt = _times(y0, t0, t1)
+    t0_, t1_, tdt = _times(y0, t0, t1)
     span = t1_ - t0_
     s_nodes: List[torch.Tensor] = []
     y_nodes: List[State] = []
@@ -418,22 +422,262 @@ def odeint_dopri5_dense(f: ODEFunc, y0: State, t0, t1, args,
                 buf.append(v)
         count[0] += 1
 
-    run = _adaptive_loop(f, y0, t0_, t1_, args, cfg, None, dt0_override, on_accept)
+    loop = run(t0_, t1_, on_accept)
     n = count[0]
-    ok = run.done and n <= max_nodes
+    ok = loop.done and n <= max_nodes
     stack = lambda nodes: _like(y0, [_poison(torch.stack([_leaves(v)[j] for v in nodes]), ok)
                                      for j in range(len(_leaves(y0)))])
-    dense = DenseSolution(torch.stack(s_nodes).to(_tdt), stack(y_nodes), stack(f_nodes),
+    dense = DenseSolution(torch.stack(s_nodes).to(tdt), stack(y_nodes), stack(f_nodes),
                           min(n, max_nodes), t0_, t1_)
-    nacc = n - 1
-    return (_poison(run.y, ok), SolverStats(run.nfe, nacc, run.steps - nacc, run.dt), dense)
+    return (_poison(loop.y, ok), SolverStats(loop.nfe, loop.nacc, loop.steps - loop.nacc,
+                                             loop.dt), dense)
 
 
-def _abm_unported(method: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"method={method!r}: the adaptive multistep solver is not ported yet "
-        "(ROADMAP.md, Queue 1: multistep solver)"
-    )
+def odeint_dopri5_dense(f: ODEFunc, y0: State, t0, t1, args,
+                        cfg: SolverConfig) -> Tuple[State, SolverStats, DenseSolution]:
+    """:func:`odeint_dopri5` that also returns a :class:`DenseSolution` over
+    its accepted nodes and their FSAL derivatives (see :func:`_dense_solve`
+    for the node cap and the poison)."""
+    args, dt0_override = _pop_dt0(args)
+    return _dense_solve(lambda a, b, on_accept: _adaptive_loop(
+        f, y0, a, b, args, cfg, None, dt0_override, on_accept), y0, t0, t1, cfg)
+
+
+# ---- variable-step, variable-order Adams-Bashforth-Moulton PECE ----
+
+# 7-point Gauss-Legendre on [-1, 1]: exact to degree 13, which covers every
+# Lagrange basis polynomial below (degree <= ABM_MAX_ORDER - 1 = 11)
+_GL7 = (
+    (-0.9491079123427585, 0.1294849661688706),
+    (-0.7415311855993945, 0.2797053914892766),
+    (-0.4058451513773972, 0.3818300505051183),
+    (0.0, 0.4179591836734690),
+    (0.4058451513773972, 0.3818300505051183),
+    (0.7415311855993945, 0.2797053914892766),
+    (0.9491079123427585, 0.1294849661688706),
+)
+
+# Milne error factors of the k-step pair, 2 |C_AM / (C_AB - C_AM)| on a
+# uniform grid (the JAX package's values: doubled, because on variable grids
+# the uniform constants under-estimate)
+_MILNE = (1.0, 1 / 3, 0.2, 19 / 135, 27 / 251, 863 / 9975,
+          1375 / 19087, 33953 / 551985,
+          57281 / 1070017, 3250433 / 68730849,
+          1135053 / 26842253, 13695779093 / 358650016725)
+assert len(_MILNE) == ABM_MAX_ORDER
+
+
+def _gl7(tdt, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.tensor([x for x, _ in _GL7], dtype=tdt, device=device),
+            torch.tensor([w for _, w in _GL7], dtype=tdt, device=device))
+
+
+def _lagrange_quad_weights(taus: torch.Tensor, a, b, active=None, gl=None) -> torch.Tensor:
+    """``w_j = int_a^b l_j(s) ds`` for the Lagrange basis on the nodes
+    ``taus`` (``(..., L)``; each leading index one node set), by GL7, which is
+    exact here.  ``active`` (``(..., L)`` bool) leaves nodes out of a set:
+    their factors are 1 and their weights 0.  Coincident nodes (the ring's
+    stale slots during the order ramp) give finite garbage, never Inf/NaN.
+    ``gl``: the GL7 points and weights on the device (made here if None)."""
+    L = taus.shape[-1]
+    xi, om = gl if gl is not None else _gl7(taus.dtype, taus.device)
+    mid, half = 0.5 * (a + b), 0.5 * (b - a)
+    s = mid + half * xi  # (7,)
+    num = s[:, None] - taus[..., None, :]  # (..., 7, m): s - t_m
+    diff = taus[..., :, None] - taus[..., None, :]  # (..., j, m): t_j - t_m
+    ratio = num[..., :, None, :] / diff.masked_fill(diff == 0, 1.0)[..., None, :, :]  # (..., 7, j, m)
+    skip = torch.eye(L, dtype=torch.bool, device=taus.device)
+    if active is not None:
+        skip = skip | ~active[..., None, :]
+    basis = torch.prod(ratio.masked_fill(skip[..., None, :, :], 1.0), dim=-1)
+    ws = half * torch.sum(om[:, None] * basis, dim=-2)  # (..., j)
+    return ws if active is None else ws.masked_fill(~active, 0.0)
+
+
+class _AbmTables(NamedTuple):
+    """Device constants of an order-``K`` solve, indexed by order ``k`` in
+    ``0..K+1`` (rows 0 and K+1 stand in for the candidates outside [1, K])."""
+
+    pred: torch.Tensor  # (K+2, K+1): active nodes of [ts_h, pad] for the predictor
+    corr: torch.Tensor  # (K+2, K+1): active nodes of [t_new, ts_h] for the corrector
+    milne: torch.Tensor  # (K+2,) time dtype
+    inv_order: torch.Tensor  # (K+2,) float32: 1 / (k + 1)
+    invalid: dict  # (lo invalid, hi invalid) -> (3,) bool
+    gl: Tuple[torch.Tensor, torch.Tensor]  # GL7 points and weights
+
+
+def _abm_tables(K: int, tdt, device) -> _AbmTables:
+    k = torch.arange(K + 2, device=device)[:, None]
+    j = torch.arange(K + 1, device=device)[None, :]
+    pred = j < torch.clamp(k, max=K)
+    corr = (j == 0) | (j <= torch.clamp(k - 1, min=1))
+    milne = torch.tensor((1.0,) + _MILNE[:K] + (1.0,), dtype=tdt, device=device)
+    inv = torch.ones(K + 2, dtype=torch.float32, device=device) / (
+        torch.arange(K + 2, device=device).to(torch.float32) + 1.0)
+    invalid = {(lo, hi): torch.tensor([lo, False, hi], device=device)
+               for lo in (False, True) for hi in (False, True)}
+    return _AbmTables(pred, corr, milne, inv, invalid, _gl7(tdt, device))
+
+
+def _abm_weights_branch3(k: int, K: int, ts_h: torch.Tensor, t_new, tables=None):
+    """Weights of the three candidate orders ``{k-1, k, k+1}``: ``(w_pred (3,
+    K), wc_new (3,), wc_hist (3, K), milne (3,))`` in the time dtype, from one
+    batched quadrature over six node sets.  A candidate outside [1, K] gets
+    finite weights of a stand-in order; the caller gives it an infinite
+    error ratio."""
+    if tables is None:
+        tables = _abm_tables(K, ts_h.dtype, ts_h.device)
+    rows = slice(k - 1, k + 2)
+    t = ts_h[0]
+    nodes = torch.cat([torch.cat([ts_h, t_new.reshape(1)]).expand(3, K + 1),
+                       torch.cat([t_new.reshape(1), ts_h]).expand(3, K + 1)])
+    w = _lagrange_quad_weights(nodes, t, t_new,
+                               torch.cat([tables.pred[rows], tables.corr[rows]]), tables.gl)
+    return w[:3, :K], w[3:, 0], w[3:, 1:], tables.milne[rows]
+
+
+def _abm_weights_order(k: int, K: int, ts_h: torch.Tensor, t_new):
+    """``(w_pred (K,), wc_new, wc_hist (K,), milne)`` of the single order
+    ``k``: the predictor over the ``k`` newest history nodes, the corrector
+    over the new node and the ``max(k - 1, 1)`` newest."""
+    w_pred, wc_new, wc_hist, milne = _abm_weights_branch3(k, K, ts_h, t_new)
+    return w_pred[1], wc_new[1], wc_hist[1], milne[1]
+
+
+def _hist_dot(ws: torch.Tensor, f_hist: State) -> State:
+    """``sum_j ws[..., j] * f_hist[j]`` over the leading history axis of
+    each leaf (``ws`` cast to the leaf's dtype)."""
+    return _like(f_hist, [torch.tensordot(ws.to(l.dtype), l, dims=([ws.ndim - 1], [0]))
+                          for l in _leaves(f_hist)])
+
+
+def _candidate_ratios(e3, y, y3, rtol, atol, error_weight) -> torch.Tensor:
+    """``_rms_error_ratio`` of each of three stacked candidates: ``(3,)``."""
+    weights = _leaves(error_weight) if error_weight is not None else None
+    sq_sum, count = 0.0, 0
+    for i, (e, a, b) in enumerate(zip(e3, _leaves(y), y3)):
+        if weights is not None and not weights[i]:
+            continue
+        scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
+        r = (e / scale).to(torch.float32)
+        sq_sum = sq_sum + torch.sum((r * r).reshape(3, -1), dim=1)
+        count += a.numel()
+    return torch.sqrt(sq_sum / count)
+
+
+def _abm_loop(f, y0, t0, t1, args, cfg, error_weight, on_accept=None) -> _Loop:
+    """The PECE loop of :func:`odeint_abm` and its dense form.  A trial step
+    from ``(t, y)`` with history ring ``(ts_h, fs_h)`` (slot 0 the newest):
+    predict with the current order's Adams-Bashforth weights, evaluate,
+    correct with each candidate order's Adams-Moulton weights, evaluate at
+    the current order's corrected state (the node derivative), and take the
+    Milne estimate of each candidate.  ``on_accept(t, y, f)`` sees every
+    accepted node, ``t0`` first."""
+    K = int(cfg.abm_order)
+    assert 1 <= K <= ABM_MAX_ORDER
+    t0, t1, tdt = _times(y0, t0, t1)
+    span = t1 - t0
+    direction = torch.sign(span)
+    tol_done = 1e-12 * torch.clamp(torch.abs(t1), min=1.0)
+    give_up = _DT_GIVE_UP * torch.abs(span)
+    tables = _abm_tables(K, tdt, t0.device)
+
+    f0 = f(t0, y0, args)
+    # the fixed-fraction start: the order-1 ramp needs a small first step
+    dt = span * torch.as_tensor(DEFAULT_FIXED_DT0 if isinstance(cfg.dt0, str) else cfg.dt0,
+                                dtype=tdt)
+    t, y = t0, y0
+    ts_h = t0.repeat(K)
+    fs_h = [torch.cat([l[None], torch.zeros((K - 1,) + l.shape, dtype=l.dtype,
+                                            device=l.device)]) for l in _leaves(f0)]
+    n_h, order = 1, 1
+    nfe, steps, nacc, done = 1, 0, 0, False
+    if on_accept is not None:
+        on_accept(t0, y0, f0)
+    while steps < cfg.max_steps:
+        dt_c = direction * torch.minimum(torch.abs(dt), torch.abs(t1 - t))
+        t_new = t + dt_c
+        w_pred, wc_new, wc_hist, milne = _abm_weights_branch3(order, K, ts_h, t_new, tables)
+        # the three candidates' predictor and corrector increments, one contraction a leaf
+        inc = _hist_dot(torch.cat([w_pred, wc_hist]), _like(f0, fs_h))
+        y_lv = _leaves(y)
+        y_pred3 = [yl + d[:3] for yl, d in zip(y_lv, _leaves(inc))]
+        # the predictor at the current order: its evaluation serves all three
+        f_pred = _leaves(f(t_new, _like(y, [p[1] for p in y_pred3]), args))
+        y_corr3, err3 = [], []
+        for yl, fl, p, d in zip(y_lv, f_pred, y_pred3, _leaves(inc)):
+            shape = (3,) + (1,) * fl.ndim
+            c = yl + wc_new.to(fl.dtype).reshape(shape) * fl + d[3:]
+            y_corr3.append(c)
+            err3.append(milne.to(c.dtype).reshape(shape) * (c - p))
+        r3 = _candidate_ratios(err3, y, y_corr3, cfg.rtol, cfg.atol, error_weight)
+        # invalid candidates never win: order 0 does not exist, and order
+        # k + 1 needs k + 1 distinct history nodes
+        r3 = r3.masked_fill(tables.invalid[(order == 1, order == K or n_h < order + 1)],
+                            float("inf"))
+        r_lo, ratio, r_hi = r3[0], r3[1], r3[2]
+        y_corr = _like(y, [c[1] for c in y_corr3])
+        # PECE second evaluate: the history's derivative at the corrected state
+        f_corr = f(t_new, y_corr, args)
+
+        finite = torch.isfinite(ratio)
+        accept = finite & (ratio <= 1.0)
+        dec = r_lo <= ratio  # decrease preferred on ties
+        grow = (r_hi < ratio) & ~dec
+        done_t = accept & (torch.abs(t1 - t_new) <= tol_done)
+        fail_t = ~finite & (torch.abs(dt_c) <= give_up)
+        # the step factor of each outcome (decrease, increase, keep, reject),
+        # with the exponent 1 / (order + 1) of the order each one leaves
+        nh_acc = min(n_h + 1, K)
+        orders = (max(order - 1, 1), min(order + 1, nh_acc), min(order, nh_acc), order)
+        inv = torch.stack([tables.inv_order[o] for o in orders])
+        _fin, factor4 = _controller_factor(torch.stack([r_lo, r_hi, ratio, ratio]), inv,
+                                           cfg.safety, cfg.min_factor, 2.0, tdt)
+        # the one host read of the trial step
+        acc, down, up, done, fail = torch.stack(
+            [accept, dec, grow, done_t, fail_t]).tolist()
+        nfe, steps = nfe + 2, steps + 1
+        branch = (0 if down else 1 if up else 2) if acc else 3
+        dt = dt_c * factor4[branch]
+        if acc:
+            nacc += 1
+            order, n_h = orders[branch], nh_acc
+            t, y = t_new, y_corr
+            ts_h = torch.cat([t_new.reshape(1), ts_h[:-1]])
+            fs_h = [torch.cat([fl[None], h[:-1]]) for fl, h in zip(_leaves(f_corr), fs_h)]
+            if on_accept is not None:
+                on_accept(t, y, f_corr)
+        if done or fail:
+            break
+    return _Loop(y, dt, nfe, steps, nacc, done)
+
+
+def odeint_abm(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig,
+               error_weight=None) -> Tuple[State, SolverStats]:
+    """Variable-step, variable-order Adams-Bashforth-Moulton PECE, orders 1
+    to ``cfg.abm_order``: the history is a ring of the last ``abm_order``
+    ``(t, f)`` pairs, the weights are recomputed each step from the node
+    times (Lagrange basis, GL7 quadrature), the order moves on accept to
+    whichever of ``{k-1, k, k+1}`` has the smallest Milne ratio, and the step
+    grows at most 2x.  The start is the fixed fraction of the span (a float
+    ``cfg.dt0`` is that fraction); a carried ``args["dt0"]`` is popped and
+    ignored, as in the JAX package.  ``nfe = 1 + 2 *
+    steps``; budget exhaustion or a non-finite field NaN-poisons the result."""
+    args, _ignored = _pop_dt0(args)
+    run = _abm_loop(f, y0, t0, t1, args, cfg, error_weight)
+    return _poison(run.y, run.done), SolverStats(run.nfe, run.nacc, run.steps - run.nacc, run.dt)
+
+
+def odeint_abm_dense(f: ODEFunc, y0: State, t0, t1, args,
+                     cfg: SolverConfig) -> Tuple[State, SolverStats, DenseSolution]:
+    """:func:`odeint_abm` with a :class:`DenseSolution` over its accepted
+    nodes: the corrected states and their second-evaluate derivatives, at no
+    extra evaluation (see :func:`_dense_solve` for the node cap and the
+    poison).  With the quadrature adjoint this is the reference's default
+    stack, VCABM with ``QuadratureAdjoint``."""
+    args, _ignored = _pop_dt0(args)
+    return _dense_solve(lambda a, b, on_accept: _abm_loop(f, y0, a, b, args, cfg, None,
+                                                          on_accept), y0, t0, t1, cfg)
 
 
 def odeint(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig, error_weight=None,
@@ -442,21 +686,22 @@ def odeint(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig, error_weight=
     that enter the adaptive error norm (the adjoint's seminorm; ignored by
     fixed steps).  ``dt0_override``: an explicit starting step (the backward
     adjoint solve's); ``args["dt0"]`` is the channel for calls that cross an
-    autograd boundary, and an explicit override wins over it."""
+    autograd boundary, and an explicit override wins over it (``abm``
+    ignores both)."""
     if cfg.method in _TABLEAUS:
         return odeint_dopri5(f, y0, t0, t1, args, cfg, error_weight, dt0_override)
     if cfg.method == "abm":
-        raise _abm_unported(cfg.method)
+        return odeint_abm(f, y0, t0, t1, args, cfg, error_weight)
     return odeint_fixed(f, y0, t0, t1, args, cfg)
 
 
 def odeint_dense(f: ODEFunc, y0: State, t0, t1, args,
                  cfg: SolverConfig) -> Tuple[State, SolverStats, DenseSolution]:
-    """Dense-output dispatch: dopri5/tsit5 (``abm`` raises)."""
+    """Dense-output dispatch: every adaptive method (dopri5, tsit5, abm)."""
     if cfg.method in _TABLEAUS:
         return odeint_dopri5_dense(f, y0, t0, t1, args, cfg)
     if cfg.method == "abm":
-        raise _abm_unported(cfg.method)
+        return odeint_abm_dense(f, y0, t0, t1, args, cfg)
     raise ValueError(
         f"dense output needs an adaptive method (dopri5/tsit5/abm), got {cfg.method!r}"
     )

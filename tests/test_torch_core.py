@@ -204,11 +204,14 @@ def test_gaussian_mixture_logpdf_matches_jax():
     ],
 )
 def test_unported_solvers_raise(kw, msg):
-    """The multistep solver ("adaptive multistep") is the one still to port."""
+    """No solver is left to port: the adaptive multistep solver, the last
+    one, now runs under both adjoints (held against JAX in
+    test_torch_abm_model.py)."""
     icnf = tcnf.ICNF.create(nvariables=2, **kw)
     params = icnf.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=msg):
-        tcnf.inference(icnf, Mode.TEST, torch.zeros(4, 2), params)
+    lp, _augs, stats = tcnf.inference(icnf, Mode.TEST, torch.zeros(4, 2), params)
+    assert torch.isfinite(lp).all() and lp.shape == (4,), msg
+    assert stats.nfe == 1 + 2 * (stats.naccept + stats.nreject), msg
 
 
 @pytest.mark.parametrize("entry", ["ICNF.init", "MLP.init"])

@@ -717,3 +717,38 @@ def test_default_stack_fused_stage_route(dev):
             assert moved == [0, 0, 0, 0]
     assert steps["fused"] == steps["plain"]
     _close_to_max(grads["fused"], grads["plain"], 5e-4)
+
+
+def test_abm_quadrature_fused_stage_route(dev):
+    """fused=True with abm + quadrature (the reference's default stack):
+    the forward's two evaluations a trial step launch K1 and the quadrature
+    adjoint's VJPs K2, no other kernel; the fused step takes the unfused
+    step's forward steps, and those of the same 256 points on the CPU, and
+    its gradients equal the fused=False ones to 5e-4 of the largest entry."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+    from continuousnormalizingflows_tpu_torch.ops import fused_solve as fs
+
+    solver = SolverConfig(method="abm", rtol=1e-4, atol=1e-4, gradient="quadrature")
+    fused = cnf.ICNF.create(nvariables=2, solver=solver, fused=True)
+    plain = cnf.ICNF.create(nvariables=2, solver=solver)
+    params = fused.init(torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn((256, 2), generator=torch.Generator().manual_seed(1)).to(dev)
+    kernels = (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fs.fused_solve_rk4,
+               fs.fused_solve_rk4_bwd, fa.fused_solve_dopri5, fa.fused_solve_dopri5_bwd)
+    grads, steps = {}, {}
+    for name, icnf, where in (("fused", fused, dev), ("plain", plain, dev),
+                              ("cpu", fused, torch.device("cpu"))):
+        p = {k: v.detach().to(where).requires_grad_() for k, v in params.items()}
+        before = [k.launches for k in kernels]
+        loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x.to(where), p,
+                                       torch.Generator().manual_seed(2))
+        grads[name] = [g.to(dev) for g in torch.autograd.grad(loss, list(p.values()))]
+        moved = [k.launches - b for k, b in zip(kernels, before)]
+        steps[name] = tuple(int(v) for v in st[:3])
+        if name == "fused":
+            assert moved[0] > 0 and moved[1] > 0 and moved[2:] == [0, 0, 0, 0]
+        else:
+            assert moved == [0] * 6
+    assert steps["fused"] == steps["plain"] == steps["cpu"]
+    _close_to_max(grads["fused"], grads["plain"], 5e-4)
+    _close_to_max(grads["fused"], grads["cpu"], 5e-4)

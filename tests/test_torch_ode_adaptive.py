@@ -183,11 +183,15 @@ def test_trajectory_matches_jax(solver):
 
 
 def test_abm_still_raises():
+    """``method="abm"`` no longer raises: both forms dispatch to the
+    multistep solver (held against JAX in test_torch_ode_abm.py); dense
+    output of a fixed-step method still raises."""
     _j, ticnf, u0, _jf, (tf, targs) = _setup(Mode.TEST, method="abm")
-    with pytest.raises(NotImplementedError, match="multistep"):
-        tode.odeint(tf, torch.from_numpy(u0), 0.0, 1.0, targs, ticnf.config.solver)
-    with pytest.raises(NotImplementedError, match="multistep"):
-        tode.odeint_dense(tf, torch.from_numpy(u0), 0.0, 1.0, targs, ticnf.config.solver)
+    y, s = tode.odeint(tf, torch.from_numpy(u0), 0.0, 1.0, targs, ticnf.config.solver)
+    y_d, s_d, dense = tode.odeint_dense(tf, torch.from_numpy(u0), 0.0, 1.0, targs,
+                                        ticnf.config.solver)
+    assert torch.isfinite(y).all() and torch.equal(y, y_d) and _stats(s) == _stats(s_d)
+    assert s.nfe == 1 + 2 * (s.naccept + s.nreject) and dense.n == s.naccept + 1
     rk4 = dataclasses.replace(ticnf.config.solver, method="rk4", gradient="adjoint")
     with pytest.raises(ValueError, match="dense output"):
         tode.odeint_dense(tf, torch.from_numpy(u0), 0.0, 1.0, targs, rk4)
