@@ -8,11 +8,13 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py adaptive-widths
     python3 chip_profile.py sass
 
-Each row runs the flagship 2-D RNODE (or its FFJORD form) at 65,536 samples
-under ``torch.profiler``: 2 warm-up steps or calls, then 3 profiled ones.  Per
-row it prints the device kernels per step (and, where unfused adaptive
-solves run, per trial step of them, forward and backward solves counted
-together), the summed device time of those
+Each row runs the flagship 2-D RNODE (or its FFJORD form) at 65,536 samples,
+or ``chip_smoke.py``'s image model (d = 784, h = 1024) at batch 256 (its
+fit steps, and its dopri5 eval twin's TEST log-density, exported by
+``utils.export`` and eager), under ``torch.profiler``: 2 warm-up steps or
+calls, then 3 profiled ones.  Per row it prints the device kernels per step
+(and, where unfused adaptive solves run, per trial step of them, forward
+and backward solves counted together), the summed device time of those
 kernels ("busy"), the host wall time of the profiled steps (inflated by the
 profiler), the idle share ``1 - busy / wall``, the device time of each of
 K1-K6 by its kernels' names and the top kernels, and writes every row to
@@ -132,26 +134,28 @@ def profiled(step):
     return out
 
 
-def fit_row(dev, data, **create):
+def fit_row(dev, data, icnf=None, batch=BATCH, **create):
+    """A fit's steps at ``batch``: the flagship built from ``create``, or
+    ``icnf``."""
     import continuousnormalizingflows_tpu_torch as cnf
 
-    icnf = cnf.ICNF.create(nvariables=2, **create)
+    icnf = icnf or cnf.ICNF.create(nvariables=2, **create)
     params = icnf.init(torch.Generator().manual_seed(0), device=dev)
-    steps_per_epoch = data.shape[0] // BATCH
+    steps_per_epoch = data.shape[0] // batch
     epochs = -(-(WARMUP + ACTIVE) // steps_per_epoch)
 
     def step(callback):
-        cnf.ICNFModel(icnf, batchsize=BATCH, epochs=epochs, log_every=1, callback=callback,
+        cnf.ICNFModel(icnf, batchsize=batch, epochs=epochs, log_every=1, callback=callback,
                       device=dev, generator=torch.Generator(device=dev).manual_seed(7),
                       ).fit(data, params=params)
 
     return lambda: profiled(step)
 
 
-def call_row(dev, x, mode, **create):
+def call_row(dev, x, mode, icnf=None, **create):
     import continuousnormalizingflows_tpu_torch as cnf
 
-    icnf = cnf.ICNF.create(nvariables=2, **create)
+    icnf = icnf or cnf.ICNF.create(nvariables=2, **create)
     params = icnf.init(torch.Generator().manual_seed(0), device=dev)
 
     def step(callback):
@@ -164,9 +168,30 @@ def call_row(dev, x, mode, **create):
     return lambda: profiled(step)
 
 
+def export_row(dev, x, icnf):
+    """Calls of the exported TEST log-density (``utils.export``) of ``icnf``."""
+    from continuousnormalizingflows_tpu_torch.utils.export import export_logpdf
+
+    def step(callback):
+        for _ in range(WARMUP + ACTIVE):
+            art.call(x)
+            callback()
+
+    def row():
+        nonlocal art
+        art = export_logpdf(icnf, icnf.init(torch.Generator().manual_seed(0), device=dev),
+                            device=dev)
+        return profiled(step)
+
+    art = None
+    return row
+
+
 def rows(dev):
+    from chip_smoke import IMAGE_BATCH, IMAGE_HIDDEN, IMAGE_SIDE, image_model
     from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
-    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+    from continuousnormalizingflows_tpu_torch.utils.datasets import (gaussian_mixture,
+                                                                     smooth_image_mixture)
 
     data = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), 4 * BATCH)
     x = data[:BATCH]
@@ -174,6 +199,11 @@ def rows(dev):
     ffjord = dict(naugments=0, lambda_1=0.0, lambda_2=0.0, lambda_3=0.0)
     # bench.py's abm + quadrature row: the reference's VCABM with QuadratureAdjoint
     abm = SolverConfig(method="abm", rtol=1e-4, atol=1e-4, gradient="quadrature")
+    # chip_smoke.py's [image] model (d = 784, h = 1024) at batch 256, and its
+    # dopri5 eval twin on 256 points
+    images = smooth_image_mixture(torch.Generator(device=dev).manual_seed(1),
+                                  (WARMUP + ACTIVE) * IMAGE_BATCH, IMAGE_SIDE)
+    image = lambda **kw: image_model(IMAGE_SIDE, IMAGE_HIDDEN, **kw)
     return {
         "rk4 flagship, fused": fit_row(dev, data, solver=rk4, fused=True),
         "rk4 FFJORD form, fused": fit_row(dev, data, solver=rk4, fused=True, **ffjord),
@@ -192,6 +222,12 @@ def rows(dev):
         "serving default stack TEST logpdf": call_row(dev, x, Mode.TEST),
         "serving default stack TRAIN logpdf": call_row(dev, x, Mode.TRAIN),
         "serving abm TEST logpdf": call_row(dev, x, Mode.TEST, solver=abm),
+        "image fit step, fused (K1 + K2)": fit_row(dev, images, image(fused=True), IMAGE_BATCH),
+        "image fit step, fused=False": fit_row(dev, images, image(), IMAGE_BATCH),
+        "image eval TEST logpdf, exported": export_row(dev, images[:IMAGE_BATCH],
+                                                       image(eval_twin=True)),
+        "image eval TEST logpdf, eager": call_row(dev, images[:IMAGE_BATCH], Mode.TEST,
+                                                  image(eval_twin=True)),
     }
 
 

@@ -12,17 +12,21 @@ reference-default adaptive stack (dopri5 at 1e-4, the HNW start, the
 backsolve and quadrature adjoints, the carried start) on the same model and
 batch, the opt-in adaptive whole-solve route (K5 + K6), the reference's
 default stack (abm with the quadrature adjoint, unfused and through K1 +
-K2) and the rest of the model surface (the planar net, the exact sweep,
-the Hutchinson JVP, a CondLayer, a from_torch net, custom distributions),
-and checks that the kernels carried each path.  The kernels line (third from last) gives
-each kernel's bound: the least time the card could take for its work, fp32
-FMAs at the published peak or bytes at the memory rate.  Imports nothing of
-JAX.  Exits non-zero, with no result line, when there is no CUDA device or
-any phase fails; on success the last line is ``{"ok": true, "device":
-{...}}``.  A detailed record of every phase is written as
-``chiprun_out/chip_smoke.json``, and everything printed (the compiler's
-register and spill counts of every kernel included) as
-``chiprun_out/chip_smoke.log``.
+K2), the rest of the model surface (the planar net, the exact sweep,
+the Hutchinson JVP, a CondLayer, a from_torch net, custom distributions)
+and the utils layer on the image-scale FFJORD path at full width (d = 784,
+h = 1024, batch 256, through K1 + K2; StepTimer, profiling.trace, an
+AsyncCheckpointer save during the fit, the exported dopri5 eval) and the
+digits-shaped path (d = 64, h = 256, through K3 + K4, random_shift_images,
+the exported sampler), and checks that the kernels carried each path.  The
+kernels line (third from last) gives each kernel's bound: the least time
+the card could take for its work, fp32 FMAs at the published peak or bytes
+at the memory rate (the log's bf16 rows: at the bf16 tensor-core peak).  Imports nothing of JAX.  Exits non-zero, with no
+result line, when there is no CUDA device or any phase fails; on success
+the last line is ``{"ok": true, "device": {...}}``.  A detailed record of
+every phase is written as ``chiprun_out/chip_smoke.json``, and everything
+printed (the compiler's register and spill counts of every kernel
+included) as ``chiprun_out/chip_smoke.log``.
 """
 
 from __future__ import annotations
@@ -82,9 +86,23 @@ SURVEY_SEEDS = (1, 2, 3, 4, 5)  # draws on which K5 and its plain version count 
 ADAPTIVE_GRAD_TOL = 1e-3
 # bench.py's abm + quadrature row: the reference's VCABM with QuadratureAdjoint
 ABM_SOLVER = dict(method="abm", rtol=1e-4, atol=1e-4, gradient="quadrature")
+# the [image] phase: benchmarks/image_bitsdim.py's and digits_bitsdim.py's
+# side, width, batch and rk4 steps; the fits' steps (the first untimed, the
+# rest timed by StepTimer but for the image fit's last, which runs under
+# profiling.trace) and their data points (one epoch)
+IMAGE_SIDE, IMAGE_HIDDEN = 28, 1024
+DIGITS_SIDE, DIGITS_HIDDEN = 8, 256
+IMAGE_BATCH = 256
+IMAGE_RK4_STEPS = 24
+IMAGE_FIT_STEPS = 16
+IMAGE_POINTS = IMAGE_FIT_STEPS * IMAGE_BATCH
+# the exported log-density against the eager call on the card: the same
+# operations, captured (equal steps asked for too)
+EXPORT_RTOL = 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
-# fp32 outside the tensor cores, and HBM3
+# fp32 outside the tensor cores, bf16 dense on the tensor cores, and HBM3
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -119,34 +137,39 @@ def solve_fmas(n_in: int, h: int, nz: int, stages: float, backward: bool) -> flo
     return fmas
 
 
-def kernel_bounds(n_in, h, nz, b, nfe_rows=0, accepted_rows=0):
+def kernel_bounds(n_in, h, nz, b, nfe_rows=0, accepted_rows=0, steps=STEPS, cdt=None):
     """Each kernel's (bound_ms, bound_by) on these inputs: K1/K2 one stage of
-    b rows, K3/K4 a STEPS-step rk4 solve (4 stage forwards, and for K4 4
+    b rows, K3/K4 a ``steps``-step rk4 solve (4 stage forwards, and for K4 4
     backwards, a step: what the function needs, not the recompute), K5 the
     stage forwards of the trial steps these inputs took (nfe_rows: NFE x rows
     summed over the control groups), K6 the six stage forwards and backwards
     of each accepted step (accepted_rows).  Floats: the inputs read once,
-    the outputs written once, the weights and their gradients."""
+    the outputs written once, the weights and their gradients.  The
+    operations run at the peak of the compute precision ``cdt``: bf16 on
+    the tensor cores, fp32 (None) outside them."""
     sd, P = nz + 3, param_count(n_in, h, nz)
     fwd = stage_fmas(n_in, h, nz)
+    peak = BF16_FLOPS if cdt == torch.bfloat16 else FP32_FLOPS
     return {
-        "K1": bound(b * fwd, b * (n_in + nz + 2 * nz + 3) + P),
+        "K1": bound(b * fwd, b * (n_in + nz + 2 * nz + 3) + P, peak),
         "K2": bound(b * (fwd + stage_bwd_fmas(n_in, h, nz, n_in)),
-                    b * (n_in + nz + 2 * nz + 3 + n_in + nz) + 2 * P),
-        "K3": bound(b * solve_fmas(n_in, h, nz, STEPS * 4, False), b * (2 * sd + nz) + P),
-        "K4": bound(b * solve_fmas(n_in, h, nz, STEPS * 4, True),
-                    b * (3 * sd + 2 * nz) + 2 * P),
-        "K5": bound(b * solve_fmas(n_in, h, nz, nfe_rows / b, False), b * (2 * sd + nz) + P),
+                    b * (n_in + nz + 2 * nz + 3 + n_in + nz) + 2 * P, peak),
+        "K3": bound(b * solve_fmas(n_in, h, nz, steps * 4, False), b * (2 * sd + nz) + P,
+                    peak),
+        "K4": bound(b * solve_fmas(n_in, h, nz, steps * 4, True),
+                    b * (3 * sd + 2 * nz) + 2 * P, peak),
+        "K5": bound(b * solve_fmas(n_in, h, nz, nfe_rows / b, False), b * (2 * sd + nz) + P,
+                    peak),
         "K6": bound(b * solve_fmas(n_in, h, nz, 6 * accepted_rows / b, True),
-                    b * (3 * sd + 2 * nz) + 2 * P),
+                    b * (3 * sd + 2 * nz) + 2 * P, peak),
     }
 
 
-def bound(fmas: float, floats: float):
-    """(bound_ms, bound_by): the larger of the operations over the fp32 peak
+def bound(fmas: float, floats: float, peak: float = FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of the operations over ``peak``
     (2 FLOP an FMA) and the bytes (4 a float, each read or written once)
     over the memory rate."""
-    ops_ms, bytes_ms = 2 * fmas / FP32_FLOPS * 1e3, 4 * floats / HBM_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = 2 * fmas / peak * 1e3, 4 * floats / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -300,6 +323,21 @@ def flat(out):
     return [out[0], out[1], *out[2]]
 
 
+def in_turns(pairs):
+    """Median ms of each kernel and its plain version, timed in turns (plain,
+    kernel, kernel, plain): ``pairs`` maps a name to (kernel, plain, kernel
+    reps, plain reps); returns {name: ms, name + "_plain": ms}."""
+    t = {k + s: [] for k in pairs for s in ("", "_plain")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            for k, (kern, plain, reps_k, reps_p) in pairs.items():
+                if which == "plain":
+                    t[k + "_plain"].append(median_ms(plain, reps_p))
+                else:
+                    t[k].append(median_ms(kern, reps_k))
+    return {k: statistics.median(v) for k, v in t.items()}
+
+
 def kernel_phase(dev, record):
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
     from continuousnormalizingflows_tpu_torch.ops import _build
@@ -369,15 +407,7 @@ def kernel_phase(dev, record):
             pairs = {"k1": (stage, stage_ref, 20, 10), "k3": (solve, solve_ref, 10, 3),
                      "k2": (stage_bwd, stage_bwd_ref, 20, 10),
                      "k4": (solve_bwd, solve_bwd_ref, 3, 3)}
-            t = {k + s: [] for k in pairs for s in ("", "_plain")}
-            for order in (("plain", "kernel"), ("kernel", "plain")):
-                for which in order:
-                    for k, (kern, plain, reps_k, reps_p) in pairs.items():
-                        if which == "plain":
-                            t[k + "_plain"].append(median_ms(plain, reps_p))
-                        else:
-                            t[k].append(median_ms(kern, reps_k))
-            ms = {k: statistics.median(v) for k, v in t.items()}
+            ms = in_turns(pairs)
             log(f"  time {shape} {prec}: " + "; ".join(
                 f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
             # K4's rate: the work the function needs (its bound's) and the
@@ -390,11 +420,11 @@ def kernel_phase(dev, record):
                 done = 2 * b * (STEPS * (11 * fwd - 4 * h * nz + 4 * bwd) + h * nz)
             else:
                 done = 2 * b * STEPS * (11 * fwd + 4 * bwd)
-            k4_bound = kernel_bounds(n_in, h, nz, b)["K4"][0]
+            k4_bound = kernel_bounds(n_in, h, nz, b, cdt=cdt)["K4"][0]
             log(f"  K4 {shape} {prec}: {need / ms['k4'] / 1e6:.1f} GFLOP/s of needed work "
                 f"({need / 1e9:.1f} GFLOP), {done / ms['k4'] / 1e6:.1f} GFLOP/s as designed "
                 f"({done / 1e9:.1f} GFLOP); {k4_bound / ms['k4'] * 100:.2f} % of its "
-                f"{k4_bound:.4f} ms fp32 bound")
+                f"{k4_bound:.4f} ms {prec} bound")
             if shape == "flagship" and cdt is None:
                 record["spread_ms"] = dict(k2=spread_ms("K2 flagship fp32", stage_bwd, 20),
                                            k4=spread_ms("K4 flagship fp32", solve_bwd, 3))
@@ -406,6 +436,7 @@ def kernel_phase(dev, record):
                                 k4_max_abs_err=err4, **ms))
     record["kernels_vs_plain"] = results
     record["k2_ffjord_widths"] = ffjord_stage_phase(dev)
+    record["image_path_widths"] = image_widths_phase(dev)
     return results
 
 
@@ -432,10 +463,10 @@ def ffjord_stage_phase(dev):
     path = (f"row per thread, h padded to {h_pad}, {rows} threads/block" if h_pad
             else f"tiled, {rows} rows/tile")
     log(f"  plan K2 FFJORD widths: {path}, grid {grid}, {n_params} params")
-    bounds = kernel_bounds(n_in, h, nz, b)
     out = []
     for cdt in (None, torch.bfloat16):
         prec = "fp32" if cdt is None else "bf16"
+        bounds = kernel_bounds(n_in, h, nz, b, cdt=cdt)
         k1 = lambda: fused_dynamics_vjp(x, eps, params, nz, cdt)
         k1_ref = lambda: mlp3_forward_vjp_reference(x, eps, params, nz, cdt)
         k2 = lambda: fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)
@@ -444,22 +475,93 @@ def ffjord_stage_phase(dev):
                        *TOL[("stage", cdt)])
         err2 = compare_to_max(f"K2 fused_dynamics_bwd FFJORD widths {prec} B={b}", flat(k2()),
                               flat(k2_ref()), BWD_TOL[("stage", cdt)])
-        t = {k: [] for k in ("k1", "k1_plain", "k2", "k2_plain")}
-        for order in (("plain", "kernel"), ("kernel", "plain")):  # the two versions in turns
-            for which in order:
-                if which == "plain":
-                    t["k1_plain"].append(median_ms(k1_ref, 10))
-                    t["k2_plain"].append(median_ms(k2_ref, 10))
-                else:
-                    t["k1"].append(median_ms(k1, 20))
-                    t["k2"].append(median_ms(k2, 20))
-        ms = {k: statistics.median(v) for k, v in t.items()}
+        ms = in_turns({"k1": (k1, k1_ref, 20, 10), "k2": (k2, k2_ref, 20, 10)})
         log(f"  time FFJORD widths {prec}: K1 {ms['k1']:.4f} ms vs plain {ms['k1_plain']:.4f} ms "
             f"(bound {bounds['K1'][0]:.4f} ms, {bounds['K1'][1]}); K2 {ms['k2']:.4f} ms vs "
             f"plain {ms['k2_plain']:.4f} ms (bound {bounds['K2'][0]:.4f} ms, {bounds['K2'][1]})")
         out.append(dict(precision=prec, batch=b, widths=[n_in, h, h, nz], k1_max_abs_err=err1,
                         k2_max_abs_err=err2, k1_bound_ms=bounds["K1"][0],
                         k2_bound_ms=bounds["K2"][0], **ms))
+    return out
+
+
+def image_widths_phase(dev):
+    """The four kernels of the [image] phase at its widths and batch: K1 and
+    K2 at the image model's 785 -> 1024 -> 1024 -> 784, K3 and K4 at the
+    digits-shaped 65 -> 256 -> 256 -> 64 (state 67, 24 steps), B = 256,
+    fp32 and bf16: each against its plain version, timed in turns, beside
+    its bound."""
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
+        fused_dynamics_vjp, fused_dynamics_vjp_bwd, fused_dynamics_vjp_bwd_reference,
+        mlp3_forward_vjp_reference)
+    from continuousnormalizingflows_tpu_torch.ops.fused_solve import (
+        fused_solve_rk4, fused_solve_rk4_bwd, fused_solve_rk4_bwd_reference,
+        fused_solve_rk4_reference)
+
+    b, steps, out = IMAGE_BATCH, IMAGE_RK4_STEPS, []
+    widths = [(shape, side * side + 1, h, side * side) for shape, side, h in (
+        ("image", IMAGE_SIDE, IMAGE_HIDDEN), ("digits", DIGITS_SIDE, DIGITS_HIDDEN))]
+    for shape, n_in, h, nz in widths:
+        params = MLP((n_in, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((b, n_in), generator=g, device=dev)
+        eps = torch.randn((b, nz), generator=g, device=dev)
+        u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
+                        torch.zeros((b, 3), device=dev)], dim=-1)
+        cot = (torch.randn((b, nz), generator=g, device=dev),
+               torch.randn((b, nz), generator=g, device=dev),
+               *torch.randn((3, b), generator=g, device=dev))
+        gbar = torch.randn((b, nz + 3), generator=g, device=dev)
+        span = (0.0, 1.0)
+        if shape == "image":
+            ks = ("K1", "K2")
+            plans = [("K1", _build.plan(n_in, h, nz, nz, 0)),
+                     ("K2", _build.bwd_plan(n_in, h, nz, nz, 0, b))]
+        else:
+            ks = ("K3", "K4")
+            plans = [("K3", _build.plan(n_in, h, nz, nz, nz + 3)),
+                     ("K4", _build.bwd_plan(n_in, h, nz, nz, nz + 3, b))]
+        for kname, plan in plans:
+            log(f"  plan {kname} {shape} widths {n_in} -> {h} -> {h} -> {nz}, B={b}: {plan}")
+        for cdt in (None, torch.bfloat16):
+            prec = "fp32" if cdt is None else "bf16"
+            bounds = kernel_bounds(n_in, h, nz, b, steps=steps, cdt=cdt)
+            if shape == "image":
+                calls = {
+                    "k1": (lambda: fused_dynamics_vjp(x, eps, params, nz, cdt),
+                           lambda: mlp3_forward_vjp_reference(x, eps, params, nz, cdt), 10, 10),
+                    "k2": (lambda: fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt),
+                           lambda: fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot,
+                                                                    cdt), 5, 5)}
+                errs = {"k1": compare(f"K1 fused_dynamics image widths {prec} B={b}",
+                                      calls["k1"][0](), calls["k1"][1](), *TOL[("stage", cdt)]),
+                        "k2": compare_to_max(f"K2 fused_dynamics_bwd image widths {prec} B={b}",
+                                             flat(calls["k2"][0]()), flat(calls["k2"][1]()),
+                                             BWD_TOL[("stage", cdt)])}
+            else:
+                calls = {
+                    "k3": (lambda: fused_solve_rk4(u0, eps, None, params, span, nz, nz, steps, cdt),
+                           lambda: fused_solve_rk4_reference(u0, eps, None, params, span, nz,
+                                                             nz, steps, cdt), 5, 5),
+                    "k4": (lambda: fused_solve_rk4_bwd(u0, eps, None, params, span, nz, nz,
+                                                       steps, gbar, cdt),
+                           lambda: fused_solve_rk4_bwd_reference(u0, eps, None, params, span, nz,
+                                                                 nz, steps, gbar, cdt), 3, 3)}
+                errs = {"k3": compare(f"K3 fused_solve_rk4 digits widths {prec} B={b} "
+                                      f"steps={steps}", calls["k3"][0](), calls["k3"][1](),
+                                      *TOL[("solve", cdt)]),
+                        "k4": compare_to_max(f"K4 fused_solve_rk4_bwd digits widths {prec} "
+                                             f"B={b} steps={steps}", flat(calls["k4"][0]()),
+                                             flat(calls["k4"][1]()), BWD_TOL[("solve", cdt)])}
+            ms = in_turns(calls)
+            log(f"  time {shape} widths {prec}: " + "; ".join(
+                f"{k} {ms[k.lower()]:.4f} ms vs plain {ms[k.lower() + '_plain']:.4f} ms (bound "
+                f"{bounds[k][0]:.4f} ms, {bounds[k][1]})" for k in ks))
+            out.append(dict(shape=shape, precision=prec, batch=b, widths=[n_in, h, h, nz],
+                            **{f"{k}_max_abs_err": v for k, v in errs.items()},
+                            **{f"{k.lower()}_bound_ms": bounds[k][0] for k in ks}, **ms))
     return out
 
 
@@ -1045,7 +1147,7 @@ def solve_stats(st):
 
 
 def card_vs_cpu(name, icnf, mode, x, params, seed=None):
-    """One ``inference`` of the same 256 points on the card and on the CPU,
+    """One ``inference`` of the same points (the first 256 of ``x``) on the card and on the CPU,
     with the same draws (a CPU generator on both sides): the same steps
     (the global error norm depends on the batch, so both solve one batch)
     and log-densities within SLICE_TOL."""
@@ -1059,7 +1161,7 @@ def card_vs_cpu(name, icnf, mode, x, params, seed=None):
         cpu = cnf.inference(icnf, mode, small.cpu(), params_cpu, gen())
     if solve_stats(card[2]) != solve_stats(cpu[2]):
         fail(f"{name}: card vs CPU steps {solve_stats(card[2])} vs {solve_stats(cpu[2])}")
-    return compare(f"{name}: card vs CPU (the same 256 points, the same steps "
+    return compare(f"{name}: card vs CPU (the same {len(small)} points, the same steps "
                    f"{tuple(solve_stats(cpu[2]).values())})", card[0].cpu(), cpu[0], *SLICE_TOL)
 
 
@@ -1241,7 +1343,208 @@ def nets_phase(dev, record):
     record["nets"] = out
 
 
+def image_model(side, h, fused=False, eval_twin=False):
+    """``benchmarks/image_bitsdim.py``'s model at ``side`` (d = side^2) and
+    width ``h``: no augmentation, lambda_1 = lambda_2 = 0.01, lambda_3 = 0,
+    no steering, rk4-24 with backprop and bf16 products; its eval twin
+    dopri5 at rtol = atol = 1e-4 with float32 products."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import SolverConfig
+
+    solver = (SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4) if eval_twin else
+              SolverConfig(method="rk4", gradient="backprop", fixed_steps=IMAGE_RK4_STEPS))
+    cfg = cnf.ICNFConfig(nvariables=side * side, naugments=0, lambda_1=0.01, lambda_2=0.01,
+                         lambda_3=0.0, steer_rate=0.0, solver=solver, fused=fused)
+    return cnf.ICNF(config=cfg, net=cnf.MLP((cfg.n_in, h, h, cfg.n_out),
+                                            precision="highest" if eval_twin else "default"))
+
+
+def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_dir=None,
+              save_dir=None):
+    """``steps`` steps of ``ICNFModel.fit`` at batch IMAGE_BATCH, every step's
+    launches held to ``want``, timed by the port's ``StepTimer`` from the end
+    of the first step to the end of the last but one.  With ``trace_dir``
+    the last step runs under ``profiling.trace``, and its trace must name
+    K1's and K2's kernels; with ``save_dir`` an ``AsyncCheckpointer`` saves the live
+    parameters and optimizer state after the middle step while the next step
+    updates them in place, and the reloaded file must equal the parameters
+    as they stood at ``save()`` bit for bit.  Returns (result, samples/s)."""
+    import contextlib
+    import glob
+
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.utils import (AsyncCheckpointer, load_checkpoint,
+                                                            profiling)
+
+    opt_box = {}
+
+    def optimizer(tensors):
+        opt_box["opt"] = cnf.default_optimizer()(tensors)
+        return opt_box["opt"]
+
+    params = icnf.init(torch.Generator().manual_seed(0), device=dev)
+    live = lambda: dict(zip(params, opt_box["opt"].param_groups[0]["params"]))
+    timer = profiling.StepTimer(IMAGE_BATCH)
+    timed_until = steps - 1  # the last step is traced where asked: both routes time the same
+    marks, at_save, rate = [counts()], {}, []
+    tracing = contextlib.ExitStack()
+    ck = AsyncCheckpointer()
+
+    def on_step(it, _loss):  # step `it` has ended: reading its loss synchronised the stream
+        marks.append(counts())
+        if it < timed_until:
+            timer.tick(list(live().values()))
+        if it == timed_until - 1:
+            rate.append(timer.samples_per_sec)
+            log(f"  {name}: {timer.steps} steps timed by StepTimer, "
+                f"{timer.seconds_per_step * 1e3:.3f} ms a step, {rate[0]:.1f} train samples/s "
+                f"({nvidia_smi()})")
+            if trace_dir:
+                tracing.enter_context(profiling.trace(trace_dir))
+        if it == steps - 1:
+            tracing.close()
+        if save_dir and it == steps // 2:
+            at_save.update({k: v.detach().clone() for k, v in live().items()})
+            ck.save(save_dir, live(), opt_box["opt"].state_dict(), step=it + 1)
+
+    model = cnf.ICNFModel(icnf, optimizer=optimizer, batchsize=IMAGE_BATCH, epochs=1,
+                          log_every=1, callback=on_step, batch_transform=batch_transform,
+                          device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    reset_counts()
+    marks[0] = counts()
+    res = model.fit(data[: steps * IMAGE_BATCH], params=params)
+    ck.wait()
+    if res.stats["iterations"] != steps or not all(map(math.isfinite, res.history)):
+        fail(f"{name}: {res.stats['iterations']} steps, loss history {res.history}")
+    for i in range(1, len(marks)):
+        step = {k: marks[i][k] - marks[i - 1][k] for k in NO_LAUNCH}
+        if step != want:
+            fail(f"{name}: step {i - 1} launched {step}, expected {want}")
+    log(f"  {name}: {steps} steps, each launching {want} ok; loss {res.history[0]:.2f} -> "
+        f"{res.history[-1]:.2f}")
+    if trace_dir:
+        names = set()
+        for path in glob.glob(f"{trace_dir}/*.pt.trace.json"):
+            names |= {e.get("name", "") for e in json.loads(Path(path).read_text())["traceEvents"]
+                      if e.get("cat") == "kernel"}
+        found = {k: sorted(n for n in names if f"fused_dynamics_{k}" in n) for k in ("fwd", "bwd")}
+        if not all(found.values()):
+            fail(f"{name}: the traced step's kernels do not name K1 and K2: {sorted(names)[:20]}")
+        log(f"  {name}: profiling.trace of the last step names K1 {found['fwd'][0][:60]} and "
+            f"K2 {found['bwd'][0][:60]} ok")
+    if save_dir:
+        got, opt_state, step = load_checkpoint(save_dir)
+        if step != steps // 2 + 1 or opt_state is None or set(got) != set(at_save) or not all(
+                torch.equal(got[k], at_save[k].cpu()) for k in at_save):
+            fail(f"{name}: the reloaded checkpoint differs from the parameters at save()")
+        if all(torch.equal(at_save[k], res.params[k]) for k in at_save):
+            fail(f"{name}: the parameters did not move after save()")
+        log(f"  {name}: AsyncCheckpointer.save after step {steps // 2} (the next step updating "
+            f"in place meanwhile), reloaded: equal bit for bit to the parameters at save() ok")
+    return res, rate[0]
+
+
+def image_phase(dev, record):
+    """The image-scale FFJORD path at full width and the digits-shaped path,
+    through the utils layer: (a) the image model (d = 784, 785 -> 1024 ->
+    1024 -> 784, bf16, rk4-24, batch 256) fitted through K1 + K2, timed,
+    traced and checkpointed during the fit, and the same fit unfused; (b) its
+    dopri5 eval twin exported, saved, loaded and served on 256 points against
+    the eager call and the CPU, with bits/dim beside the true density's; (c)
+    the digits-shaped model (d = 64, h = 256) fitted through K3 + K4 with
+    ``random_shift_images`` as the batch transform, then its sampler
+    exported."""
+    import functools
+    import shutil
+
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode
+    from continuousnormalizingflows_tpu_torch.utils import datasets as ds
+    from continuousnormalizingflows_tpu_torch.utils import export as ex
+
+    started = time.perf_counter()
+    work = Path("chiprun_out") / "image_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+
+    # (a) the image fit, fused and unfused
+    side, h = IMAGE_SIDE, IMAGE_HIDDEN
+    d = side * side
+    x = ds.smooth_image_mixture(gen(1), IMAGE_POINTS, side)
+    res, rate = image_fit("image fused=True (K1 + K2)", image_model(side, h, fused=True), x,
+                          IMAGE_FIT_STEPS, dict(NO_LAUNCH, K1=8 * IMAGE_RK4_STEPS,
+                                                K2=4 * IMAGE_RK4_STEPS), dev,
+                          trace_dir=str(work / "trace"), save_dir=str(work / "ckpt"))
+    _r, rate_plain = image_fit("image fused=False", image_model(side, h), x, IMAGE_FIT_STEPS,
+                               NO_LAUNCH, dev)
+    log(f"  image train samples/s: fused {rate:.1f}, unfused {rate_plain:.1f} "
+        f"(fused / unfused {rate / rate_plain:.3f}) on {nvidia_smi()}")
+    out["fit"] = dict(train_samples_per_s=rate, train_samples_per_s_unfused=rate_plain,
+                      history=res.history, launches_per_step=dict(K1=8 * IMAGE_RK4_STEPS,
+                                                                  K2=4 * IMAGE_RK4_STEPS))
+
+    # (b) serving the image flow: export, save, load, call on 256 points
+    ev = image_model(side, h, eval_twin=True)
+    x_eval = ds.smooth_image_mixture(gen(2), 256, side)
+    params = res.params
+    (art, export_s) = host_seconds(lambda: ex._export_logpdf(ev, params, device=dev))
+    ex.save_artifact(str(work / "image_logpdf.pt2"), art)
+    served = ex.load_artifact(str(work / "image_logpdf.pt2"))
+    (lp, nfe, nacc, nrej), call_s = host_seconds(lambda: served.call(x_eval))
+    with torch.no_grad():
+        (lp_eager, _a, st), eager_s = host_seconds(
+            lambda: cnf.inference(ev, Mode.TEST, x_eval, params))
+    got_stats = {"nfe": int(nfe), "naccept": int(nacc), "nreject": int(nrej)}
+    if got_stats != solve_stats(st):
+        fail(f"exported image logpdf: solver stats {got_stats} vs eager {solve_stats(st)}")
+    err = compare(f"exported image logpdf vs eager log_prob(TEST), 256 points, steps "
+                  f"{tuple(got_stats.values())}", lp, lp_eager, EXPORT_RTOL, 0.0)
+    cpu_err = card_vs_cpu("image eval (dopri5 1e-4)", ev, Mode.TEST, x_eval[:64], params)
+    bpd = float(ds.nats_to_bits_per_dim(-lp.mean(), d))
+    true_bpd = float(ds.nats_to_bits_per_dim(-ds.smooth_image_mixture_logpdf(x_eval, side).mean(),
+                                             d))
+    rates = {"exported": samples_per_s("exported image logpdf, 256 points",
+                                       lambda: served.call(x_eval), 256),
+             "eager": samples_per_s("eager image log_prob(TEST), 256 points",
+                                    lambda: cnf.log_prob(ev, Mode.TEST, x_eval, params), 256)}
+    log(f"  image eval: export {export_s:.1f} s, first served call {call_s:.3f} s, eager "
+        f"{eager_s:.3f} s; NFE {got_stats['nfe']}; {bpd:.4f} bits/dim after "
+        f"{IMAGE_FIT_STEPS} steps (the true density: {true_bpd:.4f} bits/dim)")
+    out["serve"] = dict(stats=got_stats, max_abs_err=err, card_vs_cpu_max_abs_err=cpu_err,
+                        bits_per_dim=bpd, true_bits_per_dim=true_bpd, export_s=export_s,
+                        samples_per_s=rates)
+
+    # (c) the digits-shaped fit through K3 + K4, then its exported sampler
+    dside, dh = DIGITS_SIDE, DIGITS_HIDDEN
+    xd = ds.smooth_image_mixture(gen(3), IMAGE_POINTS, dside)
+    shift = functools.partial(ds.random_shift_images, side=dside, prob=0.5)
+    res_d, rate_d = image_fit("digits-shaped fused=True (K3 + K4)",
+                              image_model(dside, dh, fused=True), xd, IMAGE_FIT_STEPS,
+                              dict(NO_LAUNCH, K3=1, K4=1), dev, batch_transform=shift)
+    dev_eval = image_model(dside, dh, eval_twin=True)
+    sampler = ex.export_sampler(dev_eval, res_d.params, 64, device=dev)
+    s1, s2 = sampler.call(11), sampler.call(11)
+    ex.save_artifact(str(work / "digits_sampler.pt2"), sampler)
+    s3 = ex.load_artifact(str(work / "digits_sampler.pt2")).call(11)
+    if s1.shape != (64, dside * dside) or not (torch.equal(s1, s2) and torch.equal(s1, s3)):
+        fail("exported sampler: shape, or the same seed gave other bits (twice, after a reload)")
+    with torch.no_grad():
+        want = cnf.generate(dev_eval, Mode.TEST, res_d.params, gen(11), 64, trace_free=True)
+    s_err = compare("exported digits-shaped sampler vs eager generate (seed 11, 64 samples)",
+                    s1, want, EXPORT_RTOL, 1e-6)
+    log("  exported sampler: seed 11 twice and after a reload, the same bits ok")
+    out["digits"] = dict(train_samples_per_s=rate_d, history=res_d.history,
+                         sampler_max_abs_err=s_err)
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - started
+    log(f"  [image] phase: {out['seconds']:.1f} s")
+    record["image"] = out
+
+
 def main() -> None:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1287,6 +1590,11 @@ def main() -> None:
     log("[nets] Planar, the exact sweep, HUTCH_JVP, CondLayer, from_torch, custom "
         "distributions, 65,536 samples, against the CPU on 256 points")
     nets_phase(dev, record)
+    log("[image] the utils layer on the image-scale FFJORD path (d = 784, 785 -> 1024 -> 1024 "
+        "-> 784, batch 256, K1 + K2) and the digits-shaped path (65 -> 256 -> 256 -> 64, "
+        "K3 + K4): datasets, StepTimer, profiling.trace, AsyncCheckpointer, export")
+    image_phase(dev, record)
+    log(f"[done] every phase passed, {time.perf_counter() - started:.1f} s in all")
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
     ad = {r["shape"]: r for r in adaptive_results}["flagship"]

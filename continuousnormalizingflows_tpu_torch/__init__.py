@@ -12,8 +12,11 @@ fixed-step rk4/euler with backprop, the reference-default adaptive dopri5
 the adaptive-order multistep ``abm`` (Adams-Bashforth-Moulton), the
 backsolve and quadrature adjoints; every trace estimator (the exact sweep,
 the planar and MLP analytic traces, Hutchinson by VJP or JVP); the nets
-``MLP``, ``Planar``, ``CondLayer`` and ``from_torch``; and custom base,
-probe and steer distributions (``distributions``).  Six CUDA kernels carry the
+``MLP``, ``Planar``, ``CondLayer`` and ``from_torch``; custom base,
+probe and steer distributions (``distributions``); and ``utils``: the
+datasets, ``AsyncCheckpointer``, ``profiling.trace``/``StepTimer`` and the
+serving export (``export_logpdf``/``export_sampler`` on ``torch.export``,
+whose adaptive solves run as one device loop).  Six CUDA kernels carry the
 stochastic modes: the fused dynamics stage and its backward
 (``ops.fused_dynamics``), the whole RK4 solve and its backward
 (``ops.fused_solve``), and the whole adaptive dopri5 solve and its backward
@@ -34,7 +37,7 @@ where their params are.  Quick start::
     fit = cnf.ICNFModel(icnf, batchsize=65_536, epochs=8).fit(x)
 """
 
-from . import distributions
+from . import distributions, utils
 from .config import ICNFConfig, Mode, ProbeDist, SolverConfig, TraceEstimator
 from .core import (base_logpdf, generate, generate_with_logp, inference, log_prob, loss,
                    loss_with_stats, trajectory)
@@ -53,6 +56,7 @@ __all__ = [
     "ProbeDist",
     "CustomDist",
     "distributions",
+    "utils",
     "SolverConfig",
     "TraceEstimator",
     "MLP",

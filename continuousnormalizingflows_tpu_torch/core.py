@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from .config import LOG_2PI, ICNFConfig, Mode, ProbeDist
+from .distributions import generator_arg
 from .models.icnf import ICNF
 from .models.nets import Params
 from .ops.adjoint import odeint_diff
@@ -32,7 +33,7 @@ from .ops.dynamics import make_augmented_dynamics, make_field
 from .ops.fused_adaptive import (_scfg_tuple, fused_adaptive_applicable, fused_adaptive_tile,
                                   fused_solve_dopri5, stats_from_rows)
 from .ops.fused_solve import fused_solve_applicable, fused_solve_rk4
-from .ops.ode import SolverStats, eval_dense, odeint_dense
+from .ops.ode import SolverStats, eval_dense, odeint_dense, odeint_device
 
 __all__ = [
     "base_logpdf",
@@ -66,8 +67,8 @@ def sample_base(cfg: ICNFConfig, generator: torch.Generator, n: int, device) -> 
     """``(n, nz)`` base samples for the generate path."""
     if cfg.base_dist is not None:
         return cfg.base_dist.sample_fn(generator, (n, cfg.nz), cfg.dtype).to(device)
-    return _draw(lambda d: torch.randn((n, cfg.nz), generator=generator, dtype=cfg.dtype,
-                                       device=d), generator, device)
+    return _draw(lambda d: torch.randn((n, cfg.nz), generator=generator_arg(generator),
+                                       dtype=cfg.dtype, device=d), generator, device)
 
 
 def sample_probe(cfg: ICNFConfig, generator: torch.Generator, batch: int,
@@ -78,10 +79,11 @@ def sample_probe(cfg: ICNFConfig, generator: torch.Generator, batch: int,
     if not isinstance(cfg.probe_dist, ProbeDist):
         return cfg.probe_dist.sample_fn(generator, shape, cfg.dtype).to(device)
     if cfg.probe_dist is ProbeDist.RADEMACHER:
-        fn = lambda d: 2.0 * torch.randint(0, 2, shape, generator=generator, device=d).to(
-            cfg.dtype) - 1.0
+        fn = lambda d: 2.0 * torch.randint(0, 2, shape, generator=generator_arg(generator),
+                                           device=d).to(cfg.dtype) - 1.0
     else:
-        fn = lambda d: torch.randn(shape, generator=generator, dtype=cfg.dtype, device=d)
+        fn = lambda d: torch.randn(shape, generator=generator_arg(generator), dtype=cfg.dtype,
+                                    device=d)
     return _draw(fn, generator, device)
 
 
@@ -93,7 +95,8 @@ def steer_t1(cfg: ICNFConfig, generator: torch.Generator, device) -> torch.Tenso
     if cfg.steer_dist is not None:
         r = cfg.steer_dist.sample_fn(generator, (), cfg.dtype).to(device)
     else:
-        u = _draw(lambda d: torch.rand((), generator=generator, dtype=cfg.dtype, device=d),
+        u = _draw(lambda d: torch.rand((), generator=generator_arg(generator), dtype=cfg.dtype,
+                                       device=d),
                   generator, device)
         r = (2.0 * u - 1.0) * cfg.steer_rate
     return t1 + abs(t1 - t0) * r
@@ -101,7 +104,8 @@ def steer_t1(cfg: ICNFConfig, generator: torch.Generator, device) -> torch.Tenso
 
 def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
            eps: Optional[torch.Tensor], ys: Optional[torch.Tensor],
-           dt0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, SolverStats]:
+           dt0: Optional[torch.Tensor] = None,
+           device_loop: bool = False) -> Tuple[torch.Tensor, SolverStats]:
     """Solve the augmented state from ``t0`` to ``t1``.  The adaptive
     whole-solve route (K5, backward K6) is taken when
     :func:`fused_adaptive_applicable` and the batch makes whole control
@@ -109,8 +113,19 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
     :func:`fused_solve_applicable`; otherwise the dynamics (with the
     per-stage kernel K1 where it applies) go through :func:`odeint_diff`.
     ``dt0`` (the carried start) reaches only that last route: the kernels'
-    controllers keep the fixed start, as in the JAX package."""
+    controllers keep the fixed start, as in the JAX package.  ``device_loop``
+    takes :func:`.ops.ode.odeint_device` (no host read, no gradient): the
+    exported TEST surfaces, and only those."""
     cfg = icnf.config
+    if device_loop:
+        if mode.stochastic:
+            raise ValueError(f"device_loop=True serves only Mode.TEST (the exported "
+                             f"surfaces), not {mode}: the training modes take the kernels "
+                             f"or the differentiable solve")
+        f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
+        with torch.no_grad():
+            return odeint_device(f_aug, u0, t0, t1, {"params": params, "eps": eps, "ys": ys},
+                                 cfg.solver)
     if (eps is not None and fused_adaptive_applicable(cfg, icnf.net, mode)
             and fused_adaptive_tile(u0.shape[0])):
         t_col = None if cfg.autonomous else cfg.nz
@@ -168,10 +183,13 @@ def _need_generator(mode: Mode, generator: Optional[torch.Generator]) -> None:
 
 def inference(icnf: ICNF, mode: Mode, xs, params: Params,
               generator: Optional[torch.Generator] = None, ys=None,
-              dt0: Optional[torch.Tensor] = None):
+              dt0: Optional[torch.Tensor] = None, device_loop: bool = False):
     """Forward solve x -> z; returns ``(logpx, (E, n, A), SolverStats)``.
 
-    ``xs``: ``(batch, nvariables)`` or one ``(nvariables,)`` sample."""
+    ``xs``: ``(batch, nvariables)`` or one ``(nvariables,)`` sample.
+    ``device_loop=True``: the solve's control stays on the device (what
+    ``torch.export`` captures; no gradient, and the counts in the stats are
+    0-d tensors), with the same steps as the default loop."""
     cfg = icnf.config
     device = _device_of(params)
     xs, single = _as_batch(torch.as_tensor(xs, dtype=cfg.dtype, device=device))
@@ -185,7 +203,7 @@ def inference(icnf: ICNF, mode: Mode, xs, params: Params,
     if mode.regularized and cfg.steered:
         t1 = steer_t1(cfg, generator, device)
     eps = sample_probe(cfg, generator, batch, device) if mode.stochastic else None
-    u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys, dt0)
+    u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys, dt0, device_loop)
     logpx, augs = _split_terminal(cfg, mode, u1)
     if single:
         logpx, augs = logpx[0], tuple(a[0] for a in augs)
@@ -193,10 +211,12 @@ def inference(icnf: ICNF, mode: Mode, xs, params: Params,
 
 
 def generate_with_logp(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator,
-                       n: int, ys=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                       n: int, ys=None,
+                       device_loop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(samples (n, nvariables), logpx (n,))`` from ONE reversed solve: the
     backward integration accumulates ``-dlogp``, so
-    ``logp(x) = logpdf_base(z1) + u[nz]``."""
+    ``logp(x) = logpdf_base(z1) + u[nz]``.  ``device_loop``: as in
+    :func:`inference`."""
     cfg = icnf.config
     device = _device_of(params)
     ys = _prep_ys(cfg, ys, device)
@@ -206,13 +226,13 @@ def generate_with_logp(icnf: ICNF, mode: Mode, params: Params, generator: torch.
         t1 = steer_t1(cfg, generator, device)
     eps = sample_probe(cfg, generator, n, device) if mode.stochastic else None
     u0 = torch.cat([z1, torch.zeros((n, 3), dtype=cfg.dtype, device=device)], dim=-1)
-    u_final, _stats = _solve(icnf, mode, u0, t1, t0, params, eps, ys)
+    u_final, _stats = _solve(icnf, mode, u0, t1, t0, params, eps, ys, None, device_loop)
     logpx = base_logpdf(cfg, z1) + u_final[..., cfg.nz]
     return u_final[..., : cfg.nvariables], logpx
 
 
 def _generate_tracefree(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator,
-                        n: int, ys) -> torch.Tensor:
+                        n: int, ys, device_loop: bool = False) -> torch.Tensor:
     """Integrates the bare field ``dz/dt = f(z, t)`` backward: the flow map
     does not depend on the accumulators, so sampling skips the trace."""
     cfg = icnf.config
@@ -222,26 +242,28 @@ def _generate_tracefree(icnf: ICNF, mode: Mode, params: Params, generator: torch
     if mode.regularized and cfg.steered:
         t1 = steer_t1(cfg, generator, device)
     field = make_field(cfg, icnf.net)
+    f = lambda t, z, args: field(t, z, args["params"], args["ys"])
+    if device_loop:
+        with torch.no_grad():
+            z0, _stats = odeint_device(f, z1, t1, t0, {"params": params, "ys": ys}, cfg.solver)
+        return z0[..., : cfg.nvariables]
     solver = cfg.solver
     if solver.gradient == "quadrature":
         # the z-only state needs no interpolant: backsolve is exact for sampling
         solver = dataclasses.replace(solver, gradient="adjoint")
-    z0, _stats = odeint_diff(
-        lambda t, z, args: field(t, z, args["params"], args["ys"]),
-        z1, t1, t0, {"params": params, "ys": ys}, solver,
-    )
+    z0, _stats = odeint_diff(f, z1, t1, t0, {"params": params, "ys": ys}, solver)
     return z0[..., : cfg.nvariables]
 
 
 def generate(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator, n: int,
-             ys=None, trace_free: bool = False) -> torch.Tensor:
+             ys=None, trace_free: bool = False, device_loop: bool = False) -> torch.Tensor:
     """Sample ``n`` points by integrating the flow backward t1 -> t0.
     ``trace_free=True`` integrates the bare field (same distribution, no
-    per-step trace estimate)."""
+    per-step trace estimate).  ``device_loop``: as in :func:`inference`."""
     ys = _prep_ys(icnf.config, ys, _device_of(params))
     if trace_free:
-        return _generate_tracefree(icnf, mode, params, generator, int(n), ys)
-    return generate_with_logp(icnf, mode, params, generator, int(n), ys)[0]
+        return _generate_tracefree(icnf, mode, params, generator, int(n), ys, device_loop)
+    return generate_with_logp(icnf, mode, params, generator, int(n), ys, device_loop)[0]
 
 
 def loss_with_stats(icnf: ICNF, mode: Mode, xs, params: Params,
@@ -265,9 +287,10 @@ def loss(icnf: ICNF, mode: Mode, xs, params: Params,
 
 
 def log_prob(icnf: ICNF, mode: Mode, xs, params: Params,
-             generator: Optional[torch.Generator] = None, ys=None) -> torch.Tensor:
-    """Just ``logpx``."""
-    return inference(icnf, mode, xs, params, generator, ys)[0]
+             generator: Optional[torch.Generator] = None, ys=None,
+             device_loop: bool = False) -> torch.Tensor:
+    """Just ``logpx``.  ``device_loop``: as in :func:`inference`."""
+    return inference(icnf, mode, xs, params, generator, ys, device_loop=device_loop)[0]
 
 
 def trajectory(icnf: ICNF, xs, params: Params, ts, ys=None):

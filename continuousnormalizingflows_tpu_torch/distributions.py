@@ -43,6 +43,7 @@ __all__ = [
     "student_t",
     "normal_mixture",
     "uniform_probe",
+    "DefaultGenerator",
 ]
 
 
@@ -70,12 +71,30 @@ def _iid(name: str, logpdf1: Callable, sampler: Callable) -> CustomDist:
     return CustomDist(lambda z: torch.sum(logpdf1(z), dim=-1), sampler, name)
 
 
+class DefaultGenerator:
+    """Stands in for a ``torch.Generator`` where a traced program draws (the
+    exported sampler): the draws take the default generator of ``device``,
+    which the caller seeds (``torch.manual_seed`` under
+    ``torch.random.fork_rng``).  A program cannot take a generator object."""
+
+    def __init__(self, device) -> None:
+        self.device = torch.device(device)
+
+
+def generator_arg(generator):
+    """The ``generator=`` argument of a draw: None (the device's default
+    generator) for a :class:`DefaultGenerator`, else ``generator``."""
+    return None if isinstance(generator, DefaultGenerator) else generator
+
+
 def _randn(generator, shape, dtype) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+    return torch.randn(shape, generator=generator_arg(generator), dtype=dtype,
+                       device=generator.device)
 
 
 def _rand(generator, shape, dtype) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+    return torch.rand(shape, generator=generator_arg(generator), dtype=dtype,
+                      device=generator.device)
 
 
 def _gamma(generator: torch.Generator, shape, alpha: float) -> torch.Tensor:
@@ -194,7 +213,7 @@ def normal_mixture(locs: Tuple[float, ...], scales: Tuple[float, ...],
         probs = torch.tensor([w / wsum for w in weights], dtype=torch.float64, device=dev)
         n = math.prod(shape)
         idx = torch.multinomial(probs, max(n, 1), replacement=True,
-                                generator=generator)[:n].reshape(shape)
+                                generator=generator_arg(generator))[:n].reshape(shape)
         mu = torch.tensor(locs, dtype=dtype, device=dev)[idx]
         sig = torch.tensor(scales, dtype=dtype, device=dev)[idx]
         return mu + sig * _randn(generator, shape, dtype)

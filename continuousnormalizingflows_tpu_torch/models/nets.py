@@ -59,10 +59,13 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
     ``precision="highest"`` is a true float32 product (the caller keeps TF32
     off).  ``"default"`` rounds both operands to bfloat16 and accumulates in
-    float32, which is what the CUDA kernels and JAX's bf16 compute dtype do."""
+    float32, which is what the CUDA kernels and JAX's bf16 compute dtype do.
+    The transpose is ``w.t()``, not the ``.T`` property: inside a
+    ``while_loop`` body (the exported solve) the property on a weight the
+    body closes over is lifted as a second input aliasing the first."""
     if precision != "highest":
         x, w = _round_bf16(x), _round_bf16(w)
-    y = x @ w.T
+    y = x @ w.t()
     return y if b is None else y + b
 
 

@@ -27,7 +27,8 @@ from ..config import ICNFConfig, Mode, TraceEstimator
 from ..models.nets import MLP, DynamicsNet, Params, Planar, linear, mlp_layers
 from .fused_dynamics import MAX_HIDDEN, _row_norm, fused_dynamics_vjp
 
-__all__ = ["make_augmented_dynamics", "make_field", "fused_dynamics_applicable"]
+__all__ = ["make_augmented_dynamics", "make_field", "fused_dynamics_applicable",
+           "exact_trace_traceable"]
 
 Args = dict
 
@@ -64,12 +65,24 @@ def _act_and_deriv(act, z: torch.Tensor):
     stays differentiable, also under a non-reentrant checkpoint."""
     if act is F.softplus:
         return F.softplus(z), torch.sigmoid(z)
+    if act is torch.tanh:  # autograd's tanh_backward, 1 - a^2, written out
+        a = torch.tanh(z)
+        return a, 1 - a * a
     train = torch.is_grad_enabled() and z.requires_grad
     with torch.enable_grad():
         zz = z if train else z.detach().requires_grad_()
         a = act(zz)
         (d,) = torch.autograd.grad(a.sum(), zz, create_graph=train)
     return (a, d) if train else (a.detach(), d.detach())
+
+
+def exact_trace_traceable(net) -> bool:
+    """Whether the exact trace of ``net`` traces for ``torch.export``: the
+    analytic planar and MLP traces with an activation whose derivative is
+    written out (softplus, tanh).  The generic sweep's forward-mode JVPs and
+    an activation differentiated by autograd do not."""
+    return ((isinstance(net, Planar) or _mlp_exact_applicable(net))
+            and net.activation in (F.softplus, torch.tanh))
 
 
 def _planar_trace(net: Planar, params: Params, x_full: torch.Tensor, nz: int, reg: bool):
@@ -128,22 +141,23 @@ def _mlp_exact_trace(net: MLP, params: Params, x_full: torch.Tensor, nz: int):
     ``A3[:nz] D2 A2 D1 A1[:, :nz]`` with ``D_i = diag(s_i)``, so
     ``tr(J) = sum_{k,l} s1[k] G[k,l] s2[l]`` with
     ``G = A2^T o (A1[:, :nz] A3[:nz])``: one batch-independent masked
-    product and one extra ``(B, h) x (h, h)`` product per evaluation."""
+    product and one extra ``(B, h) x (h, h)`` product per evaluation.  The
+    transposes are ``.t()`` calls, as in :func:`.models.nets.linear`."""
     prec = net.precision
     layers = mlp_layers(params)
     if len(layers) == 2:
         (a1, b1), (a2, b2) = layers
         h1, s1 = _act_and_deriv(net.activation, linear(x_full, a1, b1, prec))
         dz = linear(h1, a2, b2, prec)
-        g = torch.sum(a1[:, :nz] * a2[:nz, :].T, dim=1)  # (h,)
+        g = torch.sum(a1[:, :nz] * a2[:nz, :].t(), dim=1)  # (h,)
         return dz, s1 @ g
     (a1, b1), (a2, b2), (a3, b3) = layers
     h1, s1 = _act_and_deriv(net.activation, linear(x_full, a1, b1, prec))
     h2, s2 = _act_and_deriv(net.activation, linear(h1, a2, b2, prec))
     dz = linear(h2, a3, b3, prec)
-    m = linear(a1[:, :nz], a3[:nz, :].T, None, prec)  # (h1, h2)
-    g_mat = a2.T * m
-    div = torch.sum(linear(s1, g_mat.T, None, prec) * s2, dim=-1)
+    m = linear(a1[:, :nz], a3[:nz, :].t(), None, prec)  # (h1, h2)
+    g_mat = a2.t() * m
+    div = torch.sum(linear(s1, g_mat.t(), None, prec) * s2, dim=-1)
     return dz, div
 
 

@@ -13,6 +13,8 @@ adjoint's backward state ``(y, a, q...)`` is a tuple).
   ``done | fail`` and ``accept`` back to the host once per trial step, in one
   transfer.  The error norm is one RMS over every element of the batch, as in
   the reference: the whole batch takes one step sequence.
+  :func:`odeint_device` is the same loop with its control on the device
+  (``while_loop``, accept and reject by ``torch.where``), for export.
 * ``abm``: variable-step, variable-order Adams-Bashforth-Moulton PECE (the
   reference's VCABM class), two evaluations a trial step, the order moved
   among ``{k-1, k, k+1}`` by their Milne error estimates.  The order is a
@@ -33,8 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ABM_MAX_ORDER, DEFAULT_FIXED_DT0, SolverConfig
 
 __all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_abm", "odeint_dopri5_dense",
-           "odeint_abm_dense", "odeint_dense", "eval_dense", "DenseSolution", "SolverStats",
-           "DOPRI5", "TSIT5"]
+           "odeint_abm_dense", "odeint_dense", "odeint_device", "eval_dense", "DenseSolution",
+           "SolverStats", "DOPRI5", "TSIT5"]
 
 State = Any  # a tensor or a tuple of tensors
 ODEFunc = Callable[[Any, State, Any], State]
@@ -295,39 +297,69 @@ class _Loop(NamedTuple):
     done: bool
 
 
-def _adaptive_loop(f, y0, t0, t1, args, cfg, error_weight, dt0_override, on_accept=None):
-    """The embedded-RK loop shared by :func:`odeint_dopri5` and its dense
-    form.  ``on_accept(t_new, y_new, k_new)`` sees every accepted step."""
+class _Control(NamedTuple):
+    """What a trial step's decision needs besides its state (fixed over a
+    solve)."""
+
+    tab: object
+    cfg: SolverConfig
+    error_weight: object
+    t1: torch.Tensor
+    direction: torch.Tensor
+    tol_done: torch.Tensor
+    give_up: torch.Tensor
+    tdt: torch.dtype
+
+
+def _start(f, y0, t0, t1, args, cfg, error_weight, dt0_override):
+    """The adaptive solve's set-up, shared by the eager and the device loop:
+    ``(ctl, t0, k1, dt, nfe)``, the FSAL derivative at ``t0`` and the first
+    step (``nfe``: the evaluations so far)."""
     tab = _TABLEAUS.get(cfg.method, DOPRI5)
-    n_evals = len(tab.A) + 1  # new evaluations per trial step (FSAL)
     t0, t1, tdt = _times(y0, t0, t1)
     span = t1 - t0
     direction = torch.sign(span)
-    tol_done = 1e-12 * torch.clamp(torch.abs(t1), min=1.0)
-    give_up = _DT_GIVE_UP * torch.abs(span)
-
+    ctl = _Control(tab, cfg, error_weight, t1, direction,
+                   1e-12 * torch.clamp(torch.abs(t1), min=1.0), _DT_GIVE_UP * torch.abs(span),
+                   tdt)
     k1 = f(t0, y0, args)
     dt, nfe_init = _initial_dt(f, t0, y0, k1, args, cfg, span, direction, tab.order + 1, tdt,
                                dt0_override)
+    return ctl, t0, k1, dt, 1 + nfe_init
+
+
+def _trial(ctl: _Control, f, t, dt, y, k1, args):
+    """One trial step and its decision, shared by the eager and the device
+    loop so that both take the same steps: ``(y5, k7, t_new, dt_new,
+    accept, done, fail)``, the flags as 0-d bool tensors (``fail``: a
+    non-finite field at a step below the give-up size)."""
+    cfg = ctl.cfg
+    dt_c = ctl.direction * torch.minimum(torch.abs(dt), torch.abs(ctl.t1 - t))
+    y5, err, k7 = _erk_step(ctl.tab, f, t, y, dt_c, k1, args)
+    ratio = _rms_error_ratio(err, y, y5, cfg.rtol, cfg.atol, ctl.error_weight)
+    finite, factor = _controller_factor(ratio, 1.0 / ctl.tab.order, cfg.safety,
+                                        cfg.min_factor, cfg.max_factor, ctl.tdt)
+    accept = finite & (ratio <= 1.0)
+    t_new = torch.where(accept, t + dt_c, t)
+    done = accept & (torch.abs(ctl.t1 - t_new) <= ctl.tol_done)
+    fail = ~finite & (torch.abs(dt_c) <= ctl.give_up)
+    return y5, k7, t_new, dt_c * factor, accept, done, fail
+
+
+def _adaptive_loop(f, y0, t0, t1, args, cfg, error_weight, dt0_override, on_accept=None):
+    """The embedded-RK loop shared by :func:`odeint_dopri5` and its dense
+    form.  ``on_accept(t_new, y_new, k_new)`` sees every accepted step."""
+    ctl, t0, k1, dt, nfe = _start(f, y0, t0, t1, args, cfg, error_weight, dt0_override)
+    n_evals = len(ctl.tab.A) + 1  # new evaluations per trial step (FSAL)
     t, y = t0, y0
-    nfe, steps, nacc, done = 1 + nfe_init, 0, 0, False
+    steps, nacc, done = 0, 0, False
     if on_accept is not None:
         on_accept(t0, y0, k1)
     while steps < cfg.max_steps:
-        dt_c = direction * torch.minimum(torch.abs(dt), torch.abs(t1 - t))
-        y5, err, k7 = _erk_step(tab, f, t, y, dt_c, k1, args)
-        ratio = _rms_error_ratio(err, y, y5, cfg.rtol, cfg.atol, error_weight)
-        finite, factor = _controller_factor(ratio, 1.0 / tab.order, cfg.safety,
-                                            cfg.min_factor, cfg.max_factor, tdt)
-        accept = finite & (ratio <= 1.0)
-        dt = dt_c * factor
-        t_new = torch.where(accept, t + dt_c, t)
-        done_t = accept & (torch.abs(t1 - t_new) <= tol_done)
-        fail_t = ~finite & (torch.abs(dt_c) <= give_up)
+        y5, k7, t, dt, accept, done_t, fail_t = _trial(ctl, f, t, dt, y, k1, args)
         # the one host read of the trial step
         stop, acc, done = torch.stack([done_t | fail_t, accept, done_t]).tolist()
         nfe, steps = nfe + n_evals, steps + 1
-        t = t_new
         if acc:
             nacc += 1
             y, k1 = y5, k7
@@ -340,6 +372,55 @@ def _adaptive_loop(f, y0, t0, t1, args, cfg, error_weight, dt0_override, on_acce
 
 def _poison(y: State, ok: bool) -> State:
     return y if ok else _like(y, [torch.full_like(l, float("nan")) for l in _leaves(y)])
+
+
+def _adaptive_device_loop(f, y0, t0, t1, args, cfg) -> Tuple[State, SolverStats]:
+    """:func:`_adaptive_loop` with its control on the device: one
+    ``while_loop`` whose carry holds ``t``, ``dt``, the step counts, the
+    done/fail flags, ``y`` and the FSAL derivative, accept and reject by
+    ``torch.where`` and the poison as a ``where``; no host read, so
+    ``torch.export`` captures it.  The set-up and the trial step are the
+    eager loop's (:func:`_start`, :func:`_trial`), so both take the same
+    steps."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    args, dt0_override = _pop_dt0(args)
+    ctl, t0, k1, dt, nfe_init = _start(f, y0, t0, t1, args, cfg, None, dt0_override)
+    n_evals = len(ctl.tab.A) + 1
+    n_y = len(_leaves(y0))
+    count = lambda: torch.zeros((), dtype=torch.int64, device=t0.device)
+    flag = lambda: torch.zeros((), dtype=torch.bool, device=t0.device)
+
+    def cond(t, dt, steps, nacc, done, fail, *yk):
+        return ~(done | fail) & (steps < cfg.max_steps)
+
+    def body(t, dt, steps, nacc, done, fail, *yk):
+        y, k1 = _like(y0, yk[:n_y]), _like(y0, yk[n_y:])
+        y5, k7, t_new, dt_new, accept, done, fail = _trial(ctl, f, t, dt, y, k1, args)
+        keep = [torch.where(accept, new, old)
+                for new, old in zip(_leaves(y5) + _leaves(k7), yk)]
+        return (t_new, dt_new, steps + 1, nacc + accept.to(torch.int64), done, fail, *keep)
+
+    _t, dt, steps, nacc, done, _fail, *yk = while_loop(
+        cond, body, (t0, dt, count(), count(), flag(), flag(), *_leaves(y0), *_leaves(k1)))
+    y = _like(y0, [torch.where(done, l, torch.full_like(l, float("nan"))) for l in yk[:n_y]])
+    return y, SolverStats(nfe_init + n_evals * steps, nacc, steps - nacc, dt)
+
+
+def odeint_device(f: ODEFunc, y0: State, t0, t1, args,
+                  cfg: SolverConfig) -> Tuple[State, SolverStats]:
+    """A forward solve with no host read, for ``torch.export``: dopri5/tsit5
+    by :func:`_adaptive_device_loop` (the counts in its stats are 0-d
+    tensors), fixed steps unrolled (their count is static).  Not
+    differentiable: call it under ``torch.no_grad``.  ``abm`` keeps its
+    order on the host and is not exported (ROADMAP.md, Queue 1)."""
+    if cfg.method in _TABLEAUS:
+        return _adaptive_device_loop(f, y0, t0, t1, args, cfg)
+    if cfg.method == "abm":
+        raise NotImplementedError(
+            "the abm solver keeps its order on the host and has no device-loop form "
+            "for export yet (ROADMAP.md, Queue 1)")
+    return odeint_fixed(f, y0, t0, t1, args, cfg)
 
 
 def odeint_dopri5(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig, error_weight=None,
