@@ -3,6 +3,8 @@ and serving calls of PERF.md section 5.
 
     python3 chip_profile.py [row ...]
     python3 chip_profile.py k2-grid
+    python3 chip_profile.py k2-wide
+    python3 chip_profile.py k2-phases
     python3 chip_profile.py widths
     python3 chip_profile.py fwd-widths
     python3 chip_profile.py adaptive-widths
@@ -29,7 +31,12 @@ kernels, ``adaptive_replay`` and ``walk_rows`` (above h = 32 as one,
 it builds the kernels a second time with ``-DCNF_K2_ONE_BLOCK_A_TILE`` (a
 block for every 64-row tile instead of at most 264 blocks that take tiles in
 turn) and times K2 in both builds, in turns, at the flagship and the FFJORD
-widths.  ``widths`` times K2 and K6 at every hidden width of the row path and
+widths.  ``k2-wide`` times K2 above its row path (h = 32 ... 1024) with the path
+each width takes: from two checkouts in one call, the measurement behind the
+width where K2's wide path takes over; ``k2-phases`` lists one wide-path
+call's kernels with their device times, beside ``torch.matmul`` of one of
+its products.  ``widths`` times K2 and K6 at every
+hidden width of the row path and
 just past it (h = 8 ... 33), by the device time of their kernels: the
 measurement behind the rule that h <= 32 takes that path; beside K6 it
 counts K5's steps, which K6 replays.  ``fwd-widths`` does the same for the
@@ -64,7 +71,9 @@ WARMUP, ACTIVE = 2, 3
 # each kernel's launches by name, row and tiled paths (the reduction of the
 # backwards' weight-gradient partial sums, shared by K2, K4 and K6, in none)
 KERNELS = {"K1": ("fused_dynamics_fwd_rows", "fused_dynamics_fwd_kernel"),
-           "K2": ("fused_dynamics_bwd_rows", "fused_dynamics_bwd_kernel"),
+           "K2": ("fused_dynamics_bwd_rows", "fused_dynamics_bwd_kernel", "wide_to_bf16",
+                  "wide_products", "wide_merge", "wide_add_slices", "wide_bias_sums",
+                  "wide_bias_add"),
            "K3": ("fused_solve_rk4_rows", "fused_solve_rk4_kernel"),
            "K4": ("solve_traj_rows", "fused_solve_rk4_bwd_rows", "fused_solve_rk4_bwd_kernel"),
            "K5": ("adaptive_fwd_rows", "adaptive_fwd_tiled"),
@@ -248,20 +257,26 @@ def device_ms(fn, names, reps=30):
     return total / 1e3 / reps
 
 
-K2_KERNELS = ("fused_dynamics_bwd", "reduce_partials")
+K2_KERNELS = ("fused_dynamics_bwd", "reduce_partials", "wide_")
+
+
+def k2_path(plan) -> str:
+    """The path of K2's plan; a checkout from before the wide path has no
+    scratch field in its plan, so this reads the plan by position."""
+    return "row" if plan[4] else "wide" if len(plan) > 5 and plan[5] else "tiled"
 K6_KERNELS = ("adaptive_bwd", "adaptive_replay", "walk_rows", "reduce_partials")
 
 
-def stage_inputs(dev, n_in, h, nz):
+def stage_inputs(dev, n_in, h, nz, batch=BATCH):
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
 
     params = MLP((n_in, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((BATCH, n_in), generator=g, device=dev)
-    eps = torch.randn((BATCH, nz), generator=g, device=dev)
-    cot = (torch.randn((BATCH, nz), generator=g, device=dev),
-           torch.randn((BATCH, nz), generator=g, device=dev),
-           *torch.randn((3, BATCH), generator=g, device=dev))
+    x = torch.randn((batch, n_in), generator=g, device=dev)
+    eps = torch.randn((batch, nz), generator=g, device=dev)
+    cot = (torch.randn((batch, nz), generator=g, device=dev),
+           torch.randn((batch, nz), generator=g, device=dev),
+           *torch.randn((3, batch), generator=g, device=dev))
     return x, eps, params, nz, cot
 
 
@@ -320,7 +335,8 @@ def widths(dev):
         n_in, nz = (3, 2) if h == 12 else (6, 5)
         args = stage_inputs(dev, n_in, h, nz)
         plan = _build.bwd_plan(n_in, h, nz, nz, 0, BATCH)
-        path = f"row, H = {plan[4]}" if plan[4] else f"tiled, {plan[0]} rows a tile"
+        path = {"row": f"row, H = {plan[4]}", "wide": "wide",
+                "tiled": f"tiled, {plan[0]} rows a tile"}[k2_path(plan)]
         for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
             ms = sorted(device_ms(lambda: fused_dynamics_vjp_bwd(*args, cdt), K2_KERNELS)
                         for _ in range(3))
@@ -350,6 +366,86 @@ def widths(dev):
               f"{int(nacc.min())}-{int(nacc.max())} a group; over all groups NFE {steps['nfe']}, "
               f"at most {steps['nfe_max']} a group, accepted {steps['accepted_total']}): device ms "
               f"{ms[1]:.4f} (min {ms[0]:.4f}, max {ms[2]:.4f})", flush=True)
+    return out
+
+
+# (h, n_in, nz, batch): widths past K2's row path at the flagship's input and
+# output (6, 5) and three batches, then the tabular width, the digits-shaped
+# and the image widths at the batches of their paths
+K2_WIDE_SHAPES = (*((h, 6, 5, b) for h in (32, 48, 64, 96, 128) for b in (256, 8_192, 65_536)),
+                  (176, 44, 43, 8_192), (256, 65, 64, 256), (1024, 785, 784, 256))
+
+
+def k2_wide(dev):
+    """K2 above the row path's widths (h = 32 ... 1024, each at the batch of
+    its path), fp32 and bf16: device ms of every K2 kernel a call, with the
+    path its plan names and the peak device memory a call adds.  Run from
+    two checkouts in one call, it compares their K2 width by width: the
+    measurement behind the wide path's least width (kWideMinH)."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp_bwd
+
+    out = {}
+    for h, n_in, nz, b in K2_WIDE_SHAPES:
+        args = stage_inputs(dev, n_in, h, nz, b)
+        plan = tuple(_build.bwd_plan(n_in, h, nz, nz, 0, b))
+        path = k2_path(plan)
+        for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
+            fn = lambda: fused_dynamics_vjp_bwd(*args, cdt)
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            fn()
+            torch.cuda.synchronize()
+            peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+            reps = 5 if h == 1024 and path != "wide" else 20
+            ms = sorted(device_ms(fn, K2_KERNELS, reps=reps) for _ in range(3))
+            out[f"K2 h={h} {prec}"] = dict(path=path, plan=list(plan), batch=b, ms=ms[1],
+                                           min=ms[0], max=ms[2], peak_mb=peak_mb)
+            print(f"k2-wide K2 {n_in}->{h}->{h}->{nz} {prec} B={b} ({path}, plan {plan}): "
+                  f"device ms {ms[1]:.4f} (min {ms[0]:.4f}, max {ms[2]:.4f}), peak "
+                  f"{peak_mb:.1f} MB a call", flush=True)
+    return out
+
+
+def k2_phases(dev):
+    """One K2 call on its wide path, kernel by kernel in launch order (device
+    us of each, from the profiler's trace), at the image model's and the
+    tabular widths, fp32 and bf16; beside it one ``torch.matmul`` of the
+    chain's commonest product (B x h times h x h) in the same precision: the
+    library's time for one of the dozen products the path launches."""
+    import os
+    import tempfile
+
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp_bwd
+
+    out = {}
+    for h, n_in, nz, b in ((1024, 785, 784, 256), (176, 44, 43, 8_192)):
+        args = stage_inputs(dev, n_in, h, nz, b)
+        for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
+            for _ in range(3):
+                fused_dynamics_vjp_bwd(*args, cdt)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fused_dynamics_vjp_bwd(*args, cdt)
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "k2.json")
+                prof.export_chrome_trace(path)
+                events = json.loads(Path(path).read_text())["traceEvents"]
+            kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+            launches = [(re.sub(r"^.*?(wide_\w+|fused_dynamics_bwd\w*).*$", r"\1", e["name"]),
+                         e["dur"], e["args"].get("grid")) for e in kernels]
+            a = torch.randn((b, h), device=dev, dtype=cdt or torch.float32)
+            w = torch.randn((h, h), device=dev, dtype=cdt or torch.float32)
+            lib_us = device_ms(lambda: a @ w, ("",), reps=50) * 1e3  # its only kernels
+            out[f"K2 h={h} {prec}"] = dict(batch=b, launches=launches, matmul_us=lib_us,
+                                           total_us=sum(d for _n, d, _g in launches))
+            print(f"k2-phases K2 {n_in}->{h}->{h}->{nz} {prec} B={b}: "
+                  f"{out[f'K2 h={h} {prec}']['total_us']:.1f} us in {len(launches)} kernels: "
+                  + ", ".join(f"{n} {d:.1f}" for n, d, _g in launches)
+                  + f"; torch.matmul ({b} x {h}) @ ({h} x {h}) {lib_us:.1f} us", flush=True)
     return out
 
 
@@ -577,7 +673,8 @@ def main() -> None:
     table = rows(dev)
     wanted = sys.argv[1:] or list(table)
     out = {"device": torch.cuda.get_device_name(0)}
-    for name, mode in (("sass", sass), ("k2-grid", k2_grid), ("widths", widths),
+    for name, mode in (("sass", sass), ("k2-grid", k2_grid), ("k2-wide", k2_wide),
+                       ("k2-phases", k2_phases), ("widths", widths),
                        ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths)):
         if name in wanted:
             wanted.remove(name)

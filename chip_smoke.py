@@ -15,13 +15,16 @@ default stack (abm with the quadrature adjoint, unfused and through K1 +
 K2), the rest of the model surface (the planar net, the exact sweep,
 the Hutchinson JVP, a CondLayer, a from_torch net, custom distributions)
 and the utils layer on the image-scale FFJORD path at full width (d = 784,
-h = 1024, batch 256, through K1 + K2; StepTimer, profiling.trace, an
-AsyncCheckpointer save during the fit, the exported dopri5 eval) and the
+h = 1024, batch 256, through K1 + K2, K2 on its wide path; StepTimer,
+profiling.trace, an AsyncCheckpointer save during the fit, the exported
+dopri5 eval) and the
 digits-shaped path (d = 64, h = 256, through K3 + K4, random_shift_images,
 the exported sampler), and checks that the kernels carried each path.  The
 kernels line (third from last) gives each kernel's bound: the least time
 the card could take for its work, fp32 FMAs at the published peak or bytes
-at the memory rate (the log's bf16 rows: at the bf16 tensor-core peak).  Imports nothing of JAX.  Exits non-zero, with no
+at the memory rate (bf16 rows: at the bf16 tensor-core peak); K2 has a
+second entry there, its wide path at the image fit's widths in bf16, with
+that fit's launches.  Imports nothing of JAX.  Exits non-zero, with no
 result line, when there is no CUDA device or any phase fails; on success
 the last line is ``{"ok": true, "device": {...}}``.  A detailed record of
 every phase is written as ``chiprun_out/chip_smoke.json``, and everything
@@ -171,6 +174,13 @@ def bound(fmas: float, floats: float, peak: float = FP32_FLOPS):
     over the memory rate."""
     ops_ms, bytes_ms = 2 * fmas / peak * 1e3, 4 * floats / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bwd_path(plan) -> str:
+    """A backward kernel's plan (``_build.bwd_plan``) in words."""
+    return {"row": f"row per thread, h padded to {plan.H}, {plan.rows} threads/block",
+            "wide": f"wide, {plan.rows}-row output tiles, {plan.scratch} scratch floats",
+            "tiled": f"tiled, {plan.rows} rows/tile"}[plan.path]
 
 
 LOG_LINES: list = []  # everything logged, also written to chiprun_out/chip_smoke.log
@@ -369,13 +379,11 @@ def kernel_phase(dev, record):
             path = f"row per thread, h padded to {h_pad}" if h_pad else "tiled"
             log(f"  plan {kname} {shape}: {path}, {rows} rows/block, weights in smem: {staged}")
         for kname, sd in (("K2", 0), ("K4", nz + 3)):
-            rows, staged, grid, n_params, h_pad = _build.bwd_plan(n_in, h, nz, nz, sd, b)
-            path = (f"row per thread, h padded to {h_pad}, {rows} threads/block" if h_pad
-                    else f"tiled, {rows} rows/tile")
-            log(f"  plan {kname} {shape}: {path}, grid {grid}, {n_params} params, "
-                f"weights in smem: {staged}")
+            plan = _build.bwd_plan(n_in, h, nz, nz, sd, b)
+            log(f"  plan {kname} {shape}: {bwd_path(plan)}, grid {plan.grid}, "
+                f"{plan.n_params} params, weights in smem: {plan.staged}")
             record.setdefault("bwd_plans", {})[f"{kname} {shape}"] = dict(
-                path="row" if h_pad else "tiled", H=h_pad, rows=rows, grid=grid)
+                path=plan.path, H=plan.H, rows=plan.rows, grid=plan.grid)
         for cdt in (None, torch.bfloat16):
             prec = "fp32" if cdt is None else "bf16"
             stage = lambda: fused_dynamics_vjp(x, eps, params, nz, cdt)
@@ -459,10 +467,8 @@ def ffjord_stage_phase(dev):
     cot = (torch.randn((b, nz), generator=g, device=dev),
            torch.randn((b, nz), generator=g, device=dev),
            *torch.randn((3, b), generator=g, device=dev))
-    rows, staged, grid, n_params, h_pad = _build.bwd_plan(n_in, h, nz, nz, 0, b)
-    path = (f"row per thread, h padded to {h_pad}, {rows} threads/block" if h_pad
-            else f"tiled, {rows} rows/tile")
-    log(f"  plan K2 FFJORD widths: {path}, grid {grid}, {n_params} params")
+    plan = _build.bwd_plan(n_in, h, nz, nz, 0, b)
+    log(f"  plan K2 FFJORD widths: {bwd_path(plan)}, grid {plan.grid}, {plan.n_params} params")
     out = []
     for cdt in (None, torch.bfloat16):
         prec = "fp32" if cdt is None else "bf16"
@@ -490,7 +496,8 @@ def image_widths_phase(dev):
     K2 at the image model's 785 -> 1024 -> 1024 -> 784, K3 and K4 at the
     digits-shaped 65 -> 256 -> 256 -> 64 (state 67, 24 steps), B = 256,
     fp32 and bf16: each against its plain version, timed in turns, beside
-    its bound."""
+    its bound; K2 must take its wide path there, give the same bits twice
+    and add under 64 MB to the device's peak memory."""
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
     from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
@@ -519,12 +526,15 @@ def image_widths_phase(dev):
             ks = ("K1", "K2")
             plans = [("K1", _build.plan(n_in, h, nz, nz, 0)),
                      ("K2", _build.bwd_plan(n_in, h, nz, nz, 0, b))]
+            if plans[1][1].path != "wide":
+                fail(f"K2 at the image widths takes the {plans[1][1].path} path, not the wide one")
         else:
             ks = ("K3", "K4")
             plans = [("K3", _build.plan(n_in, h, nz, nz, nz + 3)),
                      ("K4", _build.bwd_plan(n_in, h, nz, nz, nz + 3, b))]
         for kname, plan in plans:
-            log(f"  plan {kname} {shape} widths {n_in} -> {h} -> {h} -> {nz}, B={b}: {plan}")
+            words = f" ({bwd_path(plan)})" if kname in ("K2", "K4") else ""
+            log(f"  plan {kname} {shape} widths {n_in} -> {h} -> {h} -> {nz}, B={b}: {plan}{words}")
         for cdt in (None, torch.bfloat16):
             prec = "fp32" if cdt is None else "bf16"
             bounds = kernel_bounds(n_in, h, nz, b, steps=steps, cdt=cdt)
@@ -540,6 +550,7 @@ def image_widths_phase(dev):
                         "k2": compare_to_max(f"K2 fused_dynamics_bwd image widths {prec} B={b}",
                                              flat(calls["k2"][0]()), flat(calls["k2"][1]()),
                                              BWD_TOL[("stage", cdt)])}
+                peak_mb = k2_same_bits_and_peak(dev, calls["k2"][0], f"K2 image widths {prec}")
             else:
                 calls = {
                     "k3": (lambda: fused_solve_rk4(u0, eps, None, params, span, nz, nz, steps, cdt),
@@ -558,11 +569,34 @@ def image_widths_phase(dev):
             ms = in_turns(calls)
             log(f"  time {shape} widths {prec}: " + "; ".join(
                 f"{k} {ms[k.lower()]:.4f} ms vs plain {ms[k.lower() + '_plain']:.4f} ms (bound "
-                f"{bounds[k][0]:.4f} ms, {bounds[k][1]})" for k in ks))
+                f"{bounds[k][0]:.4f} ms, {bounds[k][1]}: {bounds[k][0] / ms[k.lower()]:.2%} of "
+                "it)" for k in ks))
+            if shape == "image":
+                ms["k2_peak_mb"] = peak_mb
             out.append(dict(shape=shape, precision=prec, batch=b, widths=[n_in, h, h, nz],
                             **{f"{k}_max_abs_err": v for k, v in errs.items()},
                             **{f"{k.lower()}_bound_ms": bounds[k][0] for k in ks}, **ms))
     return out
+
+
+def k2_same_bits_and_peak(dev, k2, name, limit_mb=64.0):
+    """K2 gives the same bits twice and adds under ``limit_mb`` to the
+    device's peak memory (its outputs and scratch: no per-block buffer of
+    partial gradients); returns the MB it adds."""
+    first = flat(k2())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    second = flat(k2())
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    if not all(torch.equal(a, c) for a, c in zip(first, second)):
+        fail(f"{name}: two calls on the same inputs differ")
+    if peak_mb >= limit_mb:
+        fail(f"{name}: a call adds {peak_mb:.1f} MB to the device's peak, over {limit_mb} MB")
+    log(f"  {name}: two calls give the same bits ok; a call adds {peak_mb:.1f} MB to the "
+        f"device's peak memory (under {limit_mb:.0f} MB) ok")
+    return peak_mb
 
 
 def host_seconds(fn):
@@ -1427,11 +1461,14 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
         for path in glob.glob(f"{trace_dir}/*.pt.trace.json"):
             names |= {e.get("name", "") for e in json.loads(Path(path).read_text())["traceEvents"]
                       if e.get("cat") == "kernel"}
-        found = {k: sorted(n for n in names if f"fused_dynamics_{k}" in n) for k in ("fwd", "bwd")}
+        # K2 at these widths runs its wide path, whose products are wide_products
+        found = {k: sorted(n for n in names if pat in n)
+                 for k, pat in (("fwd", "fused_dynamics_fwd"), ("bwd", "wide_products"))}
         if not all(found.values()):
-            fail(f"{name}: the traced step's kernels do not name K1 and K2: {sorted(names)[:20]}")
+            fail(f"{name}: the traced step's kernels do not name K1 and K2's wide path: "
+                 f"{sorted(names)[:20]}")
         log(f"  {name}: profiling.trace of the last step names K1 {found['fwd'][0][:60]} and "
-            f"K2 {found['bwd'][0][:60]} ok")
+            f"K2's wide path {found['bwd'][0][:60]} ok")
     if save_dir:
         got, opt_state, step = load_checkpoint(save_dir)
         if step != steps // 2 + 1 or opt_state is None or set(got) != set(at_save) or not all(
@@ -1441,7 +1478,7 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
             fail(f"{name}: the parameters did not move after save()")
         log(f"  {name}: AsyncCheckpointer.save after step {steps // 2} (the next step updating "
             f"in place meanwhile), reloaded: equal bit for bit to the parameters at save() ok")
-    return res, rate[0]
+    return res, rate[0], {k: marks[-1][k] - marks[0][k] for k in NO_LAUNCH}
 
 
 def image_phase(dev, record):
@@ -1473,17 +1510,16 @@ def image_phase(dev, record):
     side, h = IMAGE_SIDE, IMAGE_HIDDEN
     d = side * side
     x = ds.smooth_image_mixture(gen(1), IMAGE_POINTS, side)
-    res, rate = image_fit("image fused=True (K1 + K2)", image_model(side, h, fused=True), x,
-                          IMAGE_FIT_STEPS, dict(NO_LAUNCH, K1=8 * IMAGE_RK4_STEPS,
-                                                K2=4 * IMAGE_RK4_STEPS), dev,
-                          trace_dir=str(work / "trace"), save_dir=str(work / "ckpt"))
-    _r, rate_plain = image_fit("image fused=False", image_model(side, h), x, IMAGE_FIT_STEPS,
-                               NO_LAUNCH, dev)
+    res, rate, launched = image_fit(
+        "image fused=True (K1 + K2)", image_model(side, h, fused=True), x, IMAGE_FIT_STEPS,
+        dict(NO_LAUNCH, K1=8 * IMAGE_RK4_STEPS, K2=4 * IMAGE_RK4_STEPS), dev,
+        trace_dir=str(work / "trace"), save_dir=str(work / "ckpt"))
+    _r, rate_plain, _n = image_fit("image fused=False", image_model(side, h), x, IMAGE_FIT_STEPS,
+                                   NO_LAUNCH, dev)
     log(f"  image train samples/s: fused {rate:.1f}, unfused {rate_plain:.1f} "
         f"(fused / unfused {rate / rate_plain:.3f}) on {nvidia_smi()}")
     out["fit"] = dict(train_samples_per_s=rate, train_samples_per_s_unfused=rate_plain,
-                      history=res.history, launches_per_step=dict(K1=8 * IMAGE_RK4_STEPS,
-                                                                  K2=4 * IMAGE_RK4_STEPS))
+                      history=res.history, launches=launched)
 
     # (b) serving the image flow: export, save, load, call on 256 points
     ev = image_model(side, h, eval_twin=True)
@@ -1520,7 +1556,7 @@ def image_phase(dev, record):
     dside, dh = DIGITS_SIDE, DIGITS_HIDDEN
     xd = ds.smooth_image_mixture(gen(3), IMAGE_POINTS, dside)
     shift = functools.partial(ds.random_shift_images, side=dside, prob=0.5)
-    res_d, rate_d = image_fit("digits-shaped fused=True (K3 + K4)",
+    res_d, rate_d, _n = image_fit("digits-shaped fused=True (K3 + K4)",
                               image_model(dside, dh, fused=True), xd, IMAGE_FIT_STEPS,
                               dict(NO_LAUNCH, K3=1, K4=1), dev, batch_transform=shift)
     dev_eval = image_model(dside, dh, eval_twin=True)
@@ -1600,19 +1636,25 @@ def main() -> None:
     ad = {r["shape"]: r for r in adaptive_results}["flagship"]
     bounds = kernel_bounds(*(flag["widths"][i] for i in (0, 1, 3)), flag["batch"],
                            ad["nfe_rows"], ad["accepted_rows"])
-    rows = [  # (K, name, source file, TPU kernel, launches on the main path, its results)
+    # K2's wide path at the image fit's widths, batch and precision (bf16)
+    img = {(r["shape"], r["precision"]): r for r in record["image_path_widths"]}[("image", "bf16")]
+    img_bounds = kernel_bounds(*(img["widths"][i] for i in (0, 1, 3)), img["batch"],
+                               cdt=torch.bfloat16)
+    rows = [  # (K, name, source file, TPU kernel, launches on the main path, results, bounds)
         ("K1", "fused_dynamics_fwd", "fused_dynamics.cu", "pallas_kernels.py:118",
-         launches["K1"], flag),
+         launches["K1"], flag, bounds),
         ("K3", "fused_solve_rk4_fwd", "fused_solve.cu", "pallas_solve.py:176", launches["K3"],
-         flag),
+         flag, bounds),
         ("K2", "fused_dynamics_bwd", "fused_dynamics_bwd.cu", "pallas_kernels.py:182",
-         train["ffjord"]["K2"], flag),
+         train["ffjord"]["K2"], flag, bounds),
+        ("K2", "fused_dynamics_bwd, wide path (image fit, bf16)", "wide_stage_bwd.cuh",
+         "pallas_kernels.py:182", record["image"]["fit"]["launches"]["K2"], img, img_bounds),
         ("K4", "fused_solve_rk4_bwd", "fused_solve_bwd.cu", "pallas_solve.py:206",
-         train["rnode"]["K4"], flag),
+         train["rnode"]["K4"], flag, bounds),
         ("K5", "fused_adaptive_fwd", "fused_adaptive.cu", "pallas_adaptive.py:187",
-         fused_adaptive["K5"], ad),
+         fused_adaptive["K5"], ad, bounds),
         ("K6", "fused_adaptive_bwd", "fused_adaptive_bwd.cu", "pallas_adaptive.py:258",
-         fused_adaptive["K6"], ad),
+         fused_adaptive["K6"], ad, bounds),
     ]
     # no single PyTorch call computes a fused stage with its probe VJP, or a
     # whole solve, or their backwards: library_ms is null for every kernel
@@ -1620,9 +1662,9 @@ def main() -> None:
         dict(name=name, route="cuda", source=f"continuousnormalizingflows_tpu_torch/csrc/{src}",
              replaces=f"continuousnormalizingflows_tpu/ops/{tpu}", launches=n,
              max_abs_err=res[f"{k.lower()}_max_abs_err"], ms=res[k.lower()],
-             plain_ms=res[f"{k.lower()}_plain"], bound_ms=bounds[k][0], bound_by=bounds[k][1],
+             plain_ms=res[f"{k.lower()}_plain"], bound_ms=bnd[k][0], bound_by=bnd[k][1],
              library_ms=None)
-        for k, name, src, tpu, n, res in rows
+        for k, name, src, tpu, n, res, bnd in rows
     ]
     write_log()
     (Path("chiprun_out") / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -2,38 +2,43 @@
 // of (y, e_z, div, |y|, |e_z|) with respect to x, eps and the six weights.
 //
 // Replaces continuousnormalizingflows_tpu/ops/pallas_kernels.py _bwd_kernel
-// (custom-VJP rule _fused_bwd).  Each block takes tiles of rows in turn
-// (tiles b, b + grid, ...): it loads x, eps and the five cotangents of its
-// tile, recomputes the stage's forward with every intermediate kept, runs
-// the hand-derived backward chain with its second-order gate terms, writes
-// xbar and epsbar, and adds the tile's weight-gradient terms to its own row
-// of a (grid, P) buffer of partial sums.  A second kernel adds those rows in
-// a fixed order, so the gradients are the same bits on every run.
-//
-// Two paths, chosen from the widths (bwd_shape below):
+// (custom-VJP rule _fused_bwd).  Three paths, chosen from the widths
+// (bwd_shape below):
 //   * h <= 24, one row per thread in tiles of 64 rows
 //     (fused_dynamics_bwd_rows): the stage and its backward with the
 //     accumulators in registers and the intermediates in per-row
 //     shared-memory columns (row_stage_bwd.cuh: row_stage_keep,
 //     row_stage_bwd), then, after one block synchronisation, the tile's
-//     weight-gradient sums (row_accumulate_wgrads).  The tiled design it
-//     replaces at these widths synchronised its block after each of seven
-//     products, most of whose threads idled in the products with N = nz, and
-//     summed the weight gradients with scalar shared-memory reads.
-//   * wider nets, tiles of rows per block through the products of stage.cuh
-//     and stage_bwd.cuh (fused_dynamics_bwd_kernel).  That includes 24 < h <=
-//     32: padded to 32, a block of the row path takes 122 KB of shared
-//     memory, an SM holds one (two warps), and the tiled path is faster
-//     there (kStageRowMaxH below).
+//     weight-gradient sums (row_accumulate_wgrads) into the block's own row
+//     of a (grid, P) buffer of partial sums, which a second kernel adds in
+//     order of block.  The tiled design it replaces at these widths
+//     synchronised its block after each of seven products, most of whose
+//     threads idled in the products with N = nz, and summed the weight
+//     gradients with scalar shared-memory reads.
+//   * h >= kWideMinH = 64, the wide path (wide_stage_bwd.cuh): the
+//     chain as a sequence of dense products over the whole batch, each split
+//     over its output tiles, bf16 on the tensor cores, the weight gradients
+//     as products of depth 2B over the batch; its header has the design and
+//     its bound.
+//   * between them (24 < h < 64), the tiled path (fused_dynamics_bwd_kernel,
+//     stage_bwd.cuh): tiles of rows a block, each recomputing its forward and
+//     adding its weight-gradient terms to the block's row of the (grid, P)
+//     buffer.  At h = 32, padded to 32, a block of the row path takes 122 KB
+//     of shared memory, an SM holds one (two warps), and the tiled path is
+//     faster there (kStageRowMaxH below).
+// Every path gives the same bits on every run: no atomics.
 //
-// What bounds it on an H100: per row the backward is ~3x the forward's
-// products (recompute, the six backward products, the six outer products of
-// the weight gradients) against ~100 bytes of device traffic, so, like K1,
-// FMA and shared-memory issue inside the SM.
+// What bounds the row path on an H100: per row the backward is ~3x the
+// forward's products (recompute, the six backward products, the six outer
+// products of the weight gradients) against ~100 bytes of device traffic,
+// so, like K1, FMA and shared-memory issue inside the SM.
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
+#include <climits>
+
 #include "row_stage_bwd.cuh"
+#include "wide_stage_bwd.cuh"
 
 namespace {
 
@@ -180,16 +185,33 @@ fused_dynamics_bwd_rows(const float* __restrict__ x, const float* __restrict__ e
 
 // ---- plan and dispatch ----
 
+// The narrowest hidden width that takes the wide path; narrower nets past the
+// row path take the tiled one.  Measured on an H100 (chip_profile.py k2-wide,
+// PERF.md section 6), device ms wide / tiled at 6 -> h -> h -> 5: at h = 32
+// and 48 the tiled path wins at every batch (B = 65,536, fp32: 0.49 / 0.24
+// and 0.86 / 0.50); at h = 64 the wide path wins in bf16 at every batch
+// (0.088 / 0.097 at B = 256, 0.63 / 1.21 at 65,536) and in fp32 at 8,192
+// (0.141 / 0.154), loses in fp32 at 256 (0.099 / 0.067: its dozen launches
+// are a floor of ~0.09 ms) and 65,536 (0.87 / 0.80); from h = 96 it wins at
+// every batch measured, and at h = 1024, B = 256 it takes 0.23 ms against
+// 12.65 in bf16.
+constexpr int kWideMinH = 64;
+
 // K2's launch shape for these widths and batch: the row path (H > 0;
-// pl.rows threads a block, one row each, the weights staged) or the tiled
-// path (H == 0; pl.rows rows a tile, 0 when one row does not fit).  Either
-// way a block takes tiles in turn and the grid is capped at what the card
-// holds at once (row_bwd_grid, bwd_grid).  The launch and cnf_bwd_plan both
-// read it: the grid is the row count of the caller's partial-sum buffer.
+// pl.rows threads a block, one row each, the weights staged), the wide path
+// (wide; pl.rows the rows of an output tile, slices the cuts of the batch in
+// its weight-gradient products) or the tiled path (pl.rows rows a tile, 0
+// when one row does not fit).  The row and tiled paths' blocks take tiles in
+// turn and the grid is capped at what the card holds at once (row_bwd_grid,
+// bwd_grid).  The launch and cnf_bwd_plan both read it: grid is the row count
+// of the caller's partial-sum buffer (the wide path's: its slices, when more
+// than one).
 struct StageBwdShape {
   int H;
   int grid;
   cnf::BwdPlan pl;
+  bool wide;
+  int slices;
 };
 
 // CNF_K2_ONE_BLOCK_A_TILE builds the row path's other grid, a block for every
@@ -206,10 +228,17 @@ StageBwdShape bwd_shape(const cnf::Dims& d, int B) {
 #endif
     return StageBwdShape{rp.H, grid,
                          cnf::BwdPlan{true, false, cnf::kRowBwdThreads, rp.smem_bytes,
-                                      cnf::param_count(d)}};
+                                      cnf::param_count(d)},
+                         false, 0};
+  }
+  if (d.h >= kWideMinH) {
+    const int slices = cnf::wide::wgrad_slices(d, B);
+    return StageBwdShape{0, slices > 1 ? slices : 0,
+                         cnf::BwdPlan{false, false, cnf::wide::kBM, 0, cnf::param_count(d)},
+                         true, slices};
   }
   const cnf::BwdPlan pl = cnf::make_bwd_plan(d, 0);
-  return StageBwdShape{0, pl.rows ? cnf::bwd_grid(B, pl.rows) : 0, pl};
+  return StageBwdShape{0, pl.rows ? cnf::bwd_grid(B, pl.rows) : 0, pl, false, 0};
 }
 
 template <int H, bool BF16>
@@ -229,10 +258,13 @@ template <bool BF16>
 cudaError_t launch(const float* x, const float* eps, const cnf::Weights& w, const cnf::Dims& d,
                    const float* ybar, const float* ezbar, const float* divbar,
                    const float* rzbar, const float* rjbar, float* xbar, float* epsbar,
-                   float* partial, float* grads, int B, cudaStream_t stream) {
+                   float* partial, float* scratch, float* grads, int B, cudaStream_t stream) {
   const StageBwdShape shape = bwd_shape(d, B);
   const cnf::BwdPlan& pl = shape.pl;
   const int grid = shape.grid;
+  if (shape.wide)
+    return cnf::wide::stage_bwd<BF16>(x, eps, w, d, ybar, ezbar, divbar, rzbar, rjbar, xbar,
+                                      epsbar, partial, scratch, grads, B, stream);
   if (shape.H) {
     auto rows = launch_rows<24, BF16>;
     if (shape.H == 8) rows = launch_rows<8, BF16>;
@@ -255,18 +287,19 @@ cudaError_t launch(const float* x, const float* eps, const cnf::Weights& w, cons
 
 }  // namespace
 
-// Weights as for cnf_fused_dynamics_fwd; W*t are read only when the backward
-// plan does not stage the weights (cnf_bwd_plan's info[0] == 0).  partial
-// holds grid x P floats (cnf_bwd_plan); grads receives the P weight
-// gradients in nn.Linear layout: A1 (h, n_in), b1, A2 (h, h), b2,
-// A3 (n_out, h), b3, one after the other.
+// Weights as for cnf_fused_dynamics_fwd; W*t are read only by the tiled path
+// when it does not stage the weights (cnf_bwd_plan's info[0] == 0 and
+// info[4] == 0).  partial holds grid x P floats and scratch info[4]
+// (cnf_bwd_plan); grads receives the P weight gradients in nn.Linear layout:
+// A1 (h, n_in), b1, A2 (h, h), b2, A3 (n_out, h), b3, one after the other.
 extern "C" int cnf_fused_dynamics_bwd(const float* x, const float* eps, const float* A1,
                                       const float* b1, const float* A2, const float* b2,
                                       const float* A3, const float* b3, const float* W1t,
                                       const float* W2t, const float* W3t, const float* ybar,
                                       const float* ezbar, const float* divbar,
                                       const float* rzbar, const float* rjbar, float* xbar,
-                                      float* epsbar, float* partial, float* grads, int B,
+                                      float* epsbar, float* partial, float* scratch,
+                                      float* grads, int B,
                                       int n_in, int h, int n_out, int nz, int bf16,
                                       void* stream) {
   if (B <= 0) return cudaSuccess;
@@ -274,22 +307,27 @@ extern "C" int cnf_fused_dynamics_bwd(const float* x, const float* eps, const fl
   const cnf::Dims d{n_in, h, n_out, nz};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<true>(x, eps, w, d, ybar, ezbar, divbar, rzbar, rjbar, xbar, epsbar,
-                             partial, grads, B, st)
+                             partial, scratch, grads, B, st)
               : launch<false>(x, eps, w, d, ybar, ezbar, divbar, rzbar, rjbar, xbar, epsbar,
-                              partial, grads, B, st);
+                              partial, scratch, grads, B, st);
 }
 
 // This kernel's launch plan for these widths and batch (the whole-solve
 // backward's is cnf_solve_bwd_plan): returns rows per tile (the row path:
-// threads a block, one row each; 0: the widths do not fit) and sets info[0] =
-// weights staged in shared memory, info[1] = grid (rows of the partial-sum
-// buffer), info[2] = P, the parameter count, info[3] = H of the row path
-// (0: the tiled path).
+// threads a block, one row each; the wide path: rows of an output tile; 0:
+// the widths do not fit) and sets info[0] = weights staged in shared memory,
+// info[1] = grid (rows of the partial-sum buffer, 0: none), info[2] = P, the
+// parameter count, info[3] = H of the row path (0: another path), info[4] =
+// the wide path's scratch floats for this batch (0: another path; a scratch
+// past 2^31 floats does not fit).
 extern "C" int cnf_bwd_plan(int n_in, int h, int n_out, int nz, int B, int* info) {
-  const StageBwdShape shape = bwd_shape(cnf::Dims{n_in, h, n_out, nz}, B);
+  const cnf::Dims d{n_in, h, n_out, nz};
+  const StageBwdShape shape = bwd_shape(d, B);
+  const long scratch = shape.wide ? cnf::wide::scratch_floats(d, B) : 0;
   info[0] = shape.pl.staged ? 1 : 0;
   info[1] = shape.grid;
   info[2] = (int)shape.pl.P;
   info[3] = shape.H;
-  return shape.pl.rows;
+  info[4] = scratch > INT_MAX ? 0 : (int)scratch;
+  return scratch > INT_MAX ? 0 : shape.pl.rows;
 }

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 __all__ = ["kernels", "check", "plan", "bwd_plan", "adaptive_plan", "build_info"]
 
@@ -38,7 +39,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "cnf_fused_dynamics_fwd": [_P] * 16 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_fwd": [_P] * 15 + [_I] * 10 + [_P],
-    "cnf_fused_dynamics_bwd": [_P] * 20 + [_I] * 6 + [_P],
+    "cnf_fused_dynamics_bwd": [_P] * 21 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_bwd": [_P] * 20 + [_I] * 10 + [_P],
     "cnf_fused_adaptive_fwd": [_P] * 17 + [_I] * 10 + [_F] * 6 + [_P],
     "cnf_fused_adaptive_bwd": [_P] * 24 + [_I] * 11 + [_F] * 6 + [_P],
@@ -131,22 +132,37 @@ def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
     return rows, bool(info[0]), int(info[1])
 
 
+class BwdPlan(NamedTuple):
+    """A backward kernel's launch shape (:func:`bwd_plan`)."""
+
+    rows: int      # rows a tile (row path: threads a block, one row each); 0: do not fit
+    staged: bool   # weights staged in shared memory
+    grid: int      # rows of the (grid, parameter count) partial-sum buffer; 0: none
+    n_params: int  # parameter count
+    H: int         # > 0: the row path, hidden width padded to H
+    scratch: int   # > 0: K2's wide path, its scratch floats at this batch
+
+    @property
+    def path(self) -> str:
+        return "row" if self.H else "wide" if self.scratch else "tiled"
+
+
 @functools.cache
-def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int):
+def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int) -> BwdPlan:
     """The backward kernels' launch shape (``sd``: the whole-solve kernel's
-    state width, 0 for the single stage): ``(rows per block, weights staged
-    in shared memory, grid, parameter count, H)``, where ``H > 0`` is the
-    row-per-thread path (K4: h <= 32, K2: h <= 24; one row a thread in blocks
-    of ``rows`` threads, hidden width padded to ``H``) and ``H == 0`` the
-    tiled path;
-    the wrapper allocates the ``(grid, parameter count)`` buffer of per-block
-    weight-gradient sums.  Each kernel's source plans its own launch: K2's
+    state width, 0 for the single stage).  ``path`` names it: ``"row"``
+    (K4: h <= 32, K2: h <= 24; one row a thread in blocks of ``rows``
+    threads, hidden width padded to ``H``), ``"wide"`` (K2 from h = 64: a
+    chain of products over the batch, ``rows`` rows an output tile, in a
+    scratch of ``scratch`` floats) or ``"tiled"`` (``rows`` rows a tile).  The wrapper allocates the ``(grid, n_params)`` buffer of
+    weight-gradient partial sums (per block; the wide path's per slice of the
+    batch) and the scratch.  Each kernel's source plans its own launch: K2's
     ``cnf_bwd_plan``, K4's ``cnf_solve_bwd_plan``."""
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 5)()
     lib = kernels()
     rows = (lib.cnf_solve_bwd_plan(n_in, h, n_out, nz, sd, batch, info) if sd
             else lib.cnf_bwd_plan(n_in, h, n_out, nz, batch, info))
-    return rows, bool(info[0]), int(info[1]), int(info[2]), int(info[3])
+    return BwdPlan(rows, bool(info[0]), int(info[1]), int(info[2]), int(info[3]), int(info[4]))
 
 
 @functools.cache

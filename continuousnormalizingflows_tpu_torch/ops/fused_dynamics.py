@@ -229,25 +229,26 @@ def _launch_bwd(x, eps, weights, nz, cotangents, compute_dtype):
     if [tuple(c.shape) for c in cotangents] != shapes:
         raise ValueError(f"cotangent shapes {[tuple(c.shape) for c in cotangents]}, "
                          f"expected {shapes}")
-    rows, staged, grid, n_params, _h_pad = _build.bwd_plan(n_in, h, n_out, nz, 0, b)
-    if rows == 0:
+    plan = _build.bwd_plan(n_in, h, n_out, nz, 0, b)
+    if plan.rows == 0:
         raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
     a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, staged)
+    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
     x, eps = x.contiguous(), eps.contiguous()
     ybar, ebar, divbar, rzbar, rjbar = (c.contiguous() for c in cotangents)
     xbar = torch.empty((b, n_in), dtype=torch.float32, device=x.device)
     epsbar = torch.empty((b, nz), dtype=torch.float32, device=x.device)
-    partial = torch.empty((grid, n_params), dtype=torch.float32, device=x.device)
-    grads = torch.empty((n_params,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((plan.grid, plan.n_params), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
+    grads = torch.empty((plan.n_params,), dtype=torch.float32, device=x.device)
     lib = _build.kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_dynamics_bwd(
             _ptr(x), _ptr(eps), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3), _ptr(b3),
             _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(ybar), _ptr(ebar), _ptr(divbar),
-            _ptr(rzbar), _ptr(rjbar), _ptr(xbar), _ptr(epsbar), _ptr(partial), _ptr(grads),
-            b, n_in, h, n_out, nz, int(bf16), stream,
+            _ptr(rzbar), _ptr(rjbar), _ptr(xbar), _ptr(epsbar), _ptr(partial), _ptr(scratch),
+            _ptr(grads), b, n_in, h, n_out, nz, int(bf16), stream,
         )
     _build.check(err, "fused_dynamics_bwd")
     fused_dynamics_vjp_bwd.launches += 1

@@ -228,7 +228,7 @@ def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dt
     b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
     if gbar.shape != u0.shape:
         raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
-    rows, staged, grid, n_params, _h_pad = _build.bwd_plan(n_in, h, n_out, nz, sd, b)
+    rows, staged, grid, n_params = _build.bwd_plan(n_in, h, n_out, nz, sd, b)[:4]
     if rows == 0:
         raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
     a1, b1, a2, b2, a3, b3 = weights

@@ -67,10 +67,11 @@ def _flat_jax(xbar, epsbar, pbar):
     return [np.asarray(xbar), np.asarray(epsbar), *(v.numpy() for v in port.values())]
 
 
-# (n_in, h, nz): the flagship stage, a ragged width, the tabular width, and the
-# FFJORD form's net on a 13-row batch (a ragged last tile on both sides)
+# (n_in, h, nz): the flagship stage, a ragged width, the tabular width, the
+# FFJORD form's net on a 13-row batch (a ragged last tile on both sides), and
+# an image-shaped net (n_in = nz + 1, nz close to h, as 785 -> 1024 -> 784)
 STAGE_SHAPES = {"flagship": (6, 24, 5), "ragged": (5, 20, 4), "tabular": (44, 176, 43),
-                "ffjord": (3, 12, 2)}
+                "ffjord": (3, 12, 2), "image": (65, 96, 64)}
 STAGE_BATCH = {"ffjord": 13}
 
 
@@ -89,7 +90,8 @@ def _stage_setup(shape):
 
 @pytest.mark.parametrize("shape, prec", [("flagship", None), ("ragged", None),
                                          ("tabular", None), ("flagship", "bf16"),
-                                         ("tabular", "bf16"), ("ffjord", None)])
+                                         ("tabular", "bf16"), ("ffjord", None),
+                                         ("image", None), ("image", "bf16")])
 def test_stage_backward_matches_jax_kernel(shape, prec):
     jparams, x, eps, cot, nz = _stage_setup(shape)
     jcdt = None if prec is None else jnp.bfloat16

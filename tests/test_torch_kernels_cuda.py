@@ -285,12 +285,13 @@ def test_fused_dynamics_bwd_paths_and_edges(dev, h, b, cdt):
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     n_in, nz = (3, 2) if h == 12 else (8, 5)
-    rows, _staged, grid, _n, h_pad = _build.bwd_plan(n_in, h, nz, nz, 0, b)
-    assert h_pad == (0 if h > 24 else -(-h // 8) * 8)
+    plan = _build.bwd_plan(n_in, h, nz, nz, 0, b)
+    assert plan.path == ("row" if h <= 24 else "tiled") and plan.scratch == 0
+    assert plan.H == (0 if h > 24 else -(-h // 8) * 8)
     # blocks take tiles in turn: at most what the card holds at once (2-4 blocks
     # on each of 132 SMs by the row path's shared memory, 2 on the tiled path)
-    resident = 528 if h == 12 else {0: 264, 8: 528, 16: 396, 24: 264}[h_pad]
-    assert grid == min(-(-b // rows), resident)
+    resident = 528 if h == 12 else {0: 264, 8: 528, 16: 396, 24: 264}[plan.H]
+    assert plan.grid == min(-(-b // plan.rows), resident)
     params = _params((n_in, h, h, nz), dev)
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((b, n_in), generator=g, device=dev)
@@ -304,6 +305,79 @@ def test_fused_dynamics_bwd_paths_and_edges(dev, h, b, cdt):
     assert fused_dynamics_vjp_bwd.launches == before + 1
     want = fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot, cdt)
     _close_to_max(_flat(got), _flat(want), BWD_TOL[cdt])
+
+
+def _check_wide_plan(plan, b, h, nz):
+    """K2's wide path: 64-row output tiles, a scratch of at least the fp32
+    chain's 10 h + 4 nz floats a row, and the weight-gradient products cut
+    into slices of at least 256 batch rows (of 2b) or not at all."""
+    assert (plan.path, plan.rows, plan.staged, plan.H) == ("wide", 64, False, 0)
+    assert plan.scratch >= b * (10 * h + 4 * nz)
+    assert plan.grid == 0 or 1 < plan.grid <= -(-2 * b // 256)
+
+
+# K2 past its row path: the tiled path just past it (h = 25, 32, 33), the wide
+# path from h = 64 (kWideMinH) to the image width (h = 1024, nz = 784), the
+# tabular width (176, nz = 43) and h = 100 (its bf16 rows padded to 104)
+# between; every net input conditioned (n_in = nz + 3: the time and 2
+# conditions), a non-zero ezbar; batches of 1, 7, around the 64-row tile and
+# 256-row slices, and 1,000
+WIDE_WIDTHS = {25: 5, 32: 8, 33: 9, 64: 20, 100: 30, 176: 43, 256: 64, 1024: 784}  # h: nz
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 7, 255, 256, 257, 1000])
+@pytest.mark.parametrize("h", list(WIDE_WIDTHS))
+def test_fused_dynamics_bwd_wide_nets(dev, h, b, cdt):
+    """Against the plain version at BWD_TOL, the same bits twice, one launch
+    counted a call."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    nz = WIDE_WIDTHS[h]
+    n_in = nz + 3
+    plan = _build.bwd_plan(n_in, h, nz, nz, 0, b)
+    if h >= 64:
+        _check_wide_plan(plan, b, h, nz)
+    else:
+        assert plan.path == "tiled"
+    params = _params((n_in, h, h, nz), dev, seed=h)
+    g = torch.Generator(device=dev).manual_seed(b)
+    x = torch.randn((b, n_in), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    cot = (torch.randn((b, nz), generator=g, device=dev),
+           torch.randn((b, nz), generator=g, device=dev),
+           *torch.randn((3, b), generator=g, device=dev))
+    before = fused_dynamics_vjp_bwd.launches
+    got = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt))
+    again = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt))
+    torch.cuda.synchronize()
+    assert fused_dynamics_vjp_bwd.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot, cdt)
+    _close_to_max(got, _flat(want), BWD_TOL[cdt])
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_dynamics_bwd_wide_memory(dev, cdt):
+    """K2 at the image model (785 -> 1024 -> 1024 -> 784, B = 256) adds under
+    64 MB to the device's peak: its outputs and scratch, no (grid, P) buffer
+    of per-block partial gradients."""
+    n_in, h, nz, b = 785, 1024, 784, 256
+    params = _params((n_in, h, h, nz), dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((b, n_in), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    cot = (torch.randn((b, nz), generator=g, device=dev),
+           torch.randn((b, nz), generator=g, device=dev),
+           *torch.randn((3, b), generator=g, device=dev))
+    fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < 64 * 2**20
+    assert all(torch.isfinite(t).all() for t in _flat(out))
 
 
 def _solve_case(case, dev):
@@ -381,25 +455,26 @@ def test_backward_kernels_are_deterministic(dev, case):
 def test_bwd_plan_names_the_path(dev):
     """K4 (sd > 0) and K6's walk take the row-per-thread path for h <= 32,
     K2 (sd = 0) for h <= 24: one row a thread in blocks of 64, h padded to a
-    multiple of 8 (K5 and K6's replay: of 4); wider nets the tiled path.  K2's blocks take tiles in turn (at most what the card
-    holds at once); K4's and K6's grids have a block for every 64 rows, K6's
-    within a control group (a 72-row group: a 64-row block and an 8-row
-    one)."""
+    multiple of 8 (K5 and K6's replay: of 4); wider nets the tiled path, K2
+    from h = 64 its wide path.  K2's blocks take tiles in turn (at most what
+    the card holds at once); K4's and K6's grids have a block for every 64
+    rows, K6's within a control group (a 72-row group: a 64-row block and an
+    8-row one)."""
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     for h, n_in, nz in ((8, 6, 5), (12, 3, 2), (16, 8, 5), (24, 6, 5), (28, 9, 5), (32, 6, 5)):
         h_pad = -(-h // 8) * 8
-        rows, staged, grid, n_params, got_h = _build.bwd_plan(n_in, h, nz, nz, nz + 3, 1000)
+        rows, staged, grid, n_params, got_h = _build.bwd_plan(n_in, h, nz, nz, nz + 3, 1000)[:5]
         assert (rows, staged, grid, got_h) == (64, True, 16, h_pad), h
         assert n_params == h * n_in + h + h * h + h + nz * h + nz
         k2 = _build.bwd_plan(n_in, h, nz, nz, 0, 1000)
         if h <= 24:
-            assert k2 == (64, True, 16, n_params, h_pad)
+            assert k2 == (64, True, 16, n_params, h_pad, 0) and k2.path == "row"
             # 4, 4, 3 and 2 blocks of these widths fit an SM's shared memory
             assert _build.bwd_plan(n_in, h, nz, nz, 0, 65_536)[2] == {8: 528, 12: 528, 16: 396,
                                                                       24: 264}[h]
         else:
-            assert k2[1:] == (True, -(-1000 // k2[0]), n_params, 0)
+            assert k2[1:] == (True, -(-1000 // k2[0]), n_params, 0, 0) and k2.path == "tiled"
         for group, blocks in ((8, 1), (64, 1), (72, 2), (128, 2)):
             plan = _build.adaptive_plan(n_in, h, nz, nz, nz + 3, group)
             # K5 and K6's replay pad h to a multiple of 4, K6's walk to one of 8
@@ -410,6 +485,14 @@ def test_bwd_plan_names_the_path(dev):
     for sd in (0, 8):
         assert _build.bwd_plan(6, 33, 5, 5, sd, 1000)[4] == 0
         assert _build.bwd_plan(44, 176, 43, 43, 46 if sd else 0, 1000)[4] == 0
+    # K2 takes its wide path from h = 64; at 6 -> 64 -> 64 -> 5 and B = 1,000 the
+    # weight gradients' 5 output tiles are cut into 8 slices of 256 batch rows
+    assert _build.bwd_plan(6, 63, 5, 5, 0, 1000).path == "tiled"
+    n_params = 64 * 6 + 64 + 64 * 64 + 64 + 5 * 64 + 5
+    _check_wide_plan(_build.bwd_plan(6, 64, 5, 5, 0, 1000), 1000, 64, 5)
+    assert _build.bwd_plan(6, 64, 5, 5, 0, 1000)[:5] == (64, False, 8, n_params, 0)
+    assert _build.bwd_plan(44, 176, 43, 43, 0, 1000).path == "wide"
+    assert _build.bwd_plan(44, 176, 43, 43, 46, 1000).path == "tiled"
     for h in (33, 128):
         plan = _build.adaptive_plan(6, h, 5, 5, 8, 128)
         assert plan[0] == 0 and plan[5:] == (0, 1) and plan[3] > 0
