@@ -5,6 +5,8 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py k2-grid
     python3 chip_profile.py k2-wide
     python3 chip_profile.py k2-phases
+    python3 chip_profile.py k1-wide
+    python3 chip_profile.py k1-phases
     python3 chip_profile.py widths
     python3 chip_profile.py fwd-widths
     python3 chip_profile.py adaptive-widths
@@ -35,7 +37,11 @@ widths.  ``k2-wide`` times K2 above its row path (h = 32 ... 1024) with the path
 each width takes: from two checkouts in one call, the measurement behind the
 width where K2's wide path takes over; ``k2-phases`` lists one wide-path
 call's kernels with their device times, beside ``torch.matmul`` of one of
-its products.  ``widths`` times K2 and K6 at every
+its products.  ``k1-wide`` and ``k1-phases`` do the same for K1 (h = 33
+... 1024, the batches of ``k2-wide``; beside K1's wide launches,
+``torch.matmul`` of each of its six products); both wide modes print a
+digest of the outputs' bits, so that two checkouts show whether they
+agree bit for bit.  ``widths`` times K2 and K6 at every
 hidden width of the row path and
 just past it (h = 8 ... 33), by the device time of their kernels: the
 measurement behind the rule that h <= 32 takes that path; beside K6 it
@@ -52,6 +58,7 @@ row kernels of K1, K3, K5 and K6's replay in the built library.  Imports nothing
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
@@ -68,20 +75,24 @@ BATCH = 65_536
 WARMUP, ACTIVE = 2, 3
 
 
-# each kernel's launches by name, row and tiled paths (the reduction of the
-# backwards' weight-gradient partial sums, shared by K2, K4 and K6, in none)
-KERNELS = {"K1": ("fused_dynamics_fwd_rows", "fused_dynamics_fwd_kernel"),
-           "K2": ("fused_dynamics_bwd_rows", "fused_dynamics_bwd_kernel", "wide_to_bf16",
-                  "wide_products", "wide_merge", "wide_add_slices", "wide_bias_sums",
-                  "wide_bias_add"),
-           "K3": ("fused_solve_rk4_rows", "fused_solve_rk4_kernel"),
-           "K4": ("solve_traj_rows", "fused_solve_rk4_bwd_rows", "fused_solve_rk4_bwd_kernel"),
-           "K5": ("adaptive_fwd_rows", "adaptive_fwd_tiled"),
-           "K6": ("adaptive_replay", "adaptive_replay_tiled", "walk_rows", "adaptive_bwd")}
+# each kernel's launches by name (regular expressions), row, tiled and wide
+# paths (the reduction of the backwards' weight-gradient partial sums, shared
+# by K2, K4 and K6, in none).  K1's and K2's wide paths share the product core
+# and the conversion kernel: their products are told apart by the epilogue
+# type, the conversion by its template argument (a checkout from before K1's
+# wide path has K2's alone, untemplated).
+KERNELS = {"K1": (r"\bfused_dynamics_fwd_(rows|kernel)[<(]", r"\bwide_products<.*FwdEpi",
+                  r"\bwide_to_bf16<1>", r"\bwide_fwd_norms\("),
+           "K2": (r"\bfused_dynamics_bwd_(rows|kernel)[<(]", r"\bwide_products<.*BwdEpi",
+                  r"\bwide_to_bf16(<2>)?\(", r"\bwide_(merge|add_slices|bias_sums|bias_add)\("),
+           "K3": (r"\bfused_solve_rk4_(rows|kernel)[<(]",),
+           "K4": (r"\b(solve_traj_rows|fused_solve_rk4_bwd_rows|fused_solve_rk4_bwd_kernel)[<(]",),
+           "K5": (r"\badaptive_fwd_(rows|tiled)[<(]",),
+           "K6": (r"\b(adaptive_replay|adaptive_replay_tiled|walk_rows|adaptive_bwd)[<(]",)}
 
 
 def is_kernel(name, k):
-    return any(re.search(rf"\b{n}[<(]", name) for n in KERNELS[k])
+    return any(re.search(p, name) for p in KERNELS[k])
 
 
 def summarize(prof, wall_s):
@@ -242,9 +253,10 @@ def rows(dev):
 
 def device_ms(fn, names, reps=30):
     """Device time of one call of ``fn``: the summed time of the kernels whose
-    name holds one of ``names``, over ``reps`` profiled calls after 5 warm-up
-    ones.  A CUDA-event time around a call would also hold the wrapper's host
-    time wherever the card waits for it, as it does at these widths."""
+    name matches one of the regular expressions ``names``, over ``reps``
+    profiled calls after 5 warm-up ones.  A CUDA-event time around a call
+    would also hold the wrapper's host time wherever the card waits for it,
+    as it does at these widths."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -253,18 +265,27 @@ def device_ms(fn, names, reps=30):
             fn()
         torch.cuda.synchronize()
     total = sum(e.self_device_time_total for e in prof.key_averages()
-                if any(n in e.key for n in names))
+                if any(re.search(n, e.key) for n in names))
     return total / 1e3 / reps
 
 
-K2_KERNELS = ("fused_dynamics_bwd", "reduce_partials", "wide_")
+def digest(tensors) -> str:
+    """A short hash of the tensors' bits: two checkouts that give the same
+    bits print the same digest."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+K2_KERNELS = (*KERNELS["K2"], r"\breduce_partials[<(]")
 
 
 def k2_path(plan) -> str:
     """The path of K2's plan; a checkout from before the wide path has no
     scratch field in its plan, so this reads the plan by position."""
     return "row" if plan[4] else "wide" if len(plan) > 5 and plan[5] else "tiled"
-K6_KERNELS = ("adaptive_bwd", "adaptive_replay", "walk_rows", "reduce_partials")
+K6_KERNELS = (*KERNELS["K6"], r"\breduce_partials[<(]")
 
 
 def stage_inputs(dev, n_in, h, nz, batch=BATCH):
@@ -376,12 +397,25 @@ K2_WIDE_SHAPES = (*((h, 6, 5, b) for h in (32, 48, 64, 96, 128) for b in (256, 8
                   (176, 44, 43, 8_192), (256, 65, 64, 256), (1024, 785, 784, 256))
 
 
+def peak_mb(dev, fn):
+    """The device memory one call of ``fn`` adds to the peak, in MB (after a
+    first call that builds the kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+
+
 def k2_wide(dev):
     """K2 above the row path's widths (h = 32 ... 1024, each at the batch of
     its path), fp32 and bf16: device ms of every K2 kernel a call, with the
-    path its plan names and the peak device memory a call adds.  Run from
-    two checkouts in one call, it compares their K2 width by width: the
-    measurement behind the wide path's least width (kWideMinH)."""
+    path its plan names, the peak device memory a call adds and a digest of
+    its outputs' bits.  Run from two checkouts in one call, it compares
+    their K2 width by width: the measurement behind the wide path's least
+    width (kWideMinH), and whether a change kept K2's bits."""
     from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp_bwd
 
@@ -392,20 +426,111 @@ def k2_wide(dev):
         path = k2_path(plan)
         for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
             fn = lambda: fused_dynamics_vjp_bwd(*args, cdt)
-            fn()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            base = torch.cuda.memory_allocated(dev)
-            fn()
-            torch.cuda.synchronize()
-            peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+            xbar, epsbar, wbars = fn()
+            bits = digest([xbar, epsbar, *wbars])
+            mb = peak_mb(dev, fn)
             reps = 5 if h == 1024 and path != "wide" else 20
             ms = sorted(device_ms(fn, K2_KERNELS, reps=reps) for _ in range(3))
             out[f"K2 h={h} {prec}"] = dict(path=path, plan=list(plan), batch=b, ms=ms[1],
-                                           min=ms[0], max=ms[2], peak_mb=peak_mb)
+                                           min=ms[0], max=ms[2], peak_mb=mb, digest=bits)
             print(f"k2-wide K2 {n_in}->{h}->{h}->{nz} {prec} B={b} ({path}, plan {plan}): "
                   f"device ms {ms[1]:.4f} (min {ms[0]:.4f}, max {ms[2]:.4f}), peak "
-                  f"{peak_mb:.1f} MB a call", flush=True)
+                  f"{mb:.1f} MB a call, bits {bits}", flush=True)
+    return out
+
+
+# (h, n_in, nz, batch): K2_WIDE_SHAPES with K1's first width past its row
+# path (h = 33) beside h = 32
+K1_WIDE_SHAPES = (*((33, 6, 5, b) for b in (256, 8_192, 65_536)), *K2_WIDE_SHAPES)
+
+
+def k1_path(n_in, h, nz, b) -> str:
+    """The path of K1's plan; a checkout from before K1's wide path has no
+    ``fwd_plan``, and its K1 takes ``plan``'s row or tiled path."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    if hasattr(_build, "fwd_plan"):
+        return _build.fwd_plan(n_in, h, nz, nz, b).path
+    return "row" if _build.plan(n_in, h, nz, nz, 0)[2] else "tiled"
+
+
+def k1_wide(dev):
+    """K1 past its row path's widths (h = 32 ... 1024, each at the batches of
+    K2's shapes), fp32 and bf16: device ms of every K1 kernel a call, with
+    the path its plan names, the peak device memory a call adds and a digest
+    of its outputs' bits.  Run from two checkouts in one call, it compares
+    their K1 width by width: the measurement behind K1's kWideMinH."""
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp
+
+    out = {}
+    for h, n_in, nz, b in K1_WIDE_SHAPES:
+        x, eps, params, _nz, _cot = stage_inputs(dev, n_in, h, nz, b)
+        path = k1_path(n_in, h, nz, b)
+        for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
+            fn = lambda: fused_dynamics_vjp(x, eps, params, nz, cdt)
+            bits = digest(fn())
+            mb = peak_mb(dev, fn)
+            reps = 5 if h == 1024 and path != "wide" else 20
+            ms = sorted(device_ms(fn, KERNELS["K1"], reps=reps) for _ in range(3))
+            out[f"K1 h={h} {prec} B={b}"] = dict(path=path, batch=b, ms=ms[1], min=ms[0],
+                                                 max=ms[2], peak_mb=mb, digest=bits)
+            print(f"k1-wide K1 {n_in}->{h}->{h}->{nz} {prec} B={b} ({path}): device ms "
+                  f"{ms[1]:.4f} (min {ms[0]:.4f}, max {ms[2]:.4f}), peak {mb:.1f} MB a call, "
+                  f"bits {bits}", flush=True)
+    return out
+
+
+def launches_in_order(fn):
+    """The device kernels of one call of ``fn`` (after 3 warm-up calls) in
+    launch order: (short name, device us, grid), from the profiler's trace."""
+    import os
+    import tempfile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    return [(re.sub(r"^.*?(wide_\w+|fused_dynamics_\w+).*$", r"\1", e["name"]), e["dur"],
+             e["args"].get("grid")) for e in kernels]
+
+
+def matmul_us(dev, m, k, n, cdt):
+    """Device us of one ``torch.matmul`` of (m x k) @ (k x n) in ``cdt``."""
+    a = torch.randn((m, k), device=dev, dtype=cdt or torch.float32)
+    w = torch.randn((k, n), device=dev, dtype=cdt or torch.float32)
+    return device_ms(lambda: a @ w, ("",), reps=50) * 1e3  # its only kernels
+
+
+def k1_phases(dev):
+    """One K1 call on its wide path, kernel by kernel in launch order (device
+    us of each), at the image model's and the tabular widths, fp32 and bf16;
+    beside it ``torch.matmul`` of each of the chain's six products in the same
+    precision and their sum: the library's time for the products the path
+    launches."""
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp
+
+    out = {}
+    for h, n_in, nz, b in ((1024, 785, 784, 256), (176, 44, 43, 8_192)):
+        x, eps, params, _nz, _cot = stage_inputs(dev, n_in, h, nz, b)
+        for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
+            launches = launches_in_order(lambda: fused_dynamics_vjp(x, eps, params, nz, cdt))
+            # F1, F2, F3 (y; u2), F4, F5 as (m, k, n)
+            shapes = ((b, n_in, h), (b, h, h), (b, h, nz), (b, nz, h), (b, h, h), (b, h, nz))
+            lib = [matmul_us(dev, *mkn, cdt) for mkn in shapes]
+            row = out[f"K1 h={h} {prec}"] = dict(batch=b, launches=launches, matmul_us=lib,
+                                                 total_us=sum(d for _n, d, _g in launches))
+            print(f"k1-phases K1 {n_in}->{h}->{h}->{nz} {prec} B={b}: {row['total_us']:.1f} us "
+                  f"in {len(launches)} kernels: "
+                  + ", ".join(f"{n} {d:.1f}" for n, d, _g in launches)
+                  + f"; torch.matmul of the six products {sum(lib):.1f} us ("
+                  + ", ".join(f"{u:.1f}" for u in lib) + ")", flush=True)
     return out
 
 
@@ -415,31 +540,14 @@ def k2_phases(dev):
     tabular widths, fp32 and bf16; beside it one ``torch.matmul`` of the
     chain's commonest product (B x h times h x h) in the same precision: the
     library's time for one of the dozen products the path launches."""
-    import os
-    import tempfile
-
     from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp_bwd
 
     out = {}
     for h, n_in, nz, b in ((1024, 785, 784, 256), (176, 44, 43, 8_192)):
         args = stage_inputs(dev, n_in, h, nz, b)
         for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
-            for _ in range(3):
-                fused_dynamics_vjp_bwd(*args, cdt)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fused_dynamics_vjp_bwd(*args, cdt)
-                torch.cuda.synchronize()
-            with tempfile.TemporaryDirectory() as tmp:
-                path = os.path.join(tmp, "k2.json")
-                prof.export_chrome_trace(path)
-                events = json.loads(Path(path).read_text())["traceEvents"]
-            kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
-            launches = [(re.sub(r"^.*?(wide_\w+|fused_dynamics_bwd\w*).*$", r"\1", e["name"]),
-                         e["dur"], e["args"].get("grid")) for e in kernels]
-            a = torch.randn((b, h), device=dev, dtype=cdt or torch.float32)
-            w = torch.randn((h, h), device=dev, dtype=cdt or torch.float32)
-            lib_us = device_ms(lambda: a @ w, ("",), reps=50) * 1e3  # its only kernels
+            launches = launches_in_order(lambda: fused_dynamics_vjp_bwd(*args, cdt))
+            lib_us = matmul_us(dev, b, h, h, cdt)
             out[f"K2 h={h} {prec}"] = dict(batch=b, launches=launches, matmul_us=lib_us,
                                            total_us=sum(d for _n, d, _g in launches))
             print(f"k2-phases K2 {n_in}->{h}->{h}->{nz} {prec} B={b}: "
@@ -499,13 +607,15 @@ def fwd_widths(dev):
             calls = fwd_calls(dev, n_in, h, nz, cdt)
             for k, fn in calls.items():
                 rows, _staged, h_pad = _build.plan(n_in, h, nz, nz, nz + 3 if k == "K3" else 0)
+                res = fn()
+                bits = digest(res if isinstance(res, tuple) else [res])
                 ms = sorted(device_ms(fn, KERNELS[k], reps=30 if k == "K1" else 10)
                             for _ in range(3))
                 out[f"{k} h={h} {prec}"] = dict(H=h_pad, rows=rows, ms=ms[1], min=ms[0],
-                                                max=ms[2])
+                                                max=ms[2], digest=bits)
                 print(f"fwd-widths {k} {n_in}->{h}->{h}->{nz} {prec} B={BATCH} (H = {h_pad}, "
                       f"{rows} threads a block): device ms {ms[1]:.4f} (min {ms[0]:.4f}, "
-                      f"max {ms[2]:.4f})", flush=True)
+                      f"max {ms[2]:.4f}), bits {bits}", flush=True)
     return out
 
 
@@ -674,7 +784,8 @@ def main() -> None:
     wanted = sys.argv[1:] or list(table)
     out = {"device": torch.cuda.get_device_name(0)}
     for name, mode in (("sass", sass), ("k2-grid", k2_grid), ("k2-wide", k2_wide),
-                       ("k2-phases", k2_phases), ("widths", widths),
+                       ("k2-phases", k2_phases), ("k1-wide", k1_wide), ("k1-phases", k1_phases),
+                       ("widths", widths),
                        ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths)):
         if name in wanted:
             wanted.remove(name)

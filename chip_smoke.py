@@ -15,17 +15,17 @@ default stack (abm with the quadrature adjoint, unfused and through K1 +
 K2), the rest of the model surface (the planar net, the exact sweep,
 the Hutchinson JVP, a CondLayer, a from_torch net, custom distributions)
 and the utils layer on the image-scale FFJORD path at full width (d = 784,
-h = 1024, batch 256, through K1 + K2, K2 on its wide path; StepTimer,
+h = 1024, batch 256, through K1 + K2, both on their wide paths; StepTimer,
 profiling.trace, an AsyncCheckpointer save during the fit, the exported
 dopri5 eval) and the
 digits-shaped path (d = 64, h = 256, through K3 + K4, random_shift_images,
 the exported sampler), and checks that the kernels carried each path.  The
 kernels line (third from last) gives each kernel's bound: the least time
 the card could take for its work, fp32 FMAs at the published peak or bytes
-at the memory rate (bf16 rows: at the bf16 tensor-core peak); K2 has a
-second entry there, its wide path at the image fit's widths in bf16, with
-that fit's launches.  Imports nothing of JAX.  Exits non-zero, with no
-result line, when there is no CUDA device or any phase fails; on success
+at the memory rate (bf16 rows: at the bf16 tensor-core peak); K2 and K1
+have a second entry there, their wide paths at the image fit's widths in
+bf16, with that fit's launches.  Imports nothing of JAX.  Exits non-zero,
+with no result line, when there is no CUDA device or any phase fails; on success
 the last line is ``{"ok": true, "device": {...}}``.  A detailed record of
 every phase is written as ``chiprun_out/chip_smoke.json``, and everything
 printed (the compiler's register and spill counts of every kernel
@@ -174,6 +174,13 @@ def bound(fmas: float, floats: float, peak: float = FP32_FLOPS):
     over the memory rate."""
     ops_ms, bytes_ms = 2 * fmas / peak * 1e3, 4 * floats / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def fwd_path(plan) -> str:
+    """K1's plan (``_build.fwd_plan``) in words."""
+    return {"row": f"row per thread, h padded to {plan.H}, {plan.rows} threads/block",
+            "wide": f"wide, {plan.rows}-row output tiles, {plan.scratch} scratch floats",
+            "tiled": f"tiled, {plan.rows} rows/block"}[plan.path]
 
 
 def bwd_path(plan) -> str:
@@ -374,10 +381,11 @@ def kernel_phase(dev, record):
                torch.randn((b, nz), generator=g, device=dev),
                *torch.randn((3, b), generator=g, device=dev))
         gbar = torch.randn((b, nz + 3), generator=g, device=dev)
-        for kname, sd in (("K1", 0), ("K3", nz + 3)):
-            rows, staged, h_pad = _build.plan(n_in, h, nz, nz, sd)
-            path = f"row per thread, h padded to {h_pad}" if h_pad else "tiled"
-            log(f"  plan {kname} {shape}: {path}, {rows} rows/block, weights in smem: {staged}")
+        k1 = _build.fwd_plan(n_in, h, nz, nz, b)
+        log(f"  plan K1 {shape}: {fwd_path(k1)}, weights in smem: {k1.staged}")
+        rows, staged, h_pad = _build.plan(n_in, h, nz, nz, nz + 3)
+        path = f"row per thread, h padded to {h_pad}" if h_pad else "tiled"
+        log(f"  plan K3 {shape}: {path}, {rows} rows/block, weights in smem: {staged}")
         for kname, sd in (("K2", 0), ("K4", nz + 3)):
             plan = _build.bwd_plan(n_in, h, nz, nz, sd, b)
             log(f"  plan {kname} {shape}: {bwd_path(plan)}, grid {plan.grid}, "
@@ -496,8 +504,10 @@ def image_widths_phase(dev):
     K2 at the image model's 785 -> 1024 -> 1024 -> 784, K3 and K4 at the
     digits-shaped 65 -> 256 -> 256 -> 64 (state 67, 24 steps), B = 256,
     fp32 and bf16: each against its plain version, timed in turns, beside
-    its bound; K2 must take its wide path there, give the same bits twice
-    and add under 64 MB to the device's peak memory."""
+    its bound; K1 and K2 must take their wide paths there and give the same
+    bits twice, and a call must add under 32 MB (K1) and 64 MB (K2) to the
+    device's peak memory.  Beside K1: ``torch.matmul`` of the six products
+    of its chain, summed."""
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
     from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
@@ -524,16 +534,18 @@ def image_widths_phase(dev):
         span = (0.0, 1.0)
         if shape == "image":
             ks = ("K1", "K2")
-            plans = [("K1", _build.plan(n_in, h, nz, nz, 0)),
+            plans = [("K1", _build.fwd_plan(n_in, h, nz, nz, b)),
                      ("K2", _build.bwd_plan(n_in, h, nz, nz, 0, b))]
-            if plans[1][1].path != "wide":
-                fail(f"K2 at the image widths takes the {plans[1][1].path} path, not the wide one")
+            for kname, plan in plans:
+                if plan.path != "wide":
+                    fail(f"{kname} at the image widths takes the {plan.path} path, not the wide one")
         else:
             ks = ("K3", "K4")
             plans = [("K3", _build.plan(n_in, h, nz, nz, nz + 3)),
                      ("K4", _build.bwd_plan(n_in, h, nz, nz, nz + 3, b))]
         for kname, plan in plans:
-            words = f" ({bwd_path(plan)})" if kname in ("K2", "K4") else ""
+            words = (f" ({bwd_path(plan)})" if kname in ("K2", "K4") else
+                     f" ({fwd_path(plan)})" if kname == "K1" else "")
             log(f"  plan {kname} {shape} widths {n_in} -> {h} -> {h} -> {nz}, B={b}: {plan}{words}")
         for cdt in (None, torch.bfloat16):
             prec = "fp32" if cdt is None else "bf16"
@@ -550,7 +562,14 @@ def image_widths_phase(dev):
                         "k2": compare_to_max(f"K2 fused_dynamics_bwd image widths {prec} B={b}",
                                              flat(calls["k2"][0]()), flat(calls["k2"][1]()),
                                              BWD_TOL[("stage", cdt)])}
-                peak_mb = k2_same_bits_and_peak(dev, calls["k2"][0], f"K2 image widths {prec}")
+                peak_mb = {
+                    "k1": same_bits_and_peak(dev, lambda: list(calls["k1"][0]()),
+                                             f"K1 image widths {prec}", 32.0),
+                    "k2": same_bits_and_peak(dev, lambda: flat(calls["k2"][0]()),
+                                             f"K2 image widths {prec}", 64.0)}
+                lib_ms = products_matmul_ms(dev, b, n_in, h, nz, cdt)
+                log(f"  torch.matmul of K1's six products at the image widths, {prec}: "
+                    f"{lib_ms:.4f} ms in all")
             else:
                 calls = {
                     "k3": (lambda: fused_solve_rk4(u0, eps, None, params, span, nz, nz, steps, cdt),
@@ -572,22 +591,23 @@ def image_widths_phase(dev):
                 f"{bounds[k][0]:.4f} ms, {bounds[k][1]}: {bounds[k][0] / ms[k.lower()]:.2%} of "
                 "it)" for k in ks))
             if shape == "image":
-                ms["k2_peak_mb"] = peak_mb
+                ms.update(k1_peak_mb=peak_mb["k1"], k2_peak_mb=peak_mb["k2"],
+                          k1_products_matmul_ms=lib_ms)
             out.append(dict(shape=shape, precision=prec, batch=b, widths=[n_in, h, h, nz],
                             **{f"{k}_max_abs_err": v for k, v in errs.items()},
                             **{f"{k.lower()}_bound_ms": bounds[k][0] for k in ks}, **ms))
     return out
 
 
-def k2_same_bits_and_peak(dev, k2, name, limit_mb=64.0):
-    """K2 gives the same bits twice and adds under ``limit_mb`` to the
-    device's peak memory (its outputs and scratch: no per-block buffer of
-    partial gradients); returns the MB it adds."""
-    first = flat(k2())
+def same_bits_and_peak(dev, fn, name, limit_mb):
+    """A kernel's call ``fn`` (returning a list of tensors) gives the same
+    bits twice and adds under ``limit_mb`` to the device's peak memory (its
+    outputs and scratch); returns the MB it adds."""
+    first = fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
-    second = flat(k2())
+    second = fn()
     torch.cuda.synchronize()
     peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
     if not all(torch.equal(a, c) for a, c in zip(first, second)):
@@ -597,6 +617,21 @@ def k2_same_bits_and_peak(dev, k2, name, limit_mb=64.0):
     log(f"  {name}: two calls give the same bits ok; a call adds {peak_mb:.1f} MB to the "
         f"device's peak memory (under {limit_mb:.0f} MB) ok")
     return peak_mb
+
+
+def products_matmul_ms(dev, b, n_in, h, nz, cdt):
+    """Median ms of one ``torch.matmul`` of each of K1's six products at
+    these widths (x A1^T, h1 A2^T, h2 A3^T, eps A3, d2 A2, d1 A1[:, :nz]) in
+    ``cdt``, summed: the library's time for the products K1's wide path
+    launches."""
+    dt = cdt or torch.float32
+    g = torch.Generator(device=dev).manual_seed(4)
+    total = 0.0
+    for m, k, n in ((b, n_in, h), (b, h, h), (b, h, nz), (b, nz, h), (b, h, h), (b, h, nz)):
+        a = torch.randn((m, k), generator=g, device=dev).to(dt)
+        w = torch.randn((k, n), generator=g, device=dev).to(dt)
+        total += median_ms(lambda: a @ w, 20)
+    return total
 
 
 def host_seconds(fn):
@@ -1461,14 +1496,15 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
         for path in glob.glob(f"{trace_dir}/*.pt.trace.json"):
             names |= {e.get("name", "") for e in json.loads(Path(path).read_text())["traceEvents"]
                       if e.get("cat") == "kernel"}
-        # K2 at these widths runs its wide path, whose products are wide_products
-        found = {k: sorted(n for n in names if pat in n)
-                 for k, pat in (("fwd", "fused_dynamics_fwd"), ("bwd", "wide_products"))}
+        # K1 and K2 at these widths run their wide paths, whose products are
+        # wide_products with K1's and K2's own epilogue types
+        found = {k: sorted(n for n in names if re.search(pat, n)) for k, pat in (
+            ("fwd", r"wide_products<.*FwdEpi"), ("bwd", r"wide_products<.*BwdEpi"))}
         if not all(found.values()):
-            fail(f"{name}: the traced step's kernels do not name K1 and K2's wide path: "
+            fail(f"{name}: the traced step's kernels do not name K1's and K2's wide paths: "
                  f"{sorted(names)[:20]}")
-        log(f"  {name}: profiling.trace of the last step names K1 {found['fwd'][0][:60]} and "
-            f"K2's wide path {found['bwd'][0][:60]} ok")
+        log(f"  {name}: profiling.trace of the last step names K1's wide path "
+            f"{found['fwd'][0][:90]} and K2's {found['bwd'][0][:90]} ok")
     if save_dir:
         got, opt_state, step = load_checkpoint(save_dir)
         if step != steps // 2 + 1 or opt_state is None or set(got) != set(at_save) or not all(
@@ -1636,7 +1672,7 @@ def main() -> None:
     ad = {r["shape"]: r for r in adaptive_results}["flagship"]
     bounds = kernel_bounds(*(flag["widths"][i] for i in (0, 1, 3)), flag["batch"],
                            ad["nfe_rows"], ad["accepted_rows"])
-    # K2's wide path at the image fit's widths, batch and precision (bf16)
+    # K1's and K2's wide paths at the image fit's widths, batch and precision (bf16)
     img = {(r["shape"], r["precision"]): r for r in record["image_path_widths"]}[("image", "bf16")]
     img_bounds = kernel_bounds(*(img["widths"][i] for i in (0, 1, 3)), img["batch"],
                                cdt=torch.bfloat16)
@@ -1649,6 +1685,8 @@ def main() -> None:
          train["ffjord"]["K2"], flag, bounds),
         ("K2", "fused_dynamics_bwd, wide path (image fit, bf16)", "wide_stage_bwd.cuh",
          "pallas_kernels.py:182", record["image"]["fit"]["launches"]["K2"], img, img_bounds),
+        ("K1", "fused_dynamics_fwd, wide path (image fit, bf16)", "wide_stage_fwd.cuh",
+         "pallas_kernels.py:118", record["image"]["fit"]["launches"]["K1"], img, img_bounds),
         ("K4", "fused_solve_rk4_bwd", "fused_solve_bwd.cu", "pallas_solve.py:206",
          train["rnode"]["K4"], flag, bounds),
         ("K5", "fused_adaptive_fwd", "fused_adaptive.cu", "pallas_adaptive.py:187",

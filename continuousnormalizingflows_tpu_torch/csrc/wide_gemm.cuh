@@ -1,8 +1,8 @@
 // The product core of the wide paths: C = A B^T over operands in device
 // memory, split over output tiles, with an epilogue that the caller supplies
-// for every element of C.  K2's wide path (wide_stage_bwd.cuh) runs its whole
-// chain through it; the forward products F1-F5 there are written so that K1
-// can call them too.
+// for every element of C.  K1's and K2's wide paths (fused_dynamics.cu,
+// wide_stage_bwd.cuh) run their whole chains through it, the forward
+// products of both from wide_stage_fwd.cuh.
 //
 // A launch holds up to kMaxProducts independent products; its blocks are the
 // output tiles of all of them, one tile each, so a chain's independent

@@ -46,12 +46,8 @@
 //
 // The phases, one launch each on the caller's stream (names as in
 // stage_bwd.cuh; A1 (h, n_in), A2 (h, h), A3 (n_out, h)):
-//   C   (bf16) x, eps, A1, A2, A3            -> their bf16 copies
-//   F1  z1 = x A1^T + b1                     -> s1, h1 (cnf::gates)
-//   F2  z2 = h1 A2^T + b2                    -> s2, h2
-//   F3  y = h2 A3^T + b3;  u2 = eps A3       -> y;  u2, d2 = u2 s2
-//   F4  u1 = d2 A2                           -> u1, d1 = u1 s1
-//   F5  e_z = d1 A1[:, :nz]
+//   C, F1-F5  the forward (wide_stage_fwd.cuh), keeping u2 and u1 beside
+//       s1, h1, s2, h2, y, d2, d1, e_z
 //   R   |y|, |e_z| (32-256 threads a row)    -> ybar_t, ebar_t
 //   B1  d1bar = ebar_t A1[:, :nz]^T          -> u1bar, z1_b (over u1)
 //   B2  d2bar = u1bar A2^T                   -> u2bar, z2_b (over u2)
@@ -64,18 +60,15 @@
 //   (the slices' partial gradients added in order, where cut)
 //   db  db1, db2, db3: column sums of z1_t, z2_t, ybar_t in fp32, unrounded,
 //       in slices of kBiasRows rows added in order of slice
-// F1-F5 are K1's forward; R's reductions are K1's div and norms.
+// C and F1-F5 are K1's wide path too (wide_stage_fwd.cuh, with K1's own
+// epilogue), and R's row sums its div and norms.
 //
 // precision: BF16 rounds both operands of every product to bfloat16, the
 // weight-gradient products included, and accumulates in fp32; fp32 is true
 // fp32.  The epilogues and the bias sums are fp32.
 #pragma once
 
-#include <initializer_list>
-#include <type_traits>
-
-#include "stage.cuh"
-#include "wide_gemm.cuh"
+#include "wide_stage_fwd.cuh"
 
 namespace cnf {
 namespace wide {
@@ -105,9 +98,7 @@ inline long scratch_fp32_part_of_bf16(const Dims& d, int B) {
 }
 
 inline long scratch_bf16(const Dims& d, int B) {
-  const long ldh = pad8(d.h), ldz = pad8(d.nz), ldi = pad8(d.n_in);
-  const long halves = (long)B * (8 * ldh + 3 * ldz + ldi) + (long)d.h * (ldi + ldh) +
-                      (long)d.n_out * ldh;
+  const long halves = (long)B * (8L * pad8(d.h) + 2L * pad8(d.nz)) + input_copy_halves(d, B);
   return scratch_fp32_part_of_bf16(d, B) + (halves + 1) / 2;
 }
 
@@ -148,7 +139,7 @@ inline int wgrad_slices(const Dims& d, int B) {
   return product(none, none, d.h, d.h, K, 0, 0, s < 1 ? 1 : s).slices;
 }
 
-enum Epi : int { kF1, kF2, kY, kU2, kU1, kE, kB1, kB2, kEpsbar, kZ2, kZ1, kXbar, kGrad };
+enum BwdCase : int { kB1 = kFwdCases, kB2, kEpsbar, kZ2, kZ1, kXbar, kGrad };
 
 // The epilogues of the chain's products: element (m, n) of product p, m a
 // batch row (a gradient row for kGrad).  T: the type of the arrays that only
@@ -166,30 +157,12 @@ struct BwdEpi {
   float* E;                   // (B, nz)
   float *xbar, *epsbar, *grads, *partial;
 
-  __device__ __forceinline__ static void put(T* a, long j, float v) {
-    if constexpr (BF16) {
-      a[j] = __float2bfloat16_rn(v);
-    } else {
-      a[j] = v;
-    }
-  }
-
   __device__ __forceinline__ void operator()(const Product& p, int slice, int m, int n,
                                              float a) const {
     const long i = (long)m * h + n, it = (long)m * ldt + n;
     switch (p.epi) {
-      case kF1: {
-        float sp;
-        gates(a + b1[n], S1[i], sp);
-        put(H1, it, sp);
-        break;
-      }
-      case kF2: {
-        float sp;
-        gates(a + b2[n], S2[i], sp);
-        put(H2, it, sp);
-        break;
-      }
+      case kF1: gate_into(a + b1[n], S1, i, H1, it); break;
+      case kF2: gate_into(a + b2[n], S2, i, H2, it); break;
       case kY: Y[(long)m * n_out + n] = a + b3[n]; break;
       case kU2: U2[i] = a; put(D2, it, S2[i] * a); break;
       case kU1: U1[i] = a; put(D1, it, S1[i] * a); break;
@@ -235,8 +208,7 @@ namespace {
 // R: tpr threads a row (32 ... 256, a power of two), 256 / tpr rows a block.
 // |y| and |e_z| (floored at 1e-20 under the root), then
 // ybar_t = ybar + rzbar y / |y| and ebar_t = ebar + divbar eps + rjbar e_z / |e_z|.
-// The sums: each thread's strided terms, then its warp's, then the row's
-// warps' in a fixed order.
+// The sums: each thread's strided terms, then row_sums.
 __global__ void __launch_bounds__(256)
 wide_merge(const float* __restrict__ ybar, const float* __restrict__ ezbar,
            const float* __restrict__ eps, const float* __restrict__ divbar,
@@ -245,35 +217,19 @@ wide_merge(const float* __restrict__ ybar, const float* __restrict__ ezbar,
            float* __restrict__ EB, bf16* __restrict__ YB16, bf16* __restrict__ EB16, int ldz,
            int B, int n_out, int nz, int tpr) {
   __shared__ float part[2][8];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lt = tid % tpr;  // the thread within its row
-  const long row = (long)blockIdx.x * (256 / tpr) + tid / tpr;
+  const int lt = threadIdx.x % tpr;  // the thread within its row
+  const long row = (long)blockIdx.x * (256 / tpr) + threadIdx.x / tpr;
   const bool in = row < B;
   const float* y = Y + row * n_out;
   const float* e = E + row * nz;
-  float yy = 0.0f, ee = 0.0f;
+  float ss[2] = {0.0f, 0.0f};  // sum y^2, sum e_z^2
   if (in) {
-    for (int o = lt; o < n_out; o += tpr) yy = fmaf(y[o], y[o], yy);
-    for (int k = lt; k < nz; k += tpr) ee = fmaf(e[k], e[k], ee);
+    for (int o = lt; o < n_out; o += tpr) ss[0] = fmaf(y[o], y[o], ss[0]);
+    for (int k = lt; k < nz; k += tpr) ss[1] = fmaf(e[k], e[k], ss[1]);
   }
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    yy += __shfl_xor_sync(0xffffffffu, yy, off);
-    ee += __shfl_xor_sync(0xffffffffu, ee, off);
-  }
-  if (lane == 0) {
-    part[0][warp] = yy;
-    part[1][warp] = ee;
-  }
-  __syncthreads();
+  row_sums(ss, part, tpr);
   if (!in) return;
-  const int w0 = (tid / tpr) * (tpr / 32);
-  yy = ee = 0.0f;
-  for (int w = w0; w < w0 + tpr / 32; ++w) {
-    yy += part[0][w];
-    ee += part[1][w];
-  }
-  const float ry = sqrtf(yy + 1e-20f), re = sqrtf(ee + 1e-20f);
+  const float ry = sqrtf(ss[0] + 1e-20f), re = sqrtf(ss[1] + 1e-20f);
   const float dv = divbar[row], rz = rzbar[row], rj = rjbar[row];
   for (int o = lt; o < n_out; o += tpr) {
     const float v = ybar[row * n_out + o] + rz * y[o] / ry;
@@ -292,26 +248,6 @@ wide_merge(const float* __restrict__ ybar, const float* __restrict__ ezbar,
       YB16[row * ldz + k] = __float2bfloat16_rn(0.0f);
       EB16[row * ldz + k] = __float2bfloat16_rn(0.0f);
     }
-}
-
-// The bf16 copies of kConvert fp32 matrices (rows x cols, row-major), rows
-// padded to ld elements with zeros: block (i, j) takes rows i, i + gridDim.x,
-// ... of matrix j.
-constexpr int kConvert = 5;
-struct Convert {
-  const float* src[kConvert];
-  bf16* dst[kConvert];
-  int rows[kConvert], cols[kConvert], ld[kConvert];
-};
-
-__global__ void __launch_bounds__(256) wide_to_bf16(const __grid_constant__ Convert cv) {
-  const int j = blockIdx.y, cols = cv.cols[j], ld = cv.ld[j];
-  for (long r = blockIdx.x; r < cv.rows[j]; r += gridDim.x) {
-    const float* src = cv.src[j] + r * cols;
-    bf16* dst = cv.dst[j] + r * ld;
-    for (int c = threadIdx.x; c < ld; c += blockDim.x)
-      dst[c] = __float2bfloat16_rn(c < cols ? src[c] : 0.0f);
-  }
 }
 
 // db1, db2, db3, the column sums of z1_t, z2_t, ybar_t over the batch:
@@ -383,12 +319,6 @@ wide_add_slices(const float* __restrict__ partial, int S, Offsets o, float* __re
 
 }  // namespace
 
-#define CNF_WIDE_TRY(call)                  \
-  do {                                      \
-    const cudaError_t err_ = (call);        \
-    if (err_ != cudaSuccess) return err_;   \
-  } while (0)
-
 // The whole chain on the caller's stream.  scratch: scratch_floats(d, B)
 // floats; partial: slices * P floats when wgrad_slices(d, B) > 1.
 template <bool BF16>
@@ -401,9 +331,10 @@ cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const 
   const Offsets o = offsets(d);
   const int slices = wgrad_slices(d, B);
   using T = typename BwdEpi<BF16>::T;
-  // rows of the arrays the products read: h, nz, n_in wide, padded in bf16
-  const int ldh = BF16 ? pad8(h) : h, ldz = BF16 ? pad8(nz) : nz, ldi = BF16 ? pad8(n_in) : n_in;
-  BwdEpi<BF16> t{h, n_out, nz, n_in, ldh, o.P, w.b1, w.b2, w.b3, divbar};
+  // the forward's operands (fp32: the inputs themselves) and the rows of the
+  // arrays the products read: h, nz, n_in wide, padded in bf16
+  FwdOperands f{x, eps, w.A1, w.A2, w.A3, nullptr, nullptr, nullptr, nullptr, n_in, nz, h};
+  BwdEpi<BF16> t{h, n_out, nz, n_in, BF16 ? pad8(h) : h, o.P, w.b1, w.b2, w.b3, divbar};
   t.xbar = xbar;
   t.epsbar = epsbar;
   t.grads = grads;
@@ -425,8 +356,8 @@ cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const 
   t.Y = take((long)B * n_out);
   t.E = take((long)B * nz);
   float* EB = nullptr;  // fp32 ebar_t (the fp32 chain's operand)
-  bf16 *YB16 = nullptr, *EB16 = nullptr, *eps16 = nullptr, *x16 = nullptr;
-  const void *A1 = w.A1, *A2 = w.A2, *A3 = w.A3, *X = x, *EPS = eps, *YB = t.YB, *EBo;
+  bf16 *YB16 = nullptr, *EB16 = nullptr;
+  const void *YB = t.YB, *EBo;
   T** hs[8] = {&t.H1, &t.H2, &t.D1, &t.D2, &t.G1, &t.G2, &t.Z1, &t.Z2};
   if constexpr (BF16) {
     bf16* q = reinterpret_cast<bf16*>(scratch + scratch_fp32_part_of_bf16(d, B));
@@ -435,28 +366,13 @@ cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const 
       q += n;
       return r;
     };
-    for (T** a : hs) *a = take16((long)B * ldh);
-    YB16 = take16((long)B * ldz);
-    EB16 = take16((long)B * ldz);
-    eps16 = take16((long)B * ldz);
-    x16 = take16((long)B * ldi);
-    bf16* a1 = take16((long)h * ldi);
-    bf16* a2 = take16((long)h * ldh);
-    bf16* a3 = take16((long)n_out * ldh);
+    for (T** a : hs) *a = take16((long)B * t.ldt);
+    YB16 = take16((long)B * pad8(nz));
+    EB16 = take16((long)B * pad8(nz));
     // the bf16 operands the chain does not write itself, rows padded with zeros
-    const Convert cv{{x, eps, w.A1, w.A2, w.A3}, {x16, eps16, a1, a2, a3},
-                     {B, B, h, h, n_out}, {n_in, nz, n_in, h, h}, {ldi, ldz, ldi, ldh, ldh}};
-    int most = B > h ? B : h;
-    most = most > n_out ? most : n_out;
-    wide_to_bf16<<<dim3(most < 1024 ? most : 1024, kConvert), 256, 0, stream>>>(cv);
-    CNF_WIDE_TRY(cudaGetLastError());
+    CNF_WIDE_TRY(convert_inputs<2>(x, eps, w, d, B, q, f, stream));
     if (h & 7)  // the padding of the rows the epilogues write, zero
-      CNF_WIDE_TRY(cudaMemsetAsync(t.H1, 0, 8L * B * ldh * sizeof(bf16), stream));
-    A1 = a1;
-    A2 = a2;
-    A3 = a3;
-    X = x16;
-    EPS = eps16;
+      CNF_WIDE_TRY(cudaMemsetAsync(t.H1, 0, 8L * B * t.ldt * sizeof(bf16), stream));
     YB = YB16;
     EBo = EB16;
   } else {
@@ -464,47 +380,44 @@ cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const 
     EB = take((long)B * nz);
     EBo = EB;
   }
+  f.H1 = t.H1;
+  f.H2 = t.H2;
+  f.D1 = t.D1;
+  f.D2 = t.D2;
+  const int ldh = f.ldh, ldz = f.ldz, ldi = f.ldi;
+  const void *A1 = f.A1, *A2 = f.A2, *A3 = f.A3, *X = f.X, *EPS = f.EPS;
   // the operands z1_t and z2_t: fp32 U1, U2, or their bf16 copies
   const void* Z1 = BF16 ? static_cast<const void*>(t.Z1) : t.U1;
   const void* Z2 = BF16 ? static_cast<const void*>(t.Z2) : t.U2;
 
-  auto run = [&](std::initializer_list<Product> ps) {
-    Launch<BwdEpi<BF16>> L{};
-    L.count = 0;
-    for (const Product& q : ps) L.p[L.count++] = q;
-    L.epi = t;
-    return launch_products<BF16>(L, stream);
-  };
-  // F1-F5: the forward with its intermediates
-  CNF_WIDE_TRY(run({product(by_row(X, ldi, B), by_row(A1, ldi, h), B, h, n_in, kF1)}));
-  CNF_WIDE_TRY(run({product(by_row(t.H1, ldh, B), by_row(A2, ldh, h), B, h, h, kF2)}));
-  CNF_WIDE_TRY(run({product(by_row(t.H2, ldh, B), by_row(A3, ldh, n_out), B, n_out, h, kY),
-                    product(by_row(EPS, ldz, B), by_col(A3, ldh, h), B, h, nz, kU2)}));
-  CNF_WIDE_TRY(run({product(by_row(t.D2, ldh, B), by_col(A2, ldh, h), B, h, h, kU1)}));
-  CNF_WIDE_TRY(run({product(by_row(t.D1, ldh, B), by_col(A1, ldi, nz), B, nz, h, kE)}));
+  // C and F1-F5: the forward with its intermediates
+  CNF_WIDE_TRY(forward_products<BF16>(f, d, B, t, stream));
   // R: the merged cotangents
-  int tpr = 32;  // about 8 columns a thread
-  while (tpr < 256 && 8 * tpr < (n_out > nz ? n_out : nz)) tpr *= 2;
+  const int tpr = row_threads(n_out > nz ? n_out : nz);
   const int rows = 256 / tpr;
   wide_merge<<<(B + rows - 1) / rows, 256, 0, stream>>>(ybar, ezbar, eps, divbar, rzbar, rjbar,
                                                         t.Y, t.E, t.YB, EB, YB16, EB16, ldz, B,
                                                         n_out, nz, tpr);
   CNF_WIDE_TRY(cudaGetLastError());
   // B1-B4: the probe-VJP path, then the forward path
-  CNF_WIDE_TRY(run({product(by_row(EBo, ldz, B), by_row(A1, ldi, h), B, h, nz, kB1)}));
-  CNF_WIDE_TRY(run({product(by_row(t.G1, ldh, B), by_row(A2, ldh, h), B, h, h, kB2)}));
-  CNF_WIDE_TRY(run({product(by_row(t.G2, ldh, B), by_row(A3, ldh, nz), B, nz, h, kEpsbar),
-                    product(by_row(YB, ldz, B), by_col(A3, ldh, h), B, h, n_out, kZ2)}));
-  CNF_WIDE_TRY(run({product(by_row(Z2, ldh, B), by_col(A2, ldh, h), B, h, h, kZ1)}));
+  CNF_WIDE_TRY(run<BF16>(t, {product(by_row(EBo, ldz, B), by_row(A1, ldi, h), B, h, nz, kB1)},
+                         stream));
+  CNF_WIDE_TRY(run<BF16>(t, {product(by_row(t.G1, ldh, B), by_row(A2, ldh, h), B, h, h, kB2)},
+                         stream));
+  CNF_WIDE_TRY(run<BF16>(t, {product(by_row(t.G2, ldh, B), by_row(A3, ldh, nz), B, nz, h, kEpsbar),
+                             product(by_row(YB, ldz, B), by_col(A3, ldh, h), B, h, n_out, kZ2)},
+                         stream));
+  CNF_WIDE_TRY(run<BF16>(t, {product(by_row(Z2, ldh, B), by_col(A2, ldh, h), B, h, h, kZ1)},
+                         stream));
   // B5: xbar and the weight gradients, each of depth 2B
-  CNF_WIDE_TRY(run({
+  CNF_WIDE_TRY(run<BF16>(t, {
       product(by_row(Z1, ldh, B), by_col(A1, ldi, n_in), B, n_in, h, kXbar),
       product(by_col2(Z1, ldh, h, t.D1, ldh, h, B), by_col2(X, ldi, n_in, EBo, ldz, nz, B), h,
               n_in, 2 * B, kGrad, o.A1, slices),
       product(by_col2(Z2, ldh, h, t.D2, ldh, h, B), by_col2(t.H1, ldh, h, t.G1, ldh, h, B), h,
               h, 2 * B, kGrad, o.A2, slices),
       product(by_col2(YB, ldz, n_out, EPS, ldz, nz, B), by_col2(t.H2, ldh, h, t.G2, ldh, h, B),
-              n_out, h, 2 * B, kGrad, o.A3, slices)}));
+              n_out, h, 2 * B, kGrad, o.A3, slices)}, stream));
   if (slices > 1) {
     wide_add_slices<<<(unsigned)((o.P + 255) / 256), 256, 0, stream>>>(partial, slices, o, grads);
     CNF_WIDE_TRY(cudaGetLastError());
@@ -521,8 +434,6 @@ cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const 
   }
   return cudaSuccess;
 }
-
-#undef CNF_WIDE_TRY
 
 }  // namespace wide
 }  // namespace cnf

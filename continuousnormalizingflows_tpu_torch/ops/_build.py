@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["kernels", "check", "plan", "bwd_plan", "adaptive_plan", "build_info"]
+__all__ = ["kernels", "check", "plan", "fwd_plan", "bwd_plan", "adaptive_plan", "build_info"]
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -37,13 +37,14 @@ _F = ctypes.c_float
 
 # argtypes of each C entry point, in the order of its C signature
 _SIGNATURES = {
-    "cnf_fused_dynamics_fwd": [_P] * 16 + [_I] * 6 + [_P],
+    "cnf_fused_dynamics_fwd": [_P] * 17 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_fwd": [_P] * 15 + [_I] * 10 + [_P],
     "cnf_fused_dynamics_bwd": [_P] * 21 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_bwd": [_P] * 20 + [_I] * 10 + [_P],
     "cnf_fused_adaptive_fwd": [_P] * 17 + [_I] * 10 + [_F] * 6 + [_P],
     "cnf_fused_adaptive_bwd": [_P] * 24 + [_I] * 11 + [_F] * 6 + [_P],
     "cnf_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_fwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_bwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_solve_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_adaptive_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
@@ -122,14 +123,40 @@ def check(err: int, what: str) -> None:
 
 @functools.cache
 def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
-    """K1's and K3's launch shape for these widths (``sd``: the whole-solve
-    kernel's state width, 0 for the single stage): ``(rows per block,
-    weights staged in shared memory, H)``, where ``H > 0`` is the
-    row-per-thread path with hidden width padded to ``H`` (a multiple of 4)
-    and ``H == 0`` the tiled path."""
+    """K3's launch shape for these widths (``sd``: the whole-solve kernel's
+    state width; with ``sd = 0`` K1's short of its wide path, which
+    :func:`fwd_plan` names): ``(rows per block, weights staged in shared
+    memory, H)``, where ``H > 0`` is the row-per-thread path with hidden
+    width padded to ``H`` (a multiple of 4) and ``H == 0`` the tiled path."""
     info = (ctypes.c_int * 2)()
     rows = kernels().cnf_plan(n_in, h, n_out, nz, sd, info)
     return rows, bool(info[0]), int(info[1])
+
+
+class FwdPlan(NamedTuple):
+    """K1's launch shape (:func:`fwd_plan`)."""
+
+    rows: int      # rows a block (row path: threads a block, one row each); 0: do not fit
+    staged: bool   # weights staged in shared memory
+    H: int         # > 0: the row path, hidden width padded to H
+    scratch: int   # > 0: the wide path, its scratch floats at this batch
+
+    @property
+    def path(self) -> str:
+        return "row" if self.H else "wide" if self.scratch else "tiled"
+
+
+@functools.cache
+def fwd_plan(n_in: int, h: int, n_out: int, nz: int, batch: int) -> FwdPlan:
+    """K1's launch shape at these widths and batch (``cnf_fwd_plan`` in its
+    source).  ``path`` names it: ``"row"`` (h <= 32: one row a thread in
+    blocks of ``rows`` threads, hidden width padded to ``H``), ``"wide"``
+    (from ``kWideMinH``: a chain of products over the batch, ``rows`` rows
+    an output tile, in a scratch of ``scratch`` floats that the wrapper
+    allocates) or ``"tiled"`` (``rows`` rows a block)."""
+    info = (ctypes.c_int * 3)()
+    rows = kernels().cnf_fwd_plan(n_in, h, n_out, nz, batch, info)
+    return FwdPlan(rows, bool(info[0]), int(info[1]), int(info[2]))
 
 
 class BwdPlan(NamedTuple):

@@ -191,21 +191,24 @@ def _launch_fwd(x, eps, weights, nz, compute_dtype) -> Out5:
     bf16 = _precision(compute_dtype) == "default"
     weights = kernel_operands(weights, x, eps)
     b, n_in, h, n_out = _check_stage(x, eps, weights, nz)
-    _rows, staged, _h_pad = _build.plan(n_in, h, n_out, n_out, 0)
+    plan = _build.fwd_plan(n_in, h, n_out, nz, b)
+    if plan.rows == 0:
+        raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
     a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, staged)
+    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
     x, eps = x.contiguous(), eps.contiguous()
     y = torch.empty((b, nz), dtype=torch.float32, device=x.device)
     ez = torch.empty((b, nz), dtype=torch.float32, device=x.device)
     div, reg_z, reg_j = (torch.empty((b,), dtype=torch.float32, device=x.device)
                          for _ in range(3))
+    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
     lib = _build.kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_dynamics_fwd(
             _ptr(x), _ptr(eps), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3), _ptr(b3),
             _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(y), _ptr(ez),
-            _ptr(div), _ptr(reg_z), _ptr(reg_j),
+            _ptr(div), _ptr(reg_z), _ptr(reg_j), _ptr(scratch),
             b, n_in, h, n_out, nz, int(bf16), stream,
         )
     _build.check(err, "fused_dynamics_fwd")

@@ -27,8 +27,9 @@ from continuousnormalizingflows_tpu_torch.utils.convert import params_from_jax
 
 NAMES = ["y", "epsj_z", "div", "reg_z", "reg_j"]
 
-# (n_in, h, nz): the flagship stage, and the tabular width (naugments=0)
-SHAPES = {"flagship": (6, 24, 5), "tabular": (44, 176, 43)}
+# (n_in, h, nz): the flagship stage, the tabular width (naugments=0), and the
+# image model's form (n_in = nz + 1, h past K1's row path) at narrow widths
+SHAPES = {"flagship": (6, 24, 5), "tabular": (44, 176, 43), "image": (65, 96, 64)}
 
 
 def _setup(shape, b=64):
@@ -64,12 +65,20 @@ def test_plain_matches_jax_reference(shape):
     _close(_port(jparams, x, eps, nz), jax_reference(x, eps, jparams, nz), 2e-5, 1e-5)
 
 
+# bf16 tolerances where they differ from (1e-3, 1e-4): at the image form's
+# widths one h2 value of this draw lies within the fp32 sums' rounding noise of
+# a bf16 rounding boundary, so the two sides round it one bf16 place apart
+# (2^-8 relative) and its row of y moves by up to 7.5e-4 (every other output
+# agrees within 1e-6); held at the card tests' bf16 stage tolerance
+BF16_TOL = {"image": (2e-2, 2e-2)}
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_bf16_matches_jax_bf16_kernel(shape):
     jparams, x, eps, nz = _setup(shape)
     ref = jax.jit(lambda x_, e_, p_: jax_fused(x_, e_, p_, nz, 256, jnp.bfloat16))(
         x, eps, jparams)
-    _close(_port(jparams, x, eps, nz, torch.bfloat16), ref, 1e-3, 1e-4)
+    _close(_port(jparams, x, eps, nz, torch.bfloat16), ref, *BF16_TOL.get(shape, (1e-3, 1e-4)))
 
 
 def test_plain_matches_autodiff():

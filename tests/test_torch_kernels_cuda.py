@@ -380,6 +380,112 @@ def test_fused_dynamics_bwd_wide_memory(dev, cdt):
     assert all(torch.isfinite(t).all() for t in _flat(out))
 
 
+# K1's least hidden width on its wide path (kWideMinH in csrc/fused_dynamics.cu)
+K1_WIDE_MIN_H = 64
+
+
+def _check_fwd_plan(plan, n_in, h, nz, b):
+    """K1's plan: the wide path from K1_WIDE_MIN_H (64-row output tiles,
+    weights read from device memory, a scratch of at least the fp32 chain's
+    4 h floats a row), else cnf::choose's row path (h <= 32 where the
+    weights fit) or tiled path."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    choice = _build.plan(n_in, h, nz, nz, 0)
+    want = "wide" if h >= K1_WIDE_MIN_H else "row" if choice[2] else "tiled"
+    assert plan.path == want, (h, plan)
+    if want == "wide":
+        assert (plan.rows, plan.staged, plan.H) == (64, False, 0)
+        assert plan.scratch >= 4 * b * h
+    else:
+        assert tuple(plan) == (*choice, 0)
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 7, 255, 256, 257, 1000])
+@pytest.mark.parametrize("h", list(WIDE_WIDTHS))
+def test_fused_dynamics_wide_nets(dev, h, b, cdt):
+    """K1 past its row path (the widths of K2's test above): the path its plan
+    names, against the plain version at TOL, the same bits twice, one launch
+    counted a call."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    nz = WIDE_WIDTHS[h]
+    n_in = nz + 3
+    _check_fwd_plan(_build.fwd_plan(n_in, h, nz, nz, b), n_in, h, nz, b)
+    params = _params((n_in, h, h, nz), dev, seed=h)
+    g = torch.Generator(device=dev).manual_seed(b)
+    x = torch.randn((b, n_in), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    before = fused_dynamics_vjp.launches
+    got = fused_dynamics_vjp(x, eps, params, nz, cdt)
+    again = fused_dynamics_vjp(x, eps, params, nz, cdt)
+    torch.cuda.synchronize()
+    assert fused_dynamics_vjp.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _close_stage(got, mlp3_forward_vjp_reference(x, eps, params, nz, cdt), eps, TOL[cdt])
+
+
+def _close_stage(got, want, eps, tol):
+    """K1's outputs against the plain version's: y, e_z, |y| and |e_z| at
+    ``tol`` element by element; div = <e_z, eps>, a sum of nz products, at
+    ``tol`` relative to the sum of its terms' magnitudes (the scale of its
+    rounding: at nz = 784 two fp32 orders of the sums leading to e_z move a
+    div near 0 by up to 2e-5), against the plain version's div and against
+    the kernel's own e_z summed in float64."""
+    rtol, atol = tol
+    for i in (0, 1, 3, 4):
+        torch.testing.assert_close(got[i], want[i], rtol=rtol, atol=atol)
+    terms = (want[1] * eps).abs().sum(-1)
+    own = (got[1].double() * eps.double()).sum(-1)
+    for ref in (want[2], own):
+        err = (got[2].double() - ref.double()).abs()
+        assert bool((err <= atol + rtol * terms).all()), float(err.max())
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_dynamics_wide_memory(dev, cdt):
+    """K1 at the image model (785 -> 1024 -> 1024 -> 784, B = 256) adds under
+    32 MB to the device's peak: its outputs, its scratch and the bf16 copies."""
+    n_in, h, nz, b = 785, 1024, 784, 256
+    params = _params((n_in, h, h, nz), dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((b, n_in), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    fused_dynamics_vjp(x, eps, params, nz, cdt)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fused_dynamics_vjp(x, eps, params, nz, cdt)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < 32 * 2**20
+    assert all(torch.isfinite(t).all() for t in out)
+
+
+def test_fwd_plan_names_the_path(dev):
+    """K1's plan (cnf_fwd_plan) beside cnf::choose's, which K3 keeps: the row
+    path up to h = 32 where the weights fit, the wide path from
+    K1_WIDE_MIN_H, the tiled path between and wherever a row's weights do
+    not fit the row path short of the wide one; K3 (sd > 0) never wide."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    for h, n_in, nz in ((8, 6, 5), (12, 3, 2), (24, 6, 5), (32, 6, 5)):
+        _check_fwd_plan(_build.fwd_plan(n_in, h, nz, nz, 1000), n_in, h, nz, 1000)
+        assert _build.fwd_plan(n_in, h, nz, nz, 1000).H == -(-h // 4) * 4
+    for h in range(33, 65):
+        _check_fwd_plan(_build.fwd_plan(6, h, 5, 5, 1000), 6, h, 5, 1000)
+        assert _build.plan(6, h, 5, 5, 8)[2] == 0  # K3: tiled
+    for n_in, h, nz, b in ((44, 176, 43, 8_192), (65, 256, 64, 256), (785, 1024, 784, 256)):
+        plan = _build.fwd_plan(n_in, h, nz, nz, b)
+        _check_fwd_plan(plan, n_in, h, nz, b)
+        assert _build.plan(n_in, h, nz, nz, nz + 3)[2] == 0
+    # the image model's scratch, 9.3 MB: s1, s2, two operand arrays and the
+    # bf16 copies of the inputs
+    assert _build.fwd_plan(785, 1024, 784, 784, 256).scratch * 4 < 10 * 2**20
+    # at n_in = 785 the weights of h = 32 miss the row path: tiled, unless wide
+    _check_fwd_plan(_build.fwd_plan(785, 32, 784, 784, 256), 785, 32, 784, 256)
+
+
 def _solve_case(case, dev):
     nz, nc, t_col, span, h, b = 5, 0, 5, (0.0, 1.0), 24, 999
     if case == "conditioned":
