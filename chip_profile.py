@@ -7,6 +7,7 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py k2-phases
     python3 chip_profile.py k1-wide
     python3 chip_profile.py k1-phases
+    python3 chip_profile.py solve-wide
     python3 chip_profile.py widths
     python3 chip_profile.py fwd-widths
     python3 chip_profile.py adaptive-widths
@@ -15,7 +16,8 @@ and serving calls of PERF.md section 5.
 Each row runs the flagship 2-D RNODE (or its FFJORD form) at 65,536 samples,
 or ``chip_smoke.py``'s image model (d = 784, h = 1024) at batch 256 (its
 fit steps, and its dopri5 eval twin's TEST log-density, exported by
-``utils.export`` and eager), under ``torch.profiler``: 2 warm-up steps or
+``utils.export`` and eager), or its digits-shaped model (d = 64, h = 256,
+fit steps through K3 + K4, without the random shifts), under ``torch.profiler``: 2 warm-up steps or
 calls, then 3 profiled ones.  Per row it prints the device kernels per step
 (and, where unfused adaptive solves run, per trial step of them, forward
 and backward solves counted together), the summed device time of those
@@ -41,7 +43,9 @@ its products.  ``k1-wide`` and ``k1-phases`` do the same for K1 (h = 33
 ... 1024, the batches of ``k2-wide``; beside K1's wide launches,
 ``torch.matmul`` of each of its six products); both wide modes print a
 digest of the outputs' bits, so that two checkouts show whether they
-agree bit for bit.  ``widths`` times K2 and K6 at every
+agree bit for bit.  ``solve-wide`` does the same for K3 and K4 (h = 24, 33
+... 256, B = 256, 8,192 and 65,536, 4 steps): the measurement behind the
+width where their wide paths take over.  ``widths`` times K2 and K6 at every
 hidden width of the row path and
 just past it (h = 8 ... 33), by the device time of their kernels: the
 measurement behind the rule that h <= 32 takes that path; beside K6 it
@@ -77,16 +81,22 @@ WARMUP, ACTIVE = 2, 3
 
 # each kernel's launches by name (regular expressions), row, tiled and wide
 # paths (the reduction of the backwards' weight-gradient partial sums, shared
-# by K2, K4 and K6, in none).  K1's and K2's wide paths share the product core
+# by K2, K4 and K6, in none).  The wide paths of K1-K4 share the product core
 # and the conversion kernel: their products are told apart by the epilogue
-# type, the conversion by its template argument (a checkout from before K1's
-# wide path has K2's alone, untemplated).
-KERNELS = {"K1": (r"\bfused_dynamics_fwd_(rows|kernel)[<(]", r"\bwide_products<.*FwdEpi",
+# type, the conversion (and the bias sums of K2 and K4) by its template
+# argument (a checkout from before K1's wide path has K2's alone,
+# untemplated; one from before K3's and K4's, K2's bias sums untemplated).
+KERNELS = {"K1": (r"\bfused_dynamics_fwd_(rows|kernel)[<(]", r"\bwide_products<.*\bFwdEpi",
                   r"\bwide_to_bf16<1>", r"\bwide_fwd_norms\("),
-           "K2": (r"\bfused_dynamics_bwd_(rows|kernel)[<(]", r"\bwide_products<.*BwdEpi",
-                  r"\bwide_to_bf16(<2>)?\(", r"\bwide_(merge|add_slices|bias_sums|bias_add)\("),
-           "K3": (r"\bfused_solve_rk4_(rows|kernel)[<(]",),
-           "K4": (r"\b(solve_traj_rows|fused_solve_rk4_bwd_rows|fused_solve_rk4_bwd_kernel)[<(]",),
+           "K2": (r"\bfused_dynamics_bwd_(rows|kernel)[<(]", r"\bwide_products<.*\bBwdEpi",
+                  r"\bwide_to_bf16(<2>)?\(",
+                  r"\bwide_(merge|add_slices|bias_sums|bias_add)(<2>)?\("),
+           "K3": (r"\bfused_solve_rk4_(rows|kernel)[<(]", r"\bwide_products<.*SolveFwdEpi",
+                  r"\bwide_to_bf16<3>", r"\bsolve_inputs<3,", r"\bsolve_rk4_stage<"),
+           "K4": (r"\b(solve_traj_rows|fused_solve_rk4_bwd_rows|fused_solve_rk4_bwd_kernel)[<(]",
+                  r"\bwide_products<.*SolveBwdEpi", r"\bwide_to_bf16<4>",
+                  r"\bwide_bias_(sums|add)<4>", r"\bsolve_inputs<4,", r"\bsolve_load_x<",
+                  r"\bsolve_(merge|add_slices)\("),
            "K5": (r"\badaptive_fwd_(rows|tiled)[<(]",),
            "K6": (r"\b(adaptive_replay|adaptive_replay_tiled|walk_rows|adaptive_bwd)[<(]",)}
 
@@ -208,7 +218,8 @@ def export_row(dev, x, icnf):
 
 
 def rows(dev):
-    from chip_smoke import IMAGE_BATCH, IMAGE_HIDDEN, IMAGE_SIDE, image_model
+    from chip_smoke import (DIGITS_HIDDEN, DIGITS_SIDE, IMAGE_BATCH, IMAGE_HIDDEN, IMAGE_SIDE,
+                            image_model)
     from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
     from continuousnormalizingflows_tpu_torch.utils.datasets import (gaussian_mixture,
                                                                      smooth_image_mixture)
@@ -224,6 +235,9 @@ def rows(dev):
     images = smooth_image_mixture(torch.Generator(device=dev).manual_seed(1),
                                   (WARMUP + ACTIVE) * IMAGE_BATCH, IMAGE_SIDE)
     image = lambda **kw: image_model(IMAGE_SIDE, IMAGE_HIDDEN, **kw)
+    # and the digits-shaped model (d = 64, h = 256) at batch 256, through K3 + K4
+    digits = smooth_image_mixture(torch.Generator(device=dev).manual_seed(1),
+                                  (WARMUP + ACTIVE) * IMAGE_BATCH, DIGITS_SIDE)
     return {
         "rk4 flagship, fused": fit_row(dev, data, solver=rk4, fused=True),
         "rk4 FFJORD form, fused": fit_row(dev, data, solver=rk4, fused=True, **ffjord),
@@ -244,6 +258,8 @@ def rows(dev):
         "serving abm TEST logpdf": call_row(dev, x, Mode.TEST, solver=abm),
         "image fit step, fused (K1 + K2)": fit_row(dev, images, image(fused=True), IMAGE_BATCH),
         "image fit step, fused=False": fit_row(dev, images, image(), IMAGE_BATCH),
+        "digits-shaped fit step, fused (K3 + K4)": fit_row(
+            dev, digits, image_model(DIGITS_SIDE, DIGITS_HIDDEN, fused=True), IMAGE_BATCH),
         "image eval TEST logpdf, exported": export_row(dev, images[:IMAGE_BATCH],
                                                        image(eval_twin=True)),
         "image eval TEST logpdf, eager": call_row(dev, images[:IMAGE_BATCH], Mode.TEST,
@@ -480,6 +496,68 @@ def k1_wide(dev):
     return out
 
 
+# (h, n_in, nz): the widths of solve-wide, the row path's flagship (h = 24),
+# then from just past the row path (h = 33) to the digits-shaped fit's (65 ->
+# 256 -> 256 -> 64); the net input is [z, t], the state nz + 3
+SOLVE_WIDE_SHAPES = ((24, 6, 5), (33, 6, 5), (48, 6, 5), (64, 6, 5), (96, 6, 5), (128, 6, 5),
+                     (176, 44, 43), (256, 65, 64))
+SOLVE_WIDE_BATCHES = (256, 8_192, 65_536)
+SOLVE_WIDE_STEPS = 4
+
+
+def solve_path(n_in, h, nz, b, k) -> str:
+    """The path of K3's or K4's plan; a checkout from before their wide paths
+    has a K3 plan of (rows, staged, H)."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    if k == "K4":
+        return _build.bwd_plan(n_in, h, nz, nz, nz + 3, b).path
+    plan = _build.plan(n_in, h, nz, nz, nz + 3)
+    return getattr(plan, "path", "row" if plan[2] else "tiled")
+
+
+def solve_wide(dev):
+    """K3 and K4 at the widths of SOLVE_WIDE_SHAPES and batches of
+    SOLVE_WIDE_BATCHES, fp32 and bf16, SOLVE_WIDE_STEPS steps: device ms of
+    every kernel of a call, with the path each plan names, the peak device
+    memory a call adds and a digest of the outputs' bits.  Run from two
+    checkouts in one call, it compares their K3 and K4 width by width: the
+    measurement behind the wide solves' least width (kSolveWideMinH), and
+    whether a change kept the bits of the paths it did not touch."""
+    from continuousnormalizingflows_tpu_torch.ops.fused_solve import (fused_solve_rk4,
+                                                                      fused_solve_rk4_bwd)
+
+    out, steps = {}, SOLVE_WIDE_STEPS
+    for h, n_in, nz in SOLVE_WIDE_SHAPES:
+        for b in SOLVE_WIDE_BATCHES:
+            _x, eps, params, _nz, _cot = stage_inputs(dev, n_in, h, nz, b)
+            g = torch.Generator(device=dev).manual_seed(2)
+            u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
+                            torch.zeros((b, 3), device=dev)], dim=-1)
+            gbar = torch.randn((b, nz + 3), generator=g, device=dev)
+            span = (0.0, torch.tensor(1.05, device=dev))
+            for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
+                calls = {
+                    "K3": lambda: [fused_solve_rk4(u0, eps, None, params, span, nz, nz, steps,
+                                                   cdt)],
+                    "K4": lambda: [t for o in fused_solve_rk4_bwd(u0, eps, None, params, span,
+                                                                  nz, nz, steps, gbar, cdt)
+                                   for t in (o if isinstance(o, tuple) else (o,))]}
+                for k, fn in calls.items():
+                    path = solve_path(n_in, h, nz, b, k)
+                    bits = digest(fn())
+                    mb = peak_mb(dev, fn)
+                    reps = 3 if b == 65_536 and path != "wide" else 10
+                    ms = sorted(device_ms(fn, KERNELS[k], reps=reps) for _ in range(3))
+                    out[f"{k} h={h} {prec} B={b}"] = dict(path=path, batch=b, steps=steps,
+                                                          ms=ms[1], min=ms[0], max=ms[2],
+                                                          peak_mb=mb, digest=bits)
+                    print(f"solve-wide {k} {n_in}->{h}->{h}->{nz} {prec} B={b} steps={steps} "
+                          f"({path}): device ms {ms[1]:.4f} (min {ms[0]:.4f}, max {ms[2]:.4f}), "
+                          f"peak {mb:.1f} MB a call, bits {bits}", flush=True)
+    return out
+
+
 def launches_in_order(fn):
     """The device kernels of one call of ``fn`` (after 3 warm-up calls) in
     launch order: (short name, device us, grid), from the profiler's trace."""
@@ -606,7 +684,8 @@ def fwd_widths(dev):
         for cdt, prec in ((None, "fp32"), (torch.bfloat16, "bf16")):
             calls = fwd_calls(dev, n_in, h, nz, cdt)
             for k, fn in calls.items():
-                rows, _staged, h_pad = _build.plan(n_in, h, nz, nz, nz + 3 if k == "K3" else 0)
+                sd = nz + 3 if k == "K3" else 0
+                rows, _staged, h_pad = _build.plan(n_in, h, nz, nz, sd)[:3]
                 res = fn()
                 bits = digest(res if isinstance(res, tuple) else [res])
                 ms = sorted(device_ms(fn, KERNELS[k], reps=30 if k == "K1" else 10)
@@ -677,7 +756,7 @@ def sass(dev):
     for h, (n_in, nz) in ((24, (6, 5)), (12, (3, 2))):
         shapes = []
         for sd, name in ((0, "fused_dynamics_fwd_rows"), (nz + 3, "fused_solve_rk4_rows")):
-            rows, _staged, H = _build.plan(n_in, h, nz, nz, sd)
+            rows, _staged, H = _build.plan(n_in, h, nz, nz, sd)[:3]
             wf = n_in * H + 2 * H * H + nz * H + 2 * H + nz
             smem = 4 * (wf + (rows * ((2 * sd + n_in + nz + nz) | 1) if sd else 0))
             shapes += [(f"{name}<{H}, {bf16}>", rows, smem) for bf16 in (0, 1)]
@@ -785,6 +864,7 @@ def main() -> None:
     out = {"device": torch.cuda.get_device_name(0)}
     for name, mode in (("sass", sass), ("k2-grid", k2_grid), ("k2-wide", k2_wide),
                        ("k2-phases", k2_phases), ("k1-wide", k1_wide), ("k1-phases", k1_phases),
+                       ("solve-wide", solve_wide),
                        ("widths", widths),
                        ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths)):
         if name in wanted:

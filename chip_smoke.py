@@ -220,12 +220,22 @@ def nvidia_smi() -> str:
 
 def kernel_label(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name, e.g.
-    fused_solve_rk4_bwd_rows<24, 0> (H = 24, fp32)."""
+    fused_solve_rk4_bwd_rows<24, 0> (H = 24, fp32): the identifier after the
+    source file's anonymous namespace, found after the namespace's
+    ``_cu_<8 hex digits>`` ending or, where nvcc ends it otherwise
+    (``..._fused_solve_cu_cnf_plan``), by the namespace's length prefix."""
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
-    if not m:
-        return mangled[:72]
-    start = m.end() + int(m.group(1))
-    name = mangled[m.end():start]
+    if m:
+        begin = m.end()
+        start = begin + int(m.group(1))
+    else:
+        m = re.search(r"(\d+)(_GLOBAL__N_)", mangled)
+        n = m and re.match(r"\d+", mangled[m.start(2) + int(m.group(1)):])
+        if not n:
+            return mangled[:72]
+        begin = m.start(2) + int(m.group(1)) + n.end()
+        start = begin + int(n.group())
+    name = mangled[begin:start]
     args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start:])
     return name + (f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>" if args else "")
 
@@ -383,9 +393,8 @@ def kernel_phase(dev, record):
         gbar = torch.randn((b, nz + 3), generator=g, device=dev)
         k1 = _build.fwd_plan(n_in, h, nz, nz, b)
         log(f"  plan K1 {shape}: {fwd_path(k1)}, weights in smem: {k1.staged}")
-        rows, staged, h_pad = _build.plan(n_in, h, nz, nz, nz + 3)
-        path = f"row per thread, h padded to {h_pad}" if h_pad else "tiled"
-        log(f"  plan K3 {shape}: {path}, {rows} rows/block, weights in smem: {staged}")
+        k3 = _build.plan(n_in, h, nz, nz, nz + 3, b)
+        log(f"  plan K3 {shape}: {fwd_path(k3)}, weights in smem: {k3.staged}")
         for kname, sd in (("K2", 0), ("K4", nz + 3)):
             plan = _build.bwd_plan(n_in, h, nz, nz, sd, b)
             log(f"  plan {kname} {shape}: {bwd_path(plan)}, grid {plan.grid}, "
@@ -429,11 +438,18 @@ def kernel_phase(dev, record):
             # K4's rate: the work the function needs (its bound's) and the
             # work as designed (the trajectory and the k1..k3 recompute: 11
             # stage forwards and 4 backwards a step; the row path keeps u2
-            # for the 4 forwards before the backwards)
+            # for the 4 forwards before the backwards; the wide path's
+            # trajectory and recompute, 7 a step but 4 once, compute y only,
+            # and it takes the terms of eps once)
             fwd, bwd = stage_fmas(n_in, h, nz), stage_bwd_fmas(n_in, h, nz, nz)
             need = 2 * b * solve_fmas(n_in, h, nz, STEPS * 4, True)
-            if record["bwd_plans"][f"K4 {shape}"]["H"]:
+            k4_path = record["bwd_plans"][f"K4 {shape}"]["path"]
+            if k4_path == "row":
                 done = 2 * b * (STEPS * (11 * fwd - 4 * h * nz + 4 * bwd) + h * nz)
+            elif k4_path == "wide":
+                y_only = n_in * h + h * h + h * nz
+                done = 2 * b * ((7 * STEPS - 4) * y_only
+                                + 4 * STEPS * (fwd + bwd - 3 * h * nz) + 3 * h * nz)
             else:
                 done = 2 * b * STEPS * (11 * fwd + 4 * bwd)
             k4_bound = kernel_bounds(n_in, h, nz, b, cdt=cdt)["K4"][0]
@@ -504,10 +520,11 @@ def image_widths_phase(dev):
     K2 at the image model's 785 -> 1024 -> 1024 -> 784, K3 and K4 at the
     digits-shaped 65 -> 256 -> 256 -> 64 (state 67, 24 steps), B = 256,
     fp32 and bf16: each against its plain version, timed in turns, beside
-    its bound; K1 and K2 must take their wide paths there and give the same
-    bits twice, and a call must add under 32 MB (K1) and 64 MB (K2) to the
-    device's peak memory.  Beside K1: ``torch.matmul`` of the six products
-    of its chain, summed."""
+    its bound; all four must take their wide paths there and give the same
+    bits twice, and a call must add under 32 MB (K1), 64 MB (K2), 8 MB (K3)
+    and 16 MB (K4) to the device's peak memory.  The kernels a call of K3
+    and of K4 launches are counted by the profiler.  Beside K1:
+    ``torch.matmul`` of the six products of its chain, summed."""
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
     from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
@@ -536,17 +553,16 @@ def image_widths_phase(dev):
             ks = ("K1", "K2")
             plans = [("K1", _build.fwd_plan(n_in, h, nz, nz, b)),
                      ("K2", _build.bwd_plan(n_in, h, nz, nz, 0, b))]
-            for kname, plan in plans:
-                if plan.path != "wide":
-                    fail(f"{kname} at the image widths takes the {plan.path} path, not the wide one")
         else:
             ks = ("K3", "K4")
-            plans = [("K3", _build.plan(n_in, h, nz, nz, nz + 3)),
+            plans = [("K3", _build.plan(n_in, h, nz, nz, nz + 3, b)),
                      ("K4", _build.bwd_plan(n_in, h, nz, nz, nz + 3, b))]
         for kname, plan in plans:
-            words = (f" ({bwd_path(plan)})" if kname in ("K2", "K4") else
-                     f" ({fwd_path(plan)})" if kname == "K1" else "")
-            log(f"  plan {kname} {shape} widths {n_in} -> {h} -> {h} -> {nz}, B={b}: {plan}{words}")
+            if plan.path != "wide":
+                fail(f"{kname} at the {shape} widths takes the {plan.path} path, not the wide one")
+            words = bwd_path(plan) if kname in ("K2", "K4") else fwd_path(plan)
+            log(f"  plan {kname} {shape} widths {n_in} -> {h} -> {h} -> {nz}, B={b}: {plan} "
+                f"({words})")
         for cdt in (None, torch.bfloat16):
             prec = "fp32" if cdt is None else "bf16"
             bounds = kernel_bounds(n_in, h, nz, b, steps=steps, cdt=cdt)
@@ -585,14 +601,24 @@ def image_widths_phase(dev):
                         "k4": compare_to_max(f"K4 fused_solve_rk4_bwd digits widths {prec} "
                                              f"B={b} steps={steps}", flat(calls["k4"][0]()),
                                              flat(calls["k4"][1]()), BWD_TOL[("solve", cdt)])}
+                peak_mb = {
+                    "k3": same_bits_and_peak(dev, lambda: [calls["k3"][0]()],
+                                             f"K3 digits widths {prec}", 8.0),
+                    "k4": same_bits_and_peak(dev, lambda: flat(calls["k4"][0]()),
+                                             f"K4 digits widths {prec}", 16.0)}
+                per_call = {k: kernels_a_call(calls[k][0]) for k in ("k3", "k4")}
+                log(f"  K3 and K4 wide paths at the digits widths, {prec}: {per_call['k3']} and "
+                    f"{per_call['k4']} kernels a call")
             ms = in_turns(calls)
             log(f"  time {shape} widths {prec}: " + "; ".join(
                 f"{k} {ms[k.lower()]:.4f} ms vs plain {ms[k.lower() + '_plain']:.4f} ms (bound "
                 f"{bounds[k][0]:.4f} ms, {bounds[k][1]}: {bounds[k][0] / ms[k.lower()]:.2%} of "
                 "it)" for k in ks))
+            ms.update({f"{k}_peak_mb": v for k, v in peak_mb.items()})
             if shape == "image":
-                ms.update(k1_peak_mb=peak_mb["k1"], k2_peak_mb=peak_mb["k2"],
-                          k1_products_matmul_ms=lib_ms)
+                ms.update(k1_products_matmul_ms=lib_ms)
+            else:
+                ms.update({f"{k}_kernels_a_call": v for k, v in per_call.items()})
             out.append(dict(shape=shape, precision=prec, batch=b, widths=[n_in, h, h, nz],
                             **{f"{k}_max_abs_err": v for k, v in errs.items()},
                             **{f"{k.lower()}_bound_ms": bounds[k][0] for k in ks}, **ms))
@@ -617,6 +643,21 @@ def same_bits_and_peak(dev, fn, name, limit_mb):
     log(f"  {name}: two calls give the same bits ok; a call adds {peak_mb:.1f} MB to the "
         f"device's peak memory (under {limit_mb:.0f} MB) ok")
     return peak_mb
+
+
+def kernels_a_call(fn) -> int:
+    """Device kernels that one call of ``fn`` launches (after a first call),
+    counted by torch.profiler; copies and memsets are not kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
 
 
 def products_matmul_ms(dev, b, n_in, h, nz, cdt):
@@ -1499,7 +1540,7 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
         # K1 and K2 at these widths run their wide paths, whose products are
         # wide_products with K1's and K2's own epilogue types
         found = {k: sorted(n for n in names if re.search(pat, n)) for k, pat in (
-            ("fwd", r"wide_products<.*FwdEpi"), ("bwd", r"wide_products<.*BwdEpi"))}
+            ("fwd", r"wide_products<.*\bFwdEpi"), ("bwd", r"wide_products<.*\bBwdEpi"))}
         if not all(found.values()):
             fail(f"{name}: the traced step's kernels do not name K1's and K2's wide paths: "
                  f"{sorted(names)[:20]}")
@@ -1592,9 +1633,10 @@ def image_phase(dev, record):
     dside, dh = DIGITS_SIDE, DIGITS_HIDDEN
     xd = ds.smooth_image_mixture(gen(3), IMAGE_POINTS, dside)
     shift = functools.partial(ds.random_shift_images, side=dside, prob=0.5)
-    res_d, rate_d, _n = image_fit("digits-shaped fused=True (K3 + K4)",
-                              image_model(dside, dh, fused=True), xd, IMAGE_FIT_STEPS,
-                              dict(NO_LAUNCH, K3=1, K4=1), dev, batch_transform=shift)
+    res_d, rate_d, launched_d = image_fit("digits-shaped fused=True (K3 + K4)",
+                                          image_model(dside, dh, fused=True), xd,
+                                          IMAGE_FIT_STEPS, dict(NO_LAUNCH, K3=1, K4=1), dev,
+                                          batch_transform=shift)
     dev_eval = image_model(dside, dh, eval_twin=True)
     sampler = ex.export_sampler(dev_eval, res_d.params, 64, device=dev)
     s1, s2 = sampler.call(11), sampler.call(11)
@@ -1608,7 +1650,7 @@ def image_phase(dev, record):
                     s1, want, EXPORT_RTOL, 1e-6)
     log("  exported sampler: seed 11 twice and after a reload, the same bits ok")
     out["digits"] = dict(train_samples_per_s=rate_d, history=res_d.history,
-                         sampler_max_abs_err=s_err)
+                         sampler_max_abs_err=s_err, launches=launched_d)
     shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - started
     log(f"  [image] phase: {out['seconds']:.1f} s")
@@ -1676,6 +1718,13 @@ def main() -> None:
     img = {(r["shape"], r["precision"]): r for r in record["image_path_widths"]}[("image", "bf16")]
     img_bounds = kernel_bounds(*(img["widths"][i] for i in (0, 1, 3)), img["batch"],
                                cdt=torch.bfloat16)
+    # K3's and K4's wide paths at the digits-shaped fit's widths, batch, steps
+    # and precision (bf16)
+    dig = {(r["shape"], r["precision"]): r
+           for r in record["image_path_widths"]}[("digits", "bf16")]
+    dig_bounds = kernel_bounds(*(dig["widths"][i] for i in (0, 1, 3)), dig["batch"],
+                               steps=IMAGE_RK4_STEPS, cdt=torch.bfloat16)
+    digits_fit = record["image"]["digits"]["launches"]
     rows = [  # (K, name, source file, TPU kernel, launches on the main path, results, bounds)
         ("K1", "fused_dynamics_fwd", "fused_dynamics.cu", "pallas_kernels.py:118",
          launches["K1"], flag, bounds),
@@ -1689,6 +1738,10 @@ def main() -> None:
          "pallas_kernels.py:118", record["image"]["fit"]["launches"]["K1"], img, img_bounds),
         ("K4", "fused_solve_rk4_bwd", "fused_solve_bwd.cu", "pallas_solve.py:206",
          train["rnode"]["K4"], flag, bounds),
+        ("K4", "fused_solve_rk4_bwd, wide path (digits-shaped fit, bf16)", "wide_solve.cuh",
+         "pallas_solve.py:206", digits_fit["K4"], dig, dig_bounds),
+        ("K3", "fused_solve_rk4_fwd, wide path (digits-shaped fit, bf16)", "wide_solve.cuh",
+         "pallas_solve.py:176", digits_fit["K3"], dig, dig_bounds),
         ("K5", "fused_adaptive_fwd", "fused_adaptive.cu", "pallas_adaptive.py:187",
          fused_adaptive["K5"], ad, bounds),
         ("K6", "fused_adaptive_bwd", "fused_adaptive_bwd.cu", "pallas_adaptive.py:258",

@@ -304,18 +304,6 @@ extern "C" const char* cnf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The row or tiled launch shape of K3 (and of K1 short of its wide path:
-// cnf_fwd_plan) for these widths (sd: the whole-solve kernel's state width, 0
-// for the single stage): returns rows per block and sets info[0] = weights
-// staged in shared memory, info[1] = H of the row path (row_fwd_H; 0: tiled
-// path).
-extern "C" int cnf_plan(int n_in, int h, int n_out, int nz, int sd, int* info) {
-  const cnf::Choice c = cnf::choose(cnf::Dims{n_in, h, n_out, nz}, sd);
-  info[0] = c.staged ? 1 : 0;
-  info[1] = c.H;
-  return c.rows;
-}
-
 // K1's launch plan for these widths and batch: returns rows a block (the row
 // path: threads a block, one row each; the wide path: rows of an output tile;
 // 0: the widths do not fit) and sets info[0] = weights staged in shared

@@ -1,13 +1,16 @@
 // K3 on Hopper: the whole fixed-step RK4 solve of the augmented CNF state in
-// one launch.
+// one call.
 //
 // Replaces continuousnormalizingflows_tpu/ops/pallas_solve.py
-// _solve_fwd_kernel (public fused_solve_rk4).  Each row's whole steps x
-// 4-stage loop runs inside one block; u0, eps and ys are read once, u1 is
-// written once, and nothing else of the solve touches device memory.  Two
-// paths, chosen from the widths (row_stage.cuh `choose`): one row per
-// thread for h <= 32 (fused_solve_rk4_rows), one tile of rows per block
-// with register-tiled products for wider nets (fused_solve_rk4_kernel).
+// _solve_fwd_kernel (public fused_solve_rk4).  Three paths, chosen from the
+// widths (solve_shape): one row per thread for h <= 32
+// (fused_solve_rk4_rows), one tile of rows per block with register-tiled
+// products up to kSolveWideMinH (fused_solve_rk4_kernel; row_stage.cuh
+// `choose` picks between these two), and from there the wide path
+// (wide_solve.cuh): the solve as a chain of dense products over the whole
+// batch, on the tensor cores in bf16, issued from this call.  The row and
+// tiled paths are one launch each and keep everything of the solve but u0,
+// eps, ys and u1 on the SM.
 //
 // State per row: u = [z (nz), dlogp, E, n] (state_dim = nz + 3).  Each stage
 // evaluates the dynamics of stage.cuh on the net input
@@ -16,15 +19,19 @@
 // What bounds it on an H100: a 32-step solve at the flagship width is 128
 // stages of ~3.4 kFLOP per row against 4 x 32 bytes of HBM traffic per row
 // for the whole solve, so it is bound by FMA issue and shared-memory traffic
-// inside the block.  The design keeps u, the RK4 accumulator, every stage
-// intermediate and (when they fit) the weights in shared memory for the whole
-// solve; the stage input x is formed directly from u + c*dt*k, so no separate
-// stage state is stored.  t0 and dt come from device
-// memory, so a steered end time needs no host synchronisation.
+// inside the block.  The row and tiled designs run each row's whole steps x
+// 4-stage loop inside one block and keep u, the RK4 accumulator, every stage
+// intermediate and (when they fit) the weights in shared memory for the
+// whole solve; the stage input x is formed directly from u + c*dt*k, so no
+// separate stage state is stored.  t0 and dt come from device memory, so a
+// steered end time needs no host synchronisation.
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
+#include <climits>
+
 #include "row_stage.cuh"
+#include "wide_solve.cuh"
 
 namespace {
 
@@ -154,11 +161,26 @@ fused_solve_rk4_rows(const float* __restrict__ u0, const float* __restrict__ eps
   for (int c = 0; c < sd; ++c) u1[row * sd + c] = U[c];
 }
 
+// K3's launch shape: cnf::choose's row or tiled path, or the wide path.
+struct SolveShape {
+  cnf::Choice c;
+  bool wide;
+};
+
+SolveShape solve_shape(const cnf::Dims& d, int sd) {
+  return SolveShape{cnf::choose(d, sd), d.h >= cnf::wide::kSolveWideMinH};
+}
+
 template <bool BF16>
 cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf::Weights& w,
-                   const cnf::Dims& d, const float* t0, const float* dt, float* u1, int B, int sd,
-                   int nc, int t_col, int steps, cudaStream_t stream) {
-  const cnf::Choice c = cnf::choose(d, sd);
+                   const cnf::Dims& d, const float* t0, const float* dt, float* u1,
+                   float* scratch, int B, int sd, int nc, int t_col, int steps,
+                   cudaStream_t stream) {
+  const SolveShape shape = solve_shape(d, sd);
+  if (shape.wide)
+    return cnf::wide::solve_fwd<BF16>(u0, eps, ys, w, d, t0, dt, u1, scratch, B, nc, t_col,
+                                      steps, stream);
+  const cnf::Choice& c = shape.c;
   if (c.rows == 0) return cudaErrorInvalidValue;
   const int grid = (B + c.rows - 1) / c.rows;
   if (c.H == 0) {
@@ -187,21 +209,43 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 
 }  // namespace
 
+// The launch shape of K3 for these widths and batch (sd: the state width),
+// and of K1 short of its wide path (sd = 0; K1's own plan is cnf_fwd_plan):
+// returns rows a block (the row path: threads a block, one row each; the
+// wide path: rows of an output tile) and sets info[0] = weights staged in
+// shared memory, info[1] = H of the row path (row_fwd_H; 0: another path),
+// info[2] = the wide path's scratch floats at this batch (0: another path;
+// a scratch past 2^31 floats does not fit).
+extern "C" int cnf_plan(int n_in, int h, int n_out, int nz, int sd, int B, int* info) {
+  const cnf::Dims d{n_in, h, n_out, nz};
+  const SolveShape shape = solve_shape(d, sd);
+  const bool wide = sd > 0 && shape.wide;
+  const long scratch = wide ? cnf::wide::solve_fwd_scratch_floats(d, B) : 0;
+  info[0] = wide || !shape.c.staged ? 0 : 1;
+  info[1] = wide ? 0 : shape.c.H;
+  info[2] = scratch > INT_MAX ? 0 : (int)scratch;
+  if (scratch > INT_MAX) return 0;
+  return wide ? cnf::wide::kBM : shape.c.rows;
+}
+
 // Weights: A* in nn.Linear layout (out, in), W*t their transposes (in, out),
-// all contiguous float32; W*t may be null when the weights are staged (see
-// cnf_plan in fused_dynamics.cu).  t0 and dt are device scalars; ys may be
-// null.
+// all contiguous float32; W*t may be null when the weights are staged or the
+// wide path runs (cnf_plan's info[0] == 0 and info[2] > 0).  t0 and dt are
+// device scalars; ys may be null.  scratch: info[2] floats (the wide path's,
+// else unread).
 extern "C" int cnf_fused_solve_rk4_fwd(const float* u0, const float* eps, const float* ys,
                                        const float* A1, const float* b1, const float* A2,
                                        const float* b2, const float* A3, const float* b3,
                                        const float* W1t, const float* W2t, const float* W3t,
-                                       const float* t0, const float* dt, float* u1, int B,
-                                       int sd, int n_in, int h, int n_out, int nz, int nc,
-                                       int t_col, int steps, int bf16, void* stream) {
+                                       const float* t0, const float* dt, float* u1,
+                                       float* scratch, int B, int sd, int n_in, int h, int n_out,
+                                       int nz, int nc, int t_col, int steps, int bf16,
+                                       void* stream) {
   if (B <= 0) return cudaSuccess;
   const cnf::Weights w{W1t, W2t, W3t, A1, A2, A3, b1, b2, b3};
   const cnf::Dims d{n_in, h, n_out, nz};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<true>(u0, eps, ys, w, d, t0, dt, u1, B, sd, nc, t_col, steps, st)
-              : launch<false>(u0, eps, ys, w, d, t0, dt, u1, B, sd, nc, t_col, steps, st);
+  return bf16 ? launch<true>(u0, eps, ys, w, d, t0, dt, u1, scratch, B, sd, nc, t_col, steps, st)
+              : launch<false>(u0, eps, ys, w, d, t0, dt, u1, scratch, B, sd, nc, t_col, steps,
+                              st);
 }

@@ -35,7 +35,7 @@
 // recompute, the row path does 11 stage forwards (4 of them on the row's
 // kept u2) and 4 backwards a step: 130.5 GFLOP, 1.95 ms at that peak.
 //
-// Two paths, chosen from the widths (solve_bwd_shape below):
+// Three paths, chosen from the widths (solve_bwd_shape below):
 //   * h <= 32, one row per thread: a trajectory kernel (solve_traj_rows)
 //     runs K3's row stage and stores u_n as [step][col][row], so a warp's
 //     stores and the walk's loads are contiguous; the walk back
@@ -47,13 +47,20 @@
 //     The tiled design this replaces at these widths kept ~21 of 256 threads
 //     busy in the products with N = nz, synchronised its block ~10 times a
 //     stage and summed the weight gradients serially over 66-row tiles.
-//   * wider nets, tiles of rows per block: the products of stage.cuh and
-//     stage_bwd.cuh (fused_solve_rk4_bwd_kernel), every buffer in shared
-//     memory.
+//   * 32 < h < kSolveWideMinH, tiles of rows per block: the products of
+//     stage.cuh and stage_bwd.cuh (fused_solve_rk4_bwd_kernel), every buffer
+//     in shared memory;
+//   * h >= kSolveWideMinH, the wide path (wide_solve.cuh): the trajectory and
+//     the walk back as a chain of dense products over the whole batch, bf16
+//     on the tensor cores, the weight gradients as products of depth 2B
+//     accumulated stage by stage in a fixed order; its header has the design.
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
+#include <climits>
+
 #include "row_stage_bwd.cuh"
+#include "wide_solve.cuh"
 
 namespace {
 
@@ -469,14 +476,17 @@ cudaError_t launch_rows(const float* u0, const float* eps, const float* ys, cons
 // ---- plan and dispatch ----
 
 // K4's launch shape for these widths and batch: the row path (H > 0;
-// pl.rows threads a block, one row each, the weights staged) or the tiled
-// path (H == 0; pl.rows rows a tile, 0 when one row does not fit).  The
-// launch and cnf_solve_bwd_plan both read it, so the walk back's grid is the
-// row count of the caller's partial-sum buffer.
+// pl.rows threads a block, one row each, the weights staged), the wide path
+// (wide; pl.rows the rows of an output tile, grid the slices of the batch in
+// its weight-gradient products when more than one) or the tiled path (H ==
+// 0; pl.rows rows a tile, 0 when one row does not fit).  The launch and
+// cnf_solve_bwd_plan both read it, so grid is the row count of the caller's
+// partial-sum buffer.
 struct SolveBwdShape {
   int H;
   int grid;
   cnf::BwdPlan pl;
+  bool wide;
 };
 
 SolveBwdShape solve_bwd_shape(const cnf::Dims& d, int sd, int B) {
@@ -484,18 +494,29 @@ SolveBwdShape solve_bwd_shape(const cnf::Dims& d, int sd, int B) {
   if (rp.H)
     return SolveBwdShape{rp.H, (B + cnf::kRowBwdThreads - 1) / cnf::kRowBwdThreads,
                          cnf::BwdPlan{true, false, cnf::kRowBwdThreads, rp.smem_bytes,
-                                      cnf::param_count(d)}};
+                                      cnf::param_count(d)},
+                         false};
+  if (d.h >= cnf::wide::kSolveWideMinH) {
+    const int slices = cnf::wide::wgrad_slices(d, B);
+    return SolveBwdShape{0, slices > 1 ? slices : 0,
+                         cnf::BwdPlan{false, false, cnf::wide::kBM, 0, cnf::param_count(d)},
+                         true};
+  }
   const cnf::BwdPlan pl = cnf::make_bwd_plan(d, cnf::solve_bwd_extra(sd, d.nz));
-  return SolveBwdShape{0, pl.rows ? cnf::bwd_grid(B, pl.rows) : 0, pl};
+  return SolveBwdShape{0, pl.rows ? cnf::bwd_grid(B, pl.rows) : 0, pl, false};
 }
 
 template <bool BF16>
 cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf::Weights& w,
                    const cnf::Dims& d, const float* t0, const float* dt, const float* gbar,
-                   float* u0bar, float* epsbar, float* traj, float* partial, float* grads, int B,
-                   int sd, int nc, int t_col, int steps, cudaStream_t stream) {
+                   float* u0bar, float* epsbar, float* traj, float* partial, float* scratch,
+                   float* grads, int B, int sd, int nc, int t_col, int steps,
+                   cudaStream_t stream) {
   const SolveBwdShape shape = solve_bwd_shape(d, sd, B);
   const cnf::BwdPlan& pl = shape.pl;
+  if (shape.wide)
+    return cnf::wide::solve_bwd<BF16>(u0, eps, ys, w, d, t0, dt, gbar, u0bar, epsbar, traj,
+                                      partial, scratch, grads, B, nc, t_col, steps, stream);
   if (shape.H) {
     auto rows = launch_rows<32, BF16>;
     if (shape.H == 8) rows = launch_rows<8, BF16>;
@@ -520,39 +541,45 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 }  // namespace
 
 // K4's launch plan for these widths and batch (sd: the state width): returns
-// rows per block (the row path: threads a block, one row each; 0: the widths
-// do not fit) and sets info[0] = weights staged in shared memory, info[1] =
-// grid (rows of the partial-sum buffer), info[2] = P, the parameter count,
-// info[3] = H of the row path (0: the tiled path).
+// rows per tile (the row path: threads a block, one row each; the wide path:
+// rows of an output tile; 0: the widths do not fit) and sets info[0] =
+// weights staged in shared memory, info[1] = grid (rows of the partial-sum
+// buffer, 0: none), info[2] = P, the parameter count, info[3] = H of the row
+// path (0: another path), info[4] = the wide path's scratch floats at this
+// batch (0: another path; a scratch past 2^31 floats does not fit).
 extern "C" int cnf_solve_bwd_plan(int n_in, int h, int n_out, int nz, int sd, int B, int* info) {
-  const SolveBwdShape shape = solve_bwd_shape(cnf::Dims{n_in, h, n_out, nz}, sd, B);
+  const cnf::Dims d{n_in, h, n_out, nz};
+  const SolveBwdShape shape = solve_bwd_shape(d, sd, B);
+  const long scratch = shape.wide ? cnf::wide::solve_bwd_scratch_floats(d, B) : 0;
   info[0] = shape.pl.staged ? 1 : 0;
   info[1] = shape.grid;
   info[2] = (int)shape.pl.P;
   info[3] = shape.H;
-  return shape.pl.rows;
+  info[4] = scratch > INT_MAX ? 0 : (int)scratch;
+  return scratch > INT_MAX ? 0 : shape.pl.rows;
 }
 
-// Weights as for cnf_fused_solve_rk4_fwd; W*t are read only when the plan
-// does not stage the weights (cnf_solve_bwd_plan's info[0] == 0).  gbar: the
-// cotangent of u1 (B, sd).  traj: scratch of steps x B x nz floats; partial:
-// grid x P floats (cnf_solve_bwd_plan); grads receives the P weight gradients
-// in the layout of cnf_fused_dynamics_bwd.
+// Weights as for cnf_fused_solve_rk4_fwd; W*t are read only by the tiled
+// path when it does not stage the weights (cnf_solve_bwd_plan's info[0] ==
+// 0 and info[4] == 0).  gbar: the cotangent of u1 (B, sd).  traj: scratch of
+// steps x B x nz floats; partial: grid x P floats and scratch info[4]
+// (cnf_solve_bwd_plan); grads receives the P weight gradients in the layout
+// of cnf_fused_dynamics_bwd.
 extern "C" int cnf_fused_solve_rk4_bwd(const float* u0, const float* eps, const float* ys,
                                        const float* A1, const float* b1, const float* A2,
                                        const float* b2, const float* A3, const float* b3,
                                        const float* W1t, const float* W2t, const float* W3t,
                                        const float* t0, const float* dt, const float* gbar,
                                        float* u0bar, float* epsbar, float* traj, float* partial,
-                                       float* grads, int B, int sd, int n_in, int h, int n_out,
-                                       int nz, int nc, int t_col, int steps, int bf16,
-                                       void* stream) {
+                                       float* scratch, float* grads, int B, int sd, int n_in,
+                                       int h, int n_out, int nz, int nc, int t_col, int steps,
+                                       int bf16, void* stream) {
   if (B <= 0) return cudaSuccess;
   const cnf::Weights w{W1t, W2t, W3t, A1, A2, A3, b1, b2, b3};
   const cnf::Dims d{n_in, h, n_out, nz};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<true>(u0, eps, ys, w, d, t0, dt, gbar, u0bar, epsbar, traj, partial,
-                             grads, B, sd, nc, t_col, steps, st)
+                             scratch, grads, B, sd, nc, t_col, steps, st)
               : launch<false>(u0, eps, ys, w, d, t0, dt, gbar, u0bar, epsbar, traj, partial,
-                              grads, B, sd, nc, t_col, steps, st);
+                              scratch, grads, B, sd, nc, t_col, steps, st);
 }

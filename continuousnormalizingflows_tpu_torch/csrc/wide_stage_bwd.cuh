@@ -254,7 +254,9 @@ wide_merge(const float* __restrict__ ybar, const float* __restrict__ ezbar,
 // block (c, s) sums 32 columns over kBiasRows rows of slice s, 32 rows apart
 // a thread, then the 32 partial sums in order.  With one slice it writes the
 // gradients; with more, row s of part (2h + n_out floats), which
-// wide_bias_add then adds in order of slice.
+// wide_bias_add then adds in order of slice.  Owner: the kernel that
+// launches it (2: K2, 4: K4's wide solve), so that a profile tells them apart.
+template <int Owner>
 __global__ void __launch_bounds__(1024)
 wide_bias_sums(const float* __restrict__ z1t, const float* __restrict__ z2t,
                const float* __restrict__ ybt, float* __restrict__ part,
@@ -295,6 +297,7 @@ wide_bias_sums(const float* __restrict__ z1t, const float* __restrict__ z2t,
 }
 
 // The bias gradients from wide_bias_sums' rows of part, in order of slice.
+template <int Owner>
 __global__ void __launch_bounds__(256)
 wide_bias_add(const float* __restrict__ part, int S, int h, int n_out, Offsets o,
               float* __restrict__ grads) {
@@ -424,12 +427,12 @@ cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const 
   }
   const int chunks = 2 * ((h + 31) / 32) + (n_out + 31) / 32;
   const int bias_slices = (B + kBiasRows - 1) / kBiasRows;
-  wide_bias_sums<<<dim3(chunks, bias_slices), dim3(32, 32), 0, stream>>>(
+  wide_bias_sums<2><<<dim3(chunks, bias_slices), dim3(32, 32), 0, stream>>>(
       t.U1, t.U2, t.YB, t.S1, grads, B, h, n_out, o);
   CNF_WIDE_TRY(cudaGetLastError());
   if (bias_slices > 1) {
-    wide_bias_add<<<(2 * h + n_out + 255) / 256, 256, 0, stream>>>(t.S1, bias_slices, h, n_out,
-                                                                   o, grads);
+    wide_bias_add<2><<<(2 * h + n_out + 255) / 256, 256, 0, stream>>>(t.S1, bias_slices, h,
+                                                                      n_out, o, grads);
     CNF_WIDE_TRY(cudaGetLastError());
   }
   return cudaSuccess;

@@ -115,8 +115,8 @@ struct Convert {
   int rows[kConvert], cols[kConvert], ld[kConvert];
 };
 
-// Owner: the kernel that launches it (1: K1, 2: K2), so that a profile tells
-// their launches apart.
+// Owner: the kernel that launches it (1: K1, 2: K2, 3: K3, 4: K4), so that a
+// profile tells their launches apart.
 template <int Owner>
 __global__ void __launch_bounds__(256) wide_to_bf16(const __grid_constant__ Convert cv) {
   const int j = blockIdx.y, cols = cv.cols[j], ld = cv.ld[j];
@@ -130,7 +130,8 @@ __global__ void __launch_bounds__(256) wide_to_bf16(const __grid_constant__ Conv
 
 // C: carves the bf16 copies of eps, x, A1, A2, A3 (in that order,
 // input_copy_halves of them) from q, launches their conversion, and points
-// o's inputs at them with their padded rows.
+// o's inputs at them with their padded rows.  With x null the x slot is left
+// to the caller (the wide solves write their stage inputs there).
 template <int Owner>
 cudaError_t convert_inputs(const float* x, const float* eps, const Weights& w, const Dims& d,
                            int B, bf16* q, FwdOperands& o, cudaStream_t stream) {
@@ -142,7 +143,8 @@ cudaError_t convert_inputs(const float* x, const float* eps, const Weights& w, c
   bf16* a2 = a1 + (long)h * ldi;
   bf16* a3 = a2 + (long)h * ldh;
   const Convert cv{{x, eps, w.A1, w.A2, w.A3}, {x16, eps16, a1, a2, a3},
-                   {B, B, h, h, n_out}, {d.n_in, d.nz, d.n_in, h, h}, {ldi, ldz, ldi, ldh, ldh}};
+                   {x ? B : 0, B, h, h, n_out}, {d.n_in, d.nz, d.n_in, h, h},
+                   {ldi, ldz, ldi, ldh, ldh}};
   int most = B > h ? B : h;
   most = most > n_out ? most : n_out;
   wide_to_bf16<Owner><<<dim3(most < 1024 ? most : 1024, kConvert), 256, 0, stream>>>(cv);

@@ -38,12 +38,12 @@ _F = ctypes.c_float
 # argtypes of each C entry point, in the order of its C signature
 _SIGNATURES = {
     "cnf_fused_dynamics_fwd": [_P] * 17 + [_I] * 6 + [_P],
-    "cnf_fused_solve_rk4_fwd": [_P] * 15 + [_I] * 10 + [_P],
+    "cnf_fused_solve_rk4_fwd": [_P] * 16 + [_I] * 10 + [_P],
     "cnf_fused_dynamics_bwd": [_P] * 21 + [_I] * 6 + [_P],
-    "cnf_fused_solve_rk4_bwd": [_P] * 20 + [_I] * 10 + [_P],
+    "cnf_fused_solve_rk4_bwd": [_P] * 21 + [_I] * 10 + [_P],
     "cnf_fused_adaptive_fwd": [_P] * 17 + [_I] * 10 + [_F] * 6 + [_P],
     "cnf_fused_adaptive_bwd": [_P] * 24 + [_I] * 11 + [_F] * 6 + [_P],
-    "cnf_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_fwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_bwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_solve_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
@@ -121,20 +121,8 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
 
 
-@functools.cache
-def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0):
-    """K3's launch shape for these widths (``sd``: the whole-solve kernel's
-    state width; with ``sd = 0`` K1's short of its wide path, which
-    :func:`fwd_plan` names): ``(rows per block, weights staged in shared
-    memory, H)``, where ``H > 0`` is the row-per-thread path with hidden
-    width padded to ``H`` (a multiple of 4) and ``H == 0`` the tiled path."""
-    info = (ctypes.c_int * 2)()
-    rows = kernels().cnf_plan(n_in, h, n_out, nz, sd, info)
-    return rows, bool(info[0]), int(info[1])
-
-
 class FwdPlan(NamedTuple):
-    """K1's launch shape (:func:`fwd_plan`)."""
+    """K1's and K3's launch shape (:func:`fwd_plan`, :func:`plan`)."""
 
     rows: int      # rows a block (row path: threads a block, one row each); 0: do not fit
     staged: bool   # weights staged in shared memory
@@ -159,6 +147,21 @@ def fwd_plan(n_in: int, h: int, n_out: int, nz: int, batch: int) -> FwdPlan:
     return FwdPlan(rows, bool(info[0]), int(info[1]), int(info[2]))
 
 
+@functools.cache
+def plan(n_in: int, h: int, n_out: int, nz: int, sd: int = 0, batch: int = 1) -> FwdPlan:
+    """K3's launch shape at these widths and batch (``sd``: the state width;
+    with ``sd = 0`` K1's short of its wide path, which :func:`fwd_plan`
+    names; ``cnf_plan`` in K3's source).  ``path`` names it: ``"row"`` (h <=
+    32: one row a thread in blocks of ``rows`` threads, hidden width padded
+    to ``H``, a multiple of 4), ``"wide"`` (K3 from ``kSolveWideMinH``: the
+    solve as a chain of products over the batch, ``rows`` rows an output
+    tile, in a scratch of ``scratch`` floats that the wrapper allocates) or
+    ``"tiled"`` (``rows`` rows a block)."""
+    info = (ctypes.c_int * 3)()
+    rows = kernels().cnf_plan(n_in, h, n_out, nz, sd, batch, info)
+    return FwdPlan(rows, bool(info[0]), int(info[1]), int(info[2]))
+
+
 class BwdPlan(NamedTuple):
     """A backward kernel's launch shape (:func:`bwd_plan`)."""
 
@@ -167,7 +170,7 @@ class BwdPlan(NamedTuple):
     grid: int      # rows of the (grid, parameter count) partial-sum buffer; 0: none
     n_params: int  # parameter count
     H: int         # > 0: the row path, hidden width padded to H
-    scratch: int   # > 0: K2's wide path, its scratch floats at this batch
+    scratch: int   # > 0: the wide path, its scratch floats at this batch
 
     @property
     def path(self) -> str:
@@ -179,12 +182,14 @@ def bwd_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, batch: int) -> Bwd
     """The backward kernels' launch shape (``sd``: the whole-solve kernel's
     state width, 0 for the single stage).  ``path`` names it: ``"row"``
     (K4: h <= 32, K2: h <= 24; one row a thread in blocks of ``rows``
-    threads, hidden width padded to ``H``), ``"wide"`` (K2 from h = 64: a
-    chain of products over the batch, ``rows`` rows an output tile, in a
-    scratch of ``scratch`` floats) or ``"tiled"`` (``rows`` rows a tile).  The wrapper allocates the ``(grid, n_params)`` buffer of
-    weight-gradient partial sums (per block; the wide path's per slice of the
-    batch) and the scratch.  Each kernel's source plans its own launch: K2's
-    ``cnf_bwd_plan``, K4's ``cnf_solve_bwd_plan``."""
+    threads, hidden width padded to ``H``), ``"wide"`` (K2 from
+    ``kWideMinH``, K4 from ``kSolveWideMinH``: a chain of products over the
+    batch, ``rows`` rows an output tile, in a scratch of ``scratch``
+    floats) or ``"tiled"`` (``rows`` rows a tile).  The wrapper allocates
+    the ``(grid, n_params)`` buffer of weight-gradient partial sums (per
+    block; the wide path's per slice of the batch) and the scratch.  Each
+    kernel's source plans its own launch: K2's ``cnf_bwd_plan``, K4's
+    ``cnf_solve_bwd_plan``."""
     info = (ctypes.c_int * 5)()
     lib = kernels()
     rows = (lib.cnf_solve_bwd_plan(n_in, h, n_out, nz, sd, batch, info) if sd

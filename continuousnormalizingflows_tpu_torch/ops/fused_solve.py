@@ -1,4 +1,4 @@
-"""K3: the whole fixed-step RK4 solve of the augmented state in one launch.
+"""K3: the whole fixed-step RK4 solve of the augmented state in one call.
 
 Counterpart of ``continuousnormalizingflows_tpu.ops.pallas_solve``.  State
 per row ``u = [z (nz), dlogp, E, n]``; each stage runs the fused dynamics of
@@ -10,7 +10,10 @@ kernel (``csrc/fused_solve.cu``) for a CUDA tensor.  It is a
 ``torch.autograd.Function`` whose backward is K4 (``csrc/fused_solve_bwd.cu``,
 :func:`fused_solve_rk4_bwd`), the exact discrete backward of the solve, for
 CUDA tensors and its plain version (:func:`fused_solve_rk4_bwd_reference`)
-for CPU tensors.
+for CPU tensors.  From a hidden width of 64 both run their wide paths
+(``csrc/wide_solve.cuh``): chains of products over the whole batch, issued
+from the one call, in a scratch the wrapper allocates (``_build.plan``,
+``_build.bwd_plan``).
 """
 
 from __future__ import annotations
@@ -201,19 +204,22 @@ def _launch_fwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, compute_dtype):
     bf16 = _precision(compute_dtype) == "default"
     weights = kernel_operands(weights, u0, eps, ys, t0, dt)
     b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
-    _rows, staged, _h_pad = _build.plan(n_in, h, n_out, n_out, sd)
+    plan = _build.plan(n_in, h, n_out, n_out, sd, b)
+    if plan.rows == 0:
+        raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
     a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, staged)
+    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
     u0, eps = u0.contiguous(), eps.contiguous()
     ys = None if ys is None else ys.contiguous()
     u1 = torch.empty_like(u0)
+    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=u0.device)
     lib = _build.kernels()
     with torch.cuda.device(u0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_solve_rk4_fwd(
             _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2),
             _ptr(a3), _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(dt), _ptr(u1),
-            b, sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, steps,
+            _ptr(scratch), b, sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, steps,
             int(bf16), stream,
         )
     _build.check(err, "fused_solve_rk4_fwd")
@@ -228,11 +234,11 @@ def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dt
     b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
     if gbar.shape != u0.shape:
         raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
-    rows, staged, grid, n_params = _build.bwd_plan(n_in, h, n_out, nz, sd, b)[:4]
-    if rows == 0:
+    plan = _build.bwd_plan(n_in, h, n_out, nz, sd, b)
+    if plan.rows == 0:
         raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
     a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, staged)
+    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
     u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
     ys = None if ys is None else ys.contiguous()
     dev = u0.device
@@ -240,16 +246,17 @@ def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dt
     epsbar = torch.empty_like(eps)
     # scratch of the step trajectory, steps x B x nz floats in the layout of the path
     traj = torch.empty((steps * b * nz,), dtype=torch.float32, device=dev)
-    partial = torch.empty((grid, n_params), dtype=torch.float32, device=dev)
-    grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
+    partial = torch.empty((plan.grid, plan.n_params), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=dev)
+    grads = torch.empty((plan.n_params,), dtype=torch.float32, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_solve_rk4_bwd(
             _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2),
             _ptr(a3), _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(dt),
-            _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(traj), _ptr(partial), _ptr(grads),
-            b, sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, steps,
+            _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(traj), _ptr(partial), _ptr(scratch),
+            _ptr(grads), b, sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, steps,
             int(bf16), stream,
         )
     _build.check(err, "fused_solve_rk4_bwd")

@@ -151,15 +151,27 @@ SOLVE_CASES = {
     "h32_autonomous": dict(kw=dict(autonomous=True), span=(0.0, 1.0), h=32),
     "ragged_conditioned": dict(kw=dict(nconditions=2), span=(0.0, 1.0), b=13),
     "ragged_autonomous": dict(kw=dict(autonomous=True), span=(1.0, 0.0), b=13),
+    # K4's wide path (h >= 64): its least hidden width, nvariables = 8 (nz =
+    # 17), 4 steps, fp32 and bf16
+    "h64_conditioned": dict(kw=dict(nconditions=2, nvariables=8), span=(0.0, 1.0), h=64,
+                            steps=4),
+    "h64_autonomous": dict(kw=dict(autonomous=True, nvariables=8), span=(1.0, 0.0), h=64,
+                           steps=4),
+    "h64_conditioned_bf16": dict(kw=dict(nconditions=2, nvariables=8), span=(0.0, 1.0), h=64,
+                                 steps=4, bf16=True),
+    "h64_autonomous_bf16": dict(kw=dict(autonomous=True, nvariables=8), span=(1.0, 0.0), h=64,
+                                steps=4, bf16=True),
 }
 
 
 def _solve_setup(case, b=16):
-    kw = SOLVE_CASES[case]["kw"]
+    kw = dict(SOLVE_CASES[case]["kw"])
+    nvariables = kw.pop("nvariables", 2)
     b = SOLVE_CASES[case].get("b", b)
+    steps = SOLVE_CASES[case].get("steps", STEPS)
     jicnf = jcnf.ICNF.create(
-        nvariables=2, solver=JSolver(method="rk4", gradient="backprop", fixed_steps=STEPS,
-                                     remat=False), **kw)
+        nvariables=nvariables, solver=JSolver(method="rk4", gradient="backprop",
+                                              fixed_steps=steps, remat=False), **kw)
     cfg = jicnf.config
     jparams = jax.device_get(jicnf.init(jax.random.PRNGKey(0)))
     if "h" in SOLVE_CASES[case]:
@@ -177,7 +189,8 @@ def _solve_setup(case, b=16):
 def test_solve_backward_matches_jax_kernel(case):
     cfg, jparams, u0, eps, ys, gbar = _solve_setup(case)
     span = SOLVE_CASES[case]["span"]
-    bf16 = case == "bf16"
+    bf16 = case == "bf16" or SOLVE_CASES[case].get("bf16", False)
+    steps = cfg.solver.fixed_steps
     nz = cfg.nz
     t_col = None if cfg.autonomous else nz
     # the JAX kernel takes whole tiles; rows with a zero cotangent add nothing
@@ -186,7 +199,7 @@ def test_solve_backward_matches_jax_kernel(case):
              for a in (u0, eps, ys, gbar)]
 
     def f(u, e, p):
-        return jax_solve(u, e, jrows[2], p, span, nz, t_col, STEPS, TILE,
+        return jax_solve(u, e, jrows[2], p, span, nz, t_col, steps, TILE,
                          jnp.bfloat16 if bf16 else None)
 
     ubar, ebar, pbar = jax.jit(lambda u, e, p, g: jax.vjp(f, u, e, p)[1](g))(
@@ -194,7 +207,7 @@ def test_solve_backward_matches_jax_kernel(case):
     got = fused_solve_rk4_bwd_reference(
         torch.from_numpy(u0), torch.from_numpy(eps),
         None if ys is None else torch.from_numpy(ys), params_from_jax(jparams), span, nz, t_col,
-        STEPS, torch.from_numpy(gbar), torch.bfloat16 if bf16 else None)
+        steps, torch.from_numpy(gbar), torch.bfloat16 if bf16 else None)
     _close_to_max(_flat_port(got), _flat_jax(ubar[:b], ebar[:b], pbar),
                   SOLVE_TOL["bf16" if bf16 else None])
 

@@ -32,3 +32,12 @@ def test_resident_blocks_follow_registers_and_shared_memory():
     assert chip_smoke.resident_blocks(168, 128, 52_004) == (3, 3, 4)
     # K3's row kernel: 256 threads, 39,668 B
     assert chip_smoke.resident_blocks(128, 256, 39_668) == (2, 2, 5)
+
+
+def test_kernel_label_reads_a_namespace_by_its_length():
+    # nvcc's name of K3's row kernel from a build where the anonymous
+    # namespace's name ends in a word, not in 8 hex digits
+    k3 = ("_ZN47_GLOBAL__N__a743282b_14_fused_solve_cu_cnf_plan20fused_solve_rk4_rows"
+          "ILi32ELb0EEEvPKfS2_S2_N3cnf7WeightsENS3_4DimsES2_S2_Pfiiiii")
+    assert chip_smoke.kernel_label(k3) == "fused_solve_rk4_rows<32, 0>"
+    assert chip_smoke.kernel_label(K5) == "adaptive_fwd_rows<24>"

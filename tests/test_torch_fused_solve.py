@@ -18,6 +18,7 @@ import continuousnormalizingflows_tpu as jcnf
 import continuousnormalizingflows_tpu_torch as tcnf
 from continuousnormalizingflows_tpu.config import Mode as JMode
 from continuousnormalizingflows_tpu.config import SolverConfig as JSolver
+from continuousnormalizingflows_tpu.models.nets import MLP as JMLP
 from continuousnormalizingflows_tpu.ops.adjoint import odeint_diff as j_odeint_diff
 from continuousnormalizingflows_tpu.ops.dynamics import make_augmented_dynamics as j_make
 from continuousnormalizingflows_tpu.ops.pallas_solve import fused_solve_rk4 as j_fused_solve
@@ -37,14 +38,24 @@ CASES = {
     "plain": dict(),
     "conditioned": dict(nconditions=2),
     "autonomous": dict(autonomous=True),
+    # the widths of K3's wide path on the card, whose plain twin this is:
+    # its least hidden width, nvariables = 8 (nz = 17), 4 steps
+    "h64_conditioned": dict(nconditions=2, nvariables=8),
+    "h64_autonomous": dict(autonomous=True, nvariables=8),
 }
+WIDE = {"h64_conditioned": (64, 4), "h64_autonomous": (64, 4)}  # (hidden width, steps)
 
 
 def _setup(case, b=B):
-    kw = CASES[case]
-    jicnf = jcnf.ICNF.create(
-        nvariables=2, solver=JSolver(method="rk4", gradient="backprop", fixed_steps=STEPS,
-                                     remat=False), **kw)
+    kw = dict(CASES[case])
+    nvariables = kw.pop("nvariables", 2)
+    h, steps = WIDE.get(case, (None, STEPS))
+    solver = JSolver(method="rk4", gradient="backprop", fixed_steps=steps, remat=False)
+    jicnf = jcnf.ICNF.create(nvariables=nvariables, solver=solver, **kw)
+    if h:
+        cfg = jicnf.config
+        jicnf = jcnf.ICNF.create(nvariables=nvariables, solver=solver,
+                                 net=JMLP((cfg.n_in, h, h, cfg.nz)), **kw)
     cfg = jicnf.config
     jparams = jax.device_get(jicnf.init(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(1)
@@ -58,14 +69,15 @@ def _port(cfg, jparams, u0, eps, ys, tspan, cdt=None):
     return fused_solve_rk4_reference(
         torch.from_numpy(u0), torch.from_numpy(eps[0]),
         None if ys is None else torch.from_numpy(ys), params_from_jax(jparams), tspan,
-        cfg.nz, None if cfg.autonomous else cfg.nz, STEPS, cdt,
+        cfg.nz, None if cfg.autonomous else cfg.nz, cfg.solver.fixed_steps, cdt,
     ).numpy()
 
 
 def _jax_kernel(cfg, jparams, u0, eps, ys, tspan, cdt=None):
     t_col = None if cfg.autonomous else cfg.nz
+    steps = cfg.solver.fixed_steps
     return np.asarray(jax.jit(
-        lambda u, e, p: j_fused_solve(u, e[0], ys, p, tspan, cfg.nz, t_col, STEPS, 8, cdt)
+        lambda u, e, p: j_fused_solve(u, e[0], ys, p, tspan, cfg.nz, t_col, steps, 8, cdt)
     )(u0, eps, jparams))
 
 
@@ -100,6 +112,15 @@ def test_plain_matches_jax_solve(case, span):
 
 def test_plain_bf16_matches_jax_bf16_kernel():
     jicnf, jparams, u0, eps, ys = _setup("plain")
+    got = _port(jicnf.config, jparams, u0, eps, ys, (0.0, 1.0), torch.bfloat16)
+    want = _jax_kernel(jicnf.config, jparams, u0, eps, ys, (0.0, 1.0), jnp.bfloat16)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", WIDE)
+def test_plain_bf16_matches_jax_bf16_kernel_wide(case):
+    """The bf16 comparison above at the widths of K3's wide path."""
+    jicnf, jparams, u0, eps, ys = _setup(case)
     got = _port(jicnf.config, jparams, u0, eps, ys, (0.0, 1.0), torch.bfloat16)
     want = _jax_kernel(jicnf.config, jparams, u0, eps, ys, (0.0, 1.0), jnp.bfloat16)
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)

@@ -57,6 +57,14 @@ def _params(widths, dev, seed=0):
 TOL = {None: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SOLVE_TOL = {None: (5e-4, 5e-5), torch.bfloat16: (5e-2, 5e-2)}
 
+# K3's and K4's least hidden width on their wide paths (kSolveWideMinH in
+# csrc/wide_solve.cuh), and the widths of their wide-path tests: h -> nz, a
+# conditioned net input (n_in = nz + 3: the time and 2 conditions), nz = 29
+# and 125 not multiples of 8, h = 512 at the gate's limits (net input and
+# state 128)
+SOLVE_WIDE_MIN_H = 64
+SOLVE_WIDE_WIDTHS = {64: 20, 128: 29, 176: 43, 256: 64, 512: 125}
+
 
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
 # h <= 32 takes the row-per-thread path (h = 20 padded to 24), wider the tiled one
@@ -79,10 +87,13 @@ def test_fused_dynamics_kernel_matches_plain(dev, n_in, h, nz, b, cdt):
 
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize(
-    "case", ["plain", "conditioned", "autonomous", "reversed", "padded", "tabular", "widest"]
+    "case", ["plain", "conditioned", "autonomous", "reversed", "padded", "tabular", "widest",
+             "wide-conditioned", "wide-autonomous", "wide-reversed"]
 )
 def test_fused_solve_kernel_matches_plain(dev, case, cdt):
     nz, nc, t_col, span, h, b = 5, 0, 5, (0.0, 1.0), 24, 999
+    if case.startswith("wide-"):  # the wide path at its least width (tabular, widest: wider)
+        h, case = SOLVE_WIDE_MIN_H, case[5:]
     if case == "conditioned":
         nc = 2
     if case == "autonomous":
@@ -398,7 +409,7 @@ def _check_fwd_plan(plan, n_in, h, nz, b):
         assert (plan.rows, plan.staged, plan.H) == (64, False, 0)
         assert plan.scratch >= 4 * b * h
     else:
-        assert tuple(plan) == (*choice, 0)
+        assert tuple(plan) == tuple(choice)
 
 
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
@@ -463,10 +474,11 @@ def test_fused_dynamics_wide_memory(dev, cdt):
 
 
 def test_fwd_plan_names_the_path(dev):
-    """K1's plan (cnf_fwd_plan) beside cnf::choose's, which K3 keeps: the row
-    path up to h = 32 where the weights fit, the wide path from
-    K1_WIDE_MIN_H, the tiled path between and wherever a row's weights do
-    not fit the row path short of the wide one; K3 (sd > 0) never wide."""
+    """K1's plan (cnf_fwd_plan) beside cnf::choose's, which K3 keeps short of
+    its own wide path: the row path up to h = 32 where the weights fit, the
+    wide path from K1_WIDE_MIN_H, the tiled path between and wherever a
+    row's weights do not fit the row path short of the wide one; K3 (sd >
+    0) wide from SOLVE_WIDE_MIN_H."""
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     for h, n_in, nz in ((8, 6, 5), (12, 3, 2), (24, 6, 5), (32, 6, 5)):
@@ -474,11 +486,12 @@ def test_fwd_plan_names_the_path(dev):
         assert _build.fwd_plan(n_in, h, nz, nz, 1000).H == -(-h // 4) * 4
     for h in range(33, 65):
         _check_fwd_plan(_build.fwd_plan(6, h, 5, 5, 1000), 6, h, 5, 1000)
-        assert _build.plan(6, h, 5, 5, 8)[2] == 0  # K3: tiled
+        assert _build.plan(6, h, 5, 5, 8)[2] == 0
+        assert _build.plan(6, h, 5, 5, 8).path == ("wide" if h >= SOLVE_WIDE_MIN_H else "tiled")
     for n_in, h, nz, b in ((44, 176, 43, 8_192), (65, 256, 64, 256), (785, 1024, 784, 256)):
         plan = _build.fwd_plan(n_in, h, nz, nz, b)
         _check_fwd_plan(plan, n_in, h, nz, b)
-        assert _build.plan(n_in, h, nz, nz, nz + 3)[2] == 0
+        assert _build.plan(n_in, h, nz, nz, nz + 3).path == "wide"
     # the image model's scratch, 9.3 MB: s1, s2, two operand arrays and the
     # bf16 copies of the inputs
     assert _build.fwd_plan(785, 1024, 784, 784, 256).scratch * 4 < 10 * 2**20
@@ -488,6 +501,8 @@ def test_fwd_plan_names_the_path(dev):
 
 def _solve_case(case, dev):
     nz, nc, t_col, span, h, b = 5, 0, 5, (0.0, 1.0), 24, 999
+    if case.startswith("wide-"):  # the wide path at its least width (tabular, widest: wider)
+        h, case = SOLVE_WIDE_MIN_H, case[5:]
     if case == "conditioned":
         nc = 2
     if case == "autonomous":
@@ -521,7 +536,8 @@ def _solve_case(case, dev):
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize(
     "case", ["plain", "conditioned", "autonomous", "reversed", "padded", "ffjord", "tabular",
-             "widest", "h8", "h16", "h32", "h33", "b1", "b127", "b129"]
+             "widest", "h8", "h16", "h32", "h33", "b1", "b127", "b129", "wide-conditioned",
+             "wide-autonomous", "wide-reversed"]
 )
 def test_fused_solve_bwd_kernel_matches_plain(dev, case, cdt):
     args, gbar = _solve_case(case, dev)
@@ -532,6 +548,67 @@ def test_fused_solve_bwd_kernel_matches_plain(dev, case, cdt):
     assert fused_solve_rk4_bwd.launches == before + 1
     want = fused_solve_rk4_bwd_reference(*args, steps, gbar, cdt)
     _close_to_max(_flat(got), _flat(want), SOLVE_BWD_TOL[cdt])
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 7, 255, 256, 257, 1000])
+@pytest.mark.parametrize("h", list(SOLVE_WIDE_WIDTHS))
+def test_fused_solve_wide_nets(dev, h, b, cdt):
+    """K3 and K4 on their wide paths, 6 steps over a span that ends at a
+    device scalar: the path their plans name, each against its plain version
+    (SOLVE_TOL, SOLVE_BWD_TOL), the same bits twice, one launch counted a
+    call."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    nz = SOLVE_WIDE_WIDTHS[h]
+    n_in = sd = nz + 3
+    assert _build.plan(n_in, h, nz, nz, sd, b).path == "wide"
+    assert _build.bwd_plan(n_in, h, nz, nz, sd, b).path == "wide"
+    params = _params((n_in, h, h, nz), dev, seed=h)
+    g = torch.Generator(device=dev).manual_seed(b)
+    u0 = 0.5 * torch.randn((b, sd), generator=g, device=dev)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    ys = torch.randn((b, 2), generator=g, device=dev)
+    gbar = torch.randn((b, sd), generator=g, device=dev)
+    args = (u0, eps, ys, params, (0.0, torch.tensor(1.05, device=dev)), nz, nz, 6)
+    before = (fused_solve_rk4.launches, fused_solve_rk4_bwd.launches)
+    u1, again = fused_solve_rk4(*args, cdt), fused_solve_rk4(*args, cdt)
+    got = _flat(fused_solve_rk4_bwd(*args, gbar, cdt))
+    twice = _flat(fused_solve_rk4_bwd(*args, gbar, cdt))
+    torch.cuda.synchronize()
+    assert (fused_solve_rk4.launches, fused_solve_rk4_bwd.launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    assert torch.equal(u1, again) and all(torch.equal(a, c) for a, c in zip(got, twice))
+    torch.testing.assert_close(u1, fused_solve_rk4_reference(*args, cdt), rtol=SOLVE_TOL[cdt][0],
+                               atol=SOLVE_TOL[cdt][1])
+    _close_to_max(got, _flat(fused_solve_rk4_bwd_reference(*args, gbar, cdt)), SOLVE_BWD_TOL[cdt])
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_solve_wide_memory(dev, cdt):
+    """K3 and K4 at the digits-shaped fit (65 -> 256 -> 256 -> 64, B = 256,
+    rk4-24) add under 8 MB (K3: its output and scratch) and 16 MB (K4: its
+    outputs, scratch, trajectory and the slices' partial gradients) to the
+    device's peak."""
+    nz, h, b = 64, 256, 256
+    n_in = nz + 1
+    params = _params((n_in, h, h, nz), dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
+                    torch.zeros((b, 3), device=dev)], dim=-1)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    gbar = torch.randn((b, nz + 3), generator=g, device=dev)
+    args = (u0, eps, None, params, (0.0, 1.0), nz, nz, 24)
+    for fn, limit in ((lambda: [fused_solve_rk4(*args, cdt)], 8),
+                      (lambda: _flat(fused_solve_rk4_bwd(*args, gbar, cdt)), 16)):
+        fn()  # builds the kernels
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated(dev) - base < limit * 2**20
+        assert all(torch.isfinite(t).all() for t in out)
 
 
 # K2's and K4's row path, then their tiled path; K6's walk on its row path (h = 24),
@@ -598,7 +675,22 @@ def test_bwd_plan_names_the_path(dev):
     _check_wide_plan(_build.bwd_plan(6, 64, 5, 5, 0, 1000), 1000, 64, 5)
     assert _build.bwd_plan(6, 64, 5, 5, 0, 1000)[:5] == (64, False, 8, n_params, 0)
     assert _build.bwd_plan(44, 176, 43, 43, 0, 1000).path == "wide"
-    assert _build.bwd_plan(44, 176, 43, 43, 46, 1000).path == "tiled"
+    # K3 and K4 take their wide paths from SOLVE_WIDE_MIN_H, the tiled path
+    # below: 64-row output tiles, K2's slices of the batch, a scratch of at
+    # least the fp32 chains' floats a row
+    for h in (33, 48, 63):
+        assert _build.bwd_plan(6, h, 5, 5, 8, 1000).path == "tiled"
+        assert _build.plan(6, h, 5, 5, 8, 1000).path == "tiled"
+    for h, b in ((64, 1000), (176, 8_192), (256, 256), (512, 65_536)):
+        nz = SOLVE_WIDE_WIDTHS[h]
+        n_in = nz + 3
+        k4 = _build.bwd_plan(n_in, h, nz, nz, nz + 3, b)
+        assert (k4.path, k4.rows, k4.staged, k4.H) == ("wide", 64, False, 0)
+        assert k4.grid == _build.bwd_plan(n_in, h, nz, nz, 0, b).grid
+        assert k4.scratch >= b * (13 * h + 9 * nz)
+        k3 = _build.plan(n_in, h, nz, nz, nz + 3, b)
+        assert (k3.path, k3.rows, k3.staged, k3.H) == ("wide", 64, False, 0)
+        assert k3.scratch >= b * 6 * h
     for h in (33, 128):
         plan = _build.adaptive_plan(6, h, 5, 5, 8, 128)
         assert plan[0] == 0 and plan[5:] == (0, 1) and plan[3] > 0
