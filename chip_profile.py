@@ -12,6 +12,7 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py fwd-widths
     python3 chip_profile.py adaptive-widths
     python3 chip_profile.py sass
+    python3 chip_profile.py nccl
 
 Each row runs the flagship 2-D RNODE (or its FFJORD form) at 65,536 samples,
 or ``chip_smoke.py``'s image model (d = 784, h = 1024) at batch 256 (its
@@ -57,7 +58,15 @@ two checkouts in one call, the width modes compare two commits width by
 width, and so do the rows.  ``sass`` reads the instruction mix (``cuobjdump
 -sass``), the registers, local memory and resident blocks an SM
 (``cuobjdump -res-usage``) and the spills (the build's ptxas lines) of the
-row kernels of K1, K3, K5 and K6's replay in the built library.  Imports nothing of JAX.
+row kernels of K1, K3, K5 and K6's replay in the built library.  ``nccl``
+needs a machine with several cards and takes them all: the parallel layer
+on NCCL, one rank a card.  It fits ``chip_smoke.py``'s digits-shaped model
+with ``mesh=`` at global batches 256 and 1,024 (the rows split over the
+ranks) and takes one step of the flagship's default adaptive stack on
+65,536 rows, each against one process on card 0 at the same batch: the
+StepTimer rates (and the default stack's step by the host clock), the
+NCCL all-reduce's device ms a step, the collectives a step, and the
+params against one process's.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -848,6 +857,130 @@ def adaptive_widths(dev):
     return out
 
 
+NCCL_BATCHES = (256, 1024)  # the digits fit's global batch a step
+NCCL_STEPS = 16
+NCCL_JOIN_S = 420
+
+
+def nccl_runs(dev, mesh=None, profile=False):
+    """The ``nccl`` mode's runs on this process's card, with ``mesh=`` or
+    alone: the digits fit at each of NCCL_BATCHES (``(rate, params,
+    profile, collectives)``) and the default stack's step (the second of
+    two, by the host clock)."""
+    import functools
+
+    import chip_smoke as cs
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.utils import datasets as ds
+
+    xd = ds.smooth_image_mixture(torch.Generator(device=dev).manual_seed(3),
+                                 NCCL_STEPS * max(NCCL_BATCHES), cs.DIGITS_SIDE)
+    shift = functools.partial(ds.random_shift_images, side=cs.DIGITS_SIDE, prob=0.5)
+    icnf = cs.image_model(cs.DIGITS_SIDE, cs.DIGITS_HIDDEN, fused=True)
+    where = f"{mesh.size()} NCCL ranks" if mesh is not None else "one card"
+    out = {}
+    for b in NCCL_BATCHES:
+        prof = {} if profile else None
+        with cs.ShardStepSpy() as spy:
+            res, rate, _launched = cs.image_fit(
+                f"digits-shaped, {where}, batch {b}", icnf, xd, NCCL_STEPS,
+                dict(cs.NO_LAUNCH, K3=1, K4=1), dev, batch_transform=shift, mesh=mesh,
+                profile=prof, batch=b)
+        out[b] = dict(rate=rate, params={k: v.cpu() for k, v in res.params.items()},
+                      profile=prof, collectives=dict(spy.made[-1].counts) if spy.made else {})
+    x = ds.gaussian_mixture(torch.Generator(device=dev).manual_seed(1), cs.BATCH)
+    default = cnf.ICNF.create(nvariables=2)
+    run = ((lambda: cs.sharded_grads(default, x, mesh, 11)) if mesh is not None
+           else (lambda: cs.whole_grads(default, x, 11)))
+    run()
+    step, secs = cs.host_seconds(run)
+    out["default"] = dict(step, seconds=secs)
+    return out
+
+
+def nccl_rank(rank, world, store, work):
+    """A rank of the ``nccl`` mode: card ``rank``, results to
+    ``work/r<rank>.pt``, a failure's traceback to ``work/error_r<rank>.txt``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from continuousnormalizingflows_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    try:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", rank)
+        initialize_distributed(backend="nccl", init_method=f"file://{store}",
+                               world_size=world, rank=rank, device_id=dev,
+                               timeout=datetime.timedelta(seconds=NCCL_JOIN_S))
+        out = nccl_runs(dev, make_mesh(), profile=rank == 0)
+        torch.save(out, Path(work) / f"r{rank}.pt")
+        dist.destroy_process_group()
+    except Exception:
+        (Path(work) / f"error_r{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def nccl(dev):
+    """The parallel layer on every card of the machine, against card 0 alone."""
+    import multiprocessing as mp
+
+    import chip_smoke as cs
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise SystemExit("nccl: needs a machine with several cards")
+    one = nccl_runs(dev)
+    work = Path("chiprun_out/nccl_mode").resolve()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=nccl_rank, args=(r, world, str(work / "store"), str(work)))
+             for r in range(world)]
+    start = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, NCCL_JOIN_S - (time.perf_counter() - start)))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [f.read_text() for f in sorted(work.glob("error_r*.txt"))]
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise SystemExit(f"nccl: ranks hung {hung}, exit codes {[p.exitcode for p in procs]}\n"
+                         + "\n".join(errors))
+    ranks = [torch.load(work / f"r{r}.pt") for r in range(world)]
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"world": world, "card": cs.nvidia_smi()}
+    for b in NCCL_BATCHES:
+        got = ranks[0][b]
+        err = cs.compare_to_max(f"nccl: {world} ranks' digits params vs one card's, batch {b}",
+                                [got["params"][k] for k in one[b]["params"]],
+                                list(one[b]["params"].values()), cs.PARALLEL_PARAM_TOL)
+        out[b] = dict(rate_one=one[b]["rate"], rates=[r[b]["rate"] for r in ranks],
+                      speedup=got["rate"] / one[b]["rate"], profile=got["profile"],
+                      collectives=got["collectives"], params_max_abs_err=err)
+        print(f"nccl batch {b}: one card {one[b]['rate']:.1f} train samples/s, {world} ranks "
+              f"{got['rate']:.1f} ({out[b]['speedup']:.3f}x); collectives a step "
+              f"{got['collectives']}; rank 0's step: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in got["profile"].items()), flush=True)
+    d1, dw = one["default"], ranks[0]["default"]
+    if any(r["default"]["stats"] != d1["stats"] for r in ranks):
+        raise SystemExit(f"nccl: default stack stats {[r['default']['stats'] for r in ranks]} "
+                         f"vs one card's {d1['stats']}")
+    out["default"] = dict(seconds_one=d1["seconds"], seconds=[r["default"]["seconds"]
+                                                             for r in ranks],
+                          stats=d1["stats"], collectives=dw["collectives"])
+    print(f"nccl default stack, 65,536 rows: one card {d1['seconds'] * 1e3:.3f} ms a step, "
+          f"{world} ranks {dw['seconds'] * 1e3:.3f} ms; stats {d1['stats']} on every rank; "
+          f"collectives {dw['collectives']} ({out['card']})", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this profile needs an NVIDIA GPU", flush=True)
@@ -866,7 +999,8 @@ def main() -> None:
                        ("k2-phases", k2_phases), ("k1-wide", k1_wide), ("k1-phases", k1_phases),
                        ("solve-wide", solve_wide),
                        ("widths", widths),
-                       ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths)):
+                       ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths),
+                       ("nccl", nccl)):
         if name in wanted:
             wanted.remove(name)
             out[name] = mode(dev)

@@ -19,7 +19,11 @@ h = 1024, batch 256, through K1 + K2, both on their wide paths; StepTimer,
 profiling.trace, an AsyncCheckpointer save during the fit, the exported
 dopri5 eval) and the
 digits-shaped path (d = 64, h = 256, through K3 + K4, random_shift_images,
-the exported sampler), and checks that the kernels carried each path.  The
+the exported sampler), then the parallel layer ([parallel]: a world of 1 on
+NCCL, whose ``ICNFModel(mesh=)`` digits fit must give the unsharded fit's
+bits through K3 + K4, and 2 gloo ranks spawned on the one card, whose
+sharded digits fit, default adaptive stack and K5 + K6 step must agree
+with one process), and checks that the kernels carried each path.  The
 kernels line (third from last) gives each kernel's bound: the least time
 the card could take for its work, fp32 FMAs at the published peak or bytes
 at the memory rate (bf16 rows: at the bf16 tensor-core peak); K2 and K1
@@ -102,6 +106,12 @@ IMAGE_POINTS = IMAGE_FIT_STEPS * IMAGE_BATCH
 # the exported log-density against the eager call on the card: the same
 # operations, captured (equal steps asked for too)
 EXPORT_RTOL = 1e-5
+# [parallel]: the 2-rank digits fit's steps, and its tolerances against one
+# process (the bf16 kernels sum each rank's 128 rows, then the ranks' sums)
+PARALLEL_RANK_STEPS = 4
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_PARAM_TOL = 1e-3
+PARALLEL_JOIN_S = 240
 # the card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
 # fp32 outside the tensor cores, bf16 dense on the tensor cores, and HBM3
 FP32_FLOPS = 67e12
@@ -1470,15 +1480,18 @@ def image_model(side, h, fused=False, eval_twin=False):
 
 
 def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_dir=None,
-              save_dir=None):
-    """``steps`` steps of ``ICNFModel.fit`` at batch IMAGE_BATCH, every step's
+              save_dir=None, mesh=None, profile=None, batch=None):
+    """``steps`` steps of ``ICNFModel.fit`` at ``batch`` (IMAGE_BATCH), every step's
     launches held to ``want``, timed by the port's ``StepTimer`` from the end
     of the first step to the end of the last but one.  With ``trace_dir``
     the last step runs under ``profiling.trace``, and its trace must name
     K1's and K2's kernels; with ``save_dir`` an ``AsyncCheckpointer`` saves the live
     parameters and optimizer state after the middle step while the next step
     updates them in place, and the reloaded file must equal the parameters
-    as they stood at ``save()`` bit for bit.  Returns (result, samples/s)."""
+    as they stood at ``save()`` bit for bit.  ``mesh``: the fit runs with
+    ``ICNFModel(mesh=)``.  ``profile``: a dict that gets the device profile
+    of the two steps after the first (:class:`ProfileWindow`).  Returns
+    (result, samples/s, launches)."""
     import contextlib
     import glob
 
@@ -1486,6 +1499,7 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
     from continuousnormalizingflows_tpu_torch.utils import (AsyncCheckpointer, load_checkpoint,
                                                             profiling)
 
+    batch = batch or IMAGE_BATCH
     opt_box = {}
 
     def optimizer(tensors):
@@ -1494,14 +1508,17 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
 
     params = icnf.init(torch.Generator().manual_seed(0), device=dev)
     live = lambda: dict(zip(params, opt_box["opt"].param_groups[0]["params"]))
-    timer = profiling.StepTimer(IMAGE_BATCH)
+    timer = profiling.StepTimer(batch)
     timed_until = steps - 1  # the last step is traced where asked: both routes time the same
     marks, at_save, rate = [counts()], {}, []
     tracing = contextlib.ExitStack()
     ck = AsyncCheckpointer()
+    window = ProfileWindow() if profile is not None else None
 
     def on_step(it, _loss):  # step `it` has ended: reading its loss synchronised the stream
         marks.append(counts())
+        if window is not None and it in (0, 2):
+            window.mark()
         if it < timed_until:
             timer.tick(list(live().values()))
         if it == timed_until - 1:
@@ -1517,13 +1534,16 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
             at_save.update({k: v.detach().clone() for k, v in live().items()})
             ck.save(save_dir, live(), opt_box["opt"].state_dict(), step=it + 1)
 
-    model = cnf.ICNFModel(icnf, optimizer=optimizer, batchsize=IMAGE_BATCH, epochs=1,
+    model = cnf.ICNFModel(icnf, optimizer=optimizer, batchsize=batch, epochs=1,
                           log_every=1, callback=on_step, batch_transform=batch_transform,
-                          device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+                          device=dev, generator=torch.Generator(device=dev).manual_seed(7),
+                          mesh=mesh)
     reset_counts()
     marks[0] = counts()
-    res = model.fit(data[: steps * IMAGE_BATCH], params=params)
+    res = model.fit(data[: steps * batch], params=params)
     ck.wait()
+    if window is not None:
+        profile.update(window.summary(2))
     if res.stats["iterations"] != steps or not all(map(math.isfinite, res.history)):
         fail(f"{name}: {res.stats['iterations']} steps, loss history {res.history}")
     for i in range(1, len(marks)):
@@ -1656,6 +1676,320 @@ def image_phase(dev, record):
     log(f"  [image] phase: {out['seconds']:.1f} s")
     record["image"] = out
 
+class ProfileWindow:
+    """``torch.profiler`` over a window of train steps, opened and closed by
+    ``mark()`` at step ends (each synchronised): the device's busy ms, its
+    kernels and idle share a step, and the all-reduce's device ms (NCCL's
+    kernels) and host ms (the collective's host op, which is all of gloo's)."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.times = []
+
+    def mark(self):
+        torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        if len(self.times) == 1:
+            self.prof.__enter__()
+        else:
+            self.prof.__exit__(None, None, None)
+
+    def summary(self, steps):
+        from torch.autograd import DeviceType
+
+        events = self.prof.key_averages()
+        host = {e.key for e in events if e.device_type == DeviceType.CPU}
+        dev_ev = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in host]
+        ms = lambda evs, attr="self_device_time_total": sum(
+            getattr(e, attr) for e in evs) / 1e3 / steps
+        busy = ms(dev_ev)
+        step_ms = (self.times[1] - self.times[0]) * 1e3 / steps
+        nccl = [e for e in dev_ev if "nccl" in e.key.lower()]
+        collective = [e for e in events if e.device_type == DeviceType.CPU
+                      and re.search(r"all_?reduce", e.key)]
+        return dict(busy_ms=busy, step_ms=step_ms, idle_share=1.0 - busy / step_ms,
+                    kernels=sum(e.count for e in dev_ev) / steps,
+                    allreduce_device_ms=ms(nccl),
+                    allreduce_kernels=sum(e.count for e in nccl) / steps,
+                    allreduce_host_ms=max([ms([e], "cpu_time_total") for e in collective],
+                                          default=0.0))
+
+
+class ShardStepSpy:
+    """Keeps every step ``ICNFModel`` makes by ``shard_train_step`` while
+    entered; a step's ``counts`` are its last call's collectives by site."""
+
+    def __enter__(self):
+        from continuousnormalizingflows_tpu_torch.parallel import mesh as pmesh
+
+        self.pmesh, self.inner, self.made = pmesh, pmesh.shard_train_step, []
+
+        def spy(*a, **k):
+            self.made.append(self.inner(*a, **k))
+            return self.made[-1]
+
+        pmesh.shard_train_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.pmesh.shard_train_step = self.inner
+
+
+def sharded_grads(icnf, x, mesh, seed):
+    """One step of ``shard_train_step`` on this rank's rows of ``x``, with an
+    optimizer that does not move the params: the global mean loss, the
+    solve's stats, the gradients, the launches and the collectives."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode
+    from continuousnormalizingflows_tpu_torch.parallel import (shard_batch_arrays,
+                                                               shard_train_step)
+
+    params = icnf.init(torch.Generator().manual_seed(0), device=x.device)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    step = shard_train_step(lambda p, g, xs, ys: cnf.loss_with_stats(icnf, Mode.TRAIN, xs, p, g),
+                            mesh)
+    xl, _ = shard_batch_arrays(mesh, x)
+    before = counts()
+    loss, st = step(params, torch.optim.SGD(list(params.values()), lr=0.0),
+                    torch.Generator(device=x.device).manual_seed(seed), xl, None)
+    moved = {k: counts()[k] - before[k] for k in before}
+    return dict(loss=float(loss), stats=solve_stats(st), launches=moved,
+                grads=[p.grad.detach().cpu() for p in params.values()],
+                collectives=dict(step.counts))
+
+
+def whole_grads(icnf, x, seed):
+    """:func:`sharded_grads`' step in one process on all of ``x``."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode
+
+    params = icnf.init(torch.Generator().manual_seed(0), device=x.device)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    before = counts()
+    loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x, params,
+                                   torch.Generator(device=x.device).manual_seed(seed))
+    loss.backward()
+    moved = {k: counts()[k] - before[k] for k in before}
+    return dict(loss=float(loss.detach()), stats=solve_stats(st), launches=moved,
+                grads=[p.grad.detach().cpu() for p in params.values()])
+
+
+def parallel_models():
+    """The [parallel] phase's three paths: the digits-shaped model and data
+    and its batch transform; the flagship's default adaptive stack; the
+    same through K5 + K6."""
+    import functools
+
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.utils import datasets as ds
+
+    dev = torch.device("cuda")
+    xd = ds.smooth_image_mixture(torch.Generator(device=dev).manual_seed(3), IMAGE_POINTS,
+                                 DIGITS_SIDE)
+    shift = functools.partial(ds.random_shift_images, side=DIGITS_SIDE, prob=0.5)
+    x = ds.gaussian_mixture(torch.Generator(device=dev).manual_seed(1), BATCH)
+    return dict(digits=(image_model(DIGITS_SIDE, DIGITS_HIDDEN, fused=True), xd, shift),
+                default=cnf.ICNF.create(nvariables=2),
+                fused=cnf.ICNF.create(nvariables=2, fused=True, fused_adaptive=True), x=x)
+
+
+def parallel_rank(rank, world, store, work):
+    """A rank of the [parallel] phase's gloo runs, on the one card: the
+    digits-shaped fit sharded ``world`` ways through K3 + K4 (its second
+    and third steps profiled on rank 0), one step of the default adaptive
+    stack and one of the fused adaptive route on 65,536 rows split over the
+    ranks; its results to ``work/r<rank>.pt``, a failure's traceback to
+    ``work/error_r<rank>.txt``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from continuousnormalizingflows_tpu_torch.parallel import initialize_distributed, make_mesh
+
+        initialize_distributed(backend="gloo", init_method=f"file://{store}", world_size=world,
+                               rank=rank, timeout=datetime.timedelta(seconds=PARALLEL_JOIN_S))
+        mesh = make_mesh()
+        m = parallel_models()
+        icnf, xd, shift = m["digits"]
+        profile = {} if rank == 0 else None
+        with ShardStepSpy() as spy:
+            res, rate, launched = image_fit(
+                f"[rank {rank}] digits-shaped, {world} gloo ranks", icnf, xd, PARALLEL_RANK_STEPS,
+                dict(NO_LAUNCH, K3=1, K4=1), torch.device("cuda"), batch_transform=shift,
+                mesh=mesh, profile=profile)
+        out = dict(history=res.history, rate=rate, launches=launched, profile=profile,
+                   collectives=dict(spy.made[-1].counts),
+                   params={k: v.cpu() for k, v in res.params.items()})
+        out["default"] = sharded_grads(m["default"], m["x"], mesh, 11)
+        out["fused"] = sharded_grads(m["fused"], m["x"], mesh, 11)
+        torch.save(out, os.path.join(work, f"r{rank}.pt"))
+        dist.destroy_process_group()
+    except Exception:
+        Path(work, f"error_r{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def parallel_phase(dev, record):
+    """The parallel layer on the one card: (a) a world of 1 on NCCL
+    (``initialize_distributed`` then ``make_mesh``) and the digits-shaped
+    fit with ``mesh=`` through K3 + K4 against the unsharded fit, in turns:
+    the same bits, the same launches, both rates by StepTimer, the
+    collectives a step, and a profile of each; (b) 2 ranks on gloo, spawned,
+    each on this card: the digits fit sharded 2 ways against the unsharded
+    fit, and one step of the flagship's default adaptive stack and of its
+    fused adaptive route (K5 + K6) on 65,536 rows (32,768 a rank) against
+    one process on all of them: the same solver stats on both ranks and as
+    one process's."""
+    import multiprocessing as mp
+    import shutil
+
+    import torch.distributed as dist
+
+    from continuousnormalizingflows_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    started = time.perf_counter()
+    work = Path("chiprun_out") / "parallel_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+
+    # (a) a world of 1 on NCCL
+    initialize_distributed(backend="nccl", store=dist.HashStore(), world_size=1, rank=0)
+    mesh = make_mesh()
+    if dist.get_backend() != "nccl" or tuple(mesh.shape) != (1, 1):
+        fail(f"parallel: world of 1 on {dist.get_backend()}, mesh {tuple(mesh.shape)}")
+    m = parallel_models()
+    icnf, xd, shift = m["digits"]
+    want = dict(NO_LAUNCH, K3=1, K4=1)
+    rates = {"unsharded": [], "mesh": []}
+    fits = {}
+    with ShardStepSpy() as spy:
+        for turn in range(2):
+            for name in ("unsharded", "mesh"):
+                res, rate, launched = image_fit(
+                    f"digits-shaped, {name} (NCCL world of 1), turn {turn}", icnf, xd,
+                    IMAGE_FIT_STEPS, want, dev, batch_transform=shift,
+                    mesh=mesh if name == "mesh" else None)
+                rates[name].append(rate)
+                fits[name] = (res, launched)
+    (r_plain, l_plain), (r_mesh, l_mesh) = fits["unsharded"], fits["mesh"]
+    if l_mesh != l_plain or l_mesh["K3"] == 0 or l_mesh["K4"] == 0:
+        fail(f"parallel: the mesh fit launched {l_mesh}, the unsharded one {l_plain}")
+    if r_mesh.history != r_plain.history or not all(
+            torch.equal(r_mesh.params[k], r_plain.params[k]) for k in r_plain.params):
+        fail("parallel: the NCCL world-of-1 fit's losses or params differ from the unsharded "
+             "fit's bits")
+    per_step = dict(spy.made[-1].counts)
+    if per_step.get("grad") != 1 or set(per_step) != {"grad"}:
+        fail(f"parallel: the digits step's collectives {per_step}, expected one gradient "
+             f"all-reduce")
+    log(f"  NCCL world of 1: the mesh fit gives the unsharded fit's bits (losses and params) "
+        f"ok, launches {l_mesh} each; collectives a step {per_step}; train samples/s in turns: "
+        f"unsharded {[round(v, 1) for v in rates['unsharded']]}, mesh "
+        f"{[round(v, 1) for v in rates['mesh']]} ({nvidia_smi()})")
+    profiles = {}
+    for name in ("unsharded", "mesh"):
+        profiles[name] = {}
+        image_fit(f"digits-shaped, {name}, profiled", icnf, xd, 4, want, dev,
+                  batch_transform=shift, mesh=mesh if name == "mesh" else None,
+                  profile=profiles[name])
+        log(f"  profile of a step, {name}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in profiles[name].items()))
+    out["nccl_world_1"] = dict(rates=rates, launches=l_mesh, collectives=per_step,
+                               profiles=profiles, same_bits=True)
+
+    # the references of (b): one process on all the rows
+    short, _rate, _l = image_fit("digits-shaped, unsharded, the 2-rank fit's steps", icnf, xd,
+                                 PARALLEL_RANK_STEPS, want, dev, batch_transform=shift)
+    whole = {name: whole_grads(m[name], m["x"], 11) for name in ("default", "fused")}
+    if whole["fused"]["launches"]["K5"] != 1 or whole["fused"]["launches"]["K6"] != 1:
+        fail(f"parallel: the fused adaptive reference launched {whole['fused']['launches']}")
+    dist.destroy_process_group()
+    del m, xd
+    torch.cuda.empty_cache()
+
+    # (b) 2 gloo ranks on the card
+    world = 2
+    ctx = mp.get_context("spawn")
+    # the store's path in a file:// URL must be absolute
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, world, str((work / "store").resolve()), str(work)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, PARALLEL_JOIN_S - (time.perf_counter() - t0)))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [f.read_text() for f in sorted(work.glob("error_r*.txt"))]
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        fail(f"parallel: gloo ranks hung {hung}, exit codes {[p.exitcode for p in procs]}\n"
+             + "\n".join(errors))
+    got = [torch.load(work / f"r{r}.pt") for r in range(world)]
+    log(f"  {world} gloo ranks on the card: joined in {time.perf_counter() - t0:.1f} s")
+    for r, g in enumerate(got):
+        if g["launches"]["K3"] == 0 or g["launches"]["K4"] == 0:
+            fail(f"parallel: rank {r}'s digits fit launched {g['launches']}")
+        if g["collectives"] != {"grad": 1}:
+            fail(f"parallel: rank {r}'s digits step collectives {g['collectives']}")
+    hist = [g["history"] for g in got]
+    if hist[0] != hist[1]:
+        fail(f"parallel: the ranks logged other losses {hist}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(hist[0], short.history))
+    if loss_err > PARALLEL_LOSS_RTOL:
+        fail(f"parallel: the 2-rank digits fit's losses {hist[0]} vs one process's "
+             f"{short.history} (rtol {loss_err:.2e} > {PARALLEL_LOSS_RTOL})")
+    p_err = compare_to_max("2 gloo ranks' digits-shaped params vs one process's after "
+                           f"{PARALLEL_RANK_STEPS} steps",
+                           [got[0]["params"][k] for k in short.params],
+                           [short.params[k].cpu() for k in short.params], PARALLEL_PARAM_TOL)
+    if not all(torch.equal(got[1]["params"][k], got[0]["params"][k]) for k in short.params):
+        fail("parallel: the ranks' digits params differ")
+    log(f"  2-rank digits fit: losses equal on both ranks, rtol {loss_err:.2e} against one "
+        f"process's; {[round(g['rate'], 1) for g in got]} train samples/s a rank; profile of "
+        f"a step on rank 0: " + ", ".join(f"{k} {v:.4f}" for k, v in got[0]["profile"].items()))
+    checks = {}
+    for name in ("default", "fused"):
+        ranks_ = [g[name] for g in got]
+        if ranks_[0]["stats"] != ranks_[1]["stats"] or ranks_[0]["stats"] != whole[name]["stats"]:
+            fail(f"parallel {name}: solver stats {[r['stats'] for r in ranks_]} vs one "
+                 f"process's {whole[name]['stats']}")
+        if name == "fused" and any(r["launches"]["K5"] != 1 or r["launches"]["K6"] != 1
+                                   for r in ranks_):
+            fail(f"parallel fused: launches {[r['launches'] for r in ranks_]}, expected K5 and "
+                 f"K6 on each rank")
+        if name == "default" and any(r["launches"] != NO_LAUNCH for r in ranks_):
+            fail(f"parallel default: launches {[r['launches'] for r in ranks_]}")
+        if abs(ranks_[0]["loss"] - whole[name]["loss"]) > PARALLEL_LOSS_RTOL * abs(
+                whole[name]["loss"]) or ranks_[0]["loss"] != ranks_[1]["loss"]:
+            fail(f"parallel {name}: loss {[r['loss'] for r in ranks_]} vs {whole[name]['loss']}")
+        err = compare_to_max(f"{name} stack on 2 gloo ranks vs one process, 65,536 rows, "
+                             f"steps {whole[name]['stats']}: the parameter gradients",
+                             ranks_[0]["grads"], whole[name]["grads"], GRAD_TOL)
+        checks[name] = dict(stats=whole[name]["stats"], grad_max_abs_err=err,
+                            launches=[r["launches"] for r in ranks_],
+                            collectives=ranks_[0]["collectives"])
+        log(f"  {name}: the same stats {whole[name]['stats']} on both ranks and as one process; "
+            f"launches a rank {ranks_[0]['launches']}; collectives {ranks_[0]['collectives']}")
+    out["gloo_2_ranks"] = dict(history=hist[0], loss_rtol=loss_err, params_max_abs_err=p_err,
+                               rates=[g["rate"] for g in got], profile=got[0]["profile"],
+                               launches=[g["launches"] for g in got], checks=checks)
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - started
+    log(f"  [parallel] phase: {out['seconds']:.1f} s")
+    record["parallel"] = out
+
 
 def main() -> None:
     started = time.perf_counter()
@@ -1708,6 +2042,10 @@ def main() -> None:
         "-> 784, batch 256, K1 + K2) and the digits-shaped path (65 -> 256 -> 256 -> 64, "
         "K3 + K4): datasets, StepTimer, profiling.trace, AsyncCheckpointer, export")
     image_phase(dev, record)
+    log("[parallel] the parallel layer: a world of 1 on NCCL (the digits-shaped fit with "
+        "mesh=, K3 + K4, against the unsharded fit) and 2 gloo ranks on the card (the digits "
+        "fit, the default adaptive stack and K5 + K6 on 65,536 rows)")
+    parallel_phase(dev, record)
     log(f"[done] every phase passed, {time.perf_counter() - started:.1f} s in all")
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]

@@ -5,10 +5,11 @@ dataclasses, the same validation and the same derived sizes, with
 ``torch.float32`` as the default dtype.  Variant mapping (FFJORD, RNODE,
 ANODE, STEER, conditional, non-autonomous) is as in the JAX package.
 
-Options that belong to parts of the JAX package not ported
-(``feature_first``, a TPU lane layout, and the mesh axes) raise
+``feature_first``, a TPU lane layout, is not ported and raises
 ``NotImplementedError`` when the config is built (see ``ROADMAP.md``,
-Queue 1).
+Queue 1).  ``probe_axis``/``sweep_axis`` name the mesh axis that splits
+the probe ensemble or the exact sweep inside a sharded step
+(:mod:`.parallel.mesh`); JAX validates neither, nor does the port.
 """
 
 from __future__ import annotations
@@ -222,11 +223,6 @@ class ICNFConfig:
             raise NotImplementedError(
                 "layout='feature_first' is a TPU lane layout and is not ported "
                 "(ROADMAP.md, Queue 1: 'not ported')"
-            )
-        if self.probe_axis is not None or self.sweep_axis is not None:
-            raise NotImplementedError(
-                "probe_axis/sweep_axis need parallel/, not ported yet "
-                "(ROADMAP.md, Queue 1: parallel)"
             )
 
     # ---- derived sizes ----

@@ -15,6 +15,13 @@ gives it the same base draw and end time as the full path).
 ``dt0`` (``inference``, ``loss``, ``loss_with_stats``): the carried starting
 step of the adaptive solvers (``SolverConfig.dt0 == "carry"``), a 0-d
 tensor such as the previous solve's ``abs(stats.dt_final)``.
+
+Inside a sharded step (:func:`.parallel.mesh.use_mesh`) ``xs`` is this
+rank's rows.  Every rank carries the same generator state, draws the
+probes of the global batch (``data`` ranks x rows) and keeps its rows, and
+with ``probe_axis`` its ``model`` rank's share of the ensemble; the steered
+end time is one draw alike on every rank.  The result is one process's on
+the whole batch.
 """
 
 from __future__ import annotations
@@ -29,11 +36,12 @@ from .distributions import generator_arg
 from .models.icnf import ICNF
 from .models.nets import Params
 from .ops.adjoint import odeint_diff
-from .ops.dynamics import make_augmented_dynamics, make_field
+from .ops.dynamics import make_augmented_dynamics, make_field, probe_share
 from .ops.fused_adaptive import (_scfg_tuple, fused_adaptive_applicable, fused_adaptive_tile,
                                   fused_solve_dopri5, stats_from_rows)
 from .ops.fused_solve import fused_solve_applicable, fused_solve_rk4
 from .ops.ode import SolverStats, eval_dense, odeint_dense, odeint_device
+from .parallel import mesh as pmesh
 
 __all__ = [
     "base_logpdf",
@@ -87,6 +95,19 @@ def sample_probe(cfg: ICNFConfig, generator: torch.Generator, batch: int,
     return _draw(fn, generator, device)
 
 
+def _shard_probe(cfg: ICNFConfig, generator: torch.Generator, batch: int,
+                 device) -> torch.Tensor:
+    """:func:`sample_probe` for ``batch`` rows, or inside a sharded step this
+    rank's rows of the global batch's probes and its share of the ensemble."""
+    ctx = pmesh.active()
+    if ctx is None:
+        return sample_probe(cfg, generator, batch, device)
+    eps = sample_probe(cfg, generator, batch * ctx.data_size, device)
+    lo, hi, _group = probe_share(cfg)
+    r = ctx.data_rank
+    return eps[lo:hi, r * batch:(r + 1) * batch]
+
+
 def steer_t1(cfg: ICNFConfig, generator: torch.Generator, device) -> torch.Tensor:
     """STEER end time ``t1' = t1 + |t1 - t0| * r`` with ``r`` from the
     config's ``steer_dist``, or ``U(-rate, rate)`` (``steer_dist=None``), as a
@@ -127,17 +148,20 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
             return odeint_device(f_aug, u0, t0, t1, {"params": params, "eps": eps, "ys": ys},
                                  cfg.solver)
     if (eps is not None and fused_adaptive_applicable(cfg, icnf.net, mode)
-            and fused_adaptive_tile(u0.shape[0])):
+            and fused_adaptive_tile(u0.shape[0], whole_groups=_split_rows())):
         t_col = None if cfg.autonomous else cfg.nz
         # the node buffer is device memory: dense_max_nodes is honored as given
-        u1, rows = fused_solve_dopri5(u0, eps[0], ys, params, (t0, t1), cfg.nz, t_col,
+        # the kernels take the whole net: a tensor-parallel one's slices gathered
+        u1, rows = fused_solve_dopri5(u0, eps[0], ys, pmesh.whole_mlp_params(params),
+                                      (t0, t1), cfg.nz, t_col,
                                       _scfg_tuple(cfg.solver), cfg.solver.dense_max_nodes)
         return u1, stats_from_rows(rows, cfg.dtype)
     if eps is not None and fused_solve_applicable(cfg, icnf.net, mode):
         steps = cfg.solver.fixed_steps
         cdt = torch.bfloat16 if icnf.net.precision != "highest" else None
         t_col = None if cfg.autonomous else cfg.nz
-        u1 = fused_solve_rk4(u0, eps[0], ys, params, (t0, t1), cfg.nz, t_col, steps, cdt)
+        u1 = fused_solve_rk4(u0, eps[0], ys, pmesh.whole_mlp_params(params), (t0, t1), cfg.nz,
+                             t_col, steps, cdt)
         dt = (torch.as_tensor(t1, dtype=cfg.dtype, device=u0.device)
               - torch.as_tensor(t0, dtype=cfg.dtype, device=u0.device)) / steps
         return u1, SolverStats(4 * steps, steps, 0, dt)
@@ -146,6 +170,12 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
     if dt0 is not None:
         args["dt0"] = dt0
     return odeint_diff(f_aug, u0, t0, t1, args, cfg.solver)
+
+
+def _split_rows() -> bool:
+    """Whether a sharded step splits the batch's rows over several ranks."""
+    ctx = pmesh.active()
+    return ctx is not None and ctx.data_size > 1
 
 
 def _split_terminal(cfg: ICNFConfig, mode: Mode, u1: torch.Tensor):
@@ -202,7 +232,7 @@ def inference(icnf: ICNF, mode: Mode, xs, params: Params,
     t0, t1 = cfg.tspan
     if mode.regularized and cfg.steered:
         t1 = steer_t1(cfg, generator, device)
-    eps = sample_probe(cfg, generator, batch, device) if mode.stochastic else None
+    eps = _shard_probe(cfg, generator, batch, device) if mode.stochastic else None
     u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys, dt0, device_loop)
     logpx, augs = _split_terminal(cfg, mode, u1)
     if single:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import resolve_device
+from ..parallel import mesh as pmesh
 
 __all__ = ["DynamicsNet", "MLP", "Planar", "CondLayer", "planar_h", "from_torch", "Params",
            "linear", "mlp_layers"]
@@ -80,7 +81,14 @@ def _glorot_uniform(generator: torch.Generator, fan_in: int, fan_out: int,
 
 class MLP(DynamicsNet):
     """Softplus MLP ``widths = (n_in, h, ..., n_out)``: softplus on all but the
-    last layer, the reference default dynamics net."""
+    last layer, the reference default dynamics net.
+
+    Tensor-parallel inside a sharded step that splits it
+    (:func:`..parallel.mesh.shard_mlp_params`): layer 0 is column-parallel
+    (its input passes Megatron's ``f``: identity forward, all-reduce
+    backward), layer 1 row-parallel (its product passes ``g``: all-reduce
+    forward, identity backward, then its bias once); both are twice
+    differentiable, as the probe VJP under ``create_graph`` needs."""
 
     def __init__(
         self,
@@ -116,11 +124,26 @@ class MLP(DynamicsNet):
                                                      device=generator.device)
         return {k: v.to(device) for k, v in params.items()}
 
+    def tp_group(self, params: Params):
+        """The ``model`` group where ``params`` are a tensor-parallel rank's
+        slices (layer 0 narrower than its width), else None."""
+        g = pmesh.tp_group()
+        if g is None or params["layers.0.weight"].shape[0] == self.widths[1]:
+            return None
+        return g
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         last = len(self.layers) - 1
+        tp = self.tp_group({"layers.0.weight": self.layers[0].weight})
         for i, layer in enumerate(self.layers):
-            h = linear(h, layer.weight, layer.bias, self.precision)
+            if tp is not None and i == 0:
+                h = pmesh.copy_to_model(h, tp)
+            if tp is not None and i == 1:
+                h = pmesh.reduce_from_model(linear(h, layer.weight, None, self.precision),
+                                            tp) + layer.bias
+            else:
+                h = linear(h, layer.weight, layer.bias, self.precision)
             if i != last:
                 h = self.activation(h)
         return h

@@ -20,6 +20,14 @@ Each evaluation of the backward takes the VJP of ``f`` with
 ``torch.enable_grad()``; with the fused dynamics (K1) that VJP is K2.  The
 Hutchinson probe ``eps`` and the carried starting step ``dt0`` are not
 differentiated (zero cotangent), as in the JAX package.
+
+Inside a sharded step (:func:`..parallel.mesh.use_mesh`) the parameter
+leaves of the backward state, the parameter VJP and its integral ``q``, are
+sums over this rank's rows.  Where they enter an error norm (no seminorm)
+their VJP is all-reduced at every evaluation, as JAX's GSPMD does, so they
+are alike on every rank and count once; otherwise ``q`` is all-reduced once
+at the end.  Either way the parameter gradient arrives summed over the
+ranks, and the train step's bucket leaves it out.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from typing import Any, List, Tuple
 import torch
 
 from ..config import DEFAULT_FIXED_DT0, SolverConfig
-from .ode import SolverStats, _leaves, eval_dense, odeint, odeint_dense
+from ..parallel import mesh as pmesh
+from .ode import SHARED, SolverStats, _leaves, eval_dense, odeint, odeint_dense
 
 __all__ = ["odeint_diff"]
 
@@ -98,6 +107,52 @@ def _flatten(tree) -> Tuple[List[torch.Tensor], Any]:
     return [l for p in parts for l in p[0]], rebuild
 
 
+def _param_mask(args_d) -> List[bool]:
+    """Which leaves of the differentiable args are parameters (their VJP is
+    a sum over the batch's rows): those under a dict's ``"params"``."""
+    if not isinstance(args_d, dict):
+        return [False] * len(_flatten(args_d)[0])
+    return [k == "params" for k in args_d for _ in _flatten(args_d[k])[0]]
+
+
+class _Sharding:
+    """How a backward solve on a shard sums its parameter leaves (see the
+    module's docstring): ``weight`` is the backward's ``error_weight``
+    (``(y, a)`` leaves first when ``with_y``), ``per_eval`` whether the VJP
+    is summed at every evaluation."""
+
+    def __init__(self, cfg: SolverConfig, mask, param_ids, n_y: int, with_y: bool):
+        self.mask, self.param_ids = mask, param_ids
+        head = (True,) * (2 * n_y if with_y else n_y)
+        adaptive = cfg.method in ("dopri5", "tsit5", "abm")
+        seminorm = cfg.adjoint_seminorm and adaptive
+        sharded = pmesh.active() is not None and any(mask)
+        self.per_eval = sharded and adaptive and not seminorm
+        if self.per_eval and pmesh.active().tensor_parallel:
+            raise NotImplementedError(
+                "a tensor-parallel adjoint with the parameter leaves in the error norm "
+                "(adjoint_seminorm=False): their split layers differ by model rank")
+        if seminorm:
+            # the parameter quadrature q never feeds back: out of the norm
+            self.weight = head + (False,) * len(mask)
+        elif self.per_eval:
+            self.weight = head + tuple(SHARED if m else True for m in mask)
+        else:
+            self.weight = None
+
+    def each_eval(self, a_d):
+        if self.per_eval:
+            pmesh.sum_params_once([v for v, m in zip(a_d, self.mask) if m], ())
+        return a_d
+
+    def at_end(self, q):
+        if self.per_eval:
+            pmesh.active().summed.update(self.param_ids)
+        elif pmesh.active() is not None:
+            pmesh.sum_params_once([v for v, m in zip(q, self.mask) if m], self.param_ids)
+        return q
+
+
 def _vdot(a, b) -> torch.Tensor:
     return sum(torch.sum(x * y) for x, y in zip(a, b))
 
@@ -131,7 +186,7 @@ class _Backsolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t0, t1, static, *leaves):
-        f, cfg, n_y, build_y, build_d, args_nd, stats_out = static
+        f, cfg, n_y, build_y, build_d, args_nd, stats_out, _shard = static
         y0 = build_y(list(leaves[:n_y]))
         y1, stats = odeint(f, y0, t0, t1, _merge_args(build_d(list(leaves[n_y:])), args_nd),
                            cfg)
@@ -143,27 +198,24 @@ class _Backsolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g):
-        f, cfg, n_y, build_y, build_d, args_nd, _stats = ctx.static
+        f, cfg, n_y, build_y, build_d, args_nd, _stats, (mask, param_ids) = ctx.static
         t0, t1, *saved = ctx.saved_tensors
         y1, d_leaves = saved[:n_y], saved[n_y:]
         g = [torch.zeros_like(y) if gi is None else gi for gi, y in zip(g, y1)]
-        n_d = len(d_leaves)
+        shard = _Sharding(cfg, mask, param_ids, n_y, with_y=True)
 
         def aug_dyn(t, state, _args):
             y, a = list(state[:n_y]), list(state[n_y:2 * n_y])
             dy, a_y, a_d = _vjp(f, t, y, build_y, d_leaves, build_d, args_nd, a)
+            a_d = shard.each_eval(a_d)
             return tuple(dy) + tuple(-v for v in a_y) + tuple(-v for v in a_d)
 
         state1 = tuple(y1) + tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
-        error_weight = None
-        if cfg.adjoint_seminorm and cfg.method in ("dopri5", "tsit5", "abm"):
-            # the parameter quadrature q never feeds back: out of the norm
-            error_weight = (True,) * (2 * n_y) + (False,) * n_d
         with torch.no_grad():
-            state0, _nfe = odeint(aug_dyn, state1, t1, t0, None, _bwd_cfg(cfg), error_weight,
+            state0, _nfe = odeint(aug_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
                                   dt0_override=_bwd_dt0(args_nd))
         state0 = _leaves(state0)
-        y0_rec, a0, q = state0[:n_y], state0[n_y:2 * n_y], state0[2 * n_y:]
+        y0_rec, a0, q = state0[:n_y], state0[n_y:2 * n_y], shard.at_end(state0[2 * n_y:])
         full_args = _merge_args(build_d(list(d_leaves)), args_nd)
         t0_bar, t1_bar = _end_grads(ctx, f, t0, t1, y1, g, y0_rec, a0, build_y, full_args)
         return (t0_bar, t1_bar, None, *a0, *q)
@@ -175,7 +227,7 @@ class _Quadrature(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t0, t1, static, *leaves):
-        f, cfg, n_y, build_y, build_d, args_nd, stats_out = static
+        f, cfg, n_y, build_y, build_d, args_nd, stats_out, _shard = static
         y0 = build_y(list(leaves[:n_y]))
         y1, stats, dense = odeint_dense(f, y0, t0, t1,
                                         _merge_args(build_d(list(leaves[n_y:])), args_nd), cfg)
@@ -187,27 +239,27 @@ class _Quadrature(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g):
-        f, cfg, n_y, build_y, build_d, args_nd, _stats = ctx.static
+        f, cfg, n_y, build_y, build_d, args_nd, _stats, (mask, param_ids) = ctx.static
         dense = ctx.dense
         t0, t1, *saved = ctx.saved_tensors
         y1, d_leaves = saved[:n_y], saved[n_y:]
         g = [torch.zeros_like(y) if gi is None else gi for gi, y in zip(g, y1)]
-        n_d = len(d_leaves)
+        shard = _Sharding(cfg, mask, param_ids, n_y, with_y=False)
 
         def adj_dyn(t, state, _args):
             y, _ = _flatten(eval_dense(dense, t))
             _dy, a_y, a_d = _vjp(f, t, y, build_y, d_leaves, build_d, args_nd,
                                  list(state[:n_y]))
+            a_d = shard.each_eval(a_d)
             return tuple(-v for v in a_y) + tuple(-v for v in a_d)
 
         state1 = tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
-        error_weight = (True,) * n_y + (False,) * n_d if cfg.adjoint_seminorm else None
         with torch.no_grad():
-            state0, _nfe = odeint(adj_dyn, state1, t1, t0, None, _bwd_cfg(cfg), error_weight,
+            state0, _nfe = odeint(adj_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
                                   dt0_override=_bwd_dt0(args_nd))
             state0 = _leaves(state0)
             y0_rec, _ = _flatten(eval_dense(dense, t0))
-        a0, q = state0[:n_y], state0[n_y:]
+        a0, q = state0[:n_y], shard.at_end(state0[n_y:])
         full_args = _merge_args(build_d(list(d_leaves)), args_nd)
         t0_bar, t1_bar = _end_grads(ctx, f, t0, t1, y1, g, y0_rec, a0, build_y, full_args)
         return (t0_bar, t1_bar, None, *a0, *q)
@@ -235,6 +287,8 @@ def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig) -> Tuple[Any, SolverStat
             return odeint(f, y0, t0, t1, args, cfg)
     stats_out: List[SolverStats] = []
     fn = _Quadrature if cfg.gradient == "quadrature" else _Backsolve
-    static = (f, cfg, len(y_leaves), build_y, build_d, args_nd, stats_out)
+    mask = _param_mask(args_d)
+    shard = (mask, [id(l) for l, m in zip(d_leaves, mask) if m])
+    static = (f, cfg, len(y_leaves), build_y, build_d, args_nd, stats_out, shard)
     y1 = fn.apply(t0, t1, static, *y_leaves, *d_leaves)
     return build_y(list(y1)), stats_out[0]

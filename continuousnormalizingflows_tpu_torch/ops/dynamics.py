@@ -13,6 +13,15 @@ MLPs; the generic exact sweep (one JVP a basis row, in blocks of
 (``torch.autograd.grad``) and the Hutchinson JVP.  The JVPs run in forward
 mode (``torch.autograd.forward_ad``), whose results stay differentiable by
 autograd, also under the non-reentrant checkpoint of ``remat``.
+
+Inside a sharded step (:func:`..parallel.mesh.use_mesh`): with
+``probe_axis`` each ``model`` rank holds its share of the probes and the
+ensemble mean is a sum over the ranks (a differentiable all-reduce); with
+``sweep_axis`` each sweeps its block of basis rows and the trace is summed
+likewise; a tensor-parallel MLP's hidden width is split, so its analytic
+trace all-reduces its contraction over that width (the Hutchinson VJP gets
+this from the net's own collectives), and the fused stage gathers the
+slices into the whole net first.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 
 from ..config import ICNFConfig, Mode, TraceEstimator
 from ..models.nets import MLP, DynamicsNet, Params, Planar, linear, mlp_layers
+from ..parallel import mesh as pmesh
 from .fused_dynamics import MAX_HIDDEN, _row_norm, fused_dynamics_vjp
 
 __all__ = ["make_augmented_dynamics", "make_field", "fused_dynamics_applicable",
@@ -53,6 +63,26 @@ def make_field(cfg: ICNFConfig, net: DynamicsNet) -> Callable:
         return net.apply(params, _net_input(cfg, t, z, ys))
 
     return field
+
+
+def probe_share(cfg: ICNFConfig):
+    """``(start, stop, group)``: this rank's share of the probe ensemble under
+    ``probe_axis`` (with more than one probe, as in JAX), ``group`` the one
+    its sum is all-reduced over; ``(0, nprobes, None)`` unsplit."""
+    axis = cfg.probe_axis if cfg.nprobes > 1 else None
+    lo, hi, group = pmesh.model_share(axis, cfg.nprobes)
+    if group is not None and cfg.nprobes % pmesh.active().model_size:
+        raise ValueError(f"nprobes={cfg.nprobes} does not split over the "
+                         f"{pmesh.active().model_size} ranks of the {cfg.probe_axis!r} axis")
+    return lo, hi, group
+
+
+def _probe_mean(x: torch.Tensor, nprobes: int, group) -> torch.Tensor:
+    """The ensemble mean over the leading probe axis of ``x``: local, or the
+    sum of every model rank's share over ``nprobes``."""
+    if group is None:
+        return torch.mean(x, dim=0)
+    return pmesh.sum_over_model(torch.sum(x, dim=0), group) / nprobes
 
 
 def _mlp_exact_applicable(net) -> bool:
@@ -111,12 +141,17 @@ def _jvps(fn, z: torch.Tensor, tangents: torch.Tensor):
     return out.primal[0], out.tangent
 
 
-def _exact_sweep(fn, z: torch.Tensor, nz: int, chunk: int, reg: bool):
+def _exact_sweep(fn, z: torch.Tensor, nz: int, chunk: int, reg: bool, axis=None):
     """``(dz, tr(J), sum J^2 or None)`` by JVPs along the basis rows: all
     ``nz`` at once when ``chunk == 0``, else in blocks of ``chunk`` rows
-    (peak memory ``(chunk, B, nz)``), the last block's overrun rows zero."""
+    (peak memory ``(chunk, B, nz)``), the last block's overrun rows zero.
+    ``axis`` (``sweep_axis``): inside a sharded step this rank sweeps its
+    block of the rows, and the sums are all-reduced over the axis."""
     eye = torch.eye(nz, dtype=z.dtype, device=z.device)
     batch = z.shape[:-1]
+    lo, hi, group = pmesh.model_share(axis, nz)
+    if group is not None:
+        return _shared_sweep(fn, z, eye[lo:hi], chunk, reg, group)
     if chunk == 0:
         dz, jcols = _jvps(fn, z, eye[:, None, :].expand((nz,) + batch + (nz,)))
         div = torch.einsum("ibi->b", jcols)
@@ -134,6 +169,27 @@ def _exact_sweep(fn, z: torch.Tensor, nz: int, chunk: int, reg: bool):
     return dz, div, fro if reg else None
 
 
+def _shared_sweep(fn, z: torch.Tensor, rows: torch.Tensor, chunk: int, reg: bool, group):
+    """:func:`_exact_sweep` over this rank's ``rows`` of the basis (blocks of
+    ``chunk`` of them, all at once when 0), its sums all-reduced in one
+    differentiable collective."""
+    batch = z.shape[:-1]
+    div = fro = torch.zeros(batch, dtype=z.dtype, device=z.device)
+    dz = None
+    step = chunk if chunk > 0 else max(rows.shape[0], 1)
+    for o in range(0, rows.shape[0], step):
+        basis = rows[o:o + step]
+        dz, jrows = _jvps(fn, z, basis[:, None, :].expand((basis.shape[0],) + batch
+                                                          + (z.shape[-1],)))
+        div = div + torch.einsum("cbj,cj->b", jrows, basis)
+        if reg:
+            fro = fro + torch.sum(torch.square(jrows), dim=(0, 2))
+    if dz is None:  # a rank past the last row: the field alone
+        dz = fn(z)
+    div, fro = pmesh.sum_over_model(torch.stack([div, fro]), group)
+    return dz, div, fro if reg else None
+
+
 def _mlp_exact_trace(net: MLP, params: Params, x_full: torch.Tensor, nz: int):
     """Analytic ``(dz, tr(J_z))`` for 1- and 2-hidden-layer MLPs.
 
@@ -142,23 +198,33 @@ def _mlp_exact_trace(net: MLP, params: Params, x_full: torch.Tensor, nz: int):
     ``tr(J) = sum_{k,l} s1[k] G[k,l] s2[l]`` with
     ``G = A2^T o (A1[:, :nz] A3[:nz])``: one batch-independent masked
     product and one extra ``(B, h) x (h, h)`` product per evaluation.  The
-    transposes are ``.t()`` calls, as in :func:`.models.nets.linear`."""
+    transposes are ``.t()`` calls, as in :func:`.models.nets.linear`.
+    Tensor-parallel (this rank's slice of the first hidden width): layer 1's
+    product and the trace's contraction over that width are all-reduced over
+    ``model``."""
     prec = net.precision
     layers = mlp_layers(params)
+    tp = net.tp_group(params)
+    if tp is not None:
+        x_full = pmesh.copy_to_model(x_full, tp)
+    # a row-parallel product: summed over the model ranks' slices, then the bias once
+    row_par = lambda h, a, b: (linear(h, a, b, prec) if tp is None
+                               else pmesh.reduce_from_model(linear(h, a, None, prec), tp) + b)
+    summed = lambda v: v if tp is None else pmesh.reduce_from_model(v, tp)
     if len(layers) == 2:
         (a1, b1), (a2, b2) = layers
         h1, s1 = _act_and_deriv(net.activation, linear(x_full, a1, b1, prec))
-        dz = linear(h1, a2, b2, prec)
+        dz = row_par(h1, a2, b2)
         g = torch.sum(a1[:, :nz] * a2[:nz, :].t(), dim=1)  # (h,)
-        return dz, s1 @ g
+        return dz, summed(s1 @ g)
     (a1, b1), (a2, b2), (a3, b3) = layers
     h1, s1 = _act_and_deriv(net.activation, linear(x_full, a1, b1, prec))
-    h2, s2 = _act_and_deriv(net.activation, linear(h1, a2, b2, prec))
+    h2, s2 = _act_and_deriv(net.activation, row_par(h1, a2, b2))
     dz = linear(h2, a3, b3, prec)
     m = linear(a1[:, :nz], a3[:nz, :].t(), None, prec)  # (h1, h2)
     g_mat = a2.t() * m
     div = torch.sum(linear(s1, g_mat.t(), None, prec) * s2, dim=-1)
-    return dz, div
+    return dz, summed(div)
 
 
 def _probe_vjps(fn, z: torch.Tensor, eps: torch.Tensor, inputs):
@@ -210,8 +276,9 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
 
         def f_aug_fused(t, u: torch.Tensor, args: Args) -> torch.Tensor:
             x_full = _net_input(cfg, t, u[..., :nz], args.get("ys"))
+            # the kernel takes the whole net: a tensor-parallel one's slices gathered
             dz, _epsj, div, reg_z, reg_j = fused_dynamics_vjp(
-                x_full, args["eps"][0], args["params"], nz, cdt
+                x_full, args["eps"][0], pmesh.whole_mlp_params(args["params"]), nz, cdt
             )
             zero = torch.zeros_like(div)
             return torch.cat(
@@ -233,6 +300,7 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
         params = args["params"]
         ys = args.get("ys")
         z = u[..., :nz]
+        probes = probe_share(cfg)[2] if estimator is not TraceEstimator.EXACT else None
         zero = torch.zeros(z.shape[:-1], dtype=u.dtype, device=u.device)
         g = lambda zz: field(t, zz, params, ys)
         reg_j = zero
@@ -243,18 +311,19 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
         elif estimator is TraceEstimator.EXACT and mlp_exact:
             dz, div = _mlp_exact_trace(net, params, _net_input(cfg, t, z, ys), nz)
         elif estimator is TraceEstimator.EXACT:
-            dz, div, fro = _exact_sweep(g, z, nz, cfg.exact_chunk, compute_reg_j)
+            dz, div, fro = _exact_sweep(g, z, nz, cfg.exact_chunk, compute_reg_j,
+                                        cfg.sweep_axis)
             reg_j = torch.sqrt(fro) if compute_reg_j else zero
         elif estimator is TraceEstimator.HUTCH_VJP:  # one shared forward, one VJP a probe
             eps = args["eps"]
             dz, eps_j = _probe_vjps(g, z, eps, (*params.values(), ys))
-            div = torch.mean(torch.sum(eps_j * eps, dim=-1), dim=0)
-            reg_j = torch.mean(_row_norm(eps_j), dim=0) if compute_reg_j else zero
+            div = _probe_mean(torch.sum(eps_j * eps, dim=-1), cfg.nprobes, probes)
+            reg_j = _probe_mean(_row_norm(eps_j), cfg.nprobes, probes) if compute_reg_j else zero
         else:  # HUTCH_JVP: J eps by forward mode
             eps = args["eps"]
             dz, j_eps = _jvps(g, z, eps)
-            div = torch.mean(torch.sum(eps * j_eps, dim=-1), dim=0)
-            reg_j = torch.mean(_row_norm(j_eps), dim=0) if compute_reg_j else zero
+            div = _probe_mean(torch.sum(eps * j_eps, dim=-1), cfg.nprobes, probes)
+            reg_j = _probe_mean(_row_norm(j_eps), cfg.nprobes, probes) if compute_reg_j else zero
         reg_z = _row_norm(dz) if compute_reg_z else zero
         return torch.cat(
             [dz, -div[..., None], reg_z[..., None], reg_j[..., None]], dim=-1

@@ -54,6 +54,7 @@ from .fused_dynamics import (_ptr, fused_dynamics_vjp_bwd_reference, kernel_oper
                              weights_of)
 from .fused_solve import _check_solve, _stage_input
 from .ode import _DT_GIVE_UP, DOPRI5, SolverStats
+from ..parallel import mesh as pmesh
 
 __all__ = [
     "fused_adaptive_applicable",
@@ -107,9 +108,18 @@ def fused_adaptive_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
     )
 
 
-def fused_adaptive_tile(batch: int) -> Optional[int]:
+def fused_adaptive_tile(batch: int, whole_groups: bool = False) -> Optional[int]:
     """Rows of a control group for this batch, or None where the batch makes
-    no whole groups (the JAX ``_tile_for(batch, 128)``)."""
+    no whole groups (the JAX ``_tile_for(batch, 128)``).  ``whole_groups``:
+    ``batch`` is a rank's shard of a batch split over ranks, which takes the
+    kernels only as whole 128-row groups: one process's groups of the whole
+    batch, each stepping alone, so no collective is needed.  Every rank
+    holds as many rows, so all take the same route; a shard of another size
+    raises rather than leave the kernels for the unfused loop."""
+    if whole_groups and batch % _GROUP:
+        raise ValueError(f"fused_adaptive=True on a batch split over the data axis takes "
+                         f"the kernels on whole {_GROUP}-row control groups: a rank holds "
+                         f"{batch} rows, it needs a multiple of {_GROUP}")
     g = min(_GROUP, batch)
     return g if g > 0 and batch % g == 0 and g % 8 == 0 else None
 
@@ -117,10 +127,15 @@ def fused_adaptive_tile(batch: int) -> Optional[int]:
 def stats_from_rows(rows: torch.Tensor, tdt=torch.float32) -> SolverStats:
     """One :class:`SolverStats` from the per-group rows: the worst group's
     NFE, accepted and rejected counts (the critical path) and the
-    smallest-magnitude final step, as 0-d device tensors (no host read)."""
-    nfe, nacc, nrej = (torch.max(rows[:, i]).to(torch.int32) for i in range(3))
-    i_min = torch.argmin(torch.abs(rows[:, 3]))
-    return SolverStats(nfe, nacc, nrej, rows[i_min, 3].to(tdt))
+    smallest-magnitude final step, as 0-d device tensors (no host read).
+    Inside a sharded step, over every rank's groups (one collective)."""
+    worst = torch.amax(rows[:, :3], dim=0)
+    dt = rows[torch.argmin(torch.abs(rows[:, 3])), 3]
+    if pmesh.active() is not None:
+        both = pmesh.reduce_max(torch.cat([worst, -torch.abs(dt)[None]]))
+        worst, dt = both[:3], torch.sign(dt) * -both[3]
+    nfe, nacc, nrej = (worst[i].to(torch.int32) for i in range(3))
+    return SolverStats(nfe, nacc, nrej, dt.to(tdt))
 
 
 def _scfg_tuple(solver: SolverConfig):

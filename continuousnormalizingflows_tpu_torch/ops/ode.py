@@ -12,7 +12,10 @@ adjoint's backward state ``(y, a, q...)`` is a tuple).
   are device tensors (a steered end time is a device scalar); the loop reads
   ``done | fail`` and ``accept`` back to the host once per trial step, in one
   transfer.  The error norm is one RMS over every element of the batch, as in
-  the reference: the whole batch takes one step sequence.
+  the reference: the whole batch takes one step sequence.  Inside a sharded
+  step (:func:`..parallel.mesh.use_mesh`) each norm all-reduces its sum of
+  squares and its count over the mesh in one collective before the host
+  reads it, so every rank takes one process's steps on the whole batch.
   :func:`odeint_device` is the same loop with its control on the device
   (``while_loop``, accept and reject by ``torch.where``), for export.
 * ``abm``: variable-step, variable-order Adams-Bashforth-Moulton PECE (the
@@ -33,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ABM_MAX_ORDER, DEFAULT_FIXED_DT0, SolverConfig
+from ..parallel.mesh import global_mean
 
 __all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_abm", "odeint_dopri5_dense",
            "odeint_abm_dense", "odeint_dense", "odeint_device", "eval_dense", "DenseSolution",
@@ -40,6 +44,12 @@ __all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_abm", "odeint_dopr
 
 State = Any  # a tensor or a tuple of tensors
 ODEFunc = Callable[[Any, State, Any], State]
+
+# an ``error_weight`` entry besides True (in the norm; under a sharded step a
+# leaf whose rows are split over the ranks) and False (out of it): in the
+# norm, and alike on every rank, so counted once (the adjoint's parameter
+# leaves once their VJP is summed over the ranks)
+SHARED = "shared"
 
 
 class SolverStats(NamedTuple):
@@ -220,20 +230,22 @@ def _erk_step(tab: _Tableau, f: ODEFunc, t, y: State, dt, k1: State, args):
 def _rms_error_ratio(err: State, y0: State, y1: State, rtol: float, atol: float,
                      error_weight=None) -> torch.Tensor:
     """RMS of ``err / (atol + rtol * max(|y0|, |y1|))`` over every element of
-    the leaves that ``error_weight`` marks (all when None): one scalar for the
-    whole batch.  Leaving a leaf out is the seminorm of the adjoint's
-    parameter quadrature."""
+    the leaves that ``error_weight`` marks (all when None; :data:`SHARED`
+    leaves once over the ranks): one scalar for the whole batch.  Leaving a
+    leaf out is the seminorm of the adjoint's parameter quadrature."""
     leaves = zip(_leaves(err), _leaves(y0), _leaves(y1))
     weights = _leaves(error_weight) if error_weight is not None else None
-    sq_sum, count = 0.0, 0
+    sq_sum, count, sq_shared, n_shared = 0.0, 0, 0.0, 0
     for i, (e, a, b) in enumerate(leaves):
         if weights is not None and not weights[i]:
             continue
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = (e / scale).to(torch.float32)
-        sq_sum = sq_sum + torch.sum(r * r)
-        count += r.numel()
-    return torch.sqrt(sq_sum / count)
+        if weights is not None and weights[i] is SHARED:
+            sq_shared, n_shared = sq_shared + torch.sum(r * r), n_shared + r.numel()
+        else:
+            sq_sum, count = sq_sum + torch.sum(r * r), count + r.numel()
+    return torch.sqrt(global_mean(sq_sum, count, sq_shared, n_shared))
 
 
 def _controller_factor(ratio, inv_order, safety, min_factor, max_factor, tdt):
@@ -251,7 +263,7 @@ def _wnorm(x: State, yref: State, cfg: SolverConfig) -> torch.Tensor:
         r = (xe / (cfg.atol + cfg.rtol * torch.abs(ye))).to(torch.float32)
         s = s + torch.sum(r * r)
         c += r.numel()
-    return torch.sqrt(s / c)
+    return torch.sqrt(global_mean(s, c))
 
 
 def _initial_dt(f, t0, y0, f0, args, cfg, span, direction, err_order, tdt, override=None):
@@ -633,17 +645,21 @@ def _hist_dot(ws: torch.Tensor, f_hist: State) -> State:
 
 
 def _candidate_ratios(e3, y, y3, rtol, atol, error_weight) -> torch.Tensor:
-    """``_rms_error_ratio`` of each of three stacked candidates: ``(3,)``."""
+    """``_rms_error_ratio`` of each of three stacked candidates: ``(3,)``,
+    over the ranks of a sharded step in one collective."""
     weights = _leaves(error_weight) if error_weight is not None else None
-    sq_sum, count = 0.0, 0
+    sq_sum, count, sq_shared, n_shared = 0.0, 0, 0.0, 0
     for i, (e, a, b) in enumerate(zip(e3, _leaves(y), y3)):
         if weights is not None and not weights[i]:
             continue
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = (e / scale).to(torch.float32)
-        sq_sum = sq_sum + torch.sum((r * r).reshape(3, -1), dim=1)
-        count += a.numel()
-    return torch.sqrt(sq_sum / count)
+        sq = torch.sum((r * r).reshape(3, -1), dim=1)
+        if weights is not None and weights[i] is SHARED:
+            sq_shared, n_shared = sq_shared + sq, n_shared + a.numel()
+        else:
+            sq_sum, count = sq_sum + sq, count + a.numel()
+    return torch.sqrt(global_mean(sq_sum, count, sq_shared, n_shared))
 
 
 def _abm_loop(f, y0, t0, t1, args, cfg, error_weight, on_accept=None) -> _Loop:

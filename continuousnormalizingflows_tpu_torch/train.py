@@ -22,7 +22,17 @@ memo of compiled steps has no counterpart (PyTorch runs eagerly), so its
 attribute rules reduce to one: ``_conditional`` follows ``icnf``.
 ``dt0="carry"`` starts each step's adaptive solve (and its backward solve)
 from the previous step's final step size, a device tensor: no host
-synchronisation.  ``mesh=`` raises (ROADMAP.md, Queue 1: parallel).
+synchronisation.
+
+``mesh=`` (a :func:`.parallel.make_mesh` mesh) trains data-parallel, as
+the JAX package's ``ICNFModel(mesh=)``: every rank is given the whole
+dataset and the same generator, draws the same permutation, takes its rows
+of each minibatch (a ``batch_transform`` draws for the whole minibatch
+first) and runs the step of :func:`.parallel.mesh.shard_train_step`: the
+loss is the global mean, one gradient all-reduce comes before the same
+optimizer step on every rank, and the solvers take one process's steps.
+``model`` ranks replicate the step.  ``score`` and validation run sharded
+too.
 """
 
 from __future__ import annotations
@@ -34,12 +44,14 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from .config import Mode, resolve_device
 from .core import _device_of, inference, loss_with_stats
 from .dist import _shim_layout
 from .models.icnf import ICNF
 from .ops.fused_adaptive import fused_adaptive_applicable, fused_adaptive_tile
+from .parallel import mesh as pmesh
 
 __all__ = ["default_optimizer", "ClippedAdam", "FitResult", "ICNFModel", "CondICNFModel"]
 
@@ -52,7 +64,10 @@ class ClippedAdam(torch.optim.Adam):
     param`` enters the moments: optax's ``add_decayed_weights`` then
     ``adam``, not AdamW), after optional global-norm clipping by optax's
     rule: every gradient is scaled by ``clip_norm / norm`` unless ``norm <
-    clip_norm`` (no epsilon)."""
+    clip_norm`` (no epsilon).  In a sharded step the gradients are reduced
+    already, so every rank clips alike; a tensor-parallel step's norm sums
+    the split layers' squares over ``model``
+    (:func:`.parallel.mesh.clip_sq_norm`)."""
 
     def __init__(self, params, lr: float = 1e-3, weight_decay: float = 1e-4,
                  clip_norm: Optional[float] = None) -> None:
@@ -63,12 +78,12 @@ class ClippedAdam(torch.optim.Adam):
     @torch.no_grad()
     def step(self, closure=None):
         if self.clip_norm is not None:
-            grads = [p.grad for group in self.param_groups for p in group["params"]
+            pairs = [(p, p.grad) for group in self.param_groups for p in group["params"]
                      if p.grad is not None]
-            if grads:
-                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            if pairs:
+                norm = torch.sqrt(pmesh.clip_sq_norm(pairs))
                 keep = norm < self.clip_norm
-                for g in grads:
+                for _p, g in pairs:
                     g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
         return super().step(closure)
 
@@ -122,8 +137,10 @@ class ICNFModel:
     each ``fit`` without its own generator (default: seed 0 on ``device``).
     ``device``: where the data, the parameters and the training run
     (default: the card; ``device="cpu"`` trains on the CPU, and without CUDA
-    ``fit`` raises unless asked for it).  ``params`` given to ``fit`` are
-    copied to it."""
+    ``fit`` raises unless asked for it; with ``mesh=``, the mesh's device).
+    ``params`` given to ``fit`` are copied to it.  ``mesh``: a
+    ``torch.distributed`` ``DeviceMesh`` from :func:`.parallel.make_mesh`
+    (see the module's docstring)."""
 
     def __init__(
         self,
@@ -142,10 +159,9 @@ class ICNFModel:
         eval_icnf: Optional[ICNF] = None,
         device=None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded training) is not ported yet (ROADMAP.md, Queue 1: parallel)"
-            )
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh= takes a DeviceMesh (parallel.make_mesh), got "
+                            f"{type(mesh).__name__}")
         if int(steps_per_dispatch) < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         if eval_icnf is not None and (
@@ -170,11 +186,15 @@ class ICNFModel:
         self.batch_transform = batch_transform
         # TestMode model for score()/validation; None evaluates with icnf
         self.eval_icnf = eval_icnf
+        self.mesh = mesh
         self._device = None if device is None else torch.device(device)
 
     @property
     def device(self) -> torch.device:
-        """Where ``fit`` runs (raises without CUDA unless given the CPU)."""
+        """Where ``fit`` runs (raises without CUDA unless given the CPU; the
+        mesh's device with a mesh)."""
+        if self.mesh is not None:
+            return pmesh.mesh_device(self.mesh)
         return resolve_device(self._device)
 
     @property
@@ -204,29 +224,54 @@ class ICNFModel:
         nb = n // bs
         return perm[: nb * bs].reshape(nb, bs)
 
+    def _split_rows(self) -> bool:
+        return self.mesh is not None and self.mesh.size(0) > 1
+
     def _carry_dt(self, batch: int) -> bool:
         """``dt0="carry"``: warm-start each step's embedded-RK solve from the
         previous step's accepted step size.  Inert, so off, where the
         adaptive whole-solve kernels take the step: their controllers keep
-        the fixed start (the JAX package passes the carry there unused)."""
+        the fixed start (the JAX package passes the carry there unused).
+        ``batch``: a rank's rows."""
         cfg = self.icnf.config
         s = cfg.solver
         return (s.dt0 == "carry" and s.method in ("dopri5", "tsit5")
                 and not (fused_adaptive_applicable(cfg, self.icnf.net, Mode.TRAIN)
-                         and fused_adaptive_tile(batch)))
+                         and fused_adaptive_tile(batch, whole_groups=self._split_rows())))
 
-    def _step(self, params: Params, opt: torch.optim.Optimizer, generator: torch.Generator,
-              xb: torch.Tensor, yb: Optional[torch.Tensor], dt0: Optional[torch.Tensor]):
-        """One optimizer step on a minibatch; returns ``(loss, solver stats)``
-        with the loss left on the device.  ``dt0``: the carried start, or None."""
+    def _loss_step(self, params: Params, generator: torch.Generator, xb: torch.Tensor,
+                   yb: Optional[torch.Tensor], dt0: Optional[torch.Tensor] = None):
+        """The train step's loss on a minibatch (a rank's rows of it):
+        ``(loss, solver stats)``.  ``dt0``: the carried start, or None."""
+        return loss_with_stats(self.icnf, Mode.TRAIN, xb, params, generator, ys=yb, dt0=dt0)
+
+    def _make_step(self, carry: bool) -> Callable:
+        """``step(params, opt, generator, xb, yb[, dt0]) -> (loss, stats)``:
+        one optimizer step on a minibatch (this rank's rows of it with a
+        mesh), the loss left on the device."""
+        if self.mesh is not None:
+            return pmesh.shard_train_step(self._loss_step, self.mesh, self._conditional,
+                                          n_extra_repl=1 if carry else 0)
+
+        def step(params, opt, generator, xb, yb, *extra):
+            opt.zero_grad(set_to_none=True)
+            l, stats = self._loss_step(params, generator, xb, yb, *extra)
+            l.backward()
+            opt.step()
+            return l.detach(), stats
+
+        return step
+
+    def _minibatch(self, generator: torch.Generator, xs_all, ys_all, idx):
+        """The rows ``idx`` (a ``batch_transform`` drawn for all of them),
+        cut to this rank's with a mesh."""
+        xb = xs_all[idx]
+        yb = None if ys_all is None else ys_all[idx]
         if self.batch_transform is not None:
             xb = self.batch_transform(generator, xb)
-        opt.zero_grad(set_to_none=True)
-        l, stats = loss_with_stats(self.icnf, Mode.TRAIN, xb, params, generator, ys=yb,
-                                   dt0=dt0)
-        l.backward()
-        opt.step()
-        return l.detach(), stats
+        if self.mesh is not None:
+            xb, yb = pmesh.shard_batch_arrays(self.mesh, xb, yb)
+        return xb, yb
 
     # -- public API --------------------------------------------------------
 
@@ -320,7 +365,12 @@ class ICNFModel:
         last_loss = float("nan")
         sol_stats = None
         spd = self.steps_per_dispatch
-        carry = self._carry_dt(n if self.batchsize <= 0 else min(self.batchsize, n))
+        rows = n if self.batchsize <= 0 or self.batchsize >= n else self.batchsize
+        if self.mesh is not None and rows % self.mesh.size(0):
+            raise ValueError(f"minibatches of {rows} rows do not split evenly over the "
+                             f"{self.mesh.size(0)} ranks of the mesh's data axis")
+        carry = self._carry_dt(rows // (self.mesh.size(0) if self.mesh is not None else 1))
+        step = self._make_step(carry)
         # the carried start: 0 makes the first solve take the fixed-fraction
         # start (the override's fallback); each later one the previous |dt|
         tdt = cfg.dtype if cfg.dtype.is_floating_point else torch.float32
@@ -330,9 +380,9 @@ class ICNFModel:
             for blk in range(0, batches.shape[0], spd):
                 losses = []
                 for idx in batches[blk: blk + spd]:
-                    l, sol_stats = self._step(params, opt, gen, xs_all[idx],
-                                              None if ys_all is None else ys_all[idx],
-                                              dt_prev if carry else None)
+                    xb, yb = self._minibatch(gen, xs_all, ys_all, idx)
+                    l, sol_stats = step(params, opt, gen, xb, yb,
+                                        *((dt_prev,) if carry else ()))
                     if carry:
                         dt_prev = torch.abs(sol_stats.dt_final).detach()
                     losses.append(l)
@@ -397,11 +447,19 @@ class ICNFModel:
         icnf_eval = self.eval_icnf if self.eval_icnf is not None else self.icnf
         if self._conditional and Y is None:
             raise ValueError("conditional model requires Y to score")
-        xs = torch.as_tensor(_table_to_matrix(X), dtype=icnf_eval.config.dtype,
-                             device=_device_of(params))
+        cfg = icnf_eval.config
+        xs = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=_device_of(params))
+        ys = Y if self._conditional else None
+        if self.mesh is not None and xs.ndim == 2 and xs.shape[0] % self.mesh.size(0) == 0:
+            # sharded: each rank its rows, the mean over every rank's
+            if ys is not None:
+                ys = torch.as_tensor(ys, dtype=cfg.dtype, device=xs.device)
+            xs, ys = pmesh.shard_batch_arrays(self.mesh, xs, ys)
+            with torch.no_grad(), pmesh.use_mesh(self.mesh):
+                logpx = inference(icnf_eval, Mode.TEST, xs, params, ys=ys)[0]
+                return -float(pmesh.global_mean(torch.sum(logpx), logpx.numel()))
         with torch.no_grad():
-            logpx = inference(icnf_eval, Mode.TEST, xs, params,
-                              ys=Y if self._conditional else None)[0]
+            logpx = inference(icnf_eval, Mode.TEST, xs, params, ys=ys)[0]
         return -float(torch.mean(logpx))
 
     # -- persistence (reference MLJBase.save / machine(file)) ---------------

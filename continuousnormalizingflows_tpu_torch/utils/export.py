@@ -25,7 +25,8 @@ the abm solver (its order is kept on the host); the exact trace of a net
 that needs the generic sweep (forward-mode AD) or an activation
 differentiated by autograd (:func:`..ops.dynamics.exact_trace_traceable`);
 a base distribution whose sampler reads the device (the Student-t rejection
-gamma); and ``mesh=`` (parallel, not ported).
+gamma); and ``export_logpdf(mesh=)``, which needs collectives inside the
+device loop (ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -84,14 +85,16 @@ class Artifact:
 
 
 def _check_exportable(icnf, mesh, exact_trace: bool) -> None:
-    """Raise for what does not export: ``mesh=``, the abm solver, and (where
-    the program takes the exact trace) a net whose exact trace does not
-    trace."""
+    """Raise for what does not export: ``mesh=`` (the logpdf's), the abm
+    solver, and (where the program takes the exact trace) a net whose exact
+    trace does not trace."""
     from ..ops.dynamics import exact_trace_traceable
 
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (multi-card serving) is not ported yet (ROADMAP.md, Queue 1: parallel)")
+            "export_logpdf(mesh=) needs collectives inside the exported device loop "
+            "(torch.export of a while_loop) and is not ported yet (ROADMAP.md, Queue 1 "
+            "item 7: parallel)")
     if icnf.config.solver.method == "abm":
         raise NotImplementedError(
             "the abm solver keeps its order on the host and is not exported yet "
@@ -140,13 +143,13 @@ def _export_logpdf(icnf, params, device=None, mesh=None, fn=_logpdf_and_stats) -
 
 
 def export_sampler(icnf, params: Dict[str, torch.Tensor], n: int, ys=None,
-                   trace_free: bool = True, device=None, mesh=None) -> Artifact:
+                   trace_free: bool = True, device=None) -> Artifact:
     """Export the sampling path, ``seed -> (n, nvariables)``, ``n`` fixed here.
     ``trace_free=True`` (default) integrates the bare field.  A conditional
     model bakes in ``ys`` (one condition row, or ``n`` of them).  The base
     distribution's sampler must trace: one that reads the device (a
     rejection loop) raises here."""
-    _check_exportable(icnf, mesh, exact_trace=not trace_free)
+    _check_exportable(icnf, None, exact_trace=not trace_free)
     cfg = icnf.config
     if cfg.conditioned and ys is None:
         raise ValueError("conditional model: pass ys to bake into the sampler")

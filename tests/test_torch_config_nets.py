@@ -71,8 +71,17 @@ def test_icnf_validation_matches_jax(kwargs):
     ids=str,
 )
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.ICNFConfig(**kwargs)
+    """``feature_first`` (a TPU lane layout) is not ported and raises; the
+    mesh axes are accepted, unvalidated as in JAX, with JAX's derived sizes."""
+    if "layout" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tconfig.ICNFConfig(**kwargs)
+        return
+    t, j = tconfig.ICNFConfig(**kwargs), jconfig.ICNFConfig(**kwargs)
+    for k, v in kwargs.items():
+        assert getattr(t, k) == getattr(j, k) == v
+    for name in DERIVED:
+        assert getattr(t, name) == getattr(j, name), name
 
 
 DERIVED = ["augmented", "conditioned", "steered", "nz", "n_aug_input", "state_dim", "n_in",

@@ -1,6 +1,6 @@
-"""The port's subpackages export the JAX package's names: ``models``, ``ops``
-and ``utils`` have the same ``__all__``, with ``from_torch`` in place of
-``from_flax``, and every listed name resolves."""
+"""The port's subpackages export the JAX package's names: ``models``, ``ops``,
+``utils`` and ``parallel`` have the same ``__all__``, with ``from_torch`` in
+place of ``from_flax``, and every listed name resolves."""
 
 import importlib
 
@@ -10,7 +10,7 @@ import pytest
 RENAMED = {"from_flax": "from_torch"}
 
 
-@pytest.mark.parametrize("sub", ["models", "ops", "utils"])
+@pytest.mark.parametrize("sub", ["models", "ops", "utils", "parallel", "parallel.mesh"])
 def test_subpackage_exports_match_jax(sub):
     jax_mod = importlib.import_module(f"continuousnormalizingflows_tpu.{sub}")
     port = importlib.import_module(f"continuousnormalizingflows_tpu_torch.{sub}")

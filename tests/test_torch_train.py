@@ -250,7 +250,7 @@ def test_conditional_model():
 
 
 def test_rejects_bad_input_and_unported_options():
-    with pytest.raises(NotImplementedError, match="Queue 1: parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcnf.ICNFModel(_small(), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match=r"X must be \(n, 2\)"):
         tcnf.ICNFModel(_small(), epochs=1, device="cpu").fit(torch.zeros(8, 3))
