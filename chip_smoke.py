@@ -19,7 +19,12 @@ h = 1024, batch 256, through K1 + K2, both on their wide paths; StepTimer,
 profiling.trace, an AsyncCheckpointer save during the fit, the exported
 dopri5 eval) and the
 digits-shaped path (d = 64, h = 256, through K3 + K4, random_shift_images,
-the exported sampler), then the parallel layer ([parallel]: a world of 1 on
+the exported sampler), the rest of the serving export ([export]: the
+digits-shaped model fitted on the reference's default stack, abm with the
+quadrature adjoint, through K1 + K2, and its abm eval served from a saved
+artifact; the written-out exact sweep; a Student-t sampler;
+``export_logpdf(mesh=)`` on an NCCL world of 1 and on 2 gloo ranks), then
+the parallel layer ([parallel]: a world of 1 on
 NCCL, whose ``ICNFModel(mesh=)`` digits fit must give the unsharded fit's
 bits through K3 + K4, and 2 gloo ranks spawned on the one card, whose
 sharded digits fit, default adaptive stack and K5 + K6 step must agree
@@ -106,6 +111,14 @@ IMAGE_POINTS = IMAGE_FIT_STEPS * IMAGE_BATCH
 # the exported log-density against the eager call on the card: the same
 # operations, captured (equal steps asked for too)
 EXPORT_RTOL = 1e-5
+# [export]: the digits-shaped fit's steps on the reference's default stack,
+# the points each part serves, the ranks of its gloo mesh and their
+# log-densities' tolerance against one process's (each rank sums its rows'
+# error-norm squares, then the ranks' sums are added)
+EXPORT_FIT_STEPS = 4
+EXPORT_POINTS = 256
+EXPORT_RANKS = 2
+EXPORT_MESH_RTOL = 1e-5
 # [parallel]: the 2-rank digits fit's steps, and its tolerances against one
 # process (the bf16 kernels sum each rank's 128 rows, then the ranks' sums)
 PARALLEL_RANK_STEPS = 4
@@ -842,7 +855,7 @@ def timed_fit(name, icnf, data, epochs, want, dev, seed=7):
     res = model.fit(data, params=params)
     launches = counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    expected = want.__doc__ if callable(want) else want
+    expected = " ".join(want.__doc__.split()) if callable(want) else want
     for i in range(1, len(marks)):
         step = {k: marks[i][1][k] - marks[i - 1][1][k] for k in NO_LAUNCH}
         if not (want(step) if callable(want) else step == want):
@@ -1463,20 +1476,28 @@ def nets_phase(dev, record):
     record["nets"] = out
 
 
-def image_model(side, h, fused=False, eval_twin=False):
+def image_model(side, h, fused=False, eval_twin=False, solver=None, hidden=2, activation=None,
+                base_dist=None):
     """``benchmarks/image_bitsdim.py``'s model at ``side`` (d = side^2) and
     width ``h``: no augmentation, lambda_1 = lambda_2 = 0.01, lambda_3 = 0,
     no steering, rk4-24 with backprop and bf16 products; its eval twin
-    dopri5 at rtol = atol = 1e-4 with float32 products."""
+    dopri5 at rtol = atol = 1e-4 with float32 products.  ``solver`` (a
+    ``SolverConfig``) replaces either's; ``hidden`` hidden layers of ``h``,
+    ``activation`` in place of softplus, ``base_dist`` in place of the
+    normal base."""
     import continuousnormalizingflows_tpu_torch as cnf
     from continuousnormalizingflows_tpu_torch.config import SolverConfig
 
-    solver = (SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4) if eval_twin else
-              SolverConfig(method="rk4", gradient="backprop", fixed_steps=IMAGE_RK4_STEPS))
+    if solver is None:
+        solver = (SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4) if eval_twin else
+                  SolverConfig(method="rk4", gradient="backprop", fixed_steps=IMAGE_RK4_STEPS))
     cfg = cnf.ICNFConfig(nvariables=side * side, naugments=0, lambda_1=0.01, lambda_2=0.01,
-                         lambda_3=0.0, steer_rate=0.0, solver=solver, fused=fused)
-    return cnf.ICNF(config=cfg, net=cnf.MLP((cfg.n_in, h, h, cfg.n_out),
-                                            precision="highest" if eval_twin else "default"))
+                         lambda_3=0.0, steer_rate=0.0, solver=solver, fused=fused,
+                         base_dist=base_dist)
+    net_kw = {} if activation is None else {"activation": activation}
+    return cnf.ICNF(config=cfg, net=cnf.MLP((cfg.n_in,) + (h,) * hidden + (cfg.n_out,),
+                                            precision="highest" if eval_twin else "default",
+                                            **net_kw))
 
 
 def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_dir=None,
@@ -1490,8 +1511,9 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
     updates them in place, and the reloaded file must equal the parameters
     as they stood at ``save()`` bit for bit.  ``mesh``: the fit runs with
     ``ICNFModel(mesh=)``.  ``profile``: a dict that gets the device profile
-    of the two steps after the first (:class:`ProfileWindow`).  Returns
-    (result, samples/s, launches)."""
+    of the two steps after the first (:class:`ProfileWindow`).  ``want`` may
+    be a function ``want(step index, that step's launches) -> bool`` whose
+    docstring says what it expects.  Returns (result, samples/s, launches)."""
     import contextlib
     import glob
 
@@ -1546,11 +1568,12 @@ def image_fit(name, icnf, data, steps, want, dev, batch_transform=None, trace_di
         profile.update(window.summary(2))
     if res.stats["iterations"] != steps or not all(map(math.isfinite, res.history)):
         fail(f"{name}: {res.stats['iterations']} steps, loss history {res.history}")
+    expected = " ".join(want.__doc__.split()) if callable(want) else want
     for i in range(1, len(marks)):
         step = {k: marks[i][k] - marks[i - 1][k] for k in NO_LAUNCH}
-        if step != want:
-            fail(f"{name}: step {i - 1} launched {step}, expected {want}")
-    log(f"  {name}: {steps} steps, each launching {want} ok; loss {res.history[0]:.2f} -> "
+        if not (want(i - 1, step) if callable(want) else step == want):
+            fail(f"{name}: step {i - 1} launched {step}, expected {expected}")
+    log(f"  {name}: {steps} steps, each launching {expected} ok; loss {res.history[0]:.2f} -> "
         f"{res.history[-1]:.2f}")
     if trace_dir:
         names = set()
@@ -1675,6 +1698,229 @@ def image_phase(dev, record):
     out["seconds"] = time.perf_counter() - started
     log(f"  [image] phase: {out['seconds']:.1f} s")
     record["image"] = out
+
+def export_eval_model(solver=None, side=None, h=None, **kw):
+    """[export]'s served model: the digits-shaped eval twin (65 -> 256 ->
+    256 -> 64, float32 products), on the reference's default solver (abm)
+    unless ``solver`` says otherwise."""
+    from continuousnormalizingflows_tpu_torch.config import SolverConfig
+
+    return image_model(side or DIGITS_SIDE, h or DIGITS_HIDDEN, eval_twin=True,
+                       solver=solver or SolverConfig(method="abm", gradient="quadrature"), **kw)
+
+
+def served_vs_eager(name, icnf, params, x, work):
+    """Export ``icnf``'s TEST log-density with ``params``, save, load and
+    serve ``x``; the served call's steps and bits must be the eager
+    ``inference``'s, and neither may launch a kernel.  Returns (served logp,
+    stats, export seconds, the loaded artifact)."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode
+    from continuousnormalizingflows_tpu_torch.utils import export as ex
+
+    reset_counts()
+    art, export_s = host_seconds(lambda: ex._export_logpdf(icnf, params, device=x.device))
+    path = str(work / f"{re.sub(r'[^a-z0-9]+', '_', name.lower())}.pt2")
+    ex.save_artifact(path, art)
+    served = ex.load_artifact(path)
+    lp, nfe, nacc, nrej = served.call(x)
+    with torch.no_grad():
+        eager, _a, st = cnf.inference(icnf, Mode.TEST, x, params)
+    stats = {"nfe": int(nfe), "naccept": int(nacc), "nreject": int(nrej)}
+    if stats != solve_stats(st):
+        fail(f"{name}: the served call's steps {stats} vs the eager call's {solve_stats(st)}")
+    if not torch.equal(lp, eager) or not torch.isfinite(lp).all() or lp.shape != (x.shape[0],):
+        fail(f"{name}: the served log-density is not the eager call's bits (max abs diff "
+             f"{float((lp - eager).abs().max()):.3e})")
+    if counts() != NO_LAUNCH:
+        fail(f"{name}: the TEST calls launched kernels {counts()}")
+    log(f"  {name}: exported in {export_s:.1f} s, saved, loaded, served {x.shape[0]} points: "
+        f"steps {tuple(stats.values())} and bits equal to the eager call's ok")
+    return lp, stats, export_s, served
+
+
+def export_rank(rank, world, store, work):
+    """A rank of [export]'s gloo mesh on the one card: exports the served
+    model on a ``world x 1`` mesh and serves its 1 / ``world`` of the points;
+    its log-densities and steps to ``work/r<rank>.pt``, a failure's
+    traceback to ``work/error_r<rank>.txt``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        inputs = torch.load(Path(work) / "inputs.pt")
+        dev = torch.device(inputs["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        from continuousnormalizingflows_tpu_torch.parallel import (initialize_distributed,
+                                                                   make_mesh, shard_batch_arrays)
+        from continuousnormalizingflows_tpu_torch.utils import export as ex
+
+        initialize_distributed(backend="gloo", init_method=f"file://{store}", world_size=world,
+                               rank=rank, timeout=datetime.timedelta(seconds=PARALLEL_JOIN_S))
+        mesh = make_mesh(device=dev)
+        params = {k: v.to(dev) for k, v in inputs["params"].items()}
+        rows, _ = shard_batch_arrays(mesh, inputs["x"].to(dev))
+        model = export_eval_model(side=inputs["side"], h=inputs["h"])
+        t0 = time.perf_counter()
+        art = ex._export_logpdf(model, params, mesh=mesh)
+        export_s = time.perf_counter() - t0
+        lp, nfe, nacc, nrej = art.call(rows)
+        torch.save(dict(lp=lp.cpu(), rows=rows.shape[0], export_s=export_s, mesh=art.mesh,
+                        stats={"nfe": int(nfe), "naccept": int(nacc), "nreject": int(nrej)}),
+                   Path(work) / f"r{rank}.pt")
+        dist.destroy_process_group()
+    except Exception:
+        Path(work, f"error_r{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def export_phase(dev, record):
+    """The rest of the serving export at the digits widths: (a) the
+    digits-shaped model (65 -> 256 -> 256 -> 64) fitted 4 steps at B = 256 on
+    the reference's default stack (abm with the quadrature adjoint) with
+    ``fused=True``, through K1 + K2 on their wide paths, each step's
+    launches counted against its forward solve; then its float32 eval twin
+    (abm) exported, saved, loaded and served 256 points with the eager
+    call's steps and bits, both timed; (b) the exact trace of nets the
+    analytic trace does not cover, served likewise (dopri5): a 3-hidden-layer
+    net (the written-out sweep) and a gelu twin of the digits net; (c) a
+    Student-t base's exported sampler, the eager ``generate``'s bits for the
+    same seed, twice and after a reload; (d) ``export_logpdf(mesh=)`` on an
+    NCCL world of 1 (the unsharded served bits) and on 2 gloo ranks on the
+    card, each serving 128 of the points with the unsharded steps (they run
+    beside (b), (c) and the world of 1, after (a)'s timings)."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch import distributions as dists
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+    from continuousnormalizingflows_tpu_torch.parallel import initialize_distributed, make_mesh
+    from continuousnormalizingflows_tpu_torch.utils import datasets as ds
+    from continuousnormalizingflows_tpu_torch.utils import export as ex
+
+    started = time.perf_counter()
+    work = Path("chiprun_out") / "export_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    side, h = DIGITS_SIDE, DIGITS_HIDDEN
+    out = {}
+
+    # (a) the fit on the default stack through K1 + K2, then the eval twin served
+    default_stack = SolverConfig(method="abm", gradient="quadrature")
+    x = ds.smooth_image_mixture(gen(5), EXPORT_FIT_STEPS * IMAGE_BATCH, side)
+    steps = []
+    with SolveSpy() as spy:
+        def want(i, step):
+            """K1 = the step's forward NFE + K2 (each VJP of the quadrature adjoint runs its
+            stage through K1, its backward through K2), K2 > 0, no other kernel"""
+            steps.append({k: step[k] for k in ("K1", "K2")})
+            return (step["K2"] > 0 and step["K1"] == int(spy.stats[i].nfe) + step["K2"]
+                    and not any(step[k] for k in ("K3", "K4", "K5", "K6")))
+
+        res, rate, launched = image_fit(
+            "digits-shaped, abm + quadrature, fused=True (K1 + K2)",
+            image_model(side, h, fused=True, solver=default_stack), x, EXPORT_FIT_STEPS, want,
+            dev)
+        forward = [solve_stats(st) for st in spy.stats]
+    if len(forward) != EXPORT_FIT_STEPS:
+        fail(f"export fit: {len(forward)} forward solves in {EXPORT_FIT_STEPS} steps")
+    plan_fwd = _plan_path("fwd", side * side + 1, h, side * side)
+    plan_bwd = _plan_path("bwd", side * side + 1, h, side * side)
+    if plan_fwd != "wide" or plan_bwd != "wide":
+        fail(f"export fit: K1 takes its {plan_fwd} path, K2 its {plan_bwd} path at the digits "
+             f"widths, not the wide ones")
+    log(f"  the fit's forward solves {forward}; launches a step {steps} (K1 and K2 on their "
+        f"wide paths); {rate:.1f} train samples/s ({nvidia_smi()})")
+    out["fit"] = dict(history=res.history, launches=launched, launches_a_step=steps,
+                      forward=forward, train_samples_per_s=rate)
+    params = res.params
+    ev = export_eval_model()
+    x_eval = ds.smooth_image_mixture(gen(6), EXPORT_POINTS, side)
+    lp, stats, export_s, served = served_vs_eager("digits abm eval", ev, params, x_eval, work)
+    rates = {"served": samples_per_s(f"served digits abm logpdf, {EXPORT_POINTS} points",
+                                     lambda: served.call(x_eval), EXPORT_POINTS),
+             "eager": samples_per_s(f"eager digits abm log_prob(TEST), {EXPORT_POINTS} points",
+                                    lambda: cnf.log_prob(ev, Mode.TEST, x_eval, params),
+                                    EXPORT_POINTS)}
+    log(f"  digits abm eval: export {export_s:.1f} s; served {rates['served']:.1f} vs eager "
+        f"{rates['eager']:.1f} samples/s ({nvidia_smi()})")
+    out["abm"] = dict(stats=stats, export_s=export_s, samples_per_s=rates)
+    # (d)'s gloo ranks export and serve while (b), (c) and the world of 1 run here
+    torch.save(dict(params={k: v.cpu() for k, v in params.items()}, x=x_eval.cpu(),
+                    device=str(dev), side=side, h=h), work / "inputs.pt")
+    ranks = start_ranks(export_rank, EXPORT_RANKS, work)
+
+    # (b) the exact trace of nets the analytic trace does not cover
+    out["nets"] = {}
+    for name, model in (
+            ("3 hidden layers, the written-out sweep", export_eval_model(
+                SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4), hidden=3)),
+            ("gelu, the analytic trace with the written-out gelu'", export_eval_model(
+                SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4), activation=F.gelu))):
+        p = model.init(torch.Generator().manual_seed(0), device=dev)
+        _lp, st, sec, _art = served_vs_eager(f"dopri5 {name}", model, p, x_eval, work)
+        out["nets"][name] = dict(stats=st, export_s=sec)
+
+    # (c) a Student-t base's exported sampler
+    st_model = export_eval_model(base_dist=dists.student_t(4.0))
+    sampler, sampler_s = host_seconds(lambda: ex.export_sampler(st_model, params, EXPORT_POINTS,
+                                                                device=dev))
+    s1, s2 = sampler.call(13), sampler.call(13)
+    ex.save_artifact(str(work / "student_sampler.pt2"), sampler)
+    s3 = ex.load_artifact(str(work / "student_sampler.pt2")).call(13)
+    with torch.no_grad():
+        want_s = cnf.generate(st_model, Mode.TEST, params, gen(13), EXPORT_POINTS,
+                              trace_free=True)
+    if (s1.shape != (EXPORT_POINTS, side * side) or not torch.isfinite(s1).all()
+            or not all(torch.equal(s1, v) for v in (s2, s3, want_s))):
+        fail("Student-t sampler: the shape, or the same seed gave other bits (twice, after a "
+             "reload, or against the eager generate)")
+    log(f"  Student-t(4) base: the sampler exported in {sampler_s:.1f} s; seed 13 twice, after "
+        f"a reload and eagerly: the same bits ok")
+    out["student_t"] = dict(export_s=sampler_s)
+
+    # (d) export_logpdf(mesh=): an NCCL world of 1, then 2 gloo ranks on the card
+    initialize_distributed(backend="nccl", store=dist.HashStore(), world_size=1, rank=0)
+    mesh = make_mesh()
+    one = ex._export_logpdf(ev, params, mesh=mesh)
+    lp1, *st1 = one.call(x_eval)
+    st1 = dict(zip(("nfe", "naccept", "nreject"), map(int, st1)))
+    dist.destroy_process_group()
+    if st1 != stats or not torch.equal(lp1, lp) or one.mesh[0] != (1, 1):
+        fail(f"export mesh: the NCCL world of 1 served steps {st1} vs {stats}, or other bits")
+    log(f"  export_logpdf(mesh=) on an NCCL world of 1: the unsharded served steps and bits ok")
+    got = join_ranks("export", ranks)
+    for r, g in enumerate(got):
+        if g["stats"] != stats or g["rows"] != EXPORT_POINTS // EXPORT_RANKS:
+            fail(f"export mesh: rank {r} served {g['rows']} rows with steps {g['stats']}, the "
+                 f"unsharded call {stats}")
+    mesh_err = compare(f"export_logpdf(mesh=) on {EXPORT_RANKS} gloo ranks, "
+                       f"{EXPORT_POINTS // EXPORT_RANKS} points a rank, vs the unsharded served "
+                       f"call", torch.cat([g["lp"] for g in got]), lp.cpu(), EXPORT_MESH_RTOL, 0.0)
+    out["mesh"] = dict(stats=stats, max_abs_err=mesh_err,
+                       export_s=[g["export_s"] for g in got])
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - started
+    log(f"  [export] phase: {out['seconds']:.1f} s")
+    record["export"] = out
+
+
+def _plan_path(kind, n_in, h, nz):
+    """K1's (``kind="fwd"``) or K2's path at these widths and IMAGE_BATCH."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    if kind == "fwd":
+        return _build.fwd_plan(n_in, h, nz, nz, IMAGE_BATCH).path
+    return _build.bwd_plan(n_in, h, nz, nz, 0, IMAGE_BATCH).path
+
 
 class ProfileWindow:
     """``torch.profiler`` over a window of train steps, opened and closed by
@@ -1836,6 +2082,43 @@ def parallel_rank(rank, world, store, work):
         raise
 
 
+def start_ranks(target, world, work):
+    """``target(rank, world, store, work)`` in ``world`` spawned processes
+    that meet at a ``file://`` store under ``work``; each writes
+    ``work/r<rank>.pt`` (a failure's traceback ``work/error_r<rank>.txt``).
+    Returns what :func:`join_ranks` takes."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    # the store's path in a file:// URL must be absolute
+    procs = [ctx.Process(target=target, args=(r, world, str((work / "store").resolve()),
+                                              str(work)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, work, time.perf_counter()
+
+
+def join_ranks(phase, started):
+    """Join :func:`start_ranks`' processes within PARALLEL_JOIN_S of their
+    start (a hung one is killed and fails the run); every rank's results,
+    in order."""
+    procs, work, t0 = started
+    for p in procs:
+        p.join(max(1.0, PARALLEL_JOIN_S - (time.perf_counter() - t0)))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [f.read_text() for f in sorted(work.glob("error_r*.txt"))]
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        fail(f"{phase}: gloo ranks hung {hung}, exit codes {[p.exitcode for p in procs]}\n"
+             + "\n".join(errors))
+    log(f"  {len(procs)} gloo ranks on the card: joined in {time.perf_counter() - t0:.1f} s")
+    return [torch.load(work / f"r{r}.pt") for r in range(len(procs))]
+
+
 def parallel_phase(dev, record):
     """The parallel layer on the one card: (a) a world of 1 on NCCL
     (``initialize_distributed`` then ``make_mesh``) and the digits-shaped
@@ -1847,7 +2130,6 @@ def parallel_phase(dev, record):
     fused adaptive route (K5 + K6) on 65,536 rows (32,768 a rank) against
     one process on all of them: the same solver stats on both ranks and as
     one process's."""
-    import multiprocessing as mp
     import shutil
 
     import torch.distributed as dist
@@ -1917,27 +2199,7 @@ def parallel_phase(dev, record):
 
     # (b) 2 gloo ranks on the card
     world = 2
-    ctx = mp.get_context("spawn")
-    # the store's path in a file:// URL must be absolute
-    procs = [ctx.Process(target=parallel_rank,
-                         args=(r, world, str((work / "store").resolve()), str(work)))
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(max(1.0, PARALLEL_JOIN_S - (time.perf_counter() - t0)))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    errors = [f.read_text() for f in sorted(work.glob("error_r*.txt"))]
-    if hung or errors or any(p.exitcode != 0 for p in procs):
-        fail(f"parallel: gloo ranks hung {hung}, exit codes {[p.exitcode for p in procs]}\n"
-             + "\n".join(errors))
-    got = [torch.load(work / f"r{r}.pt") for r in range(world)]
-    log(f"  {world} gloo ranks on the card: joined in {time.perf_counter() - t0:.1f} s")
+    got = join_ranks("parallel", start_ranks(parallel_rank, world, work))
     for r, g in enumerate(got):
         if g["launches"]["K3"] == 0 or g["launches"]["K4"] == 0:
             fail(f"parallel: rank {r}'s digits fit launched {g['launches']}")
@@ -2042,6 +2304,11 @@ def main() -> None:
         "-> 784, batch 256, K1 + K2) and the digits-shaped path (65 -> 256 -> 256 -> 64, "
         "K3 + K4): datasets, StepTimer, profiling.trace, AsyncCheckpointer, export")
     image_phase(dev, record)
+    log("[export] the rest of the serving export at the digits widths (65 -> 256 -> 256 -> "
+        "64): a fit on the default stack (abm + quadrature, K1 + K2) and its abm eval twin "
+        "served; the written-out exact sweep and a gelu net; a Student-t sampler; "
+        "export_logpdf(mesh=) on an NCCL world of 1 and 2 gloo ranks")
+    export_phase(dev, record)
     log("[parallel] the parallel layer: a world of 1 on NCCL (the digits-shaped fit with "
         "mesh=, K3 + K4, against the unsharded fit) and 2 gloo ranks on the card (the digits "
         "fit, the default adaptive stack and K5 + K6 on 65,536 rows)")

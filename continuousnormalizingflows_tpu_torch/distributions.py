@@ -97,23 +97,41 @@ def _rand(generator, shape, dtype) -> torch.Tensor:
                       device=generator.device)
 
 
+def _gamma_round(generator, shape, d: float, c: float, todo: torch.Tensor,
+                 out: torch.Tensor):
+    """One Marsaglia-Tsang round: a normal and a uniform for every element
+    (drawn in that order), the elements still ``todo`` that accept take
+    ``d v``.  Returns the new ``(todo, out)``."""
+    x = _randn(generator, shape, torch.float64)
+    u = _rand(generator, shape, torch.float64)
+    v = (1.0 + c * x) ** 3
+    ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                    + d * torch.log(torch.clamp(v, min=1e-300)))
+    return todo & ~ok, torch.where(todo & ok, d * v, out)
+
+
 def _gamma(generator: torch.Generator, shape, alpha: float) -> torch.Tensor:
     """Gamma(alpha, 1) draws in float64 by Marsaglia and Tsang's squeeze-free
     rejection (every element redrawn until accepted, > 95 % a round), with
-    ``Gamma(alpha) = Gamma(alpha + 1) U^(1 / alpha)`` below ``alpha = 1``."""
+    ``Gamma(alpha) = Gamma(alpha + 1) U^(1 / alpha)`` below ``alpha = 1``.
+    Exact: the rounds run until every element has accepted.  Eagerly a round
+    ends in a host read of whether any element is left; a traced program's
+    draws (a :class:`DefaultGenerator`) run the same rounds in a
+    ``while_loop`` whose carry is the mask and the output, so one seed gives
+    the same bits both ways."""
     a = alpha + 1.0 if alpha < 1.0 else alpha
     d = a - 1.0 / 3.0
     c = 1.0 / math.sqrt(9.0 * d)
     out = torch.zeros(shape, dtype=torch.float64, device=generator.device)
     todo = torch.ones(shape, dtype=torch.bool, device=generator.device)
-    while bool(todo.any()):
-        x = _randn(generator, shape, torch.float64)
-        u = _rand(generator, shape, torch.float64)
-        v = (1.0 + c * x) ** 3
-        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
-                        + d * torch.log(torch.clamp(v, min=1e-300)))
-        out = torch.where(todo & ok, d * v, out)
-        todo = todo & ~ok
+    step = lambda todo, out: _gamma_round(generator, shape, d, c, todo, out)
+    if isinstance(generator, DefaultGenerator):
+        from torch._higher_order_ops.while_loop import while_loop
+
+        todo, out = while_loop(lambda todo, _out: todo.any(), step, (todo, out))
+    else:
+        while bool(todo.any()):
+            todo, out = step(todo, out)
     if alpha < 1.0:
         out = out * _rand(generator, shape, torch.float64) ** (1.0 / alpha)
     return out

@@ -10,9 +10,14 @@ The branches, in the JAX package's order: the fused Hutchinson-VJP stage
 exact Frobenius ``reg_j``); the analytic trace of 1- and 2-hidden-layer
 MLPs; the generic exact sweep (one JVP a basis row, in blocks of
 ``exact_chunk`` rows when it is set); the Hutchinson VJP
-(``torch.autograd.grad``) and the Hutchinson JVP.  The JVPs run in forward
-mode (``torch.autograd.forward_ad``), whose results stay differentiable by
-autograd, also under the non-reentrant checkpoint of ``remat``.
+(``torch.autograd.grad``) and the Hutchinson JVP.  The JVPs of the port's
+own nets (an MLP of any depth or a planar net, under any ``CondLayer``s,
+with an activation of :data:`ACTIVATION_DERIVATIVES`) are written out: the
+tangents pushed through each product and each activation's derivative
+(:func:`_written_jvps`), the same code eager, under autograd and under
+``torch.export``.  Any other net's (``from_torch``) run in forward mode
+(``torch.autograd.forward_ad``).  Both stay differentiable by autograd,
+also under the non-reentrant checkpoint of ``remat``.
 
 Inside a sharded step (:func:`..parallel.mesh.use_mesh`): with
 ``probe_axis`` each ``model`` rank holds its share of the probes and the
@@ -26,6 +31,7 @@ slices into the whole net first.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -33,12 +39,12 @@ import torch.autograd.forward_ad as fwad
 import torch.nn.functional as F
 
 from ..config import ICNFConfig, Mode, TraceEstimator
-from ..models.nets import MLP, DynamicsNet, Params, Planar, linear, mlp_layers
+from ..models.nets import MLP, CondLayer, DynamicsNet, Params, Planar, linear, mlp_layers
 from ..parallel import mesh as pmesh
 from .fused_dynamics import MAX_HIDDEN, _row_norm, fused_dynamics_vjp
 
 __all__ = ["make_augmented_dynamics", "make_field", "fused_dynamics_applicable",
-           "exact_trace_traceable"]
+           "exact_trace_traceable", "ACTIVATION_DERIVATIVES"]
 
 Args = dict
 
@@ -89,15 +95,56 @@ def _mlp_exact_applicable(net) -> bool:
     return isinstance(net, MLP) and len(net.widths) in (3, 4)
 
 
+def _softplus(z):
+    return F.softplus(z), torch.sigmoid(z)
+
+
+def _tanh(z):  # autograd's tanh_backward, 1 - a^2
+    a = torch.tanh(z)
+    return a, 1 - a * a
+
+
+def _sigmoid(z):
+    s = torch.sigmoid(z)
+    return s, s * (1 - s)
+
+
+def _relu(z):
+    return torch.relu(z), (z > 0).to(z.dtype)
+
+
+def _elu(z):  # alpha = 1
+    return F.elu(z), torch.where(z > 0, torch.ones_like(z), torch.exp(z))
+
+
+def _gelu(z):  # the exact (erf) form, F.gelu's default
+    phi = torch.exp(-0.5 * z * z) * (1.0 / math.sqrt(2.0 * math.pi))
+    return F.gelu(z), 0.5 * (1.0 + torch.erf(z * (1.0 / math.sqrt(2.0)))) + z * phi
+
+
+def _silu(z):
+    s = torch.sigmoid(z)
+    return F.silu(z), s * (1 + z * (1 - s))
+
+
+# the activations whose derivative is written out: ``act -> z -> (act(z),
+# act'(z))``, plain tensor operations that ``torch.export`` captures and
+# autograd differentiates again
+ACTIVATION_DERIVATIVES = {
+    F.softplus: _softplus, torch.tanh: _tanh, F.tanh: _tanh,
+    torch.sigmoid: _sigmoid, F.sigmoid: _sigmoid, torch.relu: _relu, F.relu: _relu,
+    F.elu: _elu, F.gelu: _gelu, F.silu: _silu,
+}
+
+
 def _act_and_deriv(act, z: torch.Tensor):
-    """``(act(z), act'(z))`` of an elementwise activation.  The derivative
-    comes from autograd (``create_graph`` where ``z`` is in a graph), so it
-    stays differentiable, also under a non-reentrant checkpoint."""
-    if act is F.softplus:
-        return F.softplus(z), torch.sigmoid(z)
-    if act is torch.tanh:  # autograd's tanh_backward, 1 - a^2, written out
-        a = torch.tanh(z)
-        return a, 1 - a * a
+    """``(act(z), act'(z))`` of an elementwise activation: written out for
+    those of :data:`ACTIVATION_DERIVATIVES`, else from autograd
+    (``create_graph`` where ``z`` is in a graph, so it stays differentiable,
+    also under a non-reentrant checkpoint; not captured by ``torch.export``)."""
+    written = ACTIVATION_DERIVATIVES.get(act)
+    if written is not None:
+        return written(z)
     train = torch.is_grad_enabled() and z.requires_grad
     with torch.enable_grad():
         zz = z if train else z.detach().requires_grad_()
@@ -106,13 +153,73 @@ def _act_and_deriv(act, z: torch.Tensor):
     return (a, d) if train else (a.detach(), d.detach())
 
 
+def _written_net(net):
+    """``(inner, conditions)`` where the JVPs of ``net`` are written out: an
+    MLP or a planar net with an activation of
+    :data:`ACTIVATION_DERIVATIVES`, under any ``CondLayer``s (whose
+    conditions, outermost first, are appended to its input); else None."""
+    conds = []
+    while isinstance(net, CondLayer):
+        conds.append(net.ys)
+        net = net.net
+    if isinstance(net, (MLP, Planar)) and net.activation in ACTIVATION_DERIVATIVES:
+        return net, conds
+    return None
+
+
 def exact_trace_traceable(net) -> bool:
     """Whether the exact trace of ``net`` traces for ``torch.export``: the
-    analytic planar and MLP traces with an activation whose derivative is
-    written out (softplus, tanh).  The generic sweep's forward-mode JVPs and
-    an activation differentiated by autograd do not."""
-    return ((isinstance(net, Planar) or _mlp_exact_applicable(net))
-            and net.activation in (F.softplus, torch.tanh))
+    analytic planar and MLP traces and the written-out sweep
+    (:func:`_written_net`).  A ``from_torch`` net's sweep runs in forward
+    mode, which ``torch.export`` does not capture with a symbolic batch."""
+    return _written_net(net) is not None
+
+
+def activation_name(net) -> Optional[str]:
+    """The name of the activation of ``net`` (under its ``CondLayer``s) that
+    has no written-out derivative, or None."""
+    while isinstance(net, CondLayer):
+        net = net.net
+    act = getattr(net, "activation", None)
+    if act is None or act in ACTIVATION_DERIVATIVES:
+        return None
+    return getattr(act, "__name__", repr(act))
+
+
+def _written_jvps(net, conds, params: Params, x_full: torch.Tensor, nz: int,
+                  tangents: torch.Tensor):
+    """``(field, J tangents)`` of a :func:`_written_net` at ``x_full`` (the
+    field's input, before the ``CondLayer`` conditions), for tangents ``(C,
+    B or 1, nz)`` on the ``z`` columns (zero on the time and condition
+    columns): forward mode written out, the tangents through each product
+    (without its bias) and times each activation's derivative.  A
+    tensor-parallel MLP sums its row-parallel product's tangent over the
+    model ranks as it sums the product."""
+    for ys in conds:
+        ys = ys.to(device=x_full.device, dtype=x_full.dtype)
+        x_full = torch.cat([x_full, ys.expand(x_full.shape[:-1] + (ys.shape[-1],))], dim=-1)
+    if isinstance(net, Planar):
+        a, d = _act_and_deriv(net.activation, net._pre(params, x_full))
+        u, w = params["u"], params["w"]
+        return a[..., None] * u, (d * (tangents @ w[:nz]))[..., None] * u
+    prec = net.precision
+    layers = mlp_layers(params)
+    tp = net.tp_group(params)
+    if tp is not None:
+        x_full = pmesh.copy_to_model(x_full, tp)
+    h, last = x_full, len(layers) - 1
+    for i, (a, b) in enumerate(layers):
+        if i == 0:
+            h, tan = linear(h, a, b, prec), linear(tangents, a[:, :nz], None, prec)
+        elif i == 1 and tp is not None:
+            h = pmesh.reduce_from_model(linear(h, a, None, prec), tp) + b
+            tan = pmesh.reduce_from_model(linear(tan, a, None, prec), tp)
+        else:
+            h, tan = linear(h, a, b, prec), linear(tan, a, None, prec)
+        if i != last:
+            h, d = _act_and_deriv(net.activation, h)
+            tan = d * tan
+    return h, tan.expand(tangents.shape[:1] + h.shape)
 
 
 def _planar_trace(net: Planar, params: Params, x_full: torch.Tensor, nz: int, reg: bool):
@@ -129,31 +236,33 @@ def _planar_trace(net: Planar, params: Params, x_full: torch.Tensor, nz: int, re
 
 
 def _jvps(fn, z: torch.Tensor, tangents: torch.Tensor):
-    """``(fn(z), J tangents)`` for a stack of tangents ``(C, B, nz)``: one
-    forward-mode pass over ``C`` copies of the batch (the net maps any
+    """``(fn(z), J tangents)`` for a stack of tangents ``(C, B or 1, nz)``:
+    one forward-mode pass over ``C`` copies of the batch (the net maps any
     leading axes).  Differentiable where ``z`` or what ``fn`` closes over
     requires grad; plain values otherwise.  Forward mode is switched on
     explicitly: an ``autograd.Function``'s forward (the adjoints' forward
     solve) runs with it off."""
+    shape = tangents.shape[:1] + z.shape
     with fwad._set_fwd_grad_enabled(True), fwad.dual_level():
-        zd = fwad.make_dual(z.expand(tangents.shape).contiguous(), tangents.contiguous())
+        zd = fwad.make_dual(z.expand(shape).contiguous(), tangents.expand(shape).contiguous())
         out = fwad.unpack_dual(fn(zd))
     return out.primal[0], out.tangent
 
 
-def _exact_sweep(fn, z: torch.Tensor, nz: int, chunk: int, reg: bool, axis=None):
-    """``(dz, tr(J), sum J^2 or None)`` by JVPs along the basis rows: all
-    ``nz`` at once when ``chunk == 0``, else in blocks of ``chunk`` rows
-    (peak memory ``(chunk, B, nz)``), the last block's overrun rows zero.
-    ``axis`` (``sweep_axis``): inside a sharded step this rank sweeps its
-    block of the rows, and the sums are all-reduced over the axis."""
+def _exact_sweep(jvps, z: torch.Tensor, nz: int, chunk: int, reg: bool, axis=None):
+    """``(dz, tr(J), sum J^2 or None)`` by JVPs along the basis rows
+    (``jvps(tangents (C, 1, nz)) -> (dz, J tangents)``): all ``nz`` at once
+    when ``chunk == 0``, else in blocks of ``chunk`` rows (peak memory
+    ``(chunk, B, nz)``), the last block's overrun rows zero.  ``axis``
+    (``sweep_axis``): inside a sharded step this rank sweeps its block of the
+    rows, and the sums are all-reduced over the axis."""
     eye = torch.eye(nz, dtype=z.dtype, device=z.device)
     batch = z.shape[:-1]
     lo, hi, group = pmesh.model_share(axis, nz)
     if group is not None:
-        return _shared_sweep(fn, z, eye[lo:hi], chunk, reg, group)
+        return _shared_sweep(jvps, z, eye[lo:hi], chunk, reg, group)
     if chunk == 0:
-        dz, jcols = _jvps(fn, z, eye[:, None, :].expand((nz,) + batch + (nz,)))
+        dz, jcols = jvps(eye[:, None, :])
         div = torch.einsum("ibi->b", jcols)
         return dz, div, torch.sum(torch.square(jcols), dim=(0, 2)) if reg else None
     chunk = min(chunk, nz)
@@ -162,14 +271,14 @@ def _exact_sweep(fn, z: torch.Tensor, nz: int, chunk: int, reg: bool, axis=None)
     div = fro = torch.zeros(batch, dtype=z.dtype, device=z.device)
     for o in range(0, nblocks * chunk, chunk):
         basis = basis_all[o:o + chunk]
-        dz, jrows = _jvps(fn, z, basis[:, None, :].expand((chunk,) + batch + (nz,)))
+        dz, jrows = jvps(basis[:, None, :])
         div = div + torch.einsum("cbj,cj->b", jrows, basis)
         if reg:
             fro = fro + torch.sum(torch.square(jrows), dim=(0, 2))
     return dz, div, fro if reg else None
 
 
-def _shared_sweep(fn, z: torch.Tensor, rows: torch.Tensor, chunk: int, reg: bool, group):
+def _shared_sweep(jvps, z: torch.Tensor, rows: torch.Tensor, chunk: int, reg: bool, group):
     """:func:`_exact_sweep` over this rank's ``rows`` of the basis (blocks of
     ``chunk`` of them, all at once when 0), its sums all-reduced in one
     differentiable collective."""
@@ -179,13 +288,12 @@ def _shared_sweep(fn, z: torch.Tensor, rows: torch.Tensor, chunk: int, reg: bool
     step = chunk if chunk > 0 else max(rows.shape[0], 1)
     for o in range(0, rows.shape[0], step):
         basis = rows[o:o + step]
-        dz, jrows = _jvps(fn, z, basis[:, None, :].expand((basis.shape[0],) + batch
-                                                          + (z.shape[-1],)))
+        dz, jrows = jvps(basis[:, None, :])
         div = div + torch.einsum("cbj,cj->b", jrows, basis)
         if reg:
             fro = fro + torch.sum(torch.square(jrows), dim=(0, 2))
     if dz is None:  # a rank past the last row: the field alone
-        dz = fn(z)
+        dz = jvps(rows.new_zeros((1, 1, z.shape[-1])))[0]
     div, fro = pmesh.sum_over_model(torch.stack([div, fro]), group)
     return dz, div, fro if reg else None
 
@@ -295,6 +403,7 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
 
     planar = isinstance(net, Planar)
     mlp_exact = _mlp_exact_applicable(net) and not compute_reg_j
+    written = _written_net(net)
 
     def f_aug(t, u: torch.Tensor, args: Args) -> torch.Tensor:
         params = args["params"]
@@ -303,6 +412,11 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
         probes = probe_share(cfg)[2] if estimator is not TraceEstimator.EXACT else None
         zero = torch.zeros(z.shape[:-1], dtype=u.dtype, device=u.device)
         g = lambda zz: field(t, zz, params, ys)
+        if written is not None:
+            jvps = lambda tangents: _written_jvps(*written, params, _net_input(cfg, t, z, ys), nz,
+                                                  tangents)
+        else:
+            jvps = lambda tangents: _jvps(g, z, tangents)
         reg_j = zero
         if estimator is TraceEstimator.EXACT and planar:
             dz, div, fro = _planar_trace(net, params, _net_input(cfg, t, z, ys), nz,
@@ -311,7 +425,7 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
         elif estimator is TraceEstimator.EXACT and mlp_exact:
             dz, div = _mlp_exact_trace(net, params, _net_input(cfg, t, z, ys), nz)
         elif estimator is TraceEstimator.EXACT:
-            dz, div, fro = _exact_sweep(g, z, nz, cfg.exact_chunk, compute_reg_j,
+            dz, div, fro = _exact_sweep(jvps, z, nz, cfg.exact_chunk, compute_reg_j,
                                         cfg.sweep_axis)
             reg_j = torch.sqrt(fro) if compute_reg_j else zero
         elif estimator is TraceEstimator.HUTCH_VJP:  # one shared forward, one VJP a probe
@@ -321,7 +435,7 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
             reg_j = _probe_mean(_row_norm(eps_j), cfg.nprobes, probes) if compute_reg_j else zero
         else:  # HUTCH_JVP: J eps by forward mode
             eps = args["eps"]
-            dz, j_eps = _jvps(g, z, eps)
+            dz, j_eps = jvps(eps)
             div = _probe_mean(torch.sum(eps * j_eps, dim=-1), cfg.nprobes, probes)
             reg_j = _probe_mean(_row_norm(j_eps), cfg.nprobes, probes) if compute_reg_j else zero
         reg_z = _row_norm(dz) if compute_reg_z else zero

@@ -21,8 +21,10 @@ adjoint's backward state ``(y, a, q...)`` is a tuple).
 * ``abm``: variable-step, variable-order Adams-Bashforth-Moulton PECE (the
   reference's VCABM class), two evaluations a trial step, the order moved
   among ``{k-1, k, k+1}`` by their Milne error estimates.  The order is a
-  host ``int``; the loop reads accept, the order move, ``done`` and
-  ``fail`` back in one transfer a trial step.
+  0-d device tensor that picks each candidate's weights from the tables of
+  every order (JAX's ``lax.switch``); the eager loop reads accept, ``done``
+  and ``fail`` back in one transfer a trial step, and
+  :func:`odeint_device` runs the same trial step in a ``while_loop``.
 * dense output (``odeint_dense``, ``eval_dense``): the accepted nodes with
   their FSAL (``abm``: PECE second-evaluate) derivatives, interpolated by
   cubic Hermite.
@@ -422,16 +424,14 @@ def _adaptive_device_loop(f, y0, t0, t1, args, cfg) -> Tuple[State, SolverStats]
 def odeint_device(f: ODEFunc, y0: State, t0, t1, args,
                   cfg: SolverConfig) -> Tuple[State, SolverStats]:
     """A forward solve with no host read, for ``torch.export``: dopri5/tsit5
-    by :func:`_adaptive_device_loop` (the counts in its stats are 0-d
-    tensors), fixed steps unrolled (their count is static).  Not
-    differentiable: call it under ``torch.no_grad``.  ``abm`` keeps its
-    order on the host and is not exported (ROADMAP.md, Queue 1)."""
+    by :func:`_adaptive_device_loop` and abm by :func:`_abm_device_loop`
+    (the counts in their stats are 0-d tensors), fixed steps unrolled (their
+    count is static).  Not differentiable: call it under ``torch.no_grad``."""
     if cfg.method in _TABLEAUS:
         return _adaptive_device_loop(f, y0, t0, t1, args, cfg)
     if cfg.method == "abm":
-        raise NotImplementedError(
-            "the abm solver keeps its order on the host and has no device-loop form "
-            "for export yet (ROADMAP.md, Queue 1)")
+        args, _ignored = _pop_dt0(args)
+        return _abm_device_loop(f, y0, t0, t1, args, cfg)
     return odeint_fixed(f, y0, t0, t1, args, cfg)
 
 
@@ -595,7 +595,7 @@ class _AbmTables(NamedTuple):
     corr: torch.Tensor  # (K+2, K+1): active nodes of [t_new, ts_h] for the corrector
     milne: torch.Tensor  # (K+2,) time dtype
     inv_order: torch.Tensor  # (K+2,) float32: 1 / (k + 1)
-    invalid: dict  # (lo invalid, hi invalid) -> (3,) bool
+    three: torch.Tensor  # (3,) int64: 0, 1, 2 (the candidates' offsets from k - 1)
     gl: Tuple[torch.Tensor, torch.Tensor]  # GL7 points and weights
 
 
@@ -607,20 +607,21 @@ def _abm_tables(K: int, tdt, device) -> _AbmTables:
     milne = torch.tensor((1.0,) + _MILNE[:K] + (1.0,), dtype=tdt, device=device)
     inv = torch.ones(K + 2, dtype=torch.float32, device=device) / (
         torch.arange(K + 2, device=device).to(torch.float32) + 1.0)
-    invalid = {(lo, hi): torch.tensor([lo, False, hi], device=device)
-               for lo in (False, True) for hi in (False, True)}
-    return _AbmTables(pred, corr, milne, inv, invalid, _gl7(tdt, device))
+    return _AbmTables(pred, corr, milne, inv, torch.arange(3, device=device),
+                      _gl7(tdt, device))
 
 
-def _abm_weights_branch3(k: int, K: int, ts_h: torch.Tensor, t_new, tables=None):
+def _abm_weights_branch3(k, K: int, ts_h: torch.Tensor, t_new, tables=None):
     """Weights of the three candidate orders ``{k-1, k, k+1}``: ``(w_pred (3,
     K), wc_new (3,), wc_hist (3, K), milne (3,))`` in the time dtype, from one
-    batched quadrature over six node sets.  A candidate outside [1, K] gets
-    finite weights of a stand-in order; the caller gives it an infinite
-    error ratio."""
+    batched quadrature over six node sets.  ``k`` is an int or a 0-d int64
+    tensor (the device loop's order): it only picks the candidates' rows of
+    the tables, what JAX's ``lax.switch`` over the orders computes.  A
+    candidate outside [1, K] gets finite weights of a stand-in order; the
+    caller gives it an infinite error ratio."""
     if tables is None:
         tables = _abm_tables(K, ts_h.dtype, ts_h.device)
-    rows = slice(k - 1, k + 2)
+    rows = tables.three + (k - 1)
     t = ts_h[0]
     nodes = torch.cat([torch.cat([ts_h, t_new.reshape(1)]).expand(3, K + 1),
                        torch.cat([t_new.reshape(1), ts_h]).expand(3, K + 1)])
@@ -662,91 +663,183 @@ def _candidate_ratios(e3, y, y3, rtol, atol, error_weight) -> torch.Tensor:
     return torch.sqrt(global_mean(sq_sum, count, sq_shared, n_shared))
 
 
-def _abm_loop(f, y0, t0, t1, args, cfg, error_weight, on_accept=None) -> _Loop:
-    """The PECE loop of :func:`odeint_abm` and its dense form.  A trial step
-    from ``(t, y)`` with history ring ``(ts_h, fs_h)`` (slot 0 the newest):
-    predict with the current order's Adams-Bashforth weights, evaluate,
-    correct with each candidate order's Adams-Moulton weights, evaluate at
-    the current order's corrected state (the node derivative), and take the
-    Milne estimate of each candidate.  ``on_accept(t, y, f)`` sees every
-    accepted node, ``t0`` first."""
+class _AbmControl(NamedTuple):
+    """What an abm trial step needs besides its state (fixed over a solve)."""
+
+    K: int
+    cfg: SolverConfig
+    error_weight: object
+    t1: torch.Tensor
+    direction: torch.Tensor
+    tol_done: torch.Tensor
+    give_up: torch.Tensor
+    tdt: torch.dtype
+    tables: _AbmTables
+
+
+class _AbmState(NamedTuple):
+    """An abm solve between trial steps: the node ``(t, y)``, the next step
+    ``dt``, the history ring ``(ts_h, fs_h)`` (slot 0 the newest; ``fs_h``
+    one ``(K, ...)`` tensor a leaf), the distinct nodes in it ``n_h`` and the
+    order, both 0-d int64 tensors."""
+
+    t: torch.Tensor
+    y: State
+    dt: torch.Tensor
+    ts_h: torch.Tensor
+    fs_h: Tuple[torch.Tensor, ...]
+    n_h: torch.Tensor
+    order: torch.Tensor
+
+
+def _abm_start(f, y0, t0, t1, args, cfg, error_weight):
+    """The abm solve's set-up, shared by the eager and the device loop:
+    ``(ctl, state, f0)`` with ``f0 = f(t0, y0)`` in the ring's slot 0 and the
+    fixed-fraction first step (the order-1 ramp needs a small one)."""
     K = int(cfg.abm_order)
     assert 1 <= K <= ABM_MAX_ORDER
     t0, t1, tdt = _times(y0, t0, t1)
     span = t1 - t0
-    direction = torch.sign(span)
-    tol_done = 1e-12 * torch.clamp(torch.abs(t1), min=1.0)
-    give_up = _DT_GIVE_UP * torch.abs(span)
-    tables = _abm_tables(K, tdt, t0.device)
-
+    ctl = _AbmControl(K, cfg, error_weight, t1, torch.sign(span),
+                      1e-12 * torch.clamp(torch.abs(t1), min=1.0), _DT_GIVE_UP * torch.abs(span),
+                      tdt, _abm_tables(K, tdt, t0.device))
     f0 = f(t0, y0, args)
-    # the fixed-fraction start: the order-1 ramp needs a small first step
     dt = span * torch.as_tensor(DEFAULT_FIXED_DT0 if isinstance(cfg.dt0, str) else cfg.dt0,
                                 dtype=tdt)
-    t, y = t0, y0
-    ts_h = t0.repeat(K)
-    fs_h = [torch.cat([l[None], torch.zeros((K - 1,) + l.shape, dtype=l.dtype,
-                                            device=l.device)]) for l in _leaves(f0)]
-    n_h, order = 1, 1
+    fs_h = tuple(torch.cat([l[None], torch.zeros((K - 1,) + l.shape, dtype=l.dtype,
+                                                 device=l.device)]) for l in _leaves(f0))
+    one = torch.ones((), dtype=torch.int64, device=t0.device)
+    return ctl, _AbmState(t0, y0, dt, t0.repeat(K), fs_h, one, one.clone()), f0
+
+
+class _AbmTrial(NamedTuple):
+    """One trial step's outcome: the state it leaves on accept (``dt`` is
+    the next step either way), the corrected node's derivative ``f_corr``
+    and the flags as 0-d bool tensors."""
+
+    state: _AbmState
+    f_corr: State
+    accept: torch.Tensor
+    done: torch.Tensor
+    fail: torch.Tensor
+
+
+def _abm_trial(ctl: _AbmControl, f, s: _AbmState, args) -> _AbmTrial:
+    """One PECE trial step from ``s`` and its decision, shared by the eager
+    and the device loop so that both take the same steps: predict with the
+    current order's Adams-Bashforth weights, evaluate, correct with each
+    candidate order's Adams-Moulton weights, evaluate at the current order's
+    corrected state (the node derivative), and take the Milne estimate of
+    each candidate.  On accept the order moves to whichever of ``{k-1, k,
+    k+1}`` has the smallest ratio (decrease on ties), and the step factor
+    takes the exponent ``1 / (order + 1)`` of the order it leaves.  The order
+    and the history count are tensors, so nothing here reads the device."""
+    cfg, K, tables = ctl.cfg, ctl.K, ctl.tables
+    order, n_h = s.order, s.n_h
+    dt_c = ctl.direction * torch.minimum(torch.abs(s.dt), torch.abs(ctl.t1 - s.t))
+    t_new = s.t + dt_c
+    w_pred, wc_new, wc_hist, milne = _abm_weights_branch3(order, K, s.ts_h, t_new, tables)
+    # the three candidates' predictor and corrector increments, one contraction a leaf
+    inc = _hist_dot(torch.cat([w_pred, wc_hist]), _like(s.y, s.fs_h))
+    y_lv = _leaves(s.y)
+    y_pred3 = [yl + d[:3] for yl, d in zip(y_lv, _leaves(inc))]
+    # the predictor at the current order: its evaluation serves all three
+    f_pred = _leaves(f(t_new, _like(s.y, [p[1] for p in y_pred3]), args))
+    y_corr3, err3 = [], []
+    for yl, fl, p, d in zip(y_lv, f_pred, y_pred3, _leaves(inc)):
+        shape = (3,) + (1,) * fl.ndim
+        c = yl + wc_new.to(fl.dtype).reshape(shape) * fl + d[3:]
+        y_corr3.append(c)
+        err3.append(milne.to(c.dtype).reshape(shape) * (c - p))
+    r3 = _candidate_ratios(err3, s.y, y_corr3, cfg.rtol, cfg.atol, ctl.error_weight)
+    # invalid candidates never win: order 0 does not exist, and order k + 1
+    # needs k + 1 distinct history nodes
+    r3 = r3.masked_fill(torch.stack([order == 1, torch.zeros_like(order == 1),
+                                     (order == K) | (n_h < order + 1)]), float("inf"))
+    r_lo, ratio, r_hi = r3[0], r3[1], r3[2]
+    y_corr = _like(s.y, [c[1] for c in y_corr3])
+    # PECE second evaluate: the history's derivative at the corrected state
+    f_corr = f(t_new, y_corr, args)
+
+    finite = torch.isfinite(ratio)
+    accept = finite & (ratio <= 1.0)
+    dec = r_lo <= ratio  # decrease preferred on ties
+    grow = (r_hi < ratio) & ~dec
+    done = accept & (torch.abs(ctl.t1 - t_new) <= ctl.tol_done)
+    fail = ~finite & (torch.abs(dt_c) <= ctl.give_up)
+    # the step factor of each outcome (decrease, increase, keep, reject),
+    # with the exponent 1 / (order + 1) of the order each one leaves
+    nh_acc = torch.clamp(n_h + 1, max=K)
+    orders = torch.stack([torch.clamp(order - 1, min=1), torch.minimum(order + 1, nh_acc),
+                          torch.minimum(order, nh_acc), order])
+    _fin, factor4 = _controller_factor(torch.stack([r_lo, r_hi, ratio, ratio]),
+                                       tables.inv_order[orders], cfg.safety, cfg.min_factor,
+                                       2.0, ctl.tdt)
+    branch = torch.where(accept, torch.where(dec, 0, torch.where(grow, 1, 2)), 3)
+    ts_acc = torch.cat([t_new.reshape(1), s.ts_h[:-1]])
+    fs_acc = tuple(torch.cat([fl[None], h[:-1]]) for fl, h in zip(_leaves(f_corr), s.fs_h))
+    pick = lambda v: torch.index_select(v, 0, branch.reshape(1))[0]  # no .item() in a trace
+    new = _AbmState(t_new, y_corr, dt_c * pick(factor4), ts_acc, fs_acc, nh_acc, pick(orders))
+    return _AbmTrial(new, f_corr, accept, done, fail)
+
+
+def _abm_loop(f, y0, t0, t1, args, cfg, error_weight, on_accept=None) -> _Loop:
+    """The PECE loop of :func:`odeint_abm` and its dense form, one
+    :func:`_abm_trial` a trial step and one host read of its accept, done
+    and fail.  ``on_accept(t, y, f)`` sees every accepted node, ``t0``
+    first."""
+    ctl, s, f0 = _abm_start(f, y0, t0, t1, args, cfg, error_weight)
     nfe, steps, nacc, done = 1, 0, 0, False
     if on_accept is not None:
-        on_accept(t0, y0, f0)
+        on_accept(s.t, s.y, f0)
     while steps < cfg.max_steps:
-        dt_c = direction * torch.minimum(torch.abs(dt), torch.abs(t1 - t))
-        t_new = t + dt_c
-        w_pred, wc_new, wc_hist, milne = _abm_weights_branch3(order, K, ts_h, t_new, tables)
-        # the three candidates' predictor and corrector increments, one contraction a leaf
-        inc = _hist_dot(torch.cat([w_pred, wc_hist]), _like(f0, fs_h))
-        y_lv = _leaves(y)
-        y_pred3 = [yl + d[:3] for yl, d in zip(y_lv, _leaves(inc))]
-        # the predictor at the current order: its evaluation serves all three
-        f_pred = _leaves(f(t_new, _like(y, [p[1] for p in y_pred3]), args))
-        y_corr3, err3 = [], []
-        for yl, fl, p, d in zip(y_lv, f_pred, y_pred3, _leaves(inc)):
-            shape = (3,) + (1,) * fl.ndim
-            c = yl + wc_new.to(fl.dtype).reshape(shape) * fl + d[3:]
-            y_corr3.append(c)
-            err3.append(milne.to(c.dtype).reshape(shape) * (c - p))
-        r3 = _candidate_ratios(err3, y, y_corr3, cfg.rtol, cfg.atol, error_weight)
-        # invalid candidates never win: order 0 does not exist, and order
-        # k + 1 needs k + 1 distinct history nodes
-        r3 = r3.masked_fill(tables.invalid[(order == 1, order == K or n_h < order + 1)],
-                            float("inf"))
-        r_lo, ratio, r_hi = r3[0], r3[1], r3[2]
-        y_corr = _like(y, [c[1] for c in y_corr3])
-        # PECE second evaluate: the history's derivative at the corrected state
-        f_corr = f(t_new, y_corr, args)
-
-        finite = torch.isfinite(ratio)
-        accept = finite & (ratio <= 1.0)
-        dec = r_lo <= ratio  # decrease preferred on ties
-        grow = (r_hi < ratio) & ~dec
-        done_t = accept & (torch.abs(t1 - t_new) <= tol_done)
-        fail_t = ~finite & (torch.abs(dt_c) <= give_up)
-        # the step factor of each outcome (decrease, increase, keep, reject),
-        # with the exponent 1 / (order + 1) of the order each one leaves
-        nh_acc = min(n_h + 1, K)
-        orders = (max(order - 1, 1), min(order + 1, nh_acc), min(order, nh_acc), order)
-        inv = torch.stack([tables.inv_order[o] for o in orders])
-        _fin, factor4 = _controller_factor(torch.stack([r_lo, r_hi, ratio, ratio]), inv,
-                                           cfg.safety, cfg.min_factor, 2.0, tdt)
+        trial = _abm_trial(ctl, f, s, args)
         # the one host read of the trial step
-        acc, down, up, done, fail = torch.stack(
-            [accept, dec, grow, done_t, fail_t]).tolist()
+        acc, done, fail = torch.stack([trial.accept, trial.done, trial.fail]).tolist()
         nfe, steps = nfe + 2, steps + 1
-        branch = (0 if down else 1 if up else 2) if acc else 3
-        dt = dt_c * factor4[branch]
         if acc:
             nacc += 1
-            order, n_h = orders[branch], nh_acc
-            t, y = t_new, y_corr
-            ts_h = torch.cat([t_new.reshape(1), ts_h[:-1]])
-            fs_h = [torch.cat([fl[None], h[:-1]]) for fl, h in zip(_leaves(f_corr), fs_h)]
+            s = trial.state
             if on_accept is not None:
-                on_accept(t, y, f_corr)
+                on_accept(s.t, s.y, trial.f_corr)
+        else:
+            s = s._replace(dt=trial.state.dt)
         if done or fail:
             break
-    return _Loop(y, dt, nfe, steps, nacc, done)
+    return _Loop(s.y, s.dt, nfe, steps, nacc, done)
+
+
+def _abm_device_loop(f, y0, t0, t1, args, cfg) -> Tuple[State, SolverStats]:
+    """:func:`_abm_loop` with its control on the device: one ``while_loop``
+    whose carry holds the :class:`_AbmState` (the order a tensor), the step
+    counts and the done/fail flags; accept and reject by ``torch.where``, so
+    ``torch.export`` captures it.  The set-up and the trial step are the
+    eager loop's, so both take the same steps and give the same bits."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    ctl, s0, _f0 = _abm_start(f, y0, t0, t1, args, cfg, None)
+    n_y = len(_leaves(y0))
+    count = lambda: torch.zeros((), dtype=torch.int64, device=s0.t.device)
+    flag = lambda: torch.zeros((), dtype=torch.bool, device=s0.t.device)
+
+    def cond(steps, nacc, done, fail, *carry):
+        return ~(done | fail) & (steps < cfg.max_steps)
+
+    def body(steps, nacc, done, fail, t, dt, ts_h, n_h, order, *leaves):
+        s = _AbmState(t, _like(y0, leaves[:n_y]), dt, ts_h, tuple(leaves[n_y:]), n_h, order)
+        trial = _abm_trial(ctl, f, s, args)
+        new, keep = trial.state, lambda a, b: torch.where(trial.accept, a, b)
+        return (steps + 1, nacc + trial.accept.to(torch.int64), trial.done, trial.fail,
+                keep(new.t, t), new.dt, keep(new.ts_h, ts_h), keep(new.n_h, n_h),
+                keep(new.order, order),
+                *[keep(a, b) for a, b in zip(_leaves(new.y) + new.fs_h, leaves)])
+
+    steps, nacc, done, _fail, _t, dt, *rest = while_loop(
+        cond, body, (count(), count(), flag(), flag(), s0.t, s0.dt, s0.ts_h, s0.n_h, s0.order,
+                     *_leaves(s0.y), *s0.fs_h))
+    y = _like(y0, [torch.where(done, l, torch.full_like(l, float("nan")))
+                   for l in rest[3:3 + n_y]])
+    return y, SolverStats(1 + 2 * steps, nacc, steps - nacc, dt)
 
 
 def odeint_abm(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig,

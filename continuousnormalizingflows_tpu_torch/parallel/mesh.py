@@ -223,6 +223,7 @@ class _Shards:
     summed: set = dataclasses.field(default_factory=set)
     tp_sharded: set = dataclasses.field(default_factory=set)  # ids of split params
     counts: Counter = dataclasses.field(default_factory=Counter)
+    serving: bool = False  # the exported program's: functional collectives
 
     @property
     def grad_group(self):
@@ -250,18 +251,24 @@ def active() -> Optional[_Shards]:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: DeviceMesh, tensor_parallel: bool = False) -> Iterator[_Shards]:
+def use_mesh(mesh: DeviceMesh, tensor_parallel: bool = False,
+             serving: bool = False) -> Iterator[_Shards]:
     """Run the solvers, the losses and the nets on this rank's shard: the
     counterpart of ``jax.set_mesh`` and of a jitted step's shardings.  Inside,
     ``inference``/``loss`` take this rank's rows and agree with one process
-    on the whole batch; ``probe_axis``/``sweep_axis`` name ``"model"``."""
+    on the whole batch; ``probe_axis``/``sweep_axis`` name ``"model"``.
+    ``serving``: the context of an exported program (``export_logpdf(mesh=)``):
+    the error norms reduce by a functional all-reduce, which ``torch.export``
+    captures inside the device loop, and the ``model`` ranks replicate."""
     global _ACTIVE
     if tuple(mesh.mesh_dim_names or ()) != ("data", "model"):
         raise ValueError(f"the port's mesh axes are ('data', 'model'), got "
                          f"{mesh.mesh_dim_names}")
+    model = (None, 1, 0) if serving else (mesh.get_group("model"), mesh.size(1),
+                                          mesh.get_local_rank(1))
     ctx = _Shards(bool(tensor_parallel) and mesh.size(1) > 1, getattr(mesh, "_cnf_all", None),
                   mesh.size(), mesh.get_group("data"), mesh.size(0), mesh.get_local_rank(0),
-                  mesh.get_group("model"), mesh.size(1), mesh.get_local_rank(1))
+                  *model, serving=serving)
     prev, _ACTIVE = _ACTIVE, ctx
     try:
         yield ctx
@@ -298,9 +305,16 @@ def global_mean(total, count: int, total_shared=0.0, count_shared: int = 0):
     if ctx.data_rank == 0:
         total, count = total + total_shared, count + count_shared
     total = torch.as_tensor(total)
+    # the count as a tensor without reading it as a float: under torch.export
+    # it is symbolic in the batch
     buf = torch.cat([total.to(torch.float64).reshape(-1),
-                     torch.tensor([float(count)], dtype=torch.float64, device=total.device)])
-    _all_reduce(buf, ctx.data, site="norm")
+                     torch.ones(1, dtype=torch.float64, device=total.device) * count])
+    if ctx.serving:  # traced once, run every trial step: not counted
+        from torch.distributed import _functional_collectives as funcol
+
+        buf = funcol.all_reduce(buf, "sum", ctx.data)
+    else:
+        _all_reduce(buf, ctx.data, site="norm")
     return (buf[:-1] / buf[-1]).to(torch.float32).reshape(total.shape)
 
 

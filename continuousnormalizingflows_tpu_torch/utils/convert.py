@@ -3,8 +3,10 @@
 JAX keeps an MLP's parameters as ``[{"w": (in, out), "b": (out,)}, ...]``;
 the port keeps the ``nn.Module`` parameter dict
 ``{"layers.{i}.weight": (out, in), "layers.{i}.bias": (out,)}``.  A planar
-net's ``{"u", "w", "b"}`` has the same layout in both.  A ``CondLayer``'s
-params are its inner net's, and convert as they do.
+net's ``{"u", "w", "b"}`` has the same layout in both.  An MLP of any depth
+converts layer by layer, both ways; a ``CondLayer``'s params are its inner
+net's, and convert as they do (held for a 4-hidden-layer MLP and a
+``CondLayer`` around one, bit for bit both ways).
 """
 
 from __future__ import annotations

@@ -5,34 +5,37 @@ ICNF is captured by :func:`torch.export.export` into a program with its
 parameters inside: a serving process runs it with ``torch`` alone
 (``torch.export.load(path).module()(x)``), with no model code, config
 objects or parameter files.  The solve runs through the device-loop form of
-the solvers (:func:`..ops.ode.odeint_device`: the adaptive loop is one
-``while_loop``), so the program holds no host read.
+the solvers (:func:`..ops.ode.odeint_device`: dopri5, tsit5 and abm as one
+``while_loop`` each), so the program holds no host read.
 
 * :func:`export_logpdf`: ``x (b, nvariables) [, ys (b, nconditions)] ->
   logp (b,)``, the exact-trace (TEST) log-density, with a symbolic batch
-  dimension: one artifact serves any batch.
+  dimension: one artifact serves any batch.  With ``mesh=`` each rank of a
+  ``data x model`` mesh exports and serves its shard of the batch; the
+  adaptive controllers' error norms are all-reduced over ``data`` inside
+  the loop, so every rank takes the unsharded solve's steps.
 * :func:`export_sampler`: ``seed -> samples (n, nvariables)``, ``n`` fixed
   at export.  A traced program cannot take a ``torch.Generator``, so the
   program draws from the default generator of its device, and
   :meth:`Artifact.call` seeds that generator under
   ``torch.random.fork_rng``: the same seed gives the same bits as the eager
   ``generate(icnf, Mode.TEST, params, torch.Generator(device).manual_seed(seed),
-  n, trace_free=...)``.
+  n, trace_free=...)``, also for a Student-t base (its rejection rounds run in
+  a ``while_loop``).
 
 The program runs on the device it was exported for (``device``; default the
-card).  Not exported, each raising at export time (ROADMAP.md, Queue 1):
-the abm solver (its order is kept on the host); the exact trace of a net
-that needs the generic sweep (forward-mode AD) or an activation
-differentiated by autograd (:func:`..ops.dynamics.exact_trace_traceable`);
-a base distribution whose sampler reads the device (the Student-t rejection
-gamma); and ``export_logpdf(mesh=)``, which needs collectives inside the
-device loop (ROADMAP.md, Queue 1 item 7).
+card).  Not exported, each raising at export time (ROADMAP.md, Queue 1): the
+exact trace of a ``from_torch`` net (its sweep runs in forward mode, which
+``torch.export`` does not capture with a symbolic batch; its trace-free
+sampler exports); an activation without a written-out derivative
+(:data:`..ops.dynamics.ACTIVATION_DERIVATIVES`); and a user's base
+distribution whose sampler reads the device.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,7 +45,7 @@ from ..distributions import DefaultGenerator
 
 __all__ = ["Artifact", "export_logpdf", "export_sampler", "save_artifact", "load_artifact"]
 
-_META = "cnf_artifact.json"  # the artifact's kind and device, beside the program
+_META = "cnf_artifact.json"  # the artifact's kind, device and mesh, beside the program
 
 
 class _Served(torch.nn.Module):
@@ -63,10 +66,14 @@ class _Served(torch.nn.Module):
 class Artifact:
     """An exported program and what it serves: ``.call(...)`` runs it
     (``x[, ys] -> logp`` or ``seed -> samples``), ``.program`` is the
-    :class:`torch.export.ExportedProgram`."""
+    :class:`torch.export.ExportedProgram`.  ``mesh``: ``(data, model)`` and
+    the name of the ``data`` process group the program's all-reduce names,
+    for an ``export_logpdf(mesh=)`` artifact; else None."""
 
-    def __init__(self, program, kind: str, device) -> None:
+    def __init__(self, program, kind: str, device,
+                 mesh: Optional[Tuple[Tuple[int, int], str]] = None) -> None:
         self.program, self.kind, self.device = program, kind, torch.device(device)
+        self.mesh = None if mesh is None else (tuple(mesh[0]), str(mesh[1]))
         self._module = program.module()
 
     def call(self, *args):
@@ -84,27 +91,27 @@ class Artifact:
             return self._module()
 
 
-def _check_exportable(icnf, mesh, exact_trace: bool) -> None:
-    """Raise for what does not export: ``mesh=`` (the logpdf's), the abm
-    solver, and (where the program takes the exact trace) a net whose exact
-    trace does not trace."""
-    from ..ops.dynamics import exact_trace_traceable
+def _check_exportable(icnf, exact_trace: bool) -> None:
+    """Raise where the program would take the exact trace of a net whose
+    sweep ``torch.export`` does not capture: an activation without a
+    written-out derivative, or a ``from_torch`` net's forward-mode sweep."""
+    from ..ops.dynamics import activation_name, exact_trace_traceable
 
-    if mesh is not None:
+    if not exact_trace or exact_trace_traceable(icnf.net):
+        return
+    name = activation_name(icnf.net)
+    if name is not None:
         raise NotImplementedError(
-            "export_logpdf(mesh=) needs collectives inside the exported device loop "
-            "(torch.export of a while_loop) and is not ported yet (ROADMAP.md, Queue 1 "
-            "item 7: parallel)")
-    if icnf.config.solver.method == "abm":
-        raise NotImplementedError(
-            "the abm solver keeps its order on the host and is not exported yet "
-            "(ROADMAP.md, Queue 1)")
-    if exact_trace and not exact_trace_traceable(icnf.net):
-        raise NotImplementedError(
-            "the exact trace of this net does not trace for torch.export: the generic "
-            "sweep (forward-mode JVPs) and activations differentiated by autograd are not "
-            "captured; the planar net and the MLP with 1-2 hidden layers, softplus or "
-            "tanh, export (ROADMAP.md, Queue 1)")
+            f"the activation {name} has no written-out derivative, and autograd inside the "
+            f"exported solve is not captured: use one of ops.dynamics.ACTIVATION_DERIVATIVES "
+            f"(softplus, tanh, sigmoid, relu, elu, gelu, silu)")
+    raise NotImplementedError(
+        "the exact trace of a from_torch net runs in forward mode "
+        "(torch.autograd.forward_ad, or torch.func.jvp), which torch.export does not capture "
+        "with a symbolic batch: the fixed-step solves specialize the batch ('Constraints "
+        "violated (batch)! ... specialized it to be a constant'), and inside an adaptive "
+        "solve's while_loop it fails with fake tensors in _make_dual/_fw_primal; the sampler "
+        "with trace_free=True exports (ROADMAP.md, Queue 1)")
 
 
 def _logpdf(icnf, params, x, ys=None):
@@ -123,23 +130,45 @@ def _logpdf_and_stats(icnf, params, x, ys=None):
 def export_logpdf(icnf, params: Dict[str, torch.Tensor], device=None, mesh=None) -> Artifact:
     """Export the exact (TEST) log-density with ``params`` inside.  The batch
     dimension is symbolic; for a conditional model the program is ``(x, ys)
-    -> logp``.  ``device``: where the program runs (default: the card)."""
+    -> logp``.  ``device``: where the program runs (default: the card).
+
+    ``mesh``: a ``data x model`` mesh (:func:`..parallel.make_mesh`) for
+    serving across ranks, the counterpart of JAX's SPMD export.  Every rank
+    calls this and gets its own program, which takes this rank's rows
+    (:func:`..parallel.shard_batch_arrays` of a global batch, a multiple of
+    the ``data`` size) on the mesh's device and returns their
+    log-densities; the ``model`` ranks of a data shard replicate it.  The
+    adaptive controllers' error norm is all-reduced over ``data`` inside the
+    device loop, so every rank takes the unsharded solve's steps.  The
+    program names the ``data`` process group it reduces over: a serving
+    process that loads a saved artifact must first set up the same world
+    (``torch.distributed.init_process_group`` with the same world size and
+    rank) and build the same mesh the same way, so that the group gets the
+    same name; :func:`load_artifact` checks the shape and the name."""
     return _export_logpdf(icnf, params, device, mesh, _logpdf)
 
 
 def _export_logpdf(icnf, params, device=None, mesh=None, fn=_logpdf_and_stats) -> Artifact:
     """:func:`export_logpdf` with ``fn(icnf, params, x[, ys])`` as the served
     surface."""
-    _check_exportable(icnf, mesh, exact_trace=True)
+    import contextlib
+
+    from ..parallel import mesh as pmesh
+
+    _check_exportable(icnf, exact_trace=True)
     cfg = icnf.config
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else pmesh.mesh_device(mesh)
     served = _Served(icnf, params, device, fn)
     widths = (cfg.nvariables, cfg.nconditions) if cfg.conditioned else (cfg.nvariables,)
     inputs = tuple(torch.zeros((2, w), dtype=cfg.dtype, device=device) for w in widths)
     batch = torch.export.Dim("batch")
-    program = torch.export.export(served, inputs,
-                                  dynamic_shapes=(tuple({0: batch} for _ in inputs),))
-    return Artifact(program, "logpdf", device)
+    sharded = (contextlib.nullcontext() if mesh is None
+               else pmesh.use_mesh(mesh, serving=True))
+    with sharded:
+        program = torch.export.export(served, inputs,
+                                      dynamic_shapes=(tuple({0: batch} for _ in inputs),))
+    recorded = None if mesh is None else (tuple(mesh.shape), mesh.get_group("data").group_name)
+    return Artifact(program, "logpdf", device, recorded)
 
 
 def export_sampler(icnf, params: Dict[str, torch.Tensor], n: int, ys=None,
@@ -147,9 +176,10 @@ def export_sampler(icnf, params: Dict[str, torch.Tensor], n: int, ys=None,
     """Export the sampling path, ``seed -> (n, nvariables)``, ``n`` fixed here.
     ``trace_free=True`` (default) integrates the bare field.  A conditional
     model bakes in ``ys`` (one condition row, or ``n`` of them).  The base
-    distribution's sampler must trace: one that reads the device (a
-    rejection loop) raises here."""
-    _check_exportable(icnf, None, exact_trace=not trace_free)
+    distribution's sampler must trace: a user's sampler that reads the
+    device (a rejection loop with a host read) raises here; the built-in
+    Student-t base runs its rounds in a ``while_loop``."""
+    _check_exportable(icnf, exact_trace=not trace_free)
     cfg = icnf.config
     if cfg.conditioned and ys is None:
         raise ValueError("conditional model: pass ys to bake into the sampler")
@@ -163,21 +193,39 @@ def export_sampler(icnf, params: Dict[str, torch.Tensor], n: int, ys=None,
         program = torch.export.export(served, ())
     except torch.fx.experimental.symbolic_shapes.GuardOnDataDependentSymNode as err:
         raise ValueError(
-            "the sampler reads the device while it draws (a data-dependent loop, e.g. "
-            "a rejection sampler such as the Student-t base) and cannot be exported"
+            "the sampler reads the device while it draws (a data-dependent host loop, "
+            "e.g. a rejection sampler that reads its mask) and cannot be exported; draw "
+            "its rounds in a while_loop, as distributions.student_t does"
         ) from err
     return Artifact(program, "sampler", device)
 
 
 def save_artifact(path: str, artifact: Artifact) -> None:
-    """Write the program (``torch.export.save``) with its kind and device."""
-    meta = json.dumps({"kind": artifact.kind, "device": str(artifact.device)})
+    """Write the program (``torch.export.save``) with its kind, device and
+    mesh."""
+    meta = json.dumps({"kind": artifact.kind, "device": str(artifact.device),
+                       "mesh": None if artifact.mesh is None else list(artifact.mesh)})
     torch.export.save(artifact.program, path, extra_files={_META: meta})
 
 
-def load_artifact(path: str) -> Artifact:
-    """Load an artifact; ``.call(...)`` runs it (no model code needed)."""
+def load_artifact(path: str, mesh=None) -> Artifact:
+    """Load an artifact; ``.call(...)`` runs it (no model code needed).  An
+    ``export_logpdf(mesh=)`` artifact needs ``mesh``: one of the recorded
+    shape whose ``data`` group has the name the program reduces over (the
+    same world, the mesh built the same way); anything else raises."""
     extra = {_META: ""}
     program = torch.export.load(path, extra_files=extra)
     meta = json.loads(extra[_META])
-    return Artifact(program, meta["kind"], meta["device"])
+    recorded = meta.get("mesh")
+    if recorded is not None:
+        shape, group = tuple(recorded[0]), recorded[1]
+        got = None if mesh is None else (tuple(mesh.shape), mesh.get_group("data").group_name)
+        if got != (shape, group):
+            raise ValueError(
+                f"the artifact was exported on a {shape[0]} x {shape[1]} mesh whose data group "
+                f"is named {group!r}; load it with such a mesh (got {got}): set up the same "
+                f"world and build the mesh the same way first")
+        recorded = (shape, group)
+    elif mesh is not None:
+        raise ValueError("the artifact was exported without a mesh")
+    return Artifact(program, meta["kind"], meta["device"], recorded)

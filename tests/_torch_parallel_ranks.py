@@ -1,18 +1,22 @@
-"""The ranks of the port's multi-process tests (``tests/test_torch_parallel*.py``).
+"""The ranks of the port's multi-process tests (``tests/test_torch_parallel.py``,
+``tests/test_torch_export_mesh.py``).
 
 This module imports torch and the port only, never JAX: each rank is a
-process started with the ``spawn`` method that joins a gloo group through a
-``file://`` store, reads the cases' inputs from ``inputs.npz``, runs every
-case it is given in turn and writes each case's results to
-``<case>_r<rank>.npz`` (a failure's traceback to ``error_r<rank>.txt``).
-The test files hold the results against the JAX package's.
+process started with the ``spawn`` method (:func:`spawn`) that joins a gloo
+group through a ``file://`` store, reads the cases' inputs from
+``inputs.npz``, runs every case it is given in turn and writes each case's
+results to ``<case>_r<rank>.npz`` (a failure's traceback to
+``error_r<rank>.txt``).  The test files hold the results against the JAX
+package's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import multiprocessing as mp
 import os
+import tempfile
 import traceback
 
 import numpy as np
@@ -28,6 +32,7 @@ from continuousnormalizingflows_tpu_torch.ops.dynamics import make_augmented_dyn
 from continuousnormalizingflows_tpu_torch.parallel import mesh as pmesh
 from continuousnormalizingflows_tpu_torch.parallel import (make_mesh, shard_batch_arrays,
                                                            shard_mlp_params, shard_train_step)
+from continuousnormalizingflows_tpu_torch.utils import export as ex
 from continuousnormalizingflows_tpu_torch.utils.convert import params_from_jax, params_to_jax
 
 FAST = SolverConfig(method="rk4", gradient="backprop", fixed_steps=16)
@@ -309,6 +314,41 @@ def case_roundtrip(rank, world, inputs):
     return {"same": np.array([same]), "shapes": shapes}
 
 
+def _export_mesh(inputs, data, model, solver):
+    """This rank's ``export_logpdf(mesh=)`` program on a ``data x model``
+    mesh, served its rows of ``exp.x`` (the counts too), then saved and
+    loaded with the mesh: ``(results, mesh)``."""
+    mesh = make_mesh(data=data, model=model, device="cpu")
+    icnf = tcnf.ICNF.create(nvariables=2, solver=solver)
+    art = ex._export_logpdf(icnf, params_from_jax(unpack(inputs, "exp.p")), mesh=mesh)
+    xl, _ = shard_batch_arrays(mesh, torch.from_numpy(inputs["exp.x"]))
+    lp, nfe, nacc, nrej = art.call(xl)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "logpdf.pt2")
+        ex.save_artifact(path, art)
+        reloaded = ex.load_artifact(path, mesh)
+        same = torch.equal(reloaded.call(xl)[0], lp)
+        try:
+            ex.load_artifact(path)
+            unchecked = True
+        except ValueError:
+            unchecked = False
+    return {"lp": lp.numpy(), "stats": np.array([int(nfe), int(nacc), int(nrej)]),
+            "coord": np.array([mesh.get_local_rank(0), mesh.get_local_rank(1)]),
+            "mesh": np.array(art.mesh[0]), "reloaded_same": np.array([same]),
+            "loads_without_mesh": np.array([unchecked])}
+
+
+def case_export_abm(rank, world, inputs):
+    return _export_mesh(inputs, 2, world // 2, SolverConfig(method="abm", rtol=1e-4,
+                                                              atol=1e-4, gradient="quadrature"))
+
+
+def case_export_dopri5(rank, world, inputs):
+    return _export_mesh(inputs, 2, world // 2, SolverConfig(method="dopri5", rtol=1e-4,
+                                                              atol=1e-4))
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items() if name.startswith("case_")}
 
 
@@ -326,3 +366,30 @@ def main(rank, world, store, work, cases):
         with open(os.path.join(work, f"error_r{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+def spawn(world, cases, work, join_s):
+    """Run ``cases`` in ``world`` gloo ranks (``spawn``ed processes, one
+    ``file://`` store under ``work``, each joined within ``join_s``
+    seconds); ``{case: [rank 0's results, ...]}``.  A hung rank is killed,
+    and any rank's failure fails the call with its traceback."""
+    ctx = mp.get_context("spawn")
+    store = os.path.join(work, f"store{world}")
+    procs = [ctx.Process(target=main, args=(r, world, store, work, cases))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(join_s)
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+              if f.startswith("error_r")]
+    assert not hung and not errors and all(p.exitcode == 0 for p in procs), (
+        f"ranks {hung} hung past {join_s} s; exit codes "
+        f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    return {c: [dict(np.load(os.path.join(work, f"{c}_r{r}.npz"))) for r in range(world)]
+            for c in cases}

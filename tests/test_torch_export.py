@@ -11,6 +11,7 @@ before and after a save, and equals the eager ``generate`` with a
 generator seeded alike (the same draws, the same operations) to rtol 1e-6.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import continuousnormalizingflows_tpu as jcnf
 import continuousnormalizingflows_tpu_torch as tcnf
@@ -193,25 +195,44 @@ def test_conditional_sampler_requires_and_bakes_ys():
 
 
 def test_what_does_not_export_raises():
-    _j, _jp, ticnf, tparams = _pair()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        ex.export_logpdf(ticnf, tparams, device="cpu", mesh=object())
-    abm = tcnf.ICNF.create(nvariables=2, solver=SolverConfig(method="abm"))
-    with pytest.raises(NotImplementedError, match="abm"):
-        ex.export_logpdf(abm, tparams, device="cpu")
-    with pytest.raises(NotImplementedError, match="abm"):
-        ex.export_sampler(abm, tparams, 4, device="cpu")
+    """What still refuses, each at export time: the exact trace of a
+    from_torch net (forward mode, which torch.export does not capture with a
+    symbolic batch), in a fixed-step and an adaptive solve, whose trace-free
+    sampler exports; an activation without a written-out derivative, which
+    names itself; a user's sampler that reads the device.  The abm solver,
+    the generic sweep of the port's nets, the Student-t base and ``mesh=``
+    export (``tests/test_torch_export_rest.py``, ``test_torch_export_mesh.py``)."""
+    _j, _jp, ticnf, _tp = _pair()
     cfg = ticnf.config
-    sweep = tcnf.ICNF(cfg, MLP((cfg.n_in, 8, 8, 8, cfg.n_out)))  # 3 hidden: the generic sweep
-    sweep_params = sweep.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="generic"):
-        ex.export_logpdf(sweep, sweep_params, device="cpu")
-    assert ex.export_sampler(sweep, sweep_params, 4, device="cpu").call(1).shape == (4, 2)
-    student = tcnf.ICNF.create(nvariables=2, naugments=0, lambda_3=0.0,
-                               base_dist=tdists.student_t(4.0),
-                               solver=SolverConfig(**SOLVERS["rk4-4"]))
+    module = torch.nn.Sequential(torch.nn.Linear(cfg.n_in, 8), torch.nn.Tanh(),
+                                 torch.nn.Linear(8, cfg.n_out))
+    for solver in ("rk4-4", "dopri5"):
+        wrapped = tcnf.ICNF(dataclasses.replace(cfg, solver=SolverConfig(**SOLVERS[solver])),
+                            tcnf.from_torch(module, cfg.n_in, cfg.n_out))
+        params = wrapped.init(torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(NotImplementedError, match="forward mode"):
+            ex.export_logpdf(wrapped, params, device="cpu")
+        with pytest.raises(NotImplementedError, match="forward mode"):
+            ex.export_sampler(wrapped, params, 4, trace_free=False, device="cpu")
+        assert ex.export_sampler(wrapped, params, 4, device="cpu").call(1).shape == (4, 2)
+    hard = tcnf.ICNF(cfg, MLP((cfg.n_in, 8, 8, 8, cfg.n_out), activation=F.hardtanh))
+    with pytest.raises(NotImplementedError, match="activation hardtanh"):
+        ex.export_logpdf(hard, hard.init(torch.Generator().manual_seed(0), device="cpu"),
+                         device="cpu")
+
+    def redraw_beyond_two(generator, shape, dtype):  # a rejection loop with a host read
+        draw = lambda: torch.randn(shape, generator=tdists.generator_arg(generator),
+                                   dtype=dtype, device=generator.device)
+        x = draw()
+        while bool((x.abs() > 2).any()):
+            x = torch.where(x.abs() > 2, draw(), x)
+        return x
+
+    truncated = tdists.CustomDist(tdists.standard_normal().logpdf_fn, redraw_beyond_two)
+    custom = tcnf.ICNF.create(nvariables=2, naugments=0, lambda_3=0.0, base_dist=truncated,
+                              solver=SolverConfig(**SOLVERS["rk4-4"]))
     with pytest.raises(ValueError, match="cannot be exported"):
-        ex.export_sampler(student, student.init(torch.Generator().manual_seed(0), device="cpu"),
+        ex.export_sampler(custom, custom.init(torch.Generator().manual_seed(0), device="cpu"),
                           4, device="cpu")
 
 

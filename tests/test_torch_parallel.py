@@ -14,7 +14,6 @@ atol 2e-4, each gradient within 2e-4 of its largest entry).  Every rank's
 solver stats are equal, as are the collective counts of a step at 2 and 4
 ranks."""
 
-import multiprocessing as mp
 import os
 
 import jax
@@ -89,39 +88,15 @@ def _inputs():
     return out
 
 
-def _spawn(world, cases, work):
-    """Run ``cases`` in ``world`` gloo ranks; ``{case: [rank 0's results, ...]}``."""
-    ctx = mp.get_context("spawn")
-    store = os.path.join(work, f"store{world}")
-    procs = [ctx.Process(target=ranks.main, args=(r, world, store, work, cases))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(JOIN_S)
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
-              if f.startswith("error_r")]
-    assert not hung and not errors and all(p.exitcode == 0 for p in procs), (
-        f"ranks {hung} hung past {JOIN_S} s; exit codes "
-        f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
-    return {c: [dict(np.load(os.path.join(work, f"{c}_r{r}.npz"))) for r in range(world)]
-            for c in cases}
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("parallel"))
     inputs = _inputs()
     np.savez(os.path.join(work, "inputs.npz"), **inputs)
-    got = _spawn(4, CASES4, work)
+    got = ranks.spawn(4, CASES4, work, JOIN_S)
     work2 = str(tmp_path_factory.mktemp("parallel2"))
     np.savez(os.path.join(work2, "inputs.npz"), **inputs)
-    got["inventory2"] = _spawn(2, ["inventory"], work2)["inventory"]
+    got["inventory2"] = ranks.spawn(2, ["inventory"], work2, JOIN_S)["inventory"]
     return inputs, got
 
 
