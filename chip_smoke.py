@@ -28,12 +28,18 @@ the parallel layer ([parallel]: a world of 1 on
 NCCL, whose ``ICNFModel(mesh=)`` digits fit must give the unsharded fit's
 bits through K3 + K4, and 2 gloo ranks spawned on the one card, whose
 sharded digits fit, default adaptive stack and K5 + K6 step must agree
-with one process), and checks that the kernels carried each path.  The
+with one process), then the model axis in full ([model axis]: 2 gloo ranks
+with the digits-shaped net split 128 + 128 on the default stack without the
+seminorm through K1 + K2, the 2-probe rk4 step and the TEST exact sweep
+split over ``model``, each against one process; ``dryrun_multichip(4)``; a
+float64 ``fused=True`` call launching no kernel; ``usage.py``), and checks
+that the kernels carried each path.  The
 kernels line (third from last) gives each kernel's bound: the least time
 the card could take for its work, fp32 FMAs at the published peak or bytes
 at the memory rate (bf16 rows: at the bf16 tensor-core peak); K2 and K1
-have a second entry there, their wide paths at the image fit's widths in
-bf16, with that fit's launches.  Imports nothing of JAX.  Exits non-zero,
+have two more entries there, their wide paths at the image fit's widths and
+at the digits widths in bf16, with the launches of the image fit and of
+[export]'s default-stack digits fit.  Imports nothing of JAX.  Exits non-zero,
 with no result line, when there is no CUDA device or any phase fails; on success
 the last line is ``{"ok": true, "device": {...}}``.  A detailed record of
 every phase is written as ``chiprun_out/chip_smoke.json``, and everything
@@ -125,6 +131,19 @@ PARALLEL_RANK_STEPS = 4
 PARALLEL_LOSS_RTOL = 1e-4
 PARALLEL_PARAM_TOL = 1e-3
 PARALLEL_JOIN_S = 240
+# [model axis]: the digits-shaped net split over 2 model ranks on the card
+# (a 1 x 2 mesh of gloo ranks, h = 256 split 128 + 128), held against one
+# process on the same 256 points and draws; the tensor-parallel steps timed
+# MODEL_AXIS_REPS times after the counted one; the TEST sweep's chunk of
+# basis rows and its log-density's (rtol, atol) (each rank sums its rows'
+# trace, then the ranks' sums are added; JAX's sweep-axis tolerance);
+# usage.py's epochs; the dryrun's ranks
+MODEL_AXIS_RANKS = 2
+MODEL_AXIS_REPS = 3
+MODEL_AXIS_SWEEP_CHUNK = 8
+MODEL_AXIS_SWEEP_TOL = (1e-5, 1e-6)
+MODEL_AXIS_USAGE_EPOCHS = 4
+DRYRUN_RANKS = 4
 # the card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
 # fp32 outside the tensor cores, bf16 dense on the tensor cores, and HBM3
 FP32_FLOPS = 67e12
@@ -541,9 +560,11 @@ def ffjord_stage_phase(dev):
 def image_widths_phase(dev):
     """The four kernels of the [image] phase at its widths and batch: K1 and
     K2 at the image model's 785 -> 1024 -> 1024 -> 784, K3 and K4 at the
-    digits-shaped 65 -> 256 -> 256 -> 64 (state 67, 24 steps), B = 256,
+    digits-shaped 65 -> 256 -> 256 -> 64 (state 67, 24 steps), and K1 and
+    K2 at the digits widths too (the default-stack digits fits of [export]
+    and [model axis]), B = 256,
     fp32 and bf16: each against its plain version, timed in turns, beside
-    its bound; all four must take their wide paths there and give the same
+    its bound; all must take their wide paths there and give the same
     bits twice, and a call must add under 32 MB (K1), 64 MB (K2), 8 MB (K3)
     and 16 MB (K4) to the device's peak memory.  The kernels a call of K3
     and of K4 launches are counted by the profiler.  Beside K1:
@@ -559,7 +580,9 @@ def image_widths_phase(dev):
 
     b, steps, out = IMAGE_BATCH, IMAGE_RK4_STEPS, []
     widths = [(shape, side * side + 1, h, side * side) for shape, side, h in (
-        ("image", IMAGE_SIDE, IMAGE_HIDDEN), ("digits", DIGITS_SIDE, DIGITS_HIDDEN))]
+        ("image", IMAGE_SIDE, IMAGE_HIDDEN), ("digits", DIGITS_SIDE, DIGITS_HIDDEN),
+        ("digits_stage", DIGITS_SIDE, DIGITS_HIDDEN))]
+    stage_shapes = ("image", "digits_stage")  # K1 and K2; "digits": K3 and K4
     for shape, n_in, h, nz in widths:
         params = MLP((n_in, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
         g = torch.Generator(device=dev).manual_seed(1)
@@ -572,7 +595,7 @@ def image_widths_phase(dev):
                *torch.randn((3, b), generator=g, device=dev))
         gbar = torch.randn((b, nz + 3), generator=g, device=dev)
         span = (0.0, 1.0)
-        if shape == "image":
+        if shape in stage_shapes:
             ks = ("K1", "K2")
             plans = [("K1", _build.fwd_plan(n_in, h, nz, nz, b)),
                      ("K2", _build.bwd_plan(n_in, h, nz, nz, 0, b))]
@@ -589,25 +612,25 @@ def image_widths_phase(dev):
         for cdt in (None, torch.bfloat16):
             prec = "fp32" if cdt is None else "bf16"
             bounds = kernel_bounds(n_in, h, nz, b, steps=steps, cdt=cdt)
-            if shape == "image":
+            if shape in stage_shapes:
                 calls = {
                     "k1": (lambda: fused_dynamics_vjp(x, eps, params, nz, cdt),
                            lambda: mlp3_forward_vjp_reference(x, eps, params, nz, cdt), 10, 10),
                     "k2": (lambda: fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt),
                            lambda: fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot,
                                                                     cdt), 5, 5)}
-                errs = {"k1": compare(f"K1 fused_dynamics image widths {prec} B={b}",
+                errs = {"k1": compare(f"K1 fused_dynamics {shape} widths {prec} B={b}",
                                       calls["k1"][0](), calls["k1"][1](), *TOL[("stage", cdt)]),
-                        "k2": compare_to_max(f"K2 fused_dynamics_bwd image widths {prec} B={b}",
+                        "k2": compare_to_max(f"K2 fused_dynamics_bwd {shape} widths {prec} B={b}",
                                              flat(calls["k2"][0]()), flat(calls["k2"][1]()),
                                              BWD_TOL[("stage", cdt)])}
                 peak_mb = {
                     "k1": same_bits_and_peak(dev, lambda: list(calls["k1"][0]()),
-                                             f"K1 image widths {prec}", 32.0),
+                                             f"K1 {shape} widths {prec}", 32.0),
                     "k2": same_bits_and_peak(dev, lambda: flat(calls["k2"][0]()),
-                                             f"K2 image widths {prec}", 64.0)}
+                                             f"K2 {shape} widths {prec}", 64.0)}
                 lib_ms = products_matmul_ms(dev, b, n_in, h, nz, cdt)
-                log(f"  torch.matmul of K1's six products at the image widths, {prec}: "
+                log(f"  torch.matmul of K1's six products at the {shape} widths, {prec}: "
                     f"{lib_ms:.4f} ms in all")
             else:
                 calls = {
@@ -638,7 +661,7 @@ def image_widths_phase(dev):
                 f"{bounds[k][0]:.4f} ms, {bounds[k][1]}: {bounds[k][0] / ms[k.lower()]:.2%} of "
                 "it)" for k in ks))
             ms.update({f"{k}_peak_mb": v for k, v in peak_mb.items()})
-            if shape == "image":
+            if shape in stage_shapes:
                 ms.update(k1_products_matmul_ms=lib_ms)
             else:
                 ms.update({f"{k}_kernels_a_call": v for k, v in per_call.items()})
@@ -1983,43 +2006,60 @@ class ShardStepSpy:
         self.pmesh.shard_train_step = self.inner
 
 
-def sharded_grads(icnf, x, mesh, seed):
+def sharded_grads(icnf, x, mesh, seed, tensor_parallel=False, reps=0):
     """One step of ``shard_train_step`` on this rank's rows of ``x``, with an
     optimizer that does not move the params: the global mean loss, the
-    solve's stats, the gradients, the launches and the collectives."""
+    solve's stats, the gradients (with ``tensor_parallel``, of this rank's
+    slices of the params, gathered whole), the launches and the
+    collectives, and the sorted host seconds of ``reps`` more steps."""
     import continuousnormalizingflows_tpu_torch as cnf
     from continuousnormalizingflows_tpu_torch.config import Mode
-    from continuousnormalizingflows_tpu_torch.parallel import (shard_batch_arrays,
-                                                               shard_train_step)
+    from continuousnormalizingflows_tpu_torch.parallel import mesh as pmesh
 
     params = icnf.init(torch.Generator().manual_seed(0), device=x.device)
+    if tensor_parallel:
+        params = pmesh.shard_mlp_params(mesh, params)
     params = {k: v.requires_grad_() for k, v in params.items()}
-    step = shard_train_step(lambda p, g, xs, ys: cnf.loss_with_stats(icnf, Mode.TRAIN, xs, p, g),
-                            mesh)
-    xl, _ = shard_batch_arrays(mesh, x)
+    step = pmesh.shard_train_step(
+        lambda p, g, xs, ys: cnf.loss_with_stats(icnf, Mode.TRAIN, xs, p, g), mesh,
+        tensor_parallel=tensor_parallel)
+    xl, _ = pmesh.shard_batch_arrays(mesh, x)
+    opt = torch.optim.SGD(list(params.values()), lr=0.0)
+    run = lambda: step(params, opt, torch.Generator(device=x.device).manual_seed(seed), xl, None)
     before = counts()
-    loss, st = step(params, torch.optim.SGD(list(params.values()), lr=0.0),
-                    torch.Generator(device=x.device).manual_seed(seed), xl, None)
+    loss, st = run()
     moved = {k: counts()[k] - before[k] for k in before}
+    grads = {k: p.grad for k, p in params.items()}
+    if tensor_parallel:
+        grads = pmesh.gather_mlp_params(mesh, grads)
     return dict(loss=float(loss), stats=solve_stats(st), launches=moved,
-                grads=[p.grad.detach().cpu() for p in params.values()],
-                collectives=dict(step.counts))
+                grads=[grads[k].detach().cpu() for k in params],
+                collectives=dict(step.counts),
+                seconds=sorted(host_seconds(run)[1] for _ in range(reps)))
 
 
-def whole_grads(icnf, x, seed):
+def whole_grads(icnf, x, seed, reps=0):
     """:func:`sharded_grads`' step in one process on all of ``x``."""
     import continuousnormalizingflows_tpu_torch as cnf
     from continuousnormalizingflows_tpu_torch.config import Mode
 
     params = icnf.init(torch.Generator().manual_seed(0), device=x.device)
     params = {k: v.requires_grad_() for k, v in params.items()}
+
+    def run():
+        for p in params.values():
+            p.grad = None
+        loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x, params,
+                                       torch.Generator(device=x.device).manual_seed(seed))
+        loss.backward()
+        return loss.detach(), st
+
     before = counts()
-    loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x, params,
-                                   torch.Generator(device=x.device).manual_seed(seed))
-    loss.backward()
+    loss, st = run()
     moved = {k: counts()[k] - before[k] for k in before}
-    return dict(loss=float(loss.detach()), stats=solve_stats(st), launches=moved,
-                grads=[p.grad.detach().cpu() for p in params.values()])
+    return dict(loss=float(loss), stats=solve_stats(st), launches=moved,
+                grads=[p.grad.detach().cpu() for p in params.values()],
+                seconds=sorted(host_seconds(run)[1] for _ in range(reps)))
 
 
 def parallel_models():
@@ -2253,6 +2293,260 @@ def parallel_phase(dev, record):
     record["parallel"] = out
 
 
+def model_axis_models(dev):
+    """[model axis]'s paths at the digits widths (65 -> 256 -> 256 -> 64) and
+    their 256 points: ``tp`` the default stack without the seminorm
+    (``SolverConfig(adjoint_seminorm=False)``), ``fused=True``, bf16
+    products (K1 + K2 on the net gathered); ``probe`` rk4-24 with 2 probes
+    split over ``model`` (no fused gate takes 2 probes) and fp32 products
+    (autograd rounds a bf16 product's cotangents to bf16, and the ranks'
+    cotangents are summed in another order than one process's: ~7e-4 of the
+    largest gradient apart in bf16, measured on the CPU); ``sweep`` the fp32
+    eval twin (dopri5 1e-4) behind ``from_torch``, whose TEST trace is the
+    exact sweep, split over ``model`` in chunks of MODEL_AXIS_SWEEP_CHUNK
+    basis rows."""
+    import dataclasses
+
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import SolverConfig
+    from continuousnormalizingflows_tpu_torch.utils import datasets as ds
+
+    rk4 = image_model(DIGITS_SIDE, DIGITS_HIDDEN)
+    ev = export_eval_model(SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4))
+    return dict(
+        x=ds.smooth_image_mixture(torch.Generator(device=dev).manual_seed(8), IMAGE_BATCH,
+                                  DIGITS_SIDE),
+        tp=image_model(DIGITS_SIDE, DIGITS_HIDDEN, fused=True,
+                       solver=SolverConfig(adjoint_seminorm=False)),
+        probe=cnf.ICNF(dataclasses.replace(rk4.config, nprobes=2, probe_axis="model"),
+                       cnf.MLP(rk4.net.widths, precision="highest")),
+        sweep=cnf.ICNF(dataclasses.replace(ev.config, sweep_axis="model",
+                                           exact_chunk=MODEL_AXIS_SWEEP_CHUNK),
+                       cnf.from_torch(ev.net, ev.net.n_in, ev.net.n_out)))
+
+
+def model_axis_sweep(icnf, x, mesh=None):
+    """TEST inference of ``icnf`` on ``x``: with ``mesh``, on this rank's
+    slices of the params with the exact sweep split over ``model``."""
+    import contextlib
+
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode
+    from continuousnormalizingflows_tpu_torch.parallel import mesh as pmesh
+
+    params = icnf.init(torch.Generator().manual_seed(0), device=x.device)
+    if mesh is not None:
+        params = pmesh.shard_mlp_params(mesh, params)
+    ctx = (pmesh.use_mesh(mesh, tensor_parallel=True) if mesh is not None
+           else contextlib.nullcontext())
+    reset_counts()
+    with ctx as shards, torch.no_grad():
+        lp, _augs, st = cnf.inference(icnf, Mode.TEST, x, params)
+    return dict(lp=lp.cpu(), stats=solve_stats(st), launches=counts(),
+                collectives=dict(shards.counts) if shards is not None else {})
+
+
+def model_axis_rank(rank, world, store, work):
+    """A rank of [model axis]'s 1 x ``world`` mesh of gloo ranks on the one
+    card: the three paths of :func:`model_axis_models` on its slices of the
+    net; its results to ``work/r<rank>.pt``, a failure's traceback to
+    ``work/error_r<rank>.txt``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        dev = torch.device(torch.load(Path(work) / "inputs.pt")["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        from continuousnormalizingflows_tpu_torch.parallel import (initialize_distributed,
+                                                                   make_mesh, shard_batch_arrays)
+
+        initialize_distributed(backend="gloo", init_method=f"file://{store}", world_size=world,
+                               rank=rank, timeout=datetime.timedelta(seconds=PARALLEL_JOIN_S))
+        mesh = make_mesh(data=1, model=world, device=dev)
+        m = model_axis_models(dev)
+        x, _ = shard_batch_arrays(mesh, m["x"])
+        out = dict(tp=sharded_grads(m["tp"], x, mesh, 11, True, MODEL_AXIS_REPS),
+                   probe=sharded_grads(m["probe"], x, mesh, 11, True),
+                   sweep=model_axis_sweep(m["sweep"], x, mesh))
+        torch.save(out, Path(work) / f"r{rank}.pt")
+        dist.destroy_process_group()
+    except Exception:
+        Path(work, f"error_r{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def model_axis_phase(dev, record):
+    """The model axis in full on the one card.  (a) 2 gloo ranks, a 1 x 2
+    mesh, the digits-shaped net split 128 + 128 on the default stack without
+    the seminorm, ``fused=True``: one ``shard_train_step(tensor_parallel=True)``
+    step against one process on the whole net (the same draws): the same
+    solver stats on both ranks and as one process, the loss within
+    PARALLEL_LOSS_RTOL, the gradients within GRAD_TOL of their largest
+    entry, and each rank's K1 and K2 launches one process's (both on their
+    wide paths); the error norms' all-reduces a step and the step's rate.
+    (b) On the same ranks: the 2-probe rk4 step with the probes split over
+    ``model`` and the TEST exact sweep split over ``model``, each against
+    one process.  (c) ``graft_entry.dryrun_multichip(4)`` on the card. (d) A
+    float64 ``fused=True`` rk4 and ``fused_adaptive`` loss and gradient:
+    no kernel, finite float64.  (e) ``usage.py`` at a few epochs, in a
+    process of its own beside (c) and (d)."""
+    import shutil
+
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+    from continuousnormalizingflows_tpu_torch.graft_entry import dryrun_multichip
+
+    started = time.perf_counter()
+    work = Path("chiprun_out") / "model_axis_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+
+    # one process on the whole net: the references of (a) and (b)
+    m = model_axis_models(dev)
+    one = dict(tp=whole_grads(m["tp"], m["x"], 11, MODEL_AXIS_REPS),
+               probe=whole_grads(m["probe"], m["x"], 11),
+               sweep=model_axis_sweep(m["sweep"], m["x"]))
+    side, h = DIGITS_SIDE, DIGITS_HIDDEN
+    paths = (_plan_path("fwd", side * side + 1, h, side * side),
+             _plan_path("bwd", side * side + 1, h, side * side))
+    if paths != ("wide", "wide"):
+        fail(f"model axis: K1 and K2 take the {paths} paths at the digits widths")
+    if (one["tp"]["launches"]["K1"] == 0 or one["tp"]["launches"]["K2"] == 0
+            or any(one["tp"]["launches"][k] for k in ("K3", "K4", "K5", "K6"))):
+        fail(f"model axis: one process's default-stack step launched {one['tp']['launches']}")
+    for name in ("probe", "sweep"):
+        if one[name]["launches"] != NO_LAUNCH:
+            fail(f"model axis: one process's {name} path launched {one[name]['launches']}")
+    del m
+    torch.cuda.empty_cache()
+
+    # (a) and (b) on 2 gloo ranks
+    torch.save({"device": str(dev)}, work / "inputs.pt")
+    got = join_ranks("model axis", start_ranks(model_axis_rank, MODEL_AXIS_RANKS, work))
+    ref = one["tp"]
+    for r, g in enumerate(got):
+        tp = g["tp"]
+        if tp["stats"] != ref["stats"] or tp["launches"] != ref["launches"]:
+            fail(f"model axis (a): rank {r}'s stats {tp['stats']} and launches {tp['launches']} "
+                 f"vs one process's {ref['stats']} and {ref['launches']}")
+        if abs(tp["loss"] - ref["loss"]) > PARALLEL_LOSS_RTOL * abs(ref["loss"]):
+            fail(f"model axis (a): rank {r}'s loss {tp['loss']} vs one process's {ref['loss']}")
+    if got[0]["tp"]["collectives"] != got[1]["tp"]["collectives"]:
+        fail(f"model axis (a): the ranks issued other collectives "
+             f"{[g['tp']['collectives'] for g in got]}")
+    err = compare_to_max("(a) the tensor-parallel default-stack step (2 model ranks) vs one "
+                         "process: the gradients", got[0]["tp"]["grads"], ref["grads"], GRAD_TOL)
+    rate = lambda secs: IMAGE_BATCH / statistics.median(secs)
+    rates = dict(one_process=rate(ref["seconds"]), ranks=[rate(g["tp"]["seconds"]) for g in got])
+    coll = got[0]["tp"]["collectives"]
+    log(f"  (a) stats {ref['stats']} on both ranks and as one process; K1 {ref['launches']['K1']}"
+        f" and K2 {ref['launches']['K2']} launches a rank, one process's, on their wide paths; "
+        f"collectives a step {coll} ({coll.get('norm', 0)} error-norm all-reduces); train "
+        f"samples/s one process {rates['one_process']:.1f}, a rank "
+        f"{[round(v, 1) for v in rates['ranks']]} ({nvidia_smi()})")
+    out["tp"] = dict(stats=ref["stats"], launches=ref["launches"], collectives=coll,
+                     loss=ref["loss"], grad_max_abs_err=err, rates=rates,
+                     seconds=dict(one_process=ref["seconds"],
+                                  ranks=[g["tp"]["seconds"] for g in got]))
+    pr = one["probe"]
+    for r, g in enumerate(got):
+        if g["probe"]["stats"] != pr["stats"] or abs(g["probe"]["loss"] - pr["loss"]) > (
+                PARALLEL_LOSS_RTOL * abs(pr["loss"])) or g["probe"]["launches"] != NO_LAUNCH:
+            fail(f"model axis (b): rank {r}'s 2-probe step {g['probe']['stats']}, loss "
+                 f"{g['probe']['loss']}, launches {g['probe']['launches']} vs one process's "
+                 f"{pr['stats']}, {pr['loss']}")
+    p_err = compare_to_max("(b) the 2-probe rk4 step, probes and MLP split over model, vs one "
+                           "process: the gradients", got[0]["probe"]["grads"], pr["grads"],
+                           GRAD_TOL)
+    sw = one["sweep"]
+    if any(g["sweep"]["stats"] != sw["stats"] for g in got):
+        fail(f"model axis (b): the sweep's steps {[g['sweep']['stats'] for g in got]} vs one "
+             f"process's {sw['stats']}")
+    s_err = compare(f"(b) TEST exact sweep split over model (chunks of {MODEL_AXIS_SWEEP_CHUNK}, "
+                    f"steps {tuple(sw['stats'].values())}) vs one process",
+                    [g["sweep"]["lp"] for g in got], [sw["lp"]] * len(got),
+                    *MODEL_AXIS_SWEEP_TOL)
+    out["probe"] = dict(stats=pr["stats"], grad_max_abs_err=p_err,
+                        collectives=got[0]["probe"]["collectives"])
+    out["sweep"] = dict(stats=sw["stats"], lp_max_abs_err=s_err,
+                        collectives=got[0]["sweep"]["collectives"])
+    log(f"  (b) the 2-probe step's collectives {got[0]['probe']['collectives']}; the sweep's "
+        f"{got[0]['sweep']['collectives']}")
+
+    # (e) usage.py in a process of its own, beside (c) and (d)
+    usage_out = (Path("chiprun_out") / "usage").resolve()
+    shutil.rmtree(usage_out, ignore_errors=True)
+    usage_log = work / "usage.log"
+    t_usage = time.perf_counter()
+    with open(usage_log, "w") as f:
+        usage = subprocess.Popen(
+            [sys.executable, "-m", "continuousnormalizingflows_tpu_torch.usage", "--out",
+             str(usage_out), "--epochs", str(MODEL_AXIS_USAGE_EPOCHS), "--device", dev.type],
+            stdout=f, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+    try:
+        # (c) graft_entry's dryrun on the card
+        dry = dryrun_multichip(DRYRUN_RANKS, device=dev.type)
+        by = {tuple(r["coord"]): r for r in dry["ranks"]}
+        if len({r["loss"] for r in dry["ranks"]}) != 1 or any(
+                not torch.equal(by[(d, 0)]["lp"], by[(d, 1)]["lp"]) for d in (0, 1)):
+            fail(f"model axis (c): the dryrun's ranks disagree: {dry['ranks']}")
+        log(f"  (c) dryrun_multichip({DRYRUN_RANKS}) on {dry['backend']} "
+            f"({torch.cuda.device_count()} card(s)): {dry['seconds']:.1f} s; loss "
+            f"{dry['ranks'][0]['loss']:.4f}, carried fit {dry['ranks'][0]['carry_loss']:.4f}, "
+            f"the sharded sweep's logp finite ok")
+        out["dryrun"] = dict(backend=dry["backend"], seconds=dry["seconds"],
+                             loss=dry["ranks"][0]["loss"])
+
+        # (d) float64 with fused=True: the unfused route, no kernel
+        out["float64"] = {}
+        for name, solver, kw in (
+                ("rk4", SolverConfig(method="rk4", gradient="backprop", fixed_steps=STEPS), {}),
+                ("fused_adaptive", SolverConfig(), dict(fused_adaptive=True))):
+            icnf = cnf.ICNF.create(nvariables=2, dtype=torch.float64, fused=True, solver=solver,
+                                   **kw)
+            params = {k: v.requires_grad_() for k, v in icnf.init(
+                torch.Generator().manual_seed(0), device=dev).items()}
+            x64 = 0.5 * torch.randn((IMAGE_BATCH, 2), dtype=torch.float64, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(12))
+            reset_counts()
+            loss = cnf.loss(icnf, Mode.TRAIN, x64, params,
+                            torch.Generator(device=dev).manual_seed(13))
+            loss.backward()
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(loss)) and all(
+                p.grad is not None and p.grad.dtype == torch.float64
+                and bool(torch.isfinite(p.grad).all()) for p in params.values())
+            if counts() != NO_LAUNCH or loss.dtype != torch.float64 or not finite:
+                fail(f"model axis (d): float64 fused=True {name}: launches {counts()}, loss "
+                     f"{loss}")
+            out["float64"][name] = float(loss.detach())
+        log(f"  (d) float64 fused=True, rk4 and fused_adaptive: no kernel launched, float64 "
+            f"losses {out['float64']} ok")
+        usage.wait(timeout=max(1.0, PARALLEL_JOIN_S - (time.perf_counter() - t_usage)))
+    finally:
+        if usage.poll() is None:
+            usage.kill()
+            usage.wait()
+    tail = usage_log.read_text().strip().splitlines()[-3:]
+    res = json.loads((usage_out / "usage.json").read_text()) if usage.returncode == 0 else {}
+    if usage.returncode != 0 or not res.get("served_matches"):
+        fail(f"model axis (e): usage.py exited {usage.returncode}: {tail}")
+    log(f"  (e) usage.py --epochs {MODEL_AXIS_USAGE_EPOCHS}: {time.perf_counter() - t_usage:.1f} "
+        f"s (" + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items()) + "); final loss "
+        f"{res['final_loss']:.4f}, served logp within {res['served_max_abs_diff']:.3e} of "
+        f"log_prob ok")
+    out["usage"] = res
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - started
+    log(f"  [model axis] phase: {out['seconds']:.1f} s")
+    record["model_axis"] = out
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2313,6 +2607,11 @@ def main() -> None:
         "mesh=, K3 + K4, against the unsharded fit) and 2 gloo ranks on the card (the digits "
         "fit, the default adaptive stack and K5 + K6 on 65,536 rows)")
     parallel_phase(dev, record)
+    log("[model axis] the model axis in full at the digits widths (65 -> 256 -> 256 -> 64, "
+        "B = 256) on 2 gloo ranks, h = 256 split 128 + 128: the default stack without the "
+        "seminorm through K1 + K2, the 2-probe rk4 step, the TEST exact sweep; "
+        "dryrun_multichip(4); float64 with fused=True; usage.py")
+    model_axis_phase(dev, record)
     log(f"[done] every phase passed, {time.perf_counter() - started:.1f} s in all")
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
@@ -2330,6 +2629,13 @@ def main() -> None:
     dig_bounds = kernel_bounds(*(dig["widths"][i] for i in (0, 1, 3)), dig["batch"],
                                steps=IMAGE_RK4_STEPS, cdt=torch.bfloat16)
     digits_fit = record["image"]["digits"]["launches"]
+    # K1's and K2's wide paths at the digits widths, batch and precision (bf16),
+    # with the launches of [export]'s default-stack digits fit
+    dst = {(r["shape"], r["precision"]): r
+           for r in record["image_path_widths"]}[("digits_stage", "bf16")]
+    dst_bounds = kernel_bounds(*(dst["widths"][i] for i in (0, 1, 3)), dst["batch"],
+                               cdt=torch.bfloat16)
+    default_fit = record["export"]["fit"]["launches"]
     rows = [  # (K, name, source file, TPU kernel, launches on the main path, results, bounds)
         ("K1", "fused_dynamics_fwd", "fused_dynamics.cu", "pallas_kernels.py:118",
          launches["K1"], flag, bounds),
@@ -2347,6 +2653,10 @@ def main() -> None:
          "pallas_solve.py:206", digits_fit["K4"], dig, dig_bounds),
         ("K3", "fused_solve_rk4_fwd, wide path (digits-shaped fit, bf16)", "wide_solve.cuh",
          "pallas_solve.py:176", digits_fit["K3"], dig, dig_bounds),
+        ("K1", "fused_dynamics_fwd, wide path (digits-shaped default-stack fit, bf16)",
+         "wide_stage_fwd.cuh", "pallas_kernels.py:118", default_fit["K1"], dst, dst_bounds),
+        ("K2", "fused_dynamics_bwd, wide path (digits-shaped default-stack fit, bf16)",
+         "wide_stage_bwd.cuh", "pallas_kernels.py:182", default_fit["K2"], dst, dst_bounds),
         ("K5", "fused_adaptive_fwd", "fused_adaptive.cu", "pallas_adaptive.py:187",
          fused_adaptive["K5"], ad, bounds),
         ("K6", "fused_adaptive_bwd", "fused_adaptive_bwd.cu", "pallas_adaptive.py:258",

@@ -25,21 +25,22 @@ Inside a sharded step (:func:`..parallel.mesh.use_mesh`) the parameter
 leaves of the backward state, the parameter VJP and its integral ``q``, are
 sums over this rank's rows.  Where they enter an error norm (no seminorm)
 their VJP is all-reduced at every evaluation, as JAX's GSPMD does, so they
-are alike on every rank and count once; otherwise ``q`` is all-reduced once
-at the end.  Either way the parameter gradient arrives summed over the
-ranks, and the train step's bucket leaves it out.
+are alike on every rank and count once (a tensor-parallel MLP's split
+leaves once a slice); otherwise ``q`` is all-reduced once at the end.
+Either way the parameter gradient arrives summed over the ranks, and the
+train step's bucket leaves it out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
 from ..config import DEFAULT_FIXED_DT0, SolverConfig
 from ..parallel import mesh as pmesh
-from .ode import SHARED, SolverStats, _leaves, eval_dense, odeint, odeint_dense
+from .ode import SHARED, SPLIT, SolverStats, _leaves, eval_dense, odeint, odeint_dense
 
 __all__ = ["odeint_diff"]
 
@@ -107,36 +108,43 @@ def _flatten(tree) -> Tuple[List[torch.Tensor], Any]:
     return [l for p in parts for l in p[0]], rebuild
 
 
-def _param_mask(args_d) -> List[bool]:
-    """Which leaves of the differentiable args are parameters (their VJP is
-    a sum over the batch's rows): those under a dict's ``"params"``."""
+def _param_keys(args_d) -> List[Optional[str]]:
+    """The key under a dict's ``"params"`` of each leaf of the differentiable
+    args that is a parameter (its VJP is a sum over the batch's rows), or
+    None; ``""`` for a parameter leaf that has no key of its own."""
     if not isinstance(args_d, dict):
-        return [False] * len(_flatten(args_d)[0])
-    return [k == "params" for k in args_d for _ in _flatten(args_d[k])[0]]
+        return [None] * len(_flatten(args_d)[0])
+    keys = []
+    for k, v in args_d.items():
+        if k == "params" and isinstance(v, dict):
+            keys += [pk for pk, pv in v.items() for _ in _flatten(pv)[0]]
+        else:
+            keys += [("" if k == "params" else None)] * len(_flatten(v)[0])
+    return keys
 
 
 class _Sharding:
     """How a backward solve on a shard sums its parameter leaves (see the
     module's docstring): ``weight`` is the backward's ``error_weight``
     (``(y, a)`` leaves first when ``with_y``), ``per_eval`` whether the VJP
-    is summed at every evaluation."""
+    is summed at every evaluation.  Summed over ``data``, a tensor-parallel
+    MLP's split leaves still differ by model rank: they are :data:`SPLIT` in
+    the norm, which then reduces over every rank (``global_mean``)."""
 
-    def __init__(self, cfg: SolverConfig, mask, param_ids, n_y: int, with_y: bool):
-        self.mask, self.param_ids = mask, param_ids
+    def __init__(self, cfg: SolverConfig, keys, param_ids, n_y: int, with_y: bool):
+        self.mask = [k is not None for k in keys]
+        self.param_ids = param_ids
         head = (True,) * (2 * n_y if with_y else n_y)
         adaptive = cfg.method in ("dopri5", "tsit5", "abm")
         seminorm = cfg.adjoint_seminorm and adaptive
-        sharded = pmesh.active() is not None and any(mask)
+        sharded = pmesh.active() is not None and any(self.mask)
         self.per_eval = sharded and adaptive and not seminorm
-        if self.per_eval and pmesh.active().tensor_parallel:
-            raise NotImplementedError(
-                "a tensor-parallel adjoint with the parameter leaves in the error norm "
-                "(adjoint_seminorm=False): their split layers differ by model rank")
         if seminorm:
             # the parameter quadrature q never feeds back: out of the norm
-            self.weight = head + (False,) * len(mask)
+            self.weight = head + (False,) * len(keys)
         elif self.per_eval:
-            self.weight = head + tuple(SHARED if m else True for m in mask)
+            self.weight = head + tuple(True if k is None else SPLIT if pmesh.is_split(k)
+                                       else SHARED for k in keys)
         else:
             self.weight = None
 
@@ -198,11 +206,11 @@ class _Backsolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g):
-        f, cfg, n_y, build_y, build_d, args_nd, _stats, (mask, param_ids) = ctx.static
+        f, cfg, n_y, build_y, build_d, args_nd, _stats, (keys, param_ids) = ctx.static
         t0, t1, *saved = ctx.saved_tensors
         y1, d_leaves = saved[:n_y], saved[n_y:]
         g = [torch.zeros_like(y) if gi is None else gi for gi, y in zip(g, y1)]
-        shard = _Sharding(cfg, mask, param_ids, n_y, with_y=True)
+        shard = _Sharding(cfg, keys, param_ids, n_y, with_y=True)
 
         def aug_dyn(t, state, _args):
             y, a = list(state[:n_y]), list(state[n_y:2 * n_y])
@@ -239,12 +247,12 @@ class _Quadrature(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g):
-        f, cfg, n_y, build_y, build_d, args_nd, _stats, (mask, param_ids) = ctx.static
+        f, cfg, n_y, build_y, build_d, args_nd, _stats, (keys, param_ids) = ctx.static
         dense = ctx.dense
         t0, t1, *saved = ctx.saved_tensors
         y1, d_leaves = saved[:n_y], saved[n_y:]
         g = [torch.zeros_like(y) if gi is None else gi for gi, y in zip(g, y1)]
-        shard = _Sharding(cfg, mask, param_ids, n_y, with_y=False)
+        shard = _Sharding(cfg, keys, param_ids, n_y, with_y=False)
 
         def adj_dyn(t, state, _args):
             y, _ = _flatten(eval_dense(dense, t))
@@ -287,8 +295,8 @@ def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig) -> Tuple[Any, SolverStat
             return odeint(f, y0, t0, t1, args, cfg)
     stats_out: List[SolverStats] = []
     fn = _Quadrature if cfg.gradient == "quadrature" else _Backsolve
-    mask = _param_mask(args_d)
-    shard = (mask, [id(l) for l, m in zip(d_leaves, mask) if m])
+    keys = _param_keys(args_d)
+    shard = (keys, [id(l) for l, k in zip(d_leaves, keys) if k is not None])
     static = (f, cfg, len(y_leaves), build_y, build_d, args_nd, stats_out, shard)
     y1 = fn.apply(t0, t1, static, *y_leaves, *d_leaves)
     return build_y(list(y1)), stats_out[0]

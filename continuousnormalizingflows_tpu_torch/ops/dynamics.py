@@ -26,7 +26,10 @@ ensemble mean is a sum over the ranks (a differentiable all-reduce); with
 likewise; a tensor-parallel MLP's hidden width is split, so its analytic
 trace all-reduces its contraction over that width (the Hutchinson VJP gets
 this from the net's own collectives), and the fused stage gathers the
-slices into the whole net first.
+slices into the whole net first.  Where the model ranks split the probes or
+the sweep of a tensor-parallel MLP, each runs its share through the whole
+net, gathered, and the net's cotangents are averaged over the ranks
+(:func:`..parallel.mesh.whole_mlp_params` with ``shares=True``).
 """
 
 from __future__ import annotations
@@ -356,9 +359,12 @@ def _probe_vjps(fn, z: torch.Tensor, eps: torch.Tensor, inputs):
 
 
 def fused_dynamics_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
-    """The JAX fused-stage predicate without its TPU-backend check."""
+    """The JAX fused-stage predicate with a float32 check in place of its
+    TPU-backend check (the kernel takes float32; a float64 config solves
+    unfused on every device, as JAX's does on the CPU)."""
     return (
         cfg.fused
+        and cfg.dtype == torch.float32
         and cfg.trace_for(mode) is TraceEstimator.HUTCH_VJP
         and cfg.nprobes == 1
         and isinstance(net, MLP)
@@ -404,12 +410,18 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode) -> Ca
     planar = isinstance(net, Planar)
     mlp_exact = _mlp_exact_applicable(net) and not compute_reg_j
     written = _written_net(net)
+    sweep = estimator is TraceEstimator.EXACT and not planar and not mlp_exact
 
     def f_aug(t, u: torch.Tensor, args: Args) -> torch.Tensor:
         params = args["params"]
         ys = args.get("ys")
         z = u[..., :nz]
         probes = probe_share(cfg)[2] if estimator is not TraceEstimator.EXACT else None
+        sweeps = sweep and pmesh.model_share(cfg.sweep_axis, nz)[2] is not None
+        if probes is not None or sweeps:
+            # each model rank's share through the whole net: a tensor-parallel
+            # one's slices gathered, their cotangents averaged over the ranks
+            params = pmesh.whole_mlp_params(params, shares=True)
         zero = torch.zeros(z.shape[:-1], dtype=u.dtype, device=u.device)
         g = lambda zz: field(t, zz, params, ys)
         if written is not None:

@@ -81,14 +81,17 @@ _N_STAGES = len(_B)  # 6 solution stages; the 7th (FSAL) feeds the error and the
 
 
 def fused_adaptive_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
-    """The JAX gate (``pallas_adaptive.fused_adaptive_applicable``) without
-    its TPU-backend check: ``fused`` and ``fused_adaptive``, dopri5 with the
+    """The JAX gate (``pallas_adaptive.fused_adaptive_applicable``) with a
+    float32 check in place of its TPU-backend check (a float64 config
+    solves unfused, as JAX's does on the CPU): ``fused`` and
+    ``fused_adaptive``, dopri5 with the
     adjoint setting (which the kernels replace by the exact discrete
     backward), regularized train mode with both RNODE norms, one
     Hutchinson-VJP probe, a 3-layer softplus MLP with equal hidden widths
     and every width <= 128."""
     return (
         cfg.fused
+        and cfg.dtype == torch.float32
         and cfg.fused_adaptive
         and cfg.layout == "batch_first"
         and cfg.solver.method == "dopri5"

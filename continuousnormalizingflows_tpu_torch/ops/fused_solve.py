@@ -40,8 +40,9 @@ MAX_WIDTH = 128
 
 def fused_solve_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
     """Static preconditions for the whole-solve kernel: the JAX gate
-    (``pallas_solve.fused_solve_applicable``) without its TPU-backend check,
-    so the route is the same on CPU and GPU.
+    (``pallas_solve.fused_solve_applicable``) with a float32 check in place
+    of its TPU-backend check, so the route is the same on CPU and GPU and a
+    float64 config solves unfused, as JAX's does on the CPU.
 
     Regularized train mode with both RNODE norms on (the kernel always
     integrates E and n), rk4 + backprop, one Hutchinson-VJP probe, a 3-layer
@@ -49,6 +50,7 @@ def fused_solve_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
     widths <= 128."""
     return (
         cfg.fused
+        and cfg.dtype == torch.float32
         and cfg.layout == "batch_first"
         and cfg.solver.method == "rk4"
         and cfg.solver.gradient == "backprop"

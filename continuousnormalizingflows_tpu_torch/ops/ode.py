@@ -47,11 +47,27 @@ __all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_abm", "odeint_dopr
 State = Any  # a tensor or a tuple of tensors
 ODEFunc = Callable[[Any, State, Any], State]
 
-# an ``error_weight`` entry besides True (in the norm; under a sharded step a
+# ``error_weight`` entries besides True (in the norm; under a sharded step a
 # leaf whose rows are split over the ranks) and False (out of it): in the
 # norm, and alike on every rank, so counted once (the adjoint's parameter
 # leaves once their VJP is summed over the ranks)
 SHARED = "shared"
+# in the norm, alike over ``data`` and sliced over ``model``: a
+# tensor-parallel MLP's split parameter leaves, counted once a slice
+SPLIT = "split"
+
+
+def _norm_parts():
+    """Running ``[sum of squares, count]`` by ``error_weight`` entry."""
+    return {True: [0.0, 0], SHARED: [0.0, 0], SPLIT: [0.0, 0]}
+
+
+def _parts_mean(parts) -> torch.Tensor:
+    """:func:`global_mean` of :func:`_norm_parts` (the split part's
+    arguments only where there is one)."""
+    (total, count), shared, (t_split, n_split) = parts[True], parts[SHARED], parts[SPLIT]
+    split = {"total_split": t_split, "count_split": n_split} if n_split else {}
+    return global_mean(total, count, *shared, **split)
 
 
 class SolverStats(NamedTuple):
@@ -233,21 +249,22 @@ def _rms_error_ratio(err: State, y0: State, y1: State, rtol: float, atol: float,
                      error_weight=None) -> torch.Tensor:
     """RMS of ``err / (atol + rtol * max(|y0|, |y1|))`` over every element of
     the leaves that ``error_weight`` marks (all when None; :data:`SHARED`
-    leaves once over the ranks): one scalar for the whole batch.  Leaving a
-    leaf out is the seminorm of the adjoint's parameter quadrature."""
+    leaves once over the ranks, :data:`SPLIT` ones once a slice): one scalar
+    for the whole batch.  Leaving a leaf out is the seminorm of the
+    adjoint's parameter quadrature."""
     leaves = zip(_leaves(err), _leaves(y0), _leaves(y1))
     weights = _leaves(error_weight) if error_weight is not None else None
-    sq_sum, count, sq_shared, n_shared = 0.0, 0, 0.0, 0
+    parts = _norm_parts()
     for i, (e, a, b) in enumerate(leaves):
-        if weights is not None and not weights[i]:
+        w = True if weights is None else weights[i]
+        if not w:
             continue
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = (e / scale).to(torch.float32)
-        if weights is not None and weights[i] is SHARED:
-            sq_shared, n_shared = sq_shared + torch.sum(r * r), n_shared + r.numel()
-        else:
-            sq_sum, count = sq_sum + torch.sum(r * r), count + r.numel()
-    return torch.sqrt(global_mean(sq_sum, count, sq_shared, n_shared))
+        part = parts[w]
+        part[0] = part[0] + torch.sum(r * r)
+        part[1] += r.numel()
+    return torch.sqrt(_parts_mean(parts))
 
 
 def _controller_factor(ratio, inv_order, safety, min_factor, max_factor, tdt):
@@ -421,18 +438,40 @@ def _adaptive_device_loop(f, y0, t0, t1, args, cfg) -> Tuple[State, SolverStats]
     return y, SolverStats(nfe_init + n_evals * steps, nacc, steps - nacc, dt)
 
 
+def _fixed_device_loop(f, y0, t0, t1, args, cfg) -> Tuple[State, SolverStats]:
+    """:func:`odeint_fixed` as one ``while_loop`` over its steps (the same
+    step function at the same times, so the same bits): ``torch.export``
+    traces one step instead of ``fixed_steps`` of them."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    t0, t1, _tdt = _times(y0, t0, t1)
+    args, _dt0 = _pop_dt0(args)
+    n = int(cfg.fixed_steps)
+    dt = (t1 - t0) / n
+    step = {"rk4": _rk4_step, "euler": _euler_step}[cfg.method]
+    evals = {"rk4": 4, "euler": 1}[cfg.method]
+
+    def body(i, *y):
+        return (i + 1, *_leaves(step(f, t0 + i * dt, _like(y0, list(y)), dt, args)))
+
+    _i, *y = while_loop(lambda i, *y: i < n, body,
+                        (torch.zeros((), dtype=torch.int64, device=t0.device), *_leaves(y0)))
+    return _like(y0, y), SolverStats(evals * n, n, 0, dt)
+
+
 def odeint_device(f: ODEFunc, y0: State, t0, t1, args,
                   cfg: SolverConfig) -> Tuple[State, SolverStats]:
     """A forward solve with no host read, for ``torch.export``: dopri5/tsit5
-    by :func:`_adaptive_device_loop` and abm by :func:`_abm_device_loop`
-    (the counts in their stats are 0-d tensors), fixed steps unrolled (their
-    count is static).  Not differentiable: call it under ``torch.no_grad``."""
+    by :func:`_adaptive_device_loop`, abm by :func:`_abm_device_loop` (the
+    counts in their stats are 0-d tensors) and fixed steps by
+    :func:`_fixed_device_loop`.  Not differentiable: call it under
+    ``torch.no_grad``."""
     if cfg.method in _TABLEAUS:
         return _adaptive_device_loop(f, y0, t0, t1, args, cfg)
     if cfg.method == "abm":
         args, _ignored = _pop_dt0(args)
         return _abm_device_loop(f, y0, t0, t1, args, cfg)
-    return odeint_fixed(f, y0, t0, t1, args, cfg)
+    return _fixed_device_loop(f, y0, t0, t1, args, cfg)
 
 
 def odeint_dopri5(f: ODEFunc, y0: State, t0, t1, args, cfg: SolverConfig, error_weight=None,
@@ -649,18 +688,17 @@ def _candidate_ratios(e3, y, y3, rtol, atol, error_weight) -> torch.Tensor:
     """``_rms_error_ratio`` of each of three stacked candidates: ``(3,)``,
     over the ranks of a sharded step in one collective."""
     weights = _leaves(error_weight) if error_weight is not None else None
-    sq_sum, count, sq_shared, n_shared = 0.0, 0, 0.0, 0
+    parts = _norm_parts()
     for i, (e, a, b) in enumerate(zip(e3, _leaves(y), y3)):
-        if weights is not None and not weights[i]:
+        w = True if weights is None else weights[i]
+        if not w:
             continue
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = (e / scale).to(torch.float32)
-        sq = torch.sum((r * r).reshape(3, -1), dim=1)
-        if weights is not None and weights[i] is SHARED:
-            sq_shared, n_shared = sq_shared + sq, n_shared + a.numel()
-        else:
-            sq_sum, count = sq_sum + sq, count + a.numel()
-    return torch.sqrt(global_mean(sq_sum, count, sq_shared, n_shared))
+        part = parts[w]
+        part[0] = part[0] + torch.sum((r * r).reshape(3, -1), dim=1)
+        part[1] += a.numel()
+    return torch.sqrt(_parts_mean(parts))
 
 
 class _AbmControl(NamedTuple):

@@ -17,9 +17,10 @@ here is a DTensor.
   gradients are all-reduced once, in one flat bucket with the loss, before
   the optimizer step.
 * ``model`` ranks either replicate the step (the default, as JAX's
-  ``ICNFModel``), split the probe ensemble (``probe_axis``) or the exact
+  ``ICNFModel``), or split the probe ensemble (``probe_axis``) or the exact
   sweep (``sweep_axis``), or split the MLP Megatron-style
-  (:func:`shard_mlp_params`, ``tensor_parallel=True``).
+  (:func:`shard_mlp_params`, ``tensor_parallel=True``), or both: each rank
+  then runs its share through the whole MLP, gathered.
 
 The random streams stay in lockstep: every rank carries the same generator
 state and draws what one process would draw for the whole batch.
@@ -288,23 +289,38 @@ def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM, site: str = "all_r
     return t
 
 
-def global_mean(total, count: int, total_shared=0.0, count_shared: int = 0):
+def global_mean(total, count: int, total_shared=0.0, count_shared: int = 0,
+                total_split=0.0, count_split: int = 0):
     """``total / count`` over the active mesh's data shards, in one
     collective (an error norm's sum of squares, a loss's sum): ``total`` and
     ``count`` are this rank's share of a quantity whose rows are split over
     the ``data`` axis, ``total_shared``/``count_shared`` one that every rank
     holds alike (counted once, by the first data rank).  The reduction runs
     over ``data`` alone: the ``model`` ranks of a data shard hold its rows
-    alike and each reads the same mean.  ``total`` (a float32 tensor) may
-    hold several sums at once.  Without a mesh, the local mean."""
+    alike and each reads the same mean.  ``total_split``/``count_split``:
+    a tensor-parallel MLP's split leaves (the adjoint's parameter leaves
+    without the seminorm), alike over ``data`` and sliced over ``model``;
+    with them the reduction runs over every rank of the mesh, the rows
+    counted by the first model rank, the shared part by the first rank, the
+    slices by the first data rank.  ``total`` (a float32 tensor) may hold
+    several sums at once.  Without a mesh, the local mean."""
     ctx = _ACTIVE
     if ctx is None:
-        if count_shared:
-            total, count = total + total_shared, count + count_shared
-        return total / count
-    if ctx.data_rank == 0:
-        total, count = total + total_shared, count + count_shared
-    total = torch.as_tensor(total)
+        return (total + total_shared + total_split) / (count + count_shared + count_split)
+    if count_split:
+        group = ctx.group
+        parts = ((total, count, ctx.model_rank == 0),
+                 (total_shared, count_shared, ctx.data_rank == 0 and ctx.model_rank == 0),
+                 (total_split, count_split, ctx.data_rank == 0))
+    else:
+        group = ctx.data
+        parts = ((total, count, True), (total_shared, count_shared, ctx.data_rank == 0))
+    # a rank that counts none of the parts adds zeros of the sums' shape
+    total = torch.zeros_like(next(t for t, _c, _o in parts if torch.is_tensor(t)))
+    count = 0
+    for t, c, own in parts:
+        if own:
+            total, count = total + t, count + c
     # the count as a tensor without reading it as a float: under torch.export
     # it is symbolic in the batch
     buf = torch.cat([total.to(torch.float64).reshape(-1),
@@ -312,9 +328,9 @@ def global_mean(total, count: int, total_shared=0.0, count_shared: int = 0):
     if ctx.serving:  # traced once, run every trial step: not counted
         from torch.distributed import _functional_collectives as funcol
 
-        buf = funcol.all_reduce(buf, "sum", ctx.data)
+        buf = funcol.all_reduce(buf, "sum", group)
     else:
-        _all_reduce(buf, ctx.data, site="norm")
+        _all_reduce(buf, group, site="norm")
     return (buf[:-1] / buf[-1]).to(torch.float32).reshape(total.shape)
 
 
@@ -391,16 +407,41 @@ class _SumOverModel(torch.autograd.Function):
 class _GatherModel(torch.autograd.Function):
     """A tensor-parallel slice gathered whole over ``model`` (before a fused
     kernel, which takes the whole net); backward keeps this rank's slice of
-    the cotangent, which every model rank computes alike."""
+    the cotangent, which every model rank computes alike.  ``shares``: the
+    model ranks split the probes or the sweep, so each rank's cotangent
+    holds the part alike on every rank (the field's) and its own shares'
+    part, taken ``model`` times by :class:`_SumOverModel`'s backward: it is
+    summed over ``model`` and divided by the ranks before the slice is kept."""
 
     @staticmethod
-    def forward(ctx, v, dim, group):
-        ctx.dim, ctx.n, ctx.rank = dim, v.shape[dim], dist.get_rank(group)
+    def forward(ctx, v, dim, group, shares):
+        ctx.dim, ctx.n, ctx.group, ctx.shares = dim, v.shape[dim], group, shares
         return _gather(v, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+        if ctx.shares:
+            g = _mean_over(g, ctx.group)
+        return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n), None, None, None
+
+
+class _ReplicaOverModel(torch.autograd.Function):
+    """A replicated leaf where the model ranks split the probes or the sweep:
+    identity forward; backward the mean of the ranks' cotangents, as
+    :class:`_GatherModel` takes them with ``shares``."""
+
+    @staticmethod
+    def forward(ctx, v, group):
+        ctx.group = group
+        return v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mean_over(g, ctx.group), None
+
+
+def _mean_over(g: torch.Tensor, group) -> torch.Tensor:
+    return _all_reduce(g.contiguous().clone(), group, site="model") / dist.get_world_size(group)
 
 
 def tp_group():
@@ -420,7 +461,8 @@ def model_share(axis: Optional[str], n: int) -> Tuple[int, int, object]:
     """``(start, stop, group)`` of this rank's share of ``n`` items split over
     the mesh axis ``axis`` (``probe_axis``/``sweep_axis``): ``(0, n, None)``
     where nothing is split.  Shares are ``ceil(n / ranks)`` long, the last
-    one cut short."""
+    one cut short.  Under tensor parallelism each rank runs its share
+    through the whole MLP (:func:`whole_mlp_params` with ``shares=True``)."""
     ctx = _ACTIVE
     if axis is None or ctx is None:
         return 0, n, None
@@ -429,9 +471,6 @@ def model_share(axis: Optional[str], n: int) -> Tuple[int, int, object]:
                          f"got axis {axis!r}")
     if ctx.model_size == 1:
         return 0, n, None
-    if ctx.tensor_parallel:
-        raise NotImplementedError("probe_axis/sweep_axis together with tensor parallelism "
-                                  "(the model axis does one or the other)")
     per = -(-n // ctx.model_size)
     start = min(ctx.model_rank * per, n)
     return start, min(start + per, n), ctx.model
@@ -442,15 +481,24 @@ def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _SumOverModel.apply(x, group)
 
 
-def whole_mlp_params(params: Params) -> Params:
+def whole_mlp_params(params: Params, shares: bool = False) -> Params:
     """The whole MLP under tensor parallelism (its slices gathered,
-    differentiably), for the kernels that take the whole net; the params as
-    they are otherwise."""
+    differentiably), for the kernels that take the whole net, and for the
+    model ranks' shares of the probes or the sweep (``shares=True``: the
+    cotangents averaged over ``model``, see :class:`_GatherModel`); the
+    params as they are otherwise."""
     g = tp_group()
     if g is None:
         return params
-    return {k: _GatherModel.apply(v, _TP_SPLIT[k], g) if k in _TP_SPLIT else v
+    return {k: (_GatherModel.apply(v, _TP_SPLIT[k], g, shares) if k in _TP_SPLIT
+                else _ReplicaOverModel.apply(v, g) if shares else v)
             for k, v in params.items()}
+
+
+def is_split(key: str) -> bool:
+    """Whether the active step holds the MLP leaf ``key`` as this rank's
+    slice (tensor parallelism)."""
+    return tp_group() is not None and key in _TP_SPLIT
 
 
 # ---- the sharded train step ----

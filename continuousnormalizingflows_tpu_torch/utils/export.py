@@ -5,8 +5,9 @@ ICNF is captured by :func:`torch.export.export` into a program with its
 parameters inside: a serving process runs it with ``torch`` alone
 (``torch.export.load(path).module()(x)``), with no model code, config
 objects or parameter files.  The solve runs through the device-loop form of
-the solvers (:func:`..ops.ode.odeint_device`: dopri5, tsit5 and abm as one
-``while_loop`` each), so the program holds no host read.
+the solvers (:func:`..ops.ode.odeint_device`: dopri5, tsit5, abm and the
+fixed-step methods as one ``while_loop`` each), so the program holds no host
+read.
 
 * :func:`export_logpdf`: ``x (b, nvariables) [, ys (b, nconditions)] ->
   logp (b,)``, the exact-trace (TEST) log-density, with a symbolic batch

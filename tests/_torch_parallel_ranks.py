@@ -26,6 +26,7 @@ import torch.distributed as dist
 import continuousnormalizingflows_tpu_torch as tcnf
 import continuousnormalizingflows_tpu_torch.core as tcore
 import continuousnormalizingflows_tpu_torch.ops.ode as tode
+from continuousnormalizingflows_tpu_torch import graft_entry
 from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig, TraceEstimator
 from continuousnormalizingflows_tpu_torch.models.nets import MLP
 from continuousnormalizingflows_tpu_torch.ops.dynamics import make_augmented_dynamics
@@ -70,11 +71,12 @@ def _stats(st):
     return np.array([int(st.nfe), int(st.naccept), int(st.nreject)], np.int64)
 
 
-def _grad_step(icnf, mesh, params, x, mode=Mode.TRAIN):
+def _grad_step(icnf, mesh, params, x, mode=Mode.TRAIN, tensor_parallel=False):
     """One sharded step that leaves the gradient of the global mean loss in
     ``.grad`` (an optimizer with no step): ``(loss, stats, counts)``."""
     step = shard_train_step(
-        lambda p, g, xs, ys: tcnf.loss_with_stats(icnf, mode, xs, p, g), mesh)
+        lambda p, g, xs, ys: tcnf.loss_with_stats(icnf, mode, xs, p, g), mesh,
+        tensor_parallel=tensor_parallel)
     opt = torch.optim.SGD(list(params.values()), lr=0.0)
     xl, _ = shard_batch_arrays(mesh, torch.from_numpy(x))
     loss, stats = step(params, opt, torch.Generator().manual_seed(0), xl, None)
@@ -117,13 +119,14 @@ def case_adaptive(rank, world, inputs):
 @contextlib.contextmanager
 def norms_of(into):
     """Every error norm's ``global_mean`` call appended to ``into`` as a row
-    ``(total, count, total_shared, count_shared, mean)`` (dopri5's norms are
-    scalars)."""
+    ``(total, count, total_shared, count_shared, mean, total_split,
+    count_split)`` (dopri5's norms are scalars)."""
     inner = tode.global_mean
 
-    def recorded(total, count, total_shared=0.0, count_shared=0):
-        out = inner(total, count, total_shared, count_shared)
-        into.append([float(total), count, float(total_shared), count_shared, float(out)])
+    def recorded(total, count, total_shared=0.0, count_shared=0, **split):
+        out = inner(total, count, total_shared, count_shared, **split)
+        into.append([float(total), count, float(total_shared), count_shared, float(out),
+                     float(split.get("total_split", 0.0)), split.get("count_split", 0)])
         return out
 
     tode.global_mean = recorded
@@ -198,6 +201,80 @@ def case_tp_step(rank, world, inputs):
 
 def case_tp_fused(rank, world, inputs):
     return _tp_step(inputs, fused=True)
+
+
+def _tp_model(inputs, **kw):
+    """The h = 32 net of the tensor-parallel cases on data 2 x model 2, with
+    ``tp.p``'s params split: ``(mesh, icnf, params)``."""
+    mesh = make_mesh(data=2, model=2, device="cpu")
+    cfg = tcnf.ICNFConfig(nvariables=2, **kw)
+    icnf = tcnf.ICNF(cfg, MLP((cfg.n_in, 32, 32, cfg.n_out)))
+    whole = params_from_jax(unpack(inputs, "tp.p"))
+    return mesh, icnf, {k: v.requires_grad_() for k, v in shard_mlp_params(mesh, whole).items()}
+
+
+def _gathered_grads(mesh, params):
+    grads = pmesh.gather_mlp_params(mesh, {k: p.grad for k, p in params.items()})
+    return {f"g.{k}": v.numpy() for k, v in grads.items()}
+
+
+def case_tp_probe(rank, world, inputs):
+    """Two probes split over ``model`` with the MLP split over it too: the
+    gradients (an optimizer that does not move the params), then one Adam
+    step."""
+    mesh, icnf, params = _tp_model(inputs, nprobes=2, probe_axis="model", solver=FAST)
+    step = shard_train_step(lambda p, g, xs, ys: (tcnf.loss(icnf, Mode.TRAIN, xs, p, g),), mesh,
+                            tensor_parallel=True)
+    xl, _ = shard_batch_arrays(mesh, torch.from_numpy(inputs["tp.x"]))
+    with draws(inputs["tpp.eps"], inputs["tp.t1"]):
+        step(params, torch.optim.SGD(list(params.values()), lr=0.0),
+             torch.Generator().manual_seed(0), xl, None)
+        grads = _gathered_grads(mesh, params)
+        (loss,) = step(params, torch.optim.Adam(list(params.values()), lr=1e-3),
+                       torch.Generator().manual_seed(0), xl, None)
+    return {"loss": loss.numpy(), "counts": _counts(step.counts), **grads,
+            **_np_params(pmesh.gather_mlp_params(mesh, params))}
+
+
+def case_tp_sweep(rank, world, inputs):
+    """TEST inference with the exact sweep split over ``model`` on the split
+    params of a net the analytic trace does not take (``from_torch``)."""
+    solver = SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4)
+    mesh, icnf, params = _tp_model(inputs, sweep_axis="model", exact_chunk=2, solver=solver)
+    net = tcnf.from_torch(icnf.net, icnf.net.n_in, icnf.net.n_out)
+    xl, _ = shard_batch_arrays(mesh, torch.from_numpy(inputs["tp.x"]))
+    with pmesh.use_mesh(mesh, tensor_parallel=True) as ctx, torch.no_grad():
+        lp, _augs, st = tcnf.inference(tcnf.ICNF(icnf.config, net), Mode.TEST, xl, params)
+    return {"lp": lp.numpy(), "stats": _stats(st), "counts": _counts(ctx.counts),
+            "coord": np.array([mesh.get_local_rank(0), mesh.get_local_rank(1)])}
+
+
+def _tp_noseminorm(inputs, fused):
+    """The default stack without the seminorm under tensor parallelism: the
+    gradients of one step, its stats and collectives, and its error norms."""
+    mesh, icnf, params = _tp_model(inputs, fused=fused,
+                                   solver=SolverConfig(adjoint_seminorm=False))
+    with draws(inputs["grad.eps"], inputs["grad.t1"]), norms_of([]) as norms:
+        loss, st, counts = _grad_step(icnf, mesh, params, inputs["grad.x"],
+                                      tensor_parallel=True)
+    return {"loss": loss.numpy(), "stats": _stats(st), "counts": _counts(counts),
+            "norms": np.array(norms, np.float64), **_gathered_grads(mesh, params),
+            "coord": np.array([mesh.get_local_rank(0), mesh.get_local_rank(1)])}
+
+
+def case_tp_noseminorm(rank, world, inputs):
+    return _tp_noseminorm(inputs, fused=False)
+
+
+def case_tp_noseminorm_fused(rank, world, inputs):
+    return _tp_noseminorm(inputs, fused=True)
+
+
+def case_dryrun(rank, world, inputs):
+    """``graft_entry.dryrun_multichip``'s rank body on the 4 ranks."""
+    out = graft_entry.dryrun_rank(world, "cpu")
+    return {"coord": np.array(out["coord"]), "loss": np.array(out["loss"]),
+            "carry_loss": np.array(out["carry_loss"]), "lp": out["lp"].numpy()}
 
 
 def case_probe_axis(rank, world, inputs):

@@ -30,7 +30,7 @@ from continuousnormalizingflows_tpu.config import SolverConfig as JSolver
 from continuousnormalizingflows_tpu_torch import distributions as tdists
 from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
 from continuousnormalizingflows_tpu_torch.models.nets import MLP, Planar
-from continuousnormalizingflows_tpu_torch.ops.ode import odeint_device, odeint_dopri5
+from continuousnormalizingflows_tpu_torch.ops.ode import odeint_device, odeint_dopri5, odeint_fixed
 from continuousnormalizingflows_tpu_torch.utils import export as ex
 from continuousnormalizingflows_tpu_torch.utils.convert import params_from_jax
 
@@ -245,6 +245,23 @@ def test_device_loop_refuses_the_training_modes(mode):
     with pytest.raises(ValueError, match="only Mode.TEST"):
         tcnf.log_prob(ticnf, mode, x, tparams, torch.Generator().manual_seed(0),
                       device_loop=True)
+
+
+@pytest.mark.parametrize("method", ["rk4", "euler"])
+def test_fixed_step_device_loop_gives_the_unrolled_bits(method):
+    """The fixed-step solve as one ``while_loop`` (what an export traces: one
+    step, not ``fixed_steps``) against the unrolled eager loop on a tuple
+    state: the same stats and bits."""
+    cfg = SolverConfig(method=method, gradient="backprop", fixed_steps=7)
+    a = torch.tensor([[-3.0, 1.0], [0.5, -2.0]])
+    f = lambda t, y, args: (y[0] @ a + torch.sin(t), -y[1] * y[0].sum())
+    y0 = (torch.ones(3, 2), torch.ones(1))
+    with torch.no_grad():
+        y_e, st_e = odeint_fixed(f, y0, 0.2, 1.0, None, cfg)
+        y_d, st_d = odeint_device(f, y0, 0.2, 1.0, None, cfg)
+    assert _counts(st_d) == _counts(st_e) and torch.equal(st_d.dt_final, st_e.dt_final)
+    for u, v in zip(y_d, y_e):
+        torch.testing.assert_close(u, v, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("method", ["dopri5", "tsit5"])

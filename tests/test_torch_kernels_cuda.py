@@ -1033,3 +1033,36 @@ def test_abm_quadrature_fused_stage_route(dev):
     assert steps["fused"] == steps["plain"] == steps["cpu"]
     _close_to_max(grads["fused"], grads["plain"], 5e-4)
     _close_to_max(grads["fused"], grads["cpu"], 5e-4)
+
+
+@pytest.mark.parametrize("solver,kw", [
+    (SolverConfig(method="rk4", gradient="backprop", fixed_steps=8), {}),
+    (SolverConfig(), {}),
+    (SolverConfig(), {"fused_adaptive": True}),
+], ids=["rk4", "default_stack", "fused_adaptive"])
+def test_float64_fused_config_takes_the_unfused_route(dev, solver, kw):
+    """A float64 config with ``fused=True`` does not raise on the card (the
+    kernels take float32): every fused gate is closed, so its loss and
+    gradients are float64, launch no kernel, and equal ``fused=False``'s
+    bits, as on the CPU."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+    from continuousnormalizingflows_tpu_torch.ops import fused_solve as fs
+
+    kernels = (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fs.fused_solve_rk4,
+               fs.fused_solve_rk4_bwd, fa.fused_solve_dopri5, fa.fused_solve_dopri5_bwd)
+    x = torch.randn((256, 2), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    got = {}
+    for fused in (True, False):
+        icnf = cnf.ICNF.create(nvariables=2, dtype=torch.float64, fused=fused, solver=solver,
+                               **kw)
+        p = {k: v.requires_grad_() for k, v in
+             icnf.init(torch.Generator().manual_seed(0), device=dev).items()}
+        before = [k.launches for k in kernels]
+        loss = cnf.loss(icnf, Mode.TRAIN, x, p, torch.Generator(device=dev).manual_seed(2))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        assert [k.launches - b for k, b in zip(kernels, before)] == [0] * 6
+        assert loss.dtype == torch.float64 and all(g.dtype == torch.float64 for g in grads)
+        got[fused] = (loss.detach(), grads)
+    assert torch.equal(got[True][0], got[False][0]) and bool(torch.isfinite(got[True][0]))
+    assert all(torch.equal(a, b) for a, b in zip(got[True][1], got[False][1]))

@@ -10,9 +10,11 @@ loss rtol 2e-4, params rtol 1e-3 / atol 1e-6; the adaptive solve's logp
 rtol 1e-4 / atol 1e-5 with the NFE equal; the probe- and sweep-sharded
 results rtol 1e-5 / atol 1e-6.  The default stack's gradients are held as
 ``tests/test_torch_adjoint.py`` holds them against JAX (loss rtol 2e-5 /
-atol 2e-4, each gradient within 2e-4 of its largest entry).  Every rank's
-solver stats are equal, as are the collective counts of a step at 2 and 4
-ranks."""
+atol 2e-4, each gradient within 2e-4 of its largest entry), as are the
+tensor-parallel steps' gradients with the probes split over ``model``.
+Every rank's solver stats are equal, as are the collective counts of a step
+at 2 and 4 ranks.  The entry point's ``graft_entry.dryrun_rank`` runs as one
+more case of the 4-rank spawn."""
 
 import os
 
@@ -30,6 +32,7 @@ from continuousnormalizingflows_tpu.config import Mode as JMode
 from continuousnormalizingflows_tpu.config import SolverConfig as JSolver
 from continuousnormalizingflows_tpu.config import TraceEstimator as JTrace
 from continuousnormalizingflows_tpu.models.nets import MLP as JMLP
+from continuousnormalizingflows_tpu.models.nets import DynamicsNet as JDynamicsNet
 from continuousnormalizingflows_tpu.ops.dynamics import make_augmented_dynamics as jdyn
 import continuousnormalizingflows_tpu_torch.ops.fused_adaptive as fa
 from continuousnormalizingflows_tpu_torch.parallel import (data_sharding, host_local_batch,
@@ -42,7 +45,8 @@ FAST = JSolver(method="rk4", gradient="backprop", fixed_steps=16)
 CASES4 = ["mesh", "roundtrip", "train_step", "adaptive", "grad_auto", "grad_noseminorm",
           "grad_noseminorm22",
           "tp_step", "tp_fused", "probe_axis", "sweep_axis", "estimator", "carry",
-          "inventory", "fused_adaptive", "fused_adaptive_partial"]
+          "inventory", "fused_adaptive", "fused_adaptive_partial", "tp_probe", "tp_sweep",
+          "tp_noseminorm", "tp_noseminorm_fused", "dryrun"]
 
 
 def _pack(prefix, layers):
@@ -81,6 +85,7 @@ def _inputs():
         "fa.eps": rng.standard_normal((1, 512, 5)).astype(np.float32),
         "fa.t1": np.float32(1.03),
     }
+    out["tpp.eps"] = rng.standard_normal((2, 64, 5)).astype(np.float32)
     for name, icnf, seed in (("train", j2, 0), ("adaptive", j2, 0), ("grad", j2, 3),
                              ("tp", j_tp, 0), ("probe", j2, 0), ("sweep", j_sweep, 0),
                              ("est", j1, 5), ("inv", j2, 1), ("fa", j2, 4), ("carry", j2, 6)):
@@ -384,6 +389,138 @@ def test_sweep_axis_mesh_parity(run):
     for r in got["sweep_axis"]:
         np.testing.assert_allclose(r["du"], np.asarray(du), rtol=1e-5, atol=1e-6)
         assert dict(zip(ranks.COUNT_SITES, r["counts"]))["model"] == 1
+
+
+def _jax_tp(**kw):
+    """JAX's one-device twin of the tensor-parallel cases' h = 32 net."""
+    cfg = jcnf.ICNFConfig(nvariables=2, **kw)
+    return jcnf.ICNF(config=cfg, net=JMLP((cfg.n_in, 32, 32, cfg.n_out)))
+
+
+def _held_grads(r, g_j):
+    for i, layer in enumerate(g_j):
+        _close_to_max(r[f"g.layers.{i}.weight"], np.asarray(layer["w"]).T)
+        _close_to_max(r[f"g.layers.{i}.bias"], np.asarray(layer["b"]))
+
+
+def test_tensor_parallel_with_probe_axis_step_matches(run, inject):
+    """data 2 x model 2, h = 32 split 16 + 16, and the 2-probe ensemble
+    split over ``model`` too: each rank runs its probe through the whole net
+    gathered, and the net's cotangents are summed over the ranks, so the
+    gradients and the Adam step equal one device's."""
+    inputs, got = run
+    inject(inputs["tpp.eps"], inputs["tp.t1"])
+    icnf = _jax_tp(nprobes=2, solver=FAST)
+    x, p0 = jnp.asarray(inputs["tp.x"]), _layers(inputs, "tp.p")
+    p_ref, l_ref = _jax_step(icnf, p0, x)
+    g_j = jax.grad(lambda q: jcnf.loss(icnf, JMode.TRAIN, x, q, key=jax.random.PRNGKey(2)))(p0)
+    _held_step(got["tp_probe"], p_ref, l_ref)
+    for r in got["tp_probe"]:
+        _held_grads(r, g_j)
+        counts = dict(zip(ranks.COUNT_SITES, r["counts"]))
+        assert counts["grad"] == 1 and counts["all_gather"] > 0 and counts["model"] > 0
+    _same_on_every_rank(got["tp_probe"], "g.layers.0.weight")
+
+
+class _Opaque(JDynamicsNet):
+    """JAX's net the analytic MLP trace does not take (as
+    ``__graft_entry__.dryrun_multichip``'s), around the h = 32 MLP."""
+
+    def __init__(self, net):
+        self.net, self.n_in, self.n_out = net, net.n_in, net.n_out
+
+    def init(self, key):
+        return self.net.init(key)
+
+    def apply(self, p, xx):
+        return self.net.apply(p, xx)
+
+
+def test_tensor_parallel_with_sweep_axis_inference_matches(run):
+    """TEST inference with the exact sweep split over ``model`` (chunks of 2
+    basis rows) on the split params of an opaque net: each rank sweeps its
+    rows through the whole net gathered; the logp and the steps are one
+    device's, alike on the model ranks of a data shard."""
+    inputs, got = run
+    icnf = _jax_tp(exact_chunk=2, solver=JSolver(method="dopri5", rtol=1e-4, atol=1e-4))
+    icnf = jcnf.ICNF(config=icnf.config, net=_Opaque(icnf.net))
+    lp, _augs, st = jcnf.inference(icnf, JMode.TEST, jnp.asarray(inputs["tp.x"]),
+                                   _layers(inputs, "tp.p"))
+    per_rank = got["tp_sweep"]
+    for d in (0, 2):
+        np.testing.assert_array_equal(per_rank[d]["lp"], per_rank[d + 1]["lp"])
+    np.testing.assert_allclose(np.concatenate([per_rank[0]["lp"], per_rank[2]["lp"]]),
+                               np.asarray(lp), rtol=1e-5, atol=1e-6)
+    _same_on_every_rank(per_rank, "stats")
+    assert int(per_rank[0]["stats"][0]) == int(st.nfe)
+    counts = dict(zip(ranks.COUNT_SITES, per_rank[0]["counts"]))
+    assert counts["all_gather"] > 0 and counts["model"] > 0
+
+
+def _held_tp_norms(per_rank):
+    """Every rank reads the same error norms, each one process's weighting
+    of the parts: a data shard's rows once (its model ranks hold them
+    alike), the replicated parameter leaves once, and each model rank's
+    slices once (alike over ``data``); the backward's norms hold slices."""
+    by = {tuple(r["coord"]): r["norms"] for r in per_rank}
+    for n in by.values():
+        np.testing.assert_array_equal(n[:, 4], by[(0, 0)][:, 4])
+    split = by[(0, 0)][:, 6] > 0
+    assert split.any() and not split.all()
+    total = (by[(0, 0)][:, 0] + by[(1, 0)][:, 0] + by[(0, 0)][:, 2]
+             + np.where(split, by[(0, 0)][:, 5] + by[(0, 1)][:, 5], 0.0))
+    count = (by[(0, 0)][:, 1] + by[(1, 0)][:, 1] + by[(0, 0)][:, 3]
+             + np.where(split, by[(0, 0)][:, 6] + by[(0, 1)][:, 6], 0.0))
+    np.testing.assert_allclose(by[(0, 0)][:, 4], total / count, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["tp_noseminorm", "tp_noseminorm_fused"],
+                         ids=["unfused", "fused"])
+def test_tensor_parallel_full_adjoint_norm_gradient(run, inject, case):
+    """The default stack with ``adjoint_seminorm=False`` under tensor
+    parallelism (data 2 x model 2, h = 32 split 16 + 16), fused (K1 + K2's
+    plain twins on the net gathered) and not: the parameter VJP enters the
+    backward's error norm, each rank's slices summed over ``data`` and the
+    norm reduced over every rank in one collective, so every rank takes one
+    device's steps and the gradients are one device's."""
+    inputs, got = run
+    inject(inputs["grad.eps"], inputs["grad.t1"])
+    icnf = _jax_tp(solver=JSolver(adjoint_seminorm=False))
+    (l_j, st), g_j = jax.value_and_grad(
+        lambda p: jcnf.loss_with_stats(icnf, JMode.TRAIN, jnp.asarray(inputs["grad.x"]), p,
+                                       key=jax.random.PRNGKey(0)), has_aux=True)(
+        _layers(inputs, "tp.p"))
+    per_rank = got[case]
+    _same_on_every_rank(per_rank, "stats")
+    _same_on_every_rank(per_rank, "g.layers.0.weight")
+    assert int(per_rank[0]["stats"][0]) == int(st.nfe)
+    for r in per_rank:
+        np.testing.assert_allclose(float(r["loss"]), float(l_j), rtol=2e-5, atol=2e-4)
+        _held_grads(r, g_j)
+        counts = dict(zip(ranks.COUNT_SITES, r["counts"]))
+        assert counts["grad"] == 1 and counts["param_vjp"] >= 1
+        assert counts["norm"] == len(r["norms"])
+        assert (counts["all_gather"] > 0) == case.endswith("fused")
+    _held_tp_norms(per_rank)
+
+
+def test_dryrun_multichip_rank_body(run):
+    """``graft_entry.dryrun_multichip``'s rank body on 4 gloo ranks (data 2
+    x model 2: the tensor-parallel step with the probes split over
+    ``model``, the carried-start fit, the sharded exact sweep on the split
+    params): finite, the losses alike on every rank, the log-densities
+    alike on the model ranks of a data shard."""
+    _inputs_, got = run
+    per_rank = got["dryrun"]
+    by = {tuple(r["coord"]): r for r in per_rank}
+    assert set(by) == {(0, 0), (0, 1), (1, 0), (1, 1)}
+    for r in per_rank:
+        assert np.isfinite(r["loss"]) and np.isfinite(r["carry_loss"])
+        assert r["lp"].shape == (8,) and np.all(np.isfinite(r["lp"]))
+    _same_on_every_rank(per_rank, "loss")
+    _same_on_every_rank(per_rank, "carry_loss")
+    for d in (0, 1):
+        np.testing.assert_array_equal(by[(d, 0)]["lp"], by[(d, 1)]["lp"])
 
 
 # ---- one process ----
