@@ -11,6 +11,7 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py widths
     python3 chip_profile.py fwd-widths
     python3 chip_profile.py adaptive-widths
+    python3 chip_profile.py adaptive-wide
     python3 chip_profile.py sass
     python3 chip_profile.py nccl
 
@@ -29,8 +30,15 @@ K1-K6 by its kernels' names and the top kernels, and writes every row to
 Every run keeps the card busy for 10 s before its first measurement.  The
 kernels build at first use, as in ``chip_smoke.py``.  K6 shows as its two
 kernels, ``adaptive_replay`` and ``walk_rows`` (above h = 32 as one,
-``adaptive_bwd``), K4 as ``solve_traj_rows`` and
+``adaptive_bwd_cluster``, or ``adaptive_bwd`` on the tiled path), K4 as ``solve_traj_rows`` and
 ``fused_solve_rk4_bwd_rows``.
+
+``adaptive-wide`` times K5 and K6 above their row paths (h = 33 ... 128
+at 6 -> h -> h -> 5, B = 8,192 and 65,536, and the JAX package's adaptive
+band, 42 -> 128 -> 128 -> 41 at B = 16,384 and 65,536) on the cluster path
+and on the tiled path, in turns in one process: the measurement behind the
+cluster plan's taking the cluster path at every width it fits
+(``cluster_plan`` in ``csrc/cluster_adaptive.cuh``).
 
 ``k2-grid`` is the measurement behind K2's launch shape on its row path:
 it builds the kernels a second time with ``-DCNF_K2_ONE_BLOCK_A_TILE`` (a
@@ -106,8 +114,9 @@ KERNELS = {"K1": (r"\bfused_dynamics_fwd_(rows|kernel)[<(]", r"\bwide_products<.
                   r"\bwide_products<.*SolveBwdEpi", r"\bwide_to_bf16<4>",
                   r"\bwide_bias_(sums|add)<4>", r"\bsolve_inputs<4,", r"\bsolve_load_x<",
                   r"\bsolve_(merge|add_slices)\("),
-           "K5": (r"\badaptive_fwd_(rows|tiled)[<(]",),
-           "K6": (r"\b(adaptive_replay|adaptive_replay_tiled|walk_rows|adaptive_bwd)[<(]",)}
+           "K5": (r"\badaptive_fwd_(rows|tiled|cluster)[<(]",),
+           "K6": (r"\b(adaptive_replay|adaptive_replay_tiled|walk_rows|adaptive_bwd|"
+                  r"adaptive_bwd_cluster)[<(]",)}
 
 
 def is_kernel(name, k):
@@ -276,13 +285,13 @@ def rows(dev):
     }
 
 
-def device_ms(fn, names, reps=30):
+def device_ms(fn, names, reps=30, warmup=5):
     """Device time of one call of ``fn``: the summed time of the kernels whose
     name matches one of the regular expressions ``names``, over ``reps``
     profiled calls after 5 warm-up ones.  A CUDA-event time around a call
     would also hold the wrapper's host time wherever the card waits for it,
     as it does at these widths."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -857,6 +866,69 @@ def adaptive_widths(dev):
     return out
 
 
+ADAPTIVE_WIDE = ([((6, h, 5), b) for h in (33, 48, 64, 96, 128) for b in (8_192, 65_536)]
+                 + [((42, 128, 41), b) for b in (16_384, 65_536)])
+
+
+def adaptive_wide(dev):
+    """K5 and K6 above their row paths, on the cluster path and on the tiled
+    path (``fused_adaptive._WIDE_PATH``), in turns (cluster, tiled, tiled,
+    cluster): device ms of each kernel's launches, the cluster path's plan and
+    the path the wrapper picks, NFE and accepted steps (the same on
+    both paths: K5 gives the same bits on both, which is checked).  The draws
+    are chip_smoke.py's h = 128 case (doubled weights, each 128-row group
+    scaled by 0.1-10, the first step half the span)."""
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    out = {}
+    for (n_in, h, nz), b in ADAPTIVE_WIDE:
+        sd = nz + 3
+        params = MLP((n_in, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
+        params = {k: 2.0 * v for k, v in params.items()}
+        g = torch.Generator(device=dev).manual_seed(1)
+        z0 = 0.5 * torch.randn((b, nz), generator=g, device=dev)
+        z0 = z0 * torch.logspace(-1, 1, b // 128, device=dev).repeat_interleave(128)[:, None]
+        u0 = torch.cat([z0, torch.zeros((b, 3), device=dev)], dim=-1)
+        eps = torch.randn((b, nz), generator=g, device=dev)
+        gbar = torch.randn((b, sd), generator=g, device=dev)
+        args = (u0, eps, None, params, (0.0, torch.tensor(1.05, device=dev)), nz, nz,
+                (1e-4, 1e-4, 0.5, 0.9, 0.2, 10.0, 16_384))
+        k5 = lambda: fa.fused_solve_dopri5(*args, 64)
+        k6 = lambda: fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+        plan = _build.cluster_plan(n_in, h, nz, nz, sd, 128, b, 1)
+        picked = "cluster" if _build.cluster_plan(n_in, h, nz, nz, sd, 128, b).cluster else "tiled"
+        t, bits = {"cluster": [], "tiled": []}, {}
+        try:
+            for wide in ("cluster", "tiled", "tiled", "cluster"):
+                fa._WIDE_PATH = wide
+                u1, st = k5()
+                bits.setdefault(wide, digest([u1, st]))
+                t[wide].append((device_ms(k5, KERNELS["K5"], reps=2, warmup=1),
+                                device_ms(k6, KERNELS["K6"], reps=1, warmup=1)))
+        finally:
+            fa._WIDE_PATH = None
+        if bits["cluster"] != bits["tiled"]:
+            raise SystemExit(f"adaptive-wide {n_in}->{h}->{nz} B={b}: K5's bits differ "
+                             f"between the paths")
+        ms = {w: [sorted(v[i] for v in runs)[len(runs) // 2] for i in (0, 1)]
+              for w, runs in t.items()}
+        row = out[f"{n_in}->{h}->{h}->{nz} B={b}"] = dict(
+            plan=plan._asdict(), picked=picked, nfe=int(st[:, 0].sum()),
+            nfe_max=int(st[:, 0].max()), accepted=int(st[:, 1].sum()),
+            k5_cluster=ms["cluster"][0], k6_cluster=ms["cluster"][1], k5_tiled=ms["tiled"][0],
+            k6_tiled=ms["tiled"][1], runs=t)
+        print(f"adaptive-wide {n_in}->{h}->{h}->{nz} B={b}: cluster plan {plan.cluster} CTAs x "
+              f"{plan.rows} rows (weights resident K5 {plan.res_fwd}, K6 {plan.res_bwd}; state "
+              f"on chip K5 {plan.state_fwd}; walk passes of {plan.walk_rows}), picked {picked}; "
+              f"NFE {row['nfe']} over {b // 128} groups (at most {row['nfe_max']}); K5 cluster "
+              f"{ms['cluster'][0]:.4f} ms vs tiled {ms['tiled'][0]:.4f}; K6 cluster "
+              f"{ms['cluster'][1]:.4f} ms vs tiled {ms['tiled'][1]:.4f}; K5 bits equal "
+              f"{bits['cluster']}", flush=True)
+    return out
+
+
 NCCL_BATCHES = (256, 1024)  # the digits fit's global batch a step
 NCCL_STEPS = 16
 NCCL_JOIN_S = 420
@@ -1000,6 +1072,7 @@ def main() -> None:
                        ("solve-wide", solve_wide),
                        ("widths", widths),
                        ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths),
+                       ("adaptive-wide", adaptive_wide),
                        ("nccl", nccl)):
         if name in wanted:
             wanted.remove(name)

@@ -64,6 +64,13 @@ BATCH = 65_536
 STEPS = 32
 TABULAR_BATCH = 8_192
 WIDE_BATCH = 8_192  # K5/K6 at h = 128: 64 control groups
+# the JAX package's adaptive band (benchmarks/adaptive_band.py, "h=128 d=20"):
+# its batches, its timed steps, and the bound on fused vs unfused losses
+BAND_NVARIABLES, BAND_HIDDEN = 20, 128
+BAND_BATCHES = (16_384, 65_536)
+BAND_STEPS = 10
+BAND_LOSS_RTOL = 1e-3
+BAND_CHECK_BATCH = 2_048  # the band's widths held to the plain versions (adaptive_kernel_phase)
 TRAIN_POINTS = 4 * 65_536  # 4 steps an epoch at the flagship batch
 TRAIN_EPOCHS = 8
 
@@ -1015,19 +1022,41 @@ def adaptive_kernel_phase(dev, record):
     # so every ratio is resolved in float32 (fp32 and fp64 within 1e-3), and
     # spreads the groups over draw scales of 0.1-10, so each group takes its
     # own steps and a decision on a rounding edge moves one group, not all.
-    for shape, h, b, spread in (("flagship", 24, BATCH, False), ("h128", 128, WIDE_BATCH, True)):
-        nz, n_in = 5, 6
+    # The band: the JAX package's adaptive band's widths (band_model: 42 ->
+    # 128 -> 128 -> 41, state 44) on the h = 128 case's draws, held to the
+    # plain versions at B = 2,048 (the card tests' size: at 16,384 these
+    # draws, up to 73 NFE on 44 columns, put 2-5 of 720,896 elements of u1
+    # past ADAPTIVE_TOL of the plain version, fp32 or fp64, in the tiled
+    # path's bits too: fp32 order over a long solve, not the cluster path),
+    # then timed at the band's batches ("band16k", with the plain versions
+    # beside, and "band65k").  Where K5 and K6 take the cluster path, the
+    # parent's tiled path is timed beside it in the same call
+    # (fused_adaptive._WIDE_PATH = "tiled").
+    band_nz = BAND_NVARIABLES + BAND_NVARIABLES + 1
+    shapes = (("flagship", 5, 24, BATCH, False), ("h128", 5, 128, WIDE_BATCH, True),
+              ("band", band_nz, BAND_HIDDEN, BAND_CHECK_BATCH, True),
+              ("band16k", band_nz, BAND_HIDDEN, BAND_BATCHES[0], True),
+              ("band65k", band_nz, BAND_HIDDEN, BAND_BATCHES[1], True))
+    for shape, nz, h, b, spread in shapes:
+        n_in = nz + 1
         sd = nz + 3
         args, gbar = adaptive_draws(dev, b, nz, h, 1, spread)
         group = fa.fused_adaptive_tile(b)
         H, rows, smem, bwd_rows, smem_bwd, walk_h, walk_blocks = _build.adaptive_plan(
             n_in, h, nz, nz, sd, group)
+        cplan = _build.cluster_plan(n_in, h, nz, nz, sd, group, b)
         path = f"row per thread, h padded to {H}" if H else f"tiled, {rows} rows a stage tile"
         walk = (f"row per thread, h padded to {walk_h}, {bwd_rows} threads/block" if walk_h
                 else f"tiled, {bwd_rows}-row tiles")
-        log(f"  plan K5/K6 {shape}: groups of {group} rows; K5 and K6's replay {path}, grid "
-            f"{b // group}, {smem} B shared; K6's walk back {walk}, grid "
-            f"{b // group * walk_blocks}, {smem_bwd} B shared")
+        if cplan.cluster:
+            log(f"  plan K5/K6 {shape} ({n_in} -> {h} -> {h} -> {nz}, B={b}): groups of {group} "
+                f"rows; {cluster_words(cplan, b)} (the tiled path it replaces: {path}, grid "
+                f"{b // group}, {smem} B shared; walk {walk}, {smem_bwd} B shared)")
+            record.setdefault("cluster_plans", {})[shape] = cplan._asdict()
+        else:
+            log(f"  plan K5/K6 {shape}: groups of {group} rows; K5 and K6's replay {path}, grid "
+                f"{b // group}, {smem} B shared; K6's walk back {walk}, grid "
+                f"{b // group * walk_blocks}, {smem_bwd} B shared")
         usage = ptxas_usage(_build.build_info.get("log", ""))
         for name in ("adaptive_fwd_rows", "adaptive_replay"):
             if not H:
@@ -1044,11 +1073,53 @@ def adaptive_kernel_phase(dev, record):
             record.setdefault("adaptive_row_kernels", {})[f"{name}<{H}> {shape}"] = dict(
                 u, resident_blocks=blocks)
         record.setdefault("bwd_plans", {})[f"K6 walk {shape}"] = dict(
-            path="row" if walk_h else "tiled", H=walk_h, rows=bwd_rows,
-            grid=b // group * walk_blocks)
+            path="row" if walk_h else "cluster" if cplan.cluster else "tiled", H=walk_h,
+            rows=cplan.walk_rows if cplan.cluster else bwd_rows,
+            grid=b // group * (cplan.cluster or walk_blocks))
         k5 = lambda: fa.fused_solve_dopri5(*args, 64)
+        if shape in ("band16k", "band65k"):  # timed only: the cluster path and the tiled path
+            t = {"k5": [], "k6": [], "k5_tiled": [], "k6_tiled": []}
+            k6 = lambda: fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+            st = k5()[1]
+            if shape == "band16k":  # and the plain versions, the kernels line's yardstick
+                t["k5_plain"] = [median_ms(lambda: fa.fused_solve_dopri5_reference(*args, group),
+                                           1, warmup=1)]
+                t["k6_plain"] = [median_ms(lambda: fa.fused_solve_dopri5_bwd_reference(
+                    *args, 64, gbar, group), 1, warmup=1)]
+            for wide in (None, "tiled", "tiled", None):
+                fa._WIDE_PATH = wide
+                try:
+                    sfx = "_tiled" if wide else ""
+                    t["k5" + sfx].append(median_ms(k5, 3, warmup=1))
+                    t["k6" + sfx].append(median_ms(k6, 2, warmup=1))
+                finally:
+                    fa._WIDE_PATH = None
+            ms = {k: statistics.median(v) for k, v in t.items()}
+            nfe_rows, accepted_rows = int(st[:, 0].sum()) * group, int(st[:, 1].sum()) * group
+            bounds = kernel_bounds(n_in, h, nz, b, nfe_rows, accepted_rows)
+            log(f"  time {shape} fp32: " + "; ".join(
+                f"{k.upper()} {ms[k]:.4f} ms (tiled path {ms[k + '_tiled']:.4f} ms"
+                + (f", plain {ms[k + '_plain']:.4f} ms" if k + "_plain" in ms else "")
+                + f", bound {bounds[k.upper()][0]:.4f} ms)" for k in ("k5", "k6")))
+            results.append(dict(shape=shape, batch=b, widths=[n_in, h, h, nz],
+                                groups=st.shape[0], nfe_rows=nfe_rows,
+                                accepted_rows=accepted_rows, nfe_max=int(st[:, 0].max()), **ms))
+            continue
         k5_ref = lambda: fa.fused_solve_dopri5_reference(*args, group)
-        (u1, st), (u1_p, st_p) = k5(), k5_ref()
+        # At the band's widths (41 state columns, up to 73 NFE on these
+        # draws) the plain version in fp32 is itself up to 3.5e-4 from
+        # float64 (within ADAPTIVE_TOL of it everywhere), so two fp32 orders
+        # can part by twice that: the band's K5 is held to the plain version
+        # run in float64 (the same code in u0's dtype), steps and u1, under
+        # the same tolerances; plain_ms stays the fp32 plain version's time,
+        # and K6 (per tensor, to ADAPTIVE_BWD_TOL of its largest entry) is
+        # held to the fp32 plain version.
+        ref_args = args
+        if shape == "band":
+            ref_args = (args[0].double(), args[1].double(), None,
+                        {k: v.double() for k, v in args[3].items()}) + args[4:]
+        (u1, st), (u1_p, st_p) = k5(), fa.fused_solve_dopri5_reference(*ref_args, group)
+        u1_p = u1_p.float()
         same = (st[:, :3] == st_p[:, :3]).all(dim=1)
         n_diff = int((~same).sum())
         log(f"  K5 {shape} B={b}: {n_diff} of {st.shape[0]} groups take other steps than the "
@@ -1090,9 +1161,22 @@ def adaptive_kernel_phase(dev, record):
                         t[k + "_plain"].append(median_ms(plain, reps_p, warmup=1))
                     else:
                         t[k].append(median_ms(kern, reps_k))
+        if cplan.cluster:  # the parent's tiled path on the same inputs, in the same call
+            fa._WIDE_PATH = "tiled"
+            try:
+                tiled = k5(), k6()
+                if not torch.equal(tiled[0][0].view(torch.int32), u1.view(torch.int32)):
+                    fail(f"K5 {shape}: the cluster path's u1 differs from the tiled path's bits")
+                for k, (kern, _plain, reps_k, _reps_p) in pairs.items():
+                    t[k + "_tiled"] = [median_ms(kern, max(2, reps_k // 2))]
+            finally:
+                fa._WIDE_PATH = None
+            log(f"  K5 {shape}: the cluster path gives the tiled path's bits in u1 ok")
         ms = {k: statistics.median(v) for k, v in t.items()}
         log(f"  time {shape} fp32: " + "; ".join(
-            f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms" for k in pairs))
+            f"{k.upper()} {ms[k]:.4f} ms vs plain {ms[k + '_plain']:.4f} ms"
+            + (f", tiled path {ms[k + '_tiled']:.4f} ms" if k + "_tiled" in ms else "")
+            for k in pairs))
         if shape == "flagship":
             record["spread_ms"]["k6"] = spread_ms("K6 flagship fp32", k6, 5)
         nfe_rows, accepted_rows = int(st[:, 0].sum()) * group, int(st[:, 1].sum()) * group
@@ -1103,7 +1187,8 @@ def adaptive_kernel_phase(dev, record):
                             nfe_rows=nfe_rows, accepted_rows=accepted_rows,
                             groups_with_other_steps=n_diff, k5_max_abs_err=err5,
                             k6_max_abs_err=err6, nfe_max=int(st[:, 0].max()), **ms))
-        surveys[shape] = step_survey(shape, dev, b, h, spread, SURVEY_SEEDS, 1 / 16)
+        if shape in ("flagship", "h128"):
+            surveys[shape] = step_survey(shape, dev, b, h, spread, SURVEY_SEEDS, 1 / 16)
     surveys["h128 random init"] = step_survey("h128 random init", dev, WIDE_BATCH, 128, False,
                                               SURVEY_SEEDS, None)
     record["adaptive_kernels_vs_plain"] = results
@@ -1290,6 +1375,132 @@ def adaptive_fused_phase(dev, record):
                                     train_samples_per_s=rate, history=res.history,
                                     grad_max_abs_err=err)
     return launches
+
+
+def band_model(fused):
+    """The JAX package's adaptive band (``benchmarks/adaptive_band.py``,
+    "h=128 d=20"): ``ICNFConfig(nvariables=20)`` with its defaults (21
+    augmented dimensions, so the net is 42 -> 128 -> 128 -> 41 and the state
+    44 wide), dopri5 at rtol = atol = 1e-4 with the adjoint setting, the
+    net in true fp32; ``fused`` takes K5 + K6."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import ICNFConfig, SolverConfig
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+
+    cfg = ICNFConfig(nvariables=BAND_NVARIABLES,
+                     solver=SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4,
+                                         gradient="adjoint"),
+                     fused=fused, fused_adaptive=fused)
+    net = MLP((cfg.n_in, BAND_HIDDEN, BAND_HIDDEN, cfg.n_out), precision="highest")
+    return cnf.ICNF(config=cfg, net=net)
+
+
+def band_phase(dev, record):
+    """[adaptive band]: the port's counterpart of the JAX package's
+    ``benchmarks/adaptive_band.py`` ("h=128 d=20", batch 16,384 and 65,536):
+    x = 0.5 randn(B, 20), BAND_STEPS TRAIN loss-and-gradient steps at fixed
+    params (a fresh probe a step, so NFE is constant from step to step),
+    fused (K5 + K6, exactly one launch of each a step) and unfused (dopri5
+    with the backsolve adjoint, no kernel) in turns, each step's ms by the
+    host clock; one more step of each under the profiler (device ms of K5
+    and K6, idle share).  The two routes take other steps (the per-group
+    controller from the fixed start against the global norm from the HNW
+    start): their losses agree to O(tol), held to BAND_LOSS_RTOL."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    models = {"fused": band_model(True), "unfused": band_model(False)}
+    cfg = models["fused"].config
+    if not fa.fused_adaptive_applicable(cfg, models["fused"].net, Mode.TRAIN):
+        fail("[adaptive band]: the fused config does not take K5 + K6")
+    params = models["fused"].init(torch.Generator().manual_seed(0), device=dev)
+    widths = (cfg.n_in, BAND_HIDDEN, BAND_HIDDEN, cfg.n_out)
+    out = {}
+    for b in BAND_BATCHES:
+        plan = _build.cluster_plan(cfg.n_in, BAND_HIDDEN, cfg.n_out, cfg.nz, cfg.state_dim, 128, b)
+        log(f"  band B={b}, net {widths}, state {cfg.state_dim}: {cluster_words(plan, b)}")
+        x = 0.5 * torch.randn((b, BAND_NVARIABLES), generator=torch.Generator(device=dev)
+                              .manual_seed(1), device=dev)
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+
+        def step(route, seed):
+            loss, st = cnf.loss_with_stats(models[route], Mode.TRAIN, x, p,
+                                           torch.Generator(device=dev).manual_seed(seed))
+            grads = torch.autograd.grad(loss, list(p.values()))
+            return loss, st, grads
+
+        runs = {route: [] for route in models}
+        for i in range(BAND_STEPS):
+            for route in (("fused", "unfused") if i % 2 == 0 else ("unfused", "fused")):
+                reset_counts()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                loss, st, grads = step(route, 100 + i)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - start) * 1e3
+                moved = counts()
+                want = dict(NO_LAUNCH, K5=1, K6=1) if route == "fused" else NO_LAUNCH
+                if moved != want:
+                    fail(f"[adaptive band] B={b} {route} step {i}: launches {moved}, expected "
+                         f"{want}")
+                if not torch.isfinite(loss) or not all(torch.isfinite(g).all() for g in grads):
+                    fail(f"[adaptive band] B={b} {route} step {i}: non-finite loss or gradient")
+                runs[route].append(dict(ms=ms, loss=float(loss), launches=moved,
+                                        nfe=int(st.nfe), naccept=int(st.naccept),
+                                        nreject=int(st.nreject)))
+        rel = max(abs(f["loss"] - u["loss"]) / abs(u["loss"])
+                  for f, u in zip(runs["fused"], runs["unfused"]))
+        if rel > BAND_LOSS_RTOL:
+            fail(f"[adaptive band] B={b}: fused and unfused losses differ by {rel:.2e} "
+                 f"relative, over {BAND_LOSS_RTOL}")
+        prof = {}
+        for route in models:
+            window = ProfileWindow()
+            window.mark()
+            step(route, 100)
+            window.mark()
+            prof[route] = window.summary(1, named={
+                "K5": r"\badaptive_fwd_(cluster|tiled|rows)\b",
+                "K6": r"\b(adaptive_bwd_cluster|adaptive_bwd|adaptive_replay\w*|walk_rows)\b"})
+        summary = {}
+        for route, steps in runs.items():
+            ms = sorted(s["ms"] for s in steps)
+            summary[route] = dict(ms_median=statistics.median(ms), ms_min=ms[0], ms_max=ms[-1],
+                                  nfe=sorted({s["nfe"] for s in steps}),
+                                  naccept=sorted({s["naccept"] for s in steps}),
+                                  nreject=sorted({s["nreject"] for s in steps}),
+                                  launches_per_step=steps[0]["launches"], profile=prof[route],
+                                  steps=steps)
+            pr = prof[route]
+            log(f"  band B={b} {route}: {statistics.median(ms):.3f} ms a step (median of "
+                f"{len(ms)}, min {ms[0]:.3f}, max {ms[-1]:.3f}); NFE {summary[route]['nfe']}, "
+                f"accepted {summary[route]['naccept']}, rejected {summary[route]['nreject']}; "
+                f"launches a step {steps[0]['launches']}; profiled step: device busy "
+                f"{pr['busy_ms']:.3f} ms of {pr['step_ms']:.3f}, idle share "
+                f"{pr['idle_share']:.3f}, K5 {pr['K5_ms']:.3f} ms, K6 {pr['K6_ms']:.3f} ms, "
+                f"{pr['kernels']} kernels")
+        log(f"  band B={b}: losses fused vs unfused within {rel:.2e} relative (bound "
+            f"{BAND_LOSS_RTOL}) ok; fused step {summary['unfused']['ms_median'] / summary['fused']['ms_median']:.2f}x "
+            f"the unfused one ({nvidia_smi()})")
+        out[b] = dict(loss_rel=rel, plan=plan._asdict(), **summary)
+    record["adaptive_band"] = out
+    return {k: sum(out[b]["fused"]["launches_per_step"][k] * BAND_STEPS for b in out)
+            for k in NO_LAUNCH}
+
+
+def cluster_words(plan, b) -> str:
+    """K5's and K6's cluster plan (``_build.cluster_plan``) in words."""
+    if not plan.cluster:
+        return "K5 and K6 take the tiled path, one 256-thread block a 128-row group"
+    weights = lambda res: "in shared memory" if res else "from L2"
+    return (f"cluster path, {plan.cluster} CTAs a group ({plan.rows} rows each), grid "
+            f"{b // (plan.rows * plan.cluster) * plan.cluster}; K5 and K6's replay "
+            f"{plan.smem_fwd} B shared, weights {weights(plan.res_fwd)}, state "
+            f"{'in shared memory' if plan.state_fwd else 'in the device scratch'}; K6's walk "
+            f"{plan.smem_bwd} B shared, weights {weights(plan.res_bwd)}, passes of "
+            f"{plan.walk_rows} rows, a {plan.share}-float share of the weight gradient a CTA")
 
 
 def k1_k2_only(step):
@@ -1965,7 +2176,9 @@ class ProfileWindow:
         else:
             self.prof.__exit__(None, None, None)
 
-    def summary(self, steps):
+    def summary(self, steps, named=None):
+        """Per step; ``named``: {label: regular expression}, each adding
+        ``<label>_ms``, the device ms of the kernels whose names match."""
         from torch.autograd import DeviceType
 
         events = self.prof.key_averages()
@@ -1978,8 +2191,10 @@ class ProfileWindow:
         nccl = [e for e in dev_ev if "nccl" in e.key.lower()]
         collective = [e for e in events if e.device_type == DeviceType.CPU
                       and re.search(r"all_?reduce", e.key)]
+        named_ms = {f"{k}_ms": ms([e for e in dev_ev if re.search(p, e.key)])
+                    for k, p in (named or {}).items()}
         return dict(busy_ms=busy, step_ms=step_ms, idle_share=1.0 - busy / step_ms,
-                    kernels=sum(e.count for e in dev_ev) / steps,
+                    **named_ms, kernels=sum(e.count for e in dev_ev) / steps,
                     allreduce_device_ms=ms(nccl),
                     allreduce_kernels=sum(e.count for e in nccl) / steps,
                     allreduce_host_ms=max([ms([e], "cpu_time_total") for e in collective],
@@ -2588,6 +2803,11 @@ def main() -> None:
     adaptive_phase(dev, record)
     log("[adaptive fused] fused=True, fused_adaptive=True: K5 forward, K6 backward")
     fused_adaptive = adaptive_fused_phase(dev, record)
+    log("[adaptive band] the JAX package's adaptive band (benchmarks/adaptive_band.py, "
+        "h=128 d=20: ICNFConfig(nvariables=20), 42 -> 128 -> 128 -> 41, dopri5 at 1e-4, "
+        f"adjoint), batch {' and '.join(f'{b:,}' for b in BAND_BATCHES)}: {BAND_STEPS} TRAIN "
+        "loss-and-gradient steps at fixed params, fused (K5 + K6) and unfused in turns")
+    band = band_phase(dev, record)
     log("[abm] flagship RNODE, SolverConfig(method='abm', rtol = atol = 1e-4, "
         "gradient='quadrature'), 65,536 samples: unfused, and fused (K1 + K2)")
     abm_phase(dev, record)
@@ -2616,6 +2836,14 @@ def main() -> None:
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
     ad = {r["shape"]: r for r in adaptive_results}["flagship"]
+    # K5's and K6's cluster path at the adaptive band's widths and first
+    # batch (16,384), with the launches of [adaptive band]; max_abs_err from
+    # the check at BAND_CHECK_BATCH
+    by_shape = {r["shape"]: r for r in adaptive_results}
+    bd = dict(by_shape["band16k"], k5_max_abs_err=by_shape["band"]["k5_max_abs_err"],
+              k6_max_abs_err=by_shape["band"]["k6_max_abs_err"])
+    bd_bounds = kernel_bounds(*(bd["widths"][i] for i in (0, 1, 3)), bd["batch"], bd["nfe_rows"],
+                              bd["accepted_rows"])
     bounds = kernel_bounds(*(flag["widths"][i] for i in (0, 1, 3)), flag["batch"],
                            ad["nfe_rows"], ad["accepted_rows"])
     # K1's and K2's wide paths at the image fit's widths, batch and precision (bf16)
@@ -2661,6 +2889,10 @@ def main() -> None:
          fused_adaptive["K5"], ad, bounds),
         ("K6", "fused_adaptive_bwd", "fused_adaptive_bwd.cu", "pallas_adaptive.py:258",
          fused_adaptive["K6"], ad, bounds),
+        ("K5", "fused_adaptive_fwd, cluster path (adaptive band, fp32)", "cluster_adaptive.cuh",
+         "pallas_adaptive.py:187", band["K5"], bd, bd_bounds),
+        ("K6", "fused_adaptive_bwd, cluster path (adaptive band, fp32)", "cluster_adaptive.cuh",
+         "pallas_adaptive.py:258", band["K6"], bd, bd_bounds),
     ]
     # no single PyTorch call computes a fused stage with its probe VJP, or a
     # whole solve, or their backwards: library_ms is null for every kernel

@@ -24,7 +24,9 @@
 // multiple of 4 as in K1 and K3, four 128-row groups an SM), one tile of rows at
 // a time through stage.cuh for wider nets (solve_tiled: the rows' state,
 // 9 x state_dim floats each, in a device-memory scratch, because 128 rows of
-// a wide state do not fit in shared memory beside the stage buffers).
+// a wide state do not fit in shared memory beside the stage buffers).  For
+// 32 < h <= 128 the kernels take the cluster path of cluster_adaptive.cuh
+// where its plan fits: the group's rows split over a thread-block cluster.
 #pragma once
 
 #include "row_stage_bwd.cuh"
@@ -112,9 +114,10 @@ __device__ __forceinline__ void ctl_clamp(Ctl& c, float t1, float span) {
 }
 
 // Thread 0: the decision of a trial step from the group's sum of squared
-// scaled errors over `count` elements; records an accepted step's t and dt.
+// scaled errors over `count` elements; records an accepted step's t and dt
+// as group grp's.
 __device__ inline void ctl_decide(Ctl& c, float sum, int count, const Solver& s, float t1,
-                                  float span, const Nodes& nodes) {
+                                  float span, const Nodes& nodes, long grp) {
   const float ratio = sqrtf(sum / (float)count);
   const bool finite = isfinite(ratio);
   const float r = fmaxf(finite ? ratio : 1.0f, 1e-10f);
@@ -123,11 +126,15 @@ __device__ inline void ctl_decide(Ctl& c, float sum, int count, const Solver& s,
   const bool accept = finite && ratio <= 1.0f;
   if (accept && nodes.traj != nullptr) {
     const int idx = min(c.nacc, nodes.max_nodes - 1);
-    float* rec = nodes.tdt + ((long)blockIdx.x * nodes.max_nodes + idx) * 2;
+    float* rec = nodes.tdt + (grp * nodes.max_nodes + idx) * 2;
     rec[0] = c.t;
     rec[1] = c.dtc;
   }
-  const float t_new = accept ? __fadd_rn(c.t, c.dtc) : c.t;
+  float t_new = accept ? __fadd_rn(c.t, c.dtc) : c.t;
+  // a landing that rounds past t1 lands on t1 (ops/ode.py _land): past it,
+  // the done test never holds and each next step moves away from t1
+  const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
+  if (dir * __fadd_rn(t1, -t_new) < 0.0f) t_new = t1;
   c.done = accept && fabsf(__fadd_rn(t1, -t_new)) <= __fmul_rn(1e-12f, fmaxf(fabsf(t1), 1.0f));
   c.fail = !finite && fabsf(c.dtc) <= __fmul_rn(1e-6f, fabsf(span));
   c.dt = __fmul_rn(c.dtc, finite ? factor : s.min_f);
@@ -181,7 +188,7 @@ __device__ __forceinline__ void group_decide(Ctl& c, const float* red, int rows,
                                              const Nodes& nodes) {
   float sum = 0.0f;
   for (int r = 0; r < rows; ++r) sum = __fadd_rn(sum, red[r]);
-  ctl_decide(c, sum, rows * sd, s, t1, span, nodes);
+  ctl_decide(c, sum, rows * sd, s, t1, span, nodes, blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------

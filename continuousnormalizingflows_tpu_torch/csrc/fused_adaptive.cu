@@ -18,12 +18,16 @@
 // blocks an SM (128 registers a thread) with one copy of the stage in its
 // code (adaptive.cuh), so the 512 groups of the flagship batch (65,536) run
 // in one wave on the 132 SMs.
-// Wider nets (h <= 128) take the tiled stage of stage.cuh, with the rows'
-// state in a device-memory scratch.
+// Wider nets (32 < h <= 128) take the cluster path of cluster_adaptive.cuh:
+// a group's rows split over a thread-block cluster of 2 or 4 CTAs, the
+// weights resident in shared memory, one pass a stage, the error sum over
+// distributed shared memory.  Where its plan does not fit they take the
+// tiled stage of stage.cuh, one block a group, with the rows' state in a
+// device-memory scratch.
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
-#include "adaptive.cuh"
+#include "cluster_adaptive.cuh"
 
 namespace {
 
@@ -112,13 +116,61 @@ adaptive_fwd_tiled(const float* __restrict__ u0, const float* __restrict__ eps,
   }
 }
 
+// The cluster path: cp.cluster CTAs of kClusterThreads threads a group, each
+// taking cp.rows of its rows (cluster_adaptive.cuh).  With Res the weights
+// are the image, resident in shared memory.
+template <bool Res>
+__global__ void __launch_bounds__(cnf::kClusterThreads, 2)
+adaptive_fwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps,
+                     const float* __restrict__ ys, cnf::Weights gw,
+                     const float* __restrict__ image, cnf::Dims d, cnf::ClusterPlan cp,
+                     const float* __restrict__ t0p, const float* __restrict__ t1p,
+                     float* __restrict__ S, float* __restrict__ u1, float* __restrict__ stats,
+                     int B, int sd, int nc, int t_col, int g, Solver s) {
+  extern __shared__ __align__(16) float smem[];
+  const int rank = (int)cnf::cg::this_cluster().block_rank(), R = cp.rows;
+  const long grp = blockIdx.x / cp.cluster, row0 = grp * g + (long)rank * R;
+  float* p = smem;
+  const cnf::CWeights w = cnf::cluster_weights<Res>(gw, image, d, p);
+  const cnf::SolveBufs v =
+      cnf::solve_setup(p, d, R, cp.state_fwd, S, u0, eps, ys, row0, sd, nc, t_col);
+  cnf::cl_solve<Res>(d, w, v.s, R, v.St, sd, t_col, *t0p, *t1p, s, *v.c, v.red,
+                     Nodes{nullptr, nullptr, 0}, grp, row0, B);
+  const Ctl& c = *v.c;
+  const float nan = __int_as_float(0x7fc00000);
+  const int ss = cnf::kStateVecs * sd;
+  for (int idx = threadIdx.x; idx < R * sd; idx += blockDim.x) {
+    const int r = idx / sd, col = idx - r * sd;
+    u1[row0 * sd + idx] = c.done ? v.St[(long)r * ss + col] : nan;
+  }
+  if (rank == 0 && threadIdx.x == 0) {
+    float* st = stats + grp * 4;
+    st[0] = (float)c.nfe;
+    st[1] = (float)c.nacc;
+    st[2] = (float)(c.steps - c.nacc);
+    st[3] = c.dt;
+  }
+  cnf::cg::this_cluster().sync();  // no CTA leaves while a peer may reach its shared memory
+}
+
 cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf::Weights& w,
-                   const cnf::Dims& d, const float* t0, const float* t1, float* S, float* u1,
-                   float* stats, int B, int sd, int nc, int t_col, int g, const Solver& s,
-                   cudaStream_t stream) {
+                   const float* image, const cnf::Dims& d, const float* t0, const float* t1,
+                   float* S, float* u1, float* stats, int B, int sd, int nc, int t_col, int g,
+                   int path, const Solver& s, cudaStream_t stream) {
   const cnf::AdaptivePlan pl = cnf::adaptive_plan(d, sd, g);
   if (pl.smem_fwd == 0) return cudaErrorInvalidValue;
   const int grid = B / g;
+  if (pl.H == 0 && pl.walk_H == 0) {
+    const cnf::ClusterPlan cp = cnf::cluster_plan(d, sd, g, B, path);
+    if (cp.cluster) {
+      if (cp.res_fwd && image == nullptr) return cudaErrorInvalidValue;
+      const auto kernel = cp.res_fwd ? adaptive_fwd_cluster<true> : adaptive_fwd_cluster<false>;
+      return cnf::launch_cluster(kernel, grid * cp.cluster, cp.cluster, cp.smem_fwd, stream, u0,
+                                 eps, ys, w, image, d, cp, t0, t1, S, u1, stats, B, sd, nc,
+                                 t_col, g, s);
+    }
+  }
+  if (path == 1) return cudaErrorInvalidValue;  // the cluster path was asked for and does not fit
   if (pl.H == 0) {
     cudaError_t err = cnf::set_smem(adaptive_fwd_tiled, pl.smem_fwd);
     if (err != cudaSuccess) return err;
@@ -140,17 +192,21 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 
 }  // namespace
 
-// Weights as for cnf_fused_solve_rk4_fwd (W*t read only on the tiled path
-// when the weights are not staged).  t0, t1: device scalars.  S: scratch of
-// B x 9 x sd floats (used by the tiled path).  stats: (B / group) x 4.  B
-// must be a multiple of group (<= 128, a multiple of 8).
+// Weights as for cnf_fused_solve_rk4_fwd (W*t read only on the tiled and
+// cluster paths when the weights are not in shared memory).  image: the
+// weight image of cnf_adaptive_cluster_plan (null where the plan holds none).
+// t0, t1: device scalars.  S: scratch of B x 9 x sd floats (used by the
+// tiled and cluster paths).  stats: (B / group) x 4.  B must be a multiple of
+// group (<= 128, a multiple of 8).  path: -1 the plan's, 0 the tiled path, 1
+// the cluster path (an error where it does not fit).
 extern "C" int cnf_fused_adaptive_fwd(const float* u0, const float* eps, const float* ys,
                                       const float* A1, const float* b1, const float* A2,
                                       const float* b2, const float* A3, const float* b3,
                                       const float* W1t, const float* W2t, const float* W3t,
-                                      const float* t0, const float* t1, float* S, float* u1,
-                                      float* stats, int B, int sd, int n_in, int h, int n_out,
-                                      int nz, int nc, int t_col, int group, int max_steps,
+                                      const float* image, const float* t0, const float* t1,
+                                      float* S, float* u1, float* stats, int B, int sd, int n_in,
+                                      int h, int n_out, int nz, int nc, int t_col, int group,
+                                      int path, int max_steps,
                                       float rtol, float atol, float dt0f, float safety,
                                       float min_f, float max_f, void* stream) {
   if (B <= 0) return cudaSuccess;
@@ -158,8 +214,8 @@ extern "C" int cnf_fused_adaptive_fwd(const float* u0, const float* eps, const f
   const cnf::Weights w{W1t, W2t, W3t, A1, A2, A3, b1, b2, b3};
   const cnf::Dims d{n_in, h, n_out, nz};
   const Solver s{rtol, atol, dt0f, safety, min_f, max_f, max_steps};
-  return launch(u0, eps, ys, w, d, t0, t1, S, u1, stats, B, sd, nc, t_col, group, s,
-                static_cast<cudaStream_t>(stream));
+  return launch(u0, eps, ys, w, image, d, t0, t1, S, u1, stats, B, sd, nc, t_col, group, path,
+                s, static_cast<cudaStream_t>(stream));
 }
 
 // The launch plan of K5 and K6, which the wrapper reads to size K6's
@@ -175,4 +231,22 @@ extern "C" int cnf_adaptive_plan(int n_in, int h, int n_out, int nz, int sd, int
   info[4] = pl.walk_H;
   info[5] = pl.walk_blocks;
   return pl.smem_fwd;
+}
+
+// The cluster path's plan (cluster_adaptive.cuh) for a batch of B rows in
+// groups of `group`: returns the CTAs a group (0: K5 and K6 do not take the
+// cluster path, with `path` as for cnf_fused_adaptive_fwd); info = {rows,
+// res_fwd, state_fwd, smem_fwd, res_bwd, walk_rows, smem_bwd, image, share}
+// (ClusterPlan).  The wrapper builds the weight image of
+// `image` floats where it is not 0.
+extern "C" int cnf_adaptive_cluster_plan(int n_in, int h, int n_out, int nz, int sd, int group,
+                                         int B, int path, int* info) {
+  const cnf::Dims d{n_in, h, n_out, nz};
+  const cnf::AdaptivePlan pl = cnf::adaptive_plan(d, sd, group);
+  cnf::ClusterPlan cp{};
+  if (pl.H == 0 && pl.walk_H == 0) cp = cnf::cluster_plan(d, sd, group, B, path);
+  const int out[] = {cp.rows,     cp.res_fwd,  cp.state_fwd, cp.smem_fwd, cp.res_bwd,
+                     cp.walk_rows, cp.smem_bwd, cp.image,     cp.share};
+  for (int i = 0; i < 9; ++i) info[i] = out[i];
+  return cp.cluster;
 }

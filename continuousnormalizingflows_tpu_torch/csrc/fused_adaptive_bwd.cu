@@ -31,10 +31,15 @@
 //     own grid and shared memory the walk pays neither for the replay's
 //     block shape (one block a 128-row group) nor for a group cut into tiles
 //     that do not divide it.
-//   * wider nets, one kernel (adaptive_bwd): the block that replayed a group
-//     walks it, tiles of rows through stage.cuh and stage_bwd.cuh.  Split in
-//     two like the row path it was slower (12.3 -> 16.8 ms at h = 33,
-//     B = 65,536 on an H100; PERF.md section 6), so it stays whole.
+//   * wider nets (32 < h <= 128), one kernel (adaptive_bwd_cluster): the
+//     thread-block cluster that replayed a group walks it
+//     (cluster_adaptive.cuh), each CTA its share of the rows, the weight
+//     gradient held in the cluster's shared memory, a share a CTA, across
+//     stages and steps and written once.  Where its plan does not fit, one
+//     kernel too (adaptive_bwd): the block that replayed a group walks it,
+//     tiles of rows through stage.cuh and stage_bwd.cuh.  Split in two like
+//     the row path it was slower (12.3 -> 16.8 ms at h = 33, B = 65,536 on
+//     an H100; PERF.md section 6), so it stays whole.
 // A group that accepted more steps than max_nodes, or did not finish,
 // NaN-poisons its rows of u0bar and epsbar and the partial sums of its walk
 // blocks, as the TPU kernel does.  Each group's accepted-step count is
@@ -46,7 +51,7 @@
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
-#include "adaptive.cuh"
+#include "cluster_adaptive.cuh"
 
 namespace {
 
@@ -435,17 +440,77 @@ walk_rows(const float* __restrict__ eps, const float* __restrict__ ys, cnf::Weig
     partial[(long)blockIdx.x * P + q] = ok ? acc[q] : acc[q] * poison;
 }
 
+// The cluster path: K5's cluster replays the group (the same cl_solve, with
+// the weight image where K5 holds it: ResReplay), then walks it, each CTA
+// its rows, the weight gradient summed into each CTA's share over the
+// cluster's rows and written once to the group's row of `partial`.  The walk
+// keeps the image (ResWalk) or reads the device-memory weights, its buffers
+// then taking the image's place.
+template <bool ResReplay, bool ResWalk>
+__global__ void __launch_bounds__(cnf::kClusterThreads, 1)
+adaptive_bwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps,
+                     const float* __restrict__ ys, cnf::Weights gw,
+                     const float* __restrict__ image, cnf::Dims d, cnf::ClusterPlan cp,
+                     const float* __restrict__ t0p, const float* __restrict__ t1p,
+                     const float* __restrict__ gbar, float* __restrict__ u0bar,
+                     float* __restrict__ epsbar, float* __restrict__ S, Nodes nodes,
+                     float* __restrict__ partial, int* __restrict__ nacc_out, int B, int sd,
+                     int nc, int t_col, int g, long P, Solver sv) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = cp.cluster, rank = (int)cnf::cg::this_cluster().block_rank(), R = cp.rows;
+  const long grp = blockIdx.x / C, row0 = grp * g + (long)rank * R;
+  const int nz = d.nz;
+  static_assert(ResReplay || !ResWalk, "the walk holds the image only after the replay");
+  float* p = smem;
+  const cnf::CWeights wr = cnf::cluster_weights<ResReplay>(gw, image, d, p);
+  const cnf::SolveBufs v =
+      cnf::solve_setup(p, d, R, cp.state_fwd, S, u0, eps, ys, row0, sd, nc, t_col);
+  cnf::cl_solve<ResReplay>(d, wr, v.s, R, v.St, sd, t_col, *t0p, *t1p, sv, *v.c, v.red, nodes,
+                           grp, row0, B);
+  const int nacc = v.c->nacc, done = v.c->done;
+  __syncthreads();  // every thread holds the counts: the shared memory is reused
+
+  if constexpr (!ResWalk) p = smem;  // the walk's buffers take the image's place
+  const cnf::CWeights w = ResWalk ? wr : cnf::cluster_weights<false>(gw, image, d, p);
+  const bool ok = done && nacc <= nodes.max_nodes;
+  const float poison = ok ? 1.0f : __int_as_float(0x7fc00000);
+  const cnf::GradShare share = cnf::carve_share(p, d, C, rank);
+  for (int q = threadIdx.x; q < cp.share; q += blockDim.x) p[q] = 0.0f;
+  cnf::cl_walk<ResWalk>(d, w, p + cp.share, cp.walk_rows, R, row0, grp, eps + row0 * nz,
+                    ys == nullptr ? ys : ys + row0 * nc, gbar + row0 * sd, u0bar + row0 * sd,
+                    epsbar + row0 * nz, nodes, min(nacc, nodes.max_nodes), share, sd, nc, t_col,
+                    B, poison);
+  cnf::write_share(d, share, partial + grp * P, ok, poison);
+  if (rank == 0 && threadIdx.x == 0) nacc_out[grp] = nacc;
+  cnf::cg::this_cluster().sync();  // no CTA leaves while a peer may reach its shared memory
+}
+
 cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf::Weights& w,
-                   const cnf::Dims& d, const float* t0, const float* t1, const float* gbar,
-                   float* u0bar, float* epsbar, float* S, const Nodes& nodes, float* partial,
-                   float* grads, int* nacc, int* done, int B, int sd, int nc, int t_col, int g,
-                   const Solver& s, cudaStream_t stream) {
+                   const float* image, const cnf::Dims& d, const float* t0, const float* t1,
+                   const float* gbar, float* u0bar, float* epsbar, float* S, const Nodes& nodes,
+                   float* partial, float* grads, int* nacc, int* done, int B, int sd, int nc,
+                   int t_col, int g, int path, const Solver& s, cudaStream_t stream) {
   const cnf::AdaptivePlan pl = cnf::adaptive_plan(d, sd, g);
   if (pl.smem_fwd == 0 || pl.smem_bwd == 0) return cudaErrorInvalidValue;
   const int groups = B / g, grid = groups * pl.walk_blocks;
   const long P = cnf::param_count(d);
   const int threads = pl.H > 0 ? g : cnf::kThreads;  // K5's block shape
   cudaError_t err;
+  if (pl.H == 0 && pl.walk_H == 0) {
+    const cnf::ClusterPlan cp = cnf::cluster_plan(d, sd, g, B, path);
+    if (cp.cluster) {
+      if (cp.res_fwd && image == nullptr) return cudaErrorInvalidValue;
+      const auto kernel = cp.res_bwd   ? adaptive_bwd_cluster<true, true>
+                          : cp.res_fwd ? adaptive_bwd_cluster<true, false>
+                                       : adaptive_bwd_cluster<false, false>;
+      err = cnf::launch_cluster(kernel, groups * cp.cluster, cp.cluster, cp.smem_bwd, stream, u0,
+                                eps, ys, w, image, d, cp, t0, t1, gbar, u0bar, epsbar, S, nodes,
+                                partial, nacc, B, sd, nc, t_col, g, P, s);
+      if (err != cudaSuccess) return err;
+      return cnf::launch_reduce(partial, groups, P, grads, stream);
+    }
+  }
+  if (path == 1) return cudaErrorInvalidValue;  // the cluster path was asked for and does not fit
   if (pl.walk_H == 0) {
     // H = 0 (the tiled replay), 4, 8, ..., 32 (row_fwd_H)
     decltype(&adaptive_bwd<0>) const kernels[] = {
@@ -487,8 +552,9 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 
 }  // namespace
 
-// Weights as for cnf_fused_adaptive_fwd.  gbar: the cotangent of u1 (B, sd).
-// S: scratch of B x 9 x sd floats (the tiled replay); traj: max_nodes x nz x
+// Weights, image and path as for cnf_fused_adaptive_fwd.  gbar: the
+// cotangent of u1 (B, sd).  S: scratch of B x 9 x sd floats (the tiled and
+// cluster replays); traj: max_nodes x nz x
 // B floats; tdt: (B / group) x max_nodes x 2 floats; partial: (B / group) x
 // walk_blocks x P floats (cnf_adaptive_plan); grads receives the P weight
 // gradients in the layout of cnf_fused_dynamics_bwd; nacc and done:
@@ -498,11 +564,12 @@ extern "C" int cnf_fused_adaptive_bwd(const float* u0, const float* eps, const f
                                       const float* A1, const float* b1, const float* A2,
                                       const float* b2, const float* A3, const float* b3,
                                       const float* W1t, const float* W2t, const float* W3t,
-                                      const float* t0, const float* t1, const float* gbar,
-                                      float* u0bar, float* epsbar, float* S, float* traj,
-                                      float* tdt, float* partial, float* grads, int* nacc,
-                                      int* done, int B, int sd, int n_in, int h, int n_out, int nz, int nc,
-                                      int t_col, int group, int max_nodes, int max_steps,
+                                      const float* image, const float* t0, const float* t1,
+                                      const float* gbar, float* u0bar, float* epsbar, float* S,
+                                      float* traj, float* tdt, float* partial, float* grads,
+                                      int* nacc, int* done, int B, int sd, int n_in, int h,
+                                      int n_out, int nz, int nc, int t_col, int group, int path,
+                                      int max_nodes, int max_steps,
                                       float rtol, float atol, float dt0f, float safety,
                                       float min_f, float max_f, void* stream) {
   if (B <= 0) return cudaSuccess;
@@ -511,7 +578,7 @@ extern "C" int cnf_fused_adaptive_bwd(const float* u0, const float* eps, const f
   const cnf::Weights w{W1t, W2t, W3t, A1, A2, A3, b1, b2, b3};
   const cnf::Dims d{n_in, h, n_out, nz};
   const Solver s{rtol, atol, dt0f, safety, min_f, max_f, max_steps};
-  return launch(u0, eps, ys, w, d, t0, t1, gbar, u0bar, epsbar, S, Nodes{traj, tdt, max_nodes},
-                partial, grads, nacc, done, B, sd, nc, t_col, group, s,
-                static_cast<cudaStream_t>(stream));
+  return launch(u0, eps, ys, w, image, d, t0, t1, gbar, u0bar, epsbar, S,
+                Nodes{traj, tdt, max_nodes}, partial, grads, nacc, done, B, sd, nc, t_col, group,
+                path, s, static_cast<cudaStream_t>(stream));
 }

@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["kernels", "check", "plan", "fwd_plan", "bwd_plan", "adaptive_plan", "build_info"]
+__all__ = ["kernels", "check", "plan", "fwd_plan", "bwd_plan", "adaptive_plan", "cluster_plan",
+           "build_info"]
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -41,13 +42,14 @@ _SIGNATURES = {
     "cnf_fused_solve_rk4_fwd": [_P] * 16 + [_I] * 10 + [_P],
     "cnf_fused_dynamics_bwd": [_P] * 21 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_bwd": [_P] * 21 + [_I] * 10 + [_P],
-    "cnf_fused_adaptive_fwd": [_P] * 17 + [_I] * 10 + [_F] * 6 + [_P],
-    "cnf_fused_adaptive_bwd": [_P] * 24 + [_I] * 11 + [_F] * 6 + [_P],
+    "cnf_fused_adaptive_fwd": [_P] * 18 + [_I] * 11 + [_F] * 6 + [_P],
+    "cnf_fused_adaptive_bwd": [_P] * 25 + [_I] * 12 + [_F] * 6 + [_P],
     "cnf_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_fwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_bwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_solve_bwd_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_adaptive_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    "cnf_adaptive_cluster_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_gates": [_P] * 3 + [_I, _P],
 }
 
@@ -216,3 +218,36 @@ def adaptive_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, group: int):
     smem_fwd = kernels().cnf_adaptive_plan(n_in, h, n_out, nz, sd, group, info)
     return (int(info[0]), int(info[1]), smem_fwd, int(info[2]), int(info[3]), int(info[4]),
             int(info[5]))
+
+
+class ClusterPlan(NamedTuple):
+    """K5's and K6's cluster path (:func:`cluster_plan`)."""
+
+    cluster: int    # CTAs a control group; 0: the path is not taken
+    rows: int       # rows of a CTA
+    res_fwd: bool   # K5: the weight image resident in shared memory
+    state_fwd: bool  # K5: the rows' state in shared memory (else the device scratch)
+    smem_fwd: int   # K5: shared bytes of a CTA
+    res_bwd: bool   # K6's walk: the weight image resident (its replay holds it as K5 does)
+    walk_rows: int  # K6's walk: rows of a pass
+    smem_bwd: int   # K6: shared bytes of a CTA
+    image: int      # floats of the weight image the wrapper builds (0: none)
+    share: int      # floats of a CTA's share of the weight gradient
+
+
+@functools.cache
+def cluster_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, group: int, batch: int,
+                 path: int = -1) -> ClusterPlan:
+    """The cluster path of K5 and K6 at these widths, groups of ``group`` rows
+    and a batch of ``batch`` (``cnf_adaptive_cluster_plan``, from
+    ``cluster_plan`` in ``csrc/cluster_adaptive.cuh``): a thread-block
+    cluster of ``cluster`` CTAs a group (2 or 4), each taking ``rows`` of the
+    group's rows in one pass a stage; ``cluster == 0`` where the kernels take
+    another path (the row paths, h <= 32; the tiled path where the cluster
+    path does not fit).  ``path``: -1 the plan's choice, 0 the tiled path
+    (a reference for tests and timings), 1 the cluster path wherever it
+    fits."""
+    info = (ctypes.c_int * 9)()
+    cluster = kernels().cnf_adaptive_cluster_plan(n_in, h, n_out, nz, sd, group, batch, path, info)
+    rows, rf, sf, smf, rb, wr, smb, image, share = (int(v) for v in info)
+    return ClusterPlan(int(cluster), rows, bool(rf), bool(sf), smf, bool(rb), wr, smb, image, share)

@@ -20,7 +20,10 @@ are not differentiated.  A group that accepted more steps than the buffer
 holds, or did not finish, NaN-poisons its rows of ``u0bar``/``epsbar`` and
 every weight gradient.  On the card, for hidden widths <= 32, the replay
 and the walk are two kernels: the replay one block a group like K5, the
-walk one row a thread in blocks of 64 rows within a group.
+walk one row a thread in blocks of 64 rows within a group.  For 32 < h <=
+128 both kernels run a thread-block cluster of 2 or 4 CTAs a group
+(``_build.cluster_plan``), the weights resident in shared memory where they
+fit: the wrapper builds their image (:func:`_weight_image`).
 
 **The route is the semantics here.**  Per-group step control gives other
 answers than the global-norm solve of :mod:`.ode` (by O(tol)), so the same
@@ -71,6 +74,11 @@ __all__ = [
 MAX_WIDTH = 128
 # rows of a control group (the JAX backward's tile)
 _GROUP = 128
+# the path of K5 and K6 for 32 < h <= 128: None the plan's (_build.cluster_plan),
+# "tiled" or "cluster" to time or test one (the cluster path raises where it
+# does not fit)
+_WIDE_PATH: Optional[str] = None
+_PATH_ARG = {None: -1, "tiled": 0, "cluster": 1}
 
 _A = DOPRI5.A
 _B = DOPRI5.B
@@ -270,6 +278,7 @@ def _replay(u0, eps, ys, params, t0, t1, nz, t_col, scfg, group, max_nodes=0) ->
             ts[idx, rows_g] = torch.where(accept, t, ts[idx, rows_g])
             dts[idx, rows_g] = torch.where(accept, dt_c, dts[idx, rows_g])
         t_new = torch.where(accept, t + dt_c, t)
+        t_new = torch.where(direction * (t1 - t_new) < 0, t1, t_new)  # ops/ode._land
         u = torch.where(per_row(accept), u5, u)
         k1 = torch.where(per_row(accept), k7, k1)
         done_new = accept & (torch.abs(t1 - t_new) <= tiny)
@@ -382,6 +391,28 @@ def _check_adaptive(u0, eps, ys, weights, nz, t_col, group):
     return b, sd, n_in, h, n_out, nc
 
 
+def _weight_image(weights, n_in, h, n_out, floats):
+    """The weight image of the cluster path (``image_layout`` in
+    ``csrc/cluster_adaptive.cuh``): A1, A2 and A3 in nn.Linear layout with
+    their rows padded to an odd width, then b1, b2, b3, then zeros up to
+    ``floats``."""
+    a1, b1, a2, b2, a3, b3 = weights
+    l1, lh = n_in | 1, h | 1
+    parts = [F.pad(a1, (0, l1 - n_in)).reshape(-1), F.pad(a2, (0, lh - h)).reshape(-1),
+             F.pad(a3, (0, lh - h)).reshape(-1), b1, b2, b3]
+    used = sum(p.numel() for p in parts)
+    return torch.cat(parts + [a1.new_zeros(floats - used)])
+
+
+def _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group):
+    """The path argument of the kernels and the weight image where the
+    cluster path holds it (K5 and K6's replay alike; else None)."""
+    path = _PATH_ARG[_WIDE_PATH]
+    cp = _build.cluster_plan(n_in, h, n_out, nz, sd, group, b, path)
+    image = _weight_image(weights, n_in, h, n_out, cp.image) if cp.cluster and cp.image else None
+    return path, image
+
+
 def _solver_args(scfg):
     rtol, atol, dt0f, safety, min_f, max_f, max_steps = scfg
     return (int(max_steps), float(rtol), float(atol), float(dt0f), float(safety),
@@ -401,13 +432,14 @@ def _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group):
     rows = torch.empty((b // group, 4), dtype=torch.float32, device=dev)
     state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
     lib = _build.kernels()
+    path, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_adaptive_fwd(
             _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
-            _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(t1), _ptr(state),
-            _ptr(u1), _ptr(rows), b, sd, n_in, h, n_out, nz, nc,
-            -1 if t_col is None else t_col, group, *_solver_args(scfg), stream,
+            _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
+            _ptr(state), _ptr(u1), _ptr(rows), b, sd, n_in, h, n_out, nz, nc,
+            -1 if t_col is None else t_col, group, path, *_solver_args(scfg), stream,
         )
     _build.check(err, "fused_adaptive_fwd")
     fused_solve_dopri5.launches += 1
@@ -435,20 +467,22 @@ def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, 
     traj = torch.empty((max_nodes, nz, b), dtype=torch.float32, device=dev)
     tdt = torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=dev)
     # a row of weight-gradient partial sums for each block of the walk back
+    # (on the cluster path, each group's cluster writes one row)
     walk_blocks = _build.adaptive_plan(n_in, h, n_out, nz, sd, group)[6]
     partial = torch.empty((n_groups * walk_blocks, n_params), dtype=torch.float32, device=dev)
     grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
     nacc = torch.empty((n_groups,), dtype=torch.int32, device=dev)
     done = torch.empty((n_groups,), dtype=torch.int32, device=dev)
     lib = _build.kernels()
+    path, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_adaptive_bwd(
             _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
-            _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(t1), _ptr(gbar),
-            _ptr(u0bar), _ptr(epsbar), _ptr(state), _ptr(traj), _ptr(tdt), _ptr(partial),
-            _ptr(grads), _ptr(nacc), _ptr(done), b, sd, n_in, h, n_out, nz, nc,
-            -1 if t_col is None else t_col, group, max_nodes, *_solver_args(scfg), stream,
+            _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
+            _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(state), _ptr(traj), _ptr(tdt),
+            _ptr(partial), _ptr(grads), _ptr(nacc), _ptr(done), b, sd, n_in, h, n_out, nz, nc,
+            -1 if t_col is None else t_col, group, path, max_nodes, *_solver_args(scfg), stream,
         )
     _build.check(err, "fused_adaptive_bwd")
     fused_solve_dopri5_bwd.launches += 1

@@ -359,6 +359,17 @@ def _start(f, y0, t0, t1, args, cfg, error_weight, dt0_override):
     return ctl, t0, k1, dt, 1 + nfe_init
 
 
+def _land(ctl, t_new):
+    """``t_new``, or ``t1`` where it lies past ``t1``.  The step clamped to
+    ``t1 - t`` lands on ``t1`` up to the rounding of ``t + (t1 - t)``, which in
+    float32 falls past ``t1`` for about one last step in seven that starts
+    below ``t1 / 2``.  Past ``t1``, the done test (within 1e-12) never holds
+    and each next step, ``direction * |t1 - t|``, moves away from ``t1``: the
+    solve runs off (the JAX package's loop, ``ops/ode.py`` :404-420, does
+    so).  Every step sequence that does not overshoot is unchanged."""
+    return torch.where(ctl.direction * (ctl.t1 - t_new) < 0, ctl.t1, t_new)
+
+
 def _trial(ctl: _Control, f, t, dt, y, k1, args):
     """One trial step and its decision, shared by the eager and the device
     loop so that both take the same steps: ``(y5, k7, t_new, dt_new,
@@ -371,7 +382,7 @@ def _trial(ctl: _Control, f, t, dt, y, k1, args):
     finite, factor = _controller_factor(ratio, 1.0 / ctl.tab.order, cfg.safety,
                                         cfg.min_factor, cfg.max_factor, ctl.tdt)
     accept = finite & (ratio <= 1.0)
-    t_new = torch.where(accept, t + dt_c, t)
+    t_new = _land(ctl, torch.where(accept, t + dt_c, t))
     done = accept & (torch.abs(ctl.t1 - t_new) <= ctl.tol_done)
     fail = ~finite & (torch.abs(dt_c) <= ctl.give_up)
     return y5, k7, t_new, dt_c * factor, accept, done, fail
@@ -775,7 +786,7 @@ def _abm_trial(ctl: _AbmControl, f, s: _AbmState, args) -> _AbmTrial:
     cfg, K, tables = ctl.cfg, ctl.K, ctl.tables
     order, n_h = s.order, s.n_h
     dt_c = ctl.direction * torch.minimum(torch.abs(s.dt), torch.abs(ctl.t1 - s.t))
-    t_new = s.t + dt_c
+    t_new = _land(ctl, s.t + dt_c)
     w_pred, wc_new, wc_hist, milne = _abm_weights_branch3(order, K, s.ts_h, t_new, tables)
     # the three candidates' predictor and corrector increments, one contraction a leaf
     inc = _hist_dot(torch.cat([w_pred, wc_hist]), _like(s.y, s.fs_h))

@@ -103,6 +103,41 @@ def test_group_of_72_rows_matches_jax(conditioned):
     _check(_run_both(*_make(72, nconditions=2 if conditioned else 0)))
 
 
+def _make_band(b, naugments):
+    """The JAX package's adaptive band (benchmarks/adaptive_band.py, "h=128
+    d=20"): 20 variables, MLP(n_in -> 128 -> 128 -> nz) in true float32, with
+    ``naugments`` augmented dimensions (-1: the default 21, the band's own 42
+    -> 128 -> 128 -> 41 and state 44; 0: 21 -> 128 -> 128 -> 20, state 23),
+    the fixed start dt0 = 0.01."""
+    from continuousnormalizingflows_tpu.models.nets import MLP as JMLP
+
+    solver = dict(method="dopri5", dt0=0.01)
+    probe = jcnf.ICNF.create(nvariables=20, naugments=naugments, solver=JSolver(**solver))
+    widths = (probe.config.n_in, 128, 128, probe.config.n_out)
+    jicnf = jcnf.ICNF.create(nvariables=20, naugments=naugments, solver=JSolver(**solver),
+                             net=JMLP(widths, precision="highest"))
+    ticnf = tcnf.ICNF.create(nvariables=20, naugments=naugments, solver=SolverConfig(**solver),
+                             fused=True, fused_adaptive=True,
+                             net=tcnf.MLP(widths, precision="highest"))
+    jparams = jax.device_get(jicnf.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(1)
+    cfg = ticnf.config
+    u0 = (0.5 * rng.standard_normal((b, cfg.state_dim))).astype(np.float32)
+    eps = rng.standard_normal((b, cfg.nz)).astype(np.float32)
+    return jicnf, ticnf, jparams, u0, eps, None
+
+
+@pytest.mark.parametrize("naugments", [0, -1], ids=["21-128-128-20", "42-128-128-41"])
+def test_band_widths_match_jax(naugments):
+    """The adaptive band's widths (the h ~ 128 nets the fused route is for),
+    one group of 16 rows: the twin against the JAX kernel in interpret mode,
+    stats, values and gradients.  On the card these widths take K5's and
+    K6's cluster path."""
+    out = _run_both(*_make_band(16, naugments))
+    assert out["rows_t"].shape == (1, 4)
+    _check(out)
+
+
 def test_four_groups_of_eight_match_jax_per_group(monkeypatch):
     """B = 32 as 4 groups of 8 rows on both sides (the JAX test's forced
     8-row tiles): every group matches its JAX tile, stats and values."""
@@ -220,3 +255,19 @@ def test_core_route_and_fit_take_the_adaptive_twin():
     res = model.fit(torch.from_numpy(u0[:32, :2]), params=p)
     assert res.stats["iterations"] == 1 and np.isfinite(res.stats["final_loss"])
     assert counts == (fa.fused_solve_dopri5.launches, fa.fused_solve_dopri5_bwd.launches)
+
+
+def test_twin_landing_that_rounds_past_t1_ends_the_group():
+    """K5's plain twin (and K5, ``csrc/adaptive.cuh`` ctl_decide) land on t1
+    where t + (t1 - t) rounds past it, as the unfused loop does
+    (``tests/test_torch_ode_adaptive.py::test_a_landing_that_rounds_past_t1_ends_the_solve``):
+    zero weights make a constant field, every trial accepted, one step from
+    the fixed start dt0 = the whole span."""
+    t0, t1 = np.float32(0.2902631461620331), np.float32(0.905047)
+    assert np.float32(t0 + np.float32(t1 - t0)) > t1
+    p = {k: torch.zeros_like(v) for k, v in
+         tcnf.MLP((6, 24, 24, 5)).init(torch.Generator().manual_seed(0), device="cpu").items()}
+    scfg = (1e-4, 1e-4, 1.0, 0.9, 0.2, 10.0, 8)
+    u1, rows = fa.fused_solve_dopri5_reference(torch.zeros((16, 8)), torch.ones((16, 5)), None, p,
+                                               (float(t0), float(t1)), 5, 5, scfg, 16)
+    assert torch.isfinite(u1).all() and rows[0, 1] == 1 and rows[0, 2] == 0

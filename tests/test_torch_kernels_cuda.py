@@ -694,6 +694,9 @@ def test_bwd_plan_names_the_path(dev):
     for h in (33, 128):
         plan = _build.adaptive_plan(6, h, 5, 5, 8, 128)
         assert plan[0] == 0 and plan[5:] == (0, 1) and plan[3] > 0
+        # where K5 and K6 take the cluster path (test_cluster_plan_picks_and_fits): a
+        # cluster a group, whose walk writes one row of partial sums a group
+        assert _build.cluster_plan(6, h, 5, 5, 8, 128, 8192).cluster in (2, 4)
 
 
 @pytest.mark.parametrize("form", ["rnode", "ffjord"])
@@ -744,8 +747,8 @@ def test_loss_gradients_flow_through_the_kernels(dev, form):
 ADAPTIVE_SCFG = (1e-4, 1e-4, 0.01, 0.9, 0.2, 10.0, 16_384)
 
 
-def _adaptive_case(case, dev, seed=5, h=24, b=2048, resolved=False):
-    nz, nc, t_col, span = 5, 0, 5, (0.0, torch.tensor(1.05, device=dev))
+def _adaptive_case(case, dev, seed=5, h=24, b=2048, resolved=False, nz=5, nc=0):
+    t_col, span = nz, (0.0, torch.tensor(1.05, device=dev))
     if case == "conditioned":
         nc = 2
     if case == "reversed":
@@ -811,12 +814,14 @@ def test_fused_adaptive_kernels_match_plain(dev, case):
         _check_adaptive_kernels(args, gbar, seed)
 
 
-# K6's walk on its row path (h = 8, 24, 32: 64-row blocks, one row a thread) and on
-# its tiled path (h = 128), on groups of 8 rows (one ragged block), 72 (a 64-row
-# block and an 8-row one), 128 (two blocks) and 3 x 128
+# K6's walk on its row path (h = 8, 24, 32: 64-row blocks, one row a thread) and,
+# with K5, on the cluster path (h = 33, 64, 96, 128: a thread-block cluster a
+# group, each CTA walking its rows), on groups of 8 rows (one ragged block; a
+# cluster of 4 CTAs of 2 rows), 72 (a 64-row block and an 8-row one; 4 CTAs of
+# 18 rows), 120 (2 blocks; 4 CTAs of 30 rows), 128 (two blocks) and 3 x 128
 @pytest.mark.parametrize("case", ["conditioned", "reversed"])
-@pytest.mark.parametrize("b", [8, 72, 128, 384])
-@pytest.mark.parametrize("h", [8, 24, 32, 128])
+@pytest.mark.parametrize("b", [8, 72, 120, 128, 384])
+@pytest.mark.parametrize("h", [8, 24, 32, 33, 64, 96, 128])
 def test_fused_adaptive_walk_paths_and_groups(dev, h, b, case):
     """With one or three groups, a single group whose accept decision sits on
     a rounding edge (K5 and its plain version part, see the note above) would
@@ -854,15 +859,15 @@ def _k5_matches_plain(args, seed=None):
 
 
 # K5's row path at every H it instantiates (h = 4 ... 32, padded to a multiple
-# of 4) and its tiled path just past it (h = 33), on one group of 8, 72 and 120
-# rows and on 16 groups of 128.  Every width takes the draw whose error ratios
+# of 4) and its cluster path past it (h = 33, 64, 96, 128), on one group of 8,
+# 72 and 120 rows and on 16 groups of 128.  Every width takes the draw whose error ratios
 # float32 resolves (the h = 128 draw of the note above): at h = 32 the random
 # init's first trials from the fixed start are float32 rounding, and the plain
 # version itself takes other steps in float32 than in float64 in 9-10 of 16
 # groups.  A single group takes the first of four draws on which K5 and its
 # plain version take the same steps.
 @pytest.mark.parametrize("b", [8, 72, 120, 2048])
-@pytest.mark.parametrize("h", [4, 8, 12, 16, 20, 24, 28, 32, 33])
+@pytest.mark.parametrize("h", [4, 8, 12, 16, 20, 24, 28, 32, 33, 64, 96, 128])
 def test_fused_adaptive_fwd_widths_and_groups(dev, h, b):
     from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
 
@@ -888,6 +893,80 @@ def test_fused_adaptive_fwd_is_deterministic(dev, h):
     second = fa.fused_solve_dopri5(*args, 64)
     assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(first, second))
+
+
+# The cluster path (32 < h <= 128, csrc/cluster_adaptive.cuh): the plan, and
+# the kernels against the plain versions and against the tiled path it
+# replaces (fused_adaptive._WIDE_PATH forces one).  The JAX package's adaptive
+# band (benchmarks/adaptive_band.py: ICNFConfig(nvariables=20), 42 -> 128 ->
+# 128 -> 41, state 44) at B = 2,048; the gate's edge (n_in = state = 128,
+# nz = 125), where the weights do not fit beside a CTA's rows and the products
+# read them from device memory, on one group (a second group's draw, scaled
+# 10x, takes 16 steps of a 128-wide state, past the few steps the u1
+# tolerance is stated for: its u1 differs from the plain version's by up to
+# 9e-5 in the tiled path's bits too); and batches with fewer groups than a
+# wave of clusters holds and with more, so that each cluster size the plan
+# picks runs.
+CLUSTER_CASES = {  # (n_in, h, nz, nc, B): (CTAs a group the plan picks, weights resident in K5)
+    "band": ((42, 128, 41, 0, 2048), (4, True)),
+    "band 21 -> 20": ((21, 128, 20, 0, 2048), (4, True)),
+    "gate edge": ((128, 128, 125, 2, 128), (4, False)),
+    "h128 64 groups": ((6, 128, 5, 0, 8192), (2, True)),
+    "h33 64 groups": ((6, 33, 5, 0, 8192), (4, True)),
+    "h33 512 groups": ((6, 33, 5, 0, 65_536), (2, True)),
+}
+
+
+def test_cluster_plan_picks_and_fits(dev):
+    """The plan of K5 and K6 above the row path: a cluster of 2 or 4 CTAs a
+    group, each with group / CTAs rows, within the 227 KB a CTA may hold; the
+    weight image's floats a multiple of 4 x CTAs (each CTA's bulk copy a
+    multiple of 16 bytes); K6's share of the weight gradient covers the
+    parameters over the cluster; the tiled path where it is asked for."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    for (n_in, h, nz, _nc, b), (cluster, res) in CLUSTER_CASES.values():
+        plan = _build.cluster_plan(n_in, h, nz, nz, nz + 3, 128, b)
+        assert (plan.cluster, plan.res_fwd) == (cluster, res), (n_in, h, nz, b, plan)
+        assert plan.rows * plan.cluster == 128 and 0 < plan.walk_rows <= plan.rows
+        assert 0 < plan.smem_fwd <= 227 * 1024 and 0 < plan.smem_bwd <= 227 * 1024
+        assert plan.image % (4 * plan.cluster) == 0 and (plan.image > 0) == (
+            plan.res_fwd or plan.res_bwd)
+        n_params = h * n_in + h + h * h + h + nz * h + nz
+        assert plan.share * plan.cluster >= n_params
+        assert _build.cluster_plan(n_in, h, nz, nz, nz + 3, 128, b, 0).cluster == 0
+    for h in (8, 24, 32):  # the row paths
+        assert _build.cluster_plan(6, h, 5, 5, 8, 128, 8192, 1).cluster == 0
+    for g in (8, 72, 120):  # one group: 4 CTAs of g / 4 rows
+        assert _build.cluster_plan(6, 128, 5, 5, 8, g, g)[:2] == (4, g // 4)
+
+
+@pytest.mark.parametrize("name", list(CLUSTER_CASES))
+def test_cluster_path_matches_plain_and_tiled(dev, name):
+    """K5 and K6 on the cluster path against their plain versions (the rule
+    of _check_adaptive_kernels: steps first, then values, the backward per
+    tensor to 5e-4 of its largest entry, the replay's steps, two calls' bits);
+    K5 gives the tiled path's bits (the same arithmetic per element, the
+    group's error sum in the same order), and K6 the tiled path's gradients to
+    1e-5 of their largest entry (the weight gradient summed over rows in
+    another grouping)."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    (n_in, h, nz, nc, b), _ = CLUSTER_CASES[name]
+    args, gbar = _adaptive_case("flagship", dev, 5, h=h, b=b, resolved=True, nz=nz, nc=nc)
+    assert args[3]["layers.0.weight"].shape[1] == n_in
+    _check_adaptive_kernels(args, gbar)
+    u1, rows = fa.fused_solve_dopri5(*args, 64)
+    got = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+    try:
+        fa._WIDE_PATH = "tiled"
+        u1_t, rows_t = fa.fused_solve_dopri5(*args, 64)
+        want = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+    finally:
+        fa._WIDE_PATH = None
+    assert torch.equal(u1.view(torch.int32), u1_t.view(torch.int32)) and torch.equal(rows, rows_t)
+    assert torch.equal(got[3], want[3])
+    _close_to_max([got[0], got[1], *got[2]], [want[0], want[1], *want[2]], 1e-5)
 
 
 # K6's replay at every H the plan can pick for K5 (h = 4 ... 32, h = 12 at 12),
@@ -921,6 +1000,26 @@ def test_fused_adaptive_replay_takes_k5_steps(dev, h, nz, nc):
     rows = fa.fused_solve_dopri5(*args, 64)[1]
     nacc = fa.fused_solve_dopri5_bwd(*args, 64, gbar)[3]
     assert torch.equal(nacc, rows[:, 1].to(torch.int32))
+
+
+@pytest.mark.parametrize("h", [24, 128])
+def test_fused_adaptive_landing_that_rounds_past_t1(dev, h):
+    """K5 and K6 (row path at h = 24, cluster path at h = 128) land on t1
+    where t + (t1 - t) rounds past it in float32 (ctl_decide): zero weights
+    make a constant field, one accepted step from dt0 = the whole span;
+    past t1 the group would have stepped away from it to its step budget."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    t0, t1 = 0.2902631461620331, 0.905047  # t0 + (t1 - t0) > t1 in float32
+    params = {k: torch.zeros_like(v) for k, v in _params((6, h, h, 5), dev).items()}
+    u0, eps = torch.zeros((128, 8), device=dev), torch.ones((128, 5), device=dev)
+    span = (torch.tensor(t0, device=dev), torch.tensor(t1, device=dev))
+    args = (u0, eps, None, params, span, 5, 5, (1e-4, 1e-4, 1.0, 0.9, 0.2, 10.0, 8))
+    u1, rows = fa.fused_solve_dopri5(*args, 64)
+    assert torch.isfinite(u1).all() and int(rows[0, 1]) == 1 and int(rows[0, 2]) == 0
+    got = fa.fused_solve_dopri5_bwd(*args, 64, torch.ones_like(u0))
+    assert all(torch.isfinite(t).all() for t in (got[0], got[1], *got[2]))
+    assert int(got[3][0]) == 1
 
 
 @pytest.mark.parametrize("case", ["small", "two blocks"])

@@ -195,3 +195,25 @@ def test_abm_still_raises():
     rk4 = dataclasses.replace(ticnf.config.solver, method="rk4", gradient="adjoint")
     with pytest.raises(ValueError, match="dense output"):
         tode.odeint_dense(tf, torch.from_numpy(u0), 0.0, 1.0, targs, rk4)
+
+
+# t0 + (t1 - t0) rounds past t1 in float32 for these two (about one last step
+# in seven that starts below t1 / 2 does so)
+_PAST_T0, _PAST_T1 = np.float32(0.2902631461620331), np.float32(0.905047)
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5", "abm"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_a_landing_that_rounds_past_t1_ends_the_solve(method, reverse):
+    """The step clamped to t1 - t whose landing rounds past t1 lands on t1
+    and ends the solve (``ops/ode._land``).  Past t1 the done test (within
+    1e-12) never held and each next step, direction * |t1 - t|, moved away:
+    on the card the unfused band step of ``chip_smoke.py`` ran to t = 100
+    and overflowed.  A constant field: every trial is accepted."""
+    t0, t1 = (_PAST_T0, _PAST_T1) if not reverse else (-_PAST_T0, -_PAST_T1)
+    assert abs(np.float32(t0 + np.float32(t1 - t0))) > abs(t1)
+    cfg = SolverConfig(method=method, dt0=1.0, max_steps=8)
+    y1, st = tode.odeint(lambda t, y, args: torch.ones_like(y), torch.zeros(4),
+                         torch.tensor(t0), torch.tensor(t1), None, cfg)
+    assert torch.isfinite(y1).all() and int(st.naccept) == 1 and int(st.nreject) == 0
+    torch.testing.assert_close(y1, torch.full((4,), float(t1 - t0)), rtol=1e-6, atol=1e-6)
