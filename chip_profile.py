@@ -36,9 +36,10 @@ kernels, ``adaptive_replay`` and ``walk_rows`` (above h = 32 as one,
 ``adaptive-wide`` times K5 and K6 above their row paths (h = 33 ... 128
 at 6 -> h -> h -> 5, B = 8,192 and 65,536, and the JAX package's adaptive
 band, 42 -> 128 -> 128 -> 41 at B = 16,384 and 65,536) on the cluster path
-and on the tiled path, in turns in one process: the measurement behind the
-cluster plan's taking the cluster path at every width it fits
-(``cluster_plan`` in ``csrc/cluster_adaptive.cuh``).
+with 2 and with 4 CTAs a group and on the tiled path, in turns in one
+process: the measurement behind the cluster plan's taking the cluster path at
+every width it fits, and its choice of the cluster size (``cluster_plan`` in
+``csrc/cluster_adaptive.cuh``).
 
 ``k2-grid`` is the measurement behind K2's launch shape on its row path:
 it builds the kernels a second time with ``-DCNF_K2_ONE_BLOCK_A_TILE`` (a
@@ -871,13 +872,15 @@ ADAPTIVE_WIDE = ([((6, h, 5), b) for h in (33, 48, 64, 96, 128) for b in (8_192,
 
 
 def adaptive_wide(dev):
-    """K5 and K6 above their row paths, on the cluster path and on the tiled
-    path (``fused_adaptive._WIDE_PATH``), in turns (cluster, tiled, tiled,
-    cluster): device ms of each kernel's launches, the cluster path's plan and
-    the path the wrapper picks, NFE and accepted steps (the same on
-    both paths: K5 gives the same bits on both, which is checked).  The draws
-    are chip_smoke.py's h = 128 case (doubled weights, each 128-row group
-    scaled by 0.1-10, the first step half the span)."""
+    """K5 and K6 above their row paths, on the cluster path with 2 and with 4
+    CTAs a group (``fused_adaptive._WIDE_PATH`` "cluster2", "cluster4") and on
+    the tiled path, in turns (2, 4, tiled, tiled, 4, 2): device ms of each
+    kernel's launches, the cluster plan and the path and size the wrapper
+    picks, NFE and accepted steps (the same on every path: K5 gives the same
+    bits on each, which is checked).  A size that does not fit a shape is
+    left out of it.  The draws are chip_smoke.py's h = 128 case (doubled
+    weights, each 128-row group scaled by 0.1-10, the first step half the
+    span)."""
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
     from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
@@ -897,11 +900,13 @@ def adaptive_wide(dev):
                 (1e-4, 1e-4, 0.5, 0.9, 0.2, 10.0, 16_384))
         k5 = lambda: fa.fused_solve_dopri5(*args, 64)
         k6 = lambda: fa.fused_solve_dopri5_bwd(*args, 64, gbar)
-        plan = _build.cluster_plan(n_in, h, nz, nz, sd, 128, b, 1)
-        picked = "cluster" if _build.cluster_plan(n_in, h, nz, nz, sd, 128, b).cluster else "tiled"
-        t, bits = {"cluster": [], "tiled": []}, {}
+        plans = {c: _build.cluster_plan(n_in, h, nz, nz, sd, 128, b, c) for c in (2, 4)}
+        paths = [f"cluster{c}" for c in (2, 4) if plans[c].cluster] + ["tiled"]
+        picked = _build.cluster_plan(n_in, h, nz, nz, sd, 128, b).cluster
+        picked = f"cluster{picked}" if picked else "tiled"
+        t, bits = {w: [] for w in paths}, {}
         try:
-            for wide in ("cluster", "tiled", "tiled", "cluster"):
+            for wide in paths + paths[::-1]:
                 fa._WIDE_PATH = wide
                 u1, st = k5()
                 bits.setdefault(wide, digest([u1, st]))
@@ -909,23 +914,26 @@ def adaptive_wide(dev):
                                 device_ms(k6, KERNELS["K6"], reps=1, warmup=1)))
         finally:
             fa._WIDE_PATH = None
-        if bits["cluster"] != bits["tiled"]:
+        if len(set(bits.values())) != 1:
             raise SystemExit(f"adaptive-wide {n_in}->{h}->{nz} B={b}: K5's bits differ "
-                             f"between the paths")
+                             f"between the paths: {bits}")
         ms = {w: [sorted(v[i] for v in runs)[len(runs) // 2] for i in (0, 1)]
               for w, runs in t.items()}
         row = out[f"{n_in}->{h}->{h}->{nz} B={b}"] = dict(
-            plan=plan._asdict(), picked=picked, nfe=int(st[:, 0].sum()),
-            nfe_max=int(st[:, 0].max()), accepted=int(st[:, 1].sum()),
-            k5_cluster=ms["cluster"][0], k6_cluster=ms["cluster"][1], k5_tiled=ms["tiled"][0],
-            k6_tiled=ms["tiled"][1], runs=t)
-        print(f"adaptive-wide {n_in}->{h}->{h}->{nz} B={b}: cluster plan {plan.cluster} CTAs x "
-              f"{plan.rows} rows (weights resident K5 {plan.res_fwd}, K6 {plan.res_bwd}; state "
-              f"on chip K5 {plan.state_fwd}; walk passes of {plan.walk_rows}), picked {picked}; "
-              f"NFE {row['nfe']} over {b // 128} groups (at most {row['nfe_max']}); K5 cluster "
-              f"{ms['cluster'][0]:.4f} ms vs tiled {ms['tiled'][0]:.4f}; K6 cluster "
-              f"{ms['cluster'][1]:.4f} ms vs tiled {ms['tiled'][1]:.4f}; K5 bits equal "
-              f"{bits['cluster']}", flush=True)
+            plans={c: p._asdict() for c, p in plans.items()}, picked=picked,
+            nfe=int(st[:, 0].sum()), nfe_max=int(st[:, 0].max()), accepted=int(st[:, 1].sum()),
+            **{f"{k}_{w}": ms[w][i] for w in ms for i, k in enumerate(("k5", "k6"))}, runs=t)
+        fastest = {k: min(ms, key=lambda w: ms[w][i]) for i, k in enumerate(("K5", "K6"))}
+        words = "; ".join(
+            f"{w} K5 {ms[w][0]:.4f} ms, K6 {ms[w][1]:.4f} ms"
+            + (f" (weights resident K5 {plans[int(w[-1])].res_fwd}, K6 walk "
+               f"{plans[int(w[-1])].res_bwd}; state on chip {plans[int(w[-1])].state_fwd}; walk "
+               f"passes of {plans[int(w[-1])].walk_rows})" if w != "tiled" else "")
+            for w in paths)
+        print(f"adaptive-wide {n_in}->{h}->{h}->{nz} B={b}: picked {picked}; NFE {row['nfe']} "
+              f"over {b // 128} groups (at most {row['nfe_max']}); {words}; fastest K5 "
+              f"{fastest['K5']}, K6 {fastest['K6']}; K5 bits equal on every path "
+              f"{next(iter(bits.values()))}", flush=True)
     return out
 
 

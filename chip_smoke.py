@@ -103,6 +103,11 @@ GRAD_TOL = 5e-4
 # order), the backward per tensor to 5e-4 of its largest entry (as K4)
 ADAPTIVE_TOL = (2e-4, 2e-5)
 ADAPTIVE_BWD_TOL = 5e-4
+# K6 on the cluster path vs the tiled path, per tensor as for BWD_TOL: the
+# same arithmetic per row, the weight gradient summed over the rows in
+# another grouping (tests/test_torch_kernels_cuda.py
+# test_cluster_path_matches_plain_and_tiled)
+CLUSTER_BWD_TOL = 1e-5
 ADAPTIVE_SCFG = (1e-4, 1e-4, 0.01, 0.9, 0.2, 10.0, 16_384)  # the JAX kernel's controller
 SURVEY_SEEDS = (1, 2, 3, 4, 5)  # draws on which K5 and its plain version count their steps
 # one step's gradients, the fused adaptive route (exact discrete backward of
@@ -1028,10 +1033,12 @@ def adaptive_kernel_phase(dev, record):
     # draws, up to 73 NFE on 44 columns, put 2-5 of 720,896 elements of u1
     # past ADAPTIVE_TOL of the plain version, fp32 or fp64, in the tiled
     # path's bits too: fp32 order over a long solve, not the cluster path),
-    # then timed at the band's batches ("band16k", with the plain versions
-    # beside, and "band65k").  Where K5 and K6 take the cluster path, the
-    # parent's tiled path is timed beside it in the same call
-    # (fused_adaptive._WIDE_PATH = "tiled").
+    # then at the band's batches ("band16k", "band65k") held to the tiled
+    # path (K5's bits, K6 to CLUSTER_BWD_TOL) and timed beside it.  The
+    # band's own inputs (band_phase's params and x) are held to the plain
+    # versions at both batches in band_phase.  Where K5 and K6 take the
+    # cluster path, the parent's tiled path is timed beside it in the same
+    # call (fused_adaptive._WIDE_PATH = "tiled").
     band_nz = BAND_NVARIABLES + BAND_NVARIABLES + 1
     shapes = (("flagship", 5, 24, BATCH, False), ("h128", 5, 128, WIDE_BATCH, True),
               ("band", band_nz, BAND_HIDDEN, BAND_CHECK_BATCH, True),
@@ -1077,15 +1084,26 @@ def adaptive_kernel_phase(dev, record):
             rows=cplan.walk_rows if cplan.cluster else bwd_rows,
             grid=b // group * (cplan.cluster or walk_blocks))
         k5 = lambda: fa.fused_solve_dopri5(*args, 64)
-        if shape in ("band16k", "band65k"):  # timed only: the cluster path and the tiled path
+        if shape in ("band16k", "band65k"):  # the cluster path against the tiled path
             t = {"k5": [], "k6": [], "k5_tiled": [], "k6_tiled": []}
             k6 = lambda: fa.fused_solve_dopri5_bwd(*args, 64, gbar)
-            st = k5()[1]
-            if shape == "band16k":  # and the plain versions, the kernels line's yardstick
-                t["k5_plain"] = [median_ms(lambda: fa.fused_solve_dopri5_reference(*args, group),
-                                           1, warmup=1)]
-                t["k6_plain"] = [median_ms(lambda: fa.fused_solve_dopri5_bwd_reference(
-                    *args, 64, gbar, group), 1, warmup=1)]
+            (u1, st), got = k5(), k6()
+            fa._WIDE_PATH = "tiled"
+            try:
+                (u1_t, st_t), want = k5(), k6()
+            finally:
+                fa._WIDE_PATH = None
+            if not (torch.equal(u1.view(torch.int32), u1_t.view(torch.int32))
+                    and torch.equal(st, st_t)):
+                fail(f"K5 {shape}: the cluster path's u1 or stats differ from the tiled path's "
+                     f"bits")
+            log(f"  K5 {shape}: the cluster path gives the tiled path's bits in u1 and the "
+                f"stats ok")
+            if not torch.equal(got[3], want[3]):
+                fail(f"K6 {shape}: the cluster path's replay took other steps than the tiled "
+                     f"path's")
+            compare_to_max(f"K6 {shape} cluster path vs tiled path", [got[0], got[1], *got[2]],
+                           [want[0], want[1], *want[2]], CLUSTER_BWD_TOL)
             for wide in (None, "tiled", "tiled", None):
                 fa._WIDE_PATH = wide
                 try:
@@ -1377,6 +1395,117 @@ def adaptive_fused_phase(dev, record):
     return launches
 
 
+class KernelInputs:
+    """Records what the core hands K5 (``fused_solve_dopri5``) in the last
+    fused step run under it, and the cotangent of its u1 that K6 receives."""
+
+    def __init__(self):
+        from continuousnormalizingflows_tpu_torch import core
+
+        self.core, self.inner, self.args, self.gbar = core, core.fused_solve_dopri5, None, None
+
+    def __enter__(self):
+        def spy(u0, eps, ys, params, tspan, nz, t_col, scfg, max_nodes):
+            u1, rows = self.inner(u0, eps, ys, params, tspan, nz, t_col, scfg, max_nodes)
+            self.args = (u0.detach(), eps.detach(), None if ys is None else ys.detach(),
+                         {k: v.detach() for k, v in params.items()}, tspan, nz, t_col, scfg)
+            self.max_nodes = max_nodes
+            u1.register_hook(lambda g: setattr(self, "gbar", g.detach()))
+            return u1, rows
+
+        self.core.fused_solve_dopri5 = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.core.fused_solve_dopri5 = self.inner
+
+
+def band_kernels(b, inputs, grads, names):
+    """K5 and K6 on the band's own inputs (``KernelInputs`` of a fused step
+    of band_phase) against their plain versions, as adaptive_kernel_phase
+    holds them: K5's steps and u1 (at most one group in 16 with other steps,
+    ADAPTIVE_TOL on the others); K6 per tensor to ADAPTIVE_BWD_TOL of its
+    largest entry, with the step's own cotangent (zero on the groups of
+    other steps, if any), and the step's parameter gradients (``grads``, by
+    parameter name) to the same plain weight gradients where no group takes
+    other steps; the replay's steps, two calls' bits.  Then each kernel's
+    time beside the plain version's and the tiled path's, in turns, and the
+    bound for the steps these inputs took.  The plain version runs in
+    float32: at the band's random init the error ratios of the first trials
+    are float32 rounding, so in float64 every group takes other steps (19
+    NFE against 25; "h128 random init" in adaptive_kernel_phase)."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    args, max_nodes, gbar = inputs.args, inputs.max_nodes, inputs.gbar
+    u0 = args[0]
+    group = fa.fused_adaptive_tile(u0.shape[0])
+    nz = args[5]
+    n_in, h = args[3]["layers.0.weight"].shape[1], args[3]["layers.0.weight"].shape[0]
+    k5 = lambda: fa.fused_solve_dopri5(*args, max_nodes)
+    k5_ref = lambda: fa.fused_solve_dopri5_reference(*args, group)
+    (u1, st), (u1_p, st_p) = k5(), k5_ref()
+    same = (st[:, :3] == st_p[:, :3]).all(dim=1)
+    n_diff = int((~same).sum())
+    log(f"  K5 band's own inputs B={b}: {n_diff} of {st.shape[0]} groups take other steps than "
+        f"the plain version; NFE {int(st[:, 0].min())}-{int(st[:, 0].max())}, accepted "
+        f"{int(st[:, 1].min())}-{int(st[:, 1].max())}, rejected {int(st[:, 2].max())} at most")
+    if n_diff * 16 > st.shape[0]:
+        fail(f"K5 band's own inputs B={b}: {n_diff} of {st.shape[0]} groups differ in their "
+             f"steps")
+    again = k5()
+    if not all(torch.equal(a.view(torch.int32), c.view(torch.int32))
+               for a, c in zip((u1, st), again)):
+        fail(f"K5 band's own inputs B={b}: two calls on the same inputs differ")
+    keep = same.repeat_interleave(group)
+    err5 = compare(f"K5 band's own inputs B={b} (groups of equal steps)", u1[keep], u1_p[keep],
+                   *ADAPTIVE_TOL)
+    gb = torch.where(keep[:, None], gbar, torch.zeros_like(gbar))
+    k6 = lambda: fa.fused_solve_dopri5_bwd(*args, max_nodes, gb)
+    k6_ref = lambda: fa.fused_solve_dopri5_bwd_reference(*args, max_nodes, gb, group)
+    got, want = k6(), k6_ref()
+    if not torch.equal(got[3], st[:, 1].to(torch.int32)):
+        fail(f"K6 band's own inputs B={b}: the replay's accepted steps differ from K5's")
+    err6 = compare_to_max(f"K6 band's own inputs B={b} vs the plain version",
+                          [got[0], got[1], *got[2]], [want[0], want[1], *want[2]],
+                          ADAPTIVE_BWD_TOL)
+    again = k6()
+    if not all(torch.equal(a, c) for a, c in zip((got[0], got[1], *got[2]),
+                                                  (again[0], again[1], *again[2]))):
+        fail(f"K6 band's own inputs B={b}: two calls on the same inputs differ")
+    if n_diff == 0:  # the step's own gradients against the plain version's
+        compare_to_max(f"[adaptive band] B={b}: the fused step's parameter gradients vs the "
+                       f"plain version's", [grads[k] for k in names],
+                       list(want[2]), ADAPTIVE_BWD_TOL)
+    else:
+        log(f"  [adaptive band] B={b}: {n_diff} groups take other steps in the plain version: "
+            f"the step's gradients are held through K6 on the others")
+    pairs = {"k5": (k5, k5_ref, 5, 1), "k6": (k6, k6_ref, 3, 1)}
+    t = {k + sfx: [] for k in pairs for sfx in ("", "_plain", "_tiled")}
+    for order in (("plain", "kernel", "tiled"), ("tiled", "kernel", "plain")):
+        for which in order:
+            for k, (kern, plain, reps_k, reps_p) in pairs.items():
+                if which == "plain":
+                    t[k + "_plain"].append(median_ms(plain, reps_p, warmup=1))
+                    continue
+                fa._WIDE_PATH = "tiled" if which == "tiled" else None
+                try:
+                    t[k + ("_tiled" if which == "tiled" else "")].append(
+                        median_ms(kern, reps_k, warmup=1))
+                finally:
+                    fa._WIDE_PATH = None
+    ms = {k: statistics.median(v) for k, v in t.items()}
+    nfe_rows, accepted_rows = int(st[:, 0].sum()) * group, int(st[:, 1].sum()) * group
+    bounds = kernel_bounds(n_in, h, nz, b, nfe_rows, accepted_rows)
+    log(f"  time band's own inputs B={b} fp32: " + "; ".join(
+        f"{k.upper()} {ms[k]:.4f} ms (tiled path {ms[k + '_tiled']:.4f} ms, plain "
+        f"{ms[k + '_plain']:.4f} ms, bound {bounds[k.upper()][0]:.4f} ms)" for k in pairs)
+        + f" ({nvidia_smi()})")
+    return dict(batch=b, widths=[n_in, h, h, nz], groups=st.shape[0], nfe_rows=nfe_rows,
+                accepted_rows=accepted_rows, nfe_max=int(st[:, 0].max()),
+                groups_with_other_steps=n_diff,
+                k5_max_abs_err=err5, k6_max_abs_err=err6, **ms)
+
+
 def band_model(fused):
     """The JAX package's adaptive band (``benchmarks/adaptive_band.py``,
     "h=128 d=20"): ``ICNFConfig(nvariables=20)`` with its defaults (21
@@ -1432,12 +1561,17 @@ def band_phase(dev, record):
             return loss, st, grads
 
         runs = {route: [] for route in models}
+        inputs, first = KernelInputs(), {}
         for i in range(BAND_STEPS):
             for route in (("fused", "unfused") if i % 2 == 0 else ("unfused", "fused")):
                 reset_counts()
                 torch.cuda.synchronize()
                 start = time.perf_counter()
-                loss, st, grads = step(route, 100 + i)
+                if i == 0 and route == "fused":  # K5's inputs and K6's cotangent, kept
+                    with inputs:
+                        loss, st, grads = step(route, 100 + i)
+                else:
+                    loss, st, grads = step(route, 100 + i)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - start) * 1e3
                 moved = counts()
@@ -1447,6 +1581,8 @@ def band_phase(dev, record):
                          f"{want}")
                 if not torch.isfinite(loss) or not all(torch.isfinite(g).all() for g in grads):
                     fail(f"[adaptive band] B={b} {route} step {i}: non-finite loss or gradient")
+                if i == 0:
+                    first[route] = dict(zip(p, grads))
                 runs[route].append(dict(ms=ms, loss=float(loss), launches=moved,
                                         nfe=int(st.nfe), naccept=int(st.naccept),
                                         nreject=int(st.nreject)))
@@ -1455,6 +1591,15 @@ def band_phase(dev, record):
         if rel > BAND_LOSS_RTOL:
             fail(f"[adaptive band] B={b}: fused and unfused losses differ by {rel:.2e} "
                  f"relative, over {BAND_LOSS_RTOL}")
+        # the routes take other steps: their gradients are logged, not bounded;
+        # the fused step's are held to the plain versions in band_kernels
+        grad_gap = max(float((first["fused"][k] - first["unfused"][k]).abs().max())
+                       / float(first["unfused"][k].abs().max()) for k in p)
+        log(f"  band B={b}: first step's gradients fused vs unfused: largest per-tensor "
+            f"max-abs/max|unfused| {grad_gap:.3e}")
+        if inputs.gbar is None:
+            fail(f"[adaptive band] B={b}: the fused step's K5 inputs were not recorded")
+        kernels = band_kernels(b, inputs, first["fused"], list(fa.params_of(range(6))))
         prof = {}
         for route in models:
             window = ProfileWindow()
@@ -1484,10 +1629,11 @@ def band_phase(dev, record):
         log(f"  band B={b}: losses fused vs unfused within {rel:.2e} relative (bound "
             f"{BAND_LOSS_RTOL}) ok; fused step {summary['unfused']['ms_median'] / summary['fused']['ms_median']:.2f}x "
             f"the unfused one ({nvidia_smi()})")
-        out[b] = dict(loss_rel=rel, plan=plan._asdict(), **summary)
+        out[b] = dict(loss_rel=rel, grad_gap_unfused=grad_gap, plan=plan._asdict(),
+                      kernels=kernels, **summary)
     record["adaptive_band"] = out
     return {k: sum(out[b]["fused"]["launches_per_step"][k] * BAND_STEPS for b in out)
-            for k in NO_LAUNCH}
+            for k in NO_LAUNCH}, out[BAND_BATCHES[0]]["kernels"]
 
 
 def cluster_words(plan, b) -> str:
@@ -2807,7 +2953,7 @@ def main() -> None:
         "h=128 d=20: ICNFConfig(nvariables=20), 42 -> 128 -> 128 -> 41, dopri5 at 1e-4, "
         f"adjoint), batch {' and '.join(f'{b:,}' for b in BAND_BATCHES)}: {BAND_STEPS} TRAIN "
         "loss-and-gradient steps at fixed params, fused (K5 + K6) and unfused in turns")
-    band = band_phase(dev, record)
+    band, band_k = band_phase(dev, record)
     log("[abm] flagship RNODE, SolverConfig(method='abm', rtol = atol = 1e-4, "
         "gradient='quadrature'), 65,536 samples: unfused, and fused (K1 + K2)")
     abm_phase(dev, record)
@@ -2836,14 +2982,11 @@ def main() -> None:
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]
     ad = {r["shape"]: r for r in adaptive_results}["flagship"]
-    # K5's and K6's cluster path at the adaptive band's widths and first
-    # batch (16,384), with the launches of [adaptive band]; max_abs_err from
-    # the check at BAND_CHECK_BATCH
-    by_shape = {r["shape"]: r for r in adaptive_results}
-    bd = dict(by_shape["band16k"], k5_max_abs_err=by_shape["band"]["k5_max_abs_err"],
-              k6_max_abs_err=by_shape["band"]["k6_max_abs_err"])
-    bd_bounds = kernel_bounds(*(bd["widths"][i] for i in (0, 1, 3)), bd["batch"], bd["nfe_rows"],
-                              bd["accepted_rows"])
+    # K5's and K6's cluster path on [adaptive band]'s own inputs at its first
+    # batch (16,384): times, errors and bounds (band_kernels), with the
+    # launches of both of its batches
+    bd_bounds = kernel_bounds(*(band_k["widths"][i] for i in (0, 1, 3)), band_k["batch"],
+                              band_k["nfe_rows"], band_k["accepted_rows"])
     bounds = kernel_bounds(*(flag["widths"][i] for i in (0, 1, 3)), flag["batch"],
                            ad["nfe_rows"], ad["accepted_rows"])
     # K1's and K2's wide paths at the image fit's widths, batch and precision (bf16)
@@ -2890,9 +3033,9 @@ def main() -> None:
         ("K6", "fused_adaptive_bwd", "fused_adaptive_bwd.cu", "pallas_adaptive.py:258",
          fused_adaptive["K6"], ad, bounds),
         ("K5", "fused_adaptive_fwd, cluster path (adaptive band, fp32)", "cluster_adaptive.cuh",
-         "pallas_adaptive.py:187", band["K5"], bd, bd_bounds),
+         "pallas_adaptive.py:187", band["K5"], band_k, bd_bounds),
         ("K6", "fused_adaptive_bwd, cluster path (adaptive band, fp32)", "cluster_adaptive.cuh",
-         "pallas_adaptive.py:258", band["K6"], bd, bd_bounds),
+         "pallas_adaptive.py:258", band["K6"], band_k, bd_bounds),
     ]
     # no single PyTorch call computes a fused stage with its probe VJP, or a
     # whole solve, or their backwards: library_ms is null for every kernel

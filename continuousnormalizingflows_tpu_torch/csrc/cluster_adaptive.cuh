@@ -7,8 +7,8 @@
 // staging budget and every product reads them from L2; a stage runs in
 // passes of ~40 rows, and the group's state lives in device memory.  Here:
 //   * the group's rows are split over the cluster, so a batch of G groups
-//     keeps C G CTAs busy (the plan picks C from G, the 132 SMs and what
-//     fits in shared memory);
+//     keeps C G CTAs busy (C = 2 where a CTA's rows fit in shared memory,
+//     else 4: cluster_plan);
 //   * each CTA evaluates its rows in one pass a stage, with its state (u,
 //     k_0..k_6, u5) in shared memory where it fits (else in the device-memory
 //     scratch, which stays in L2);
@@ -109,26 +109,34 @@ __host__ __device__ inline long walk_row_floats(const Dims& d, int sd) {
   return bwd_floats_per_row(d) + adaptive_bwd_extra(sd, d.nz) + odd(d.nz);
 }
 
-// The cluster plan for groups of g rows and a batch of B.  path: -1 or 1
-// the cluster path wherever it fits, 0 the tiled path (cluster = 0).  The
-// tiled path is taken nowhere else: chip_profile.py adaptive-wide timed both
-// in one call at h = 33 ... 128 and B = 8,192 ... 65,536 on an H100, and the
-// cluster path was ahead for K5 and for K6 at every width and batch.  For each C of 2 and 4 the kernels keep the weight image
-// and then the state in shared memory where they fit beside one pass of the
-// CTA's rows; K6's replay holds them as K5 does, and its walk keeps the image
-// where that costs it no extra pass (else the walk's buffers take the
-// image's place once the replay is done).
-// Of the two, the plan takes the one with fewer waves of clusters times rows
-// a CTA (132 SMs, at most two CTAs an SM), then the one with the weights
-// and then the state on chip, then C = 2 (fewer cluster barriers a row).
+// The cluster plan for groups of g rows and a batch of B: C = 2 CTAs a group
+// where a CTA's 64 rows fit, else C = 4 (the gate's edge, n_in and n_out
+// near 128).  path: -1 or 1 the cluster path wherever it fits, 2 or 4 only
+// with that C (to time one C against the other), 0 the tiled path (cluster
+// = 0).  chip_profile.py adaptive-wide timed the tiled path, C = 2 and C = 4
+// in one call at h = 33 ... 128 and B = 8,192 ... 65,536 and at the adaptive
+// band (42 -> 128 -> 128 -> 41, B = 16,384 and 65,536) on an H100: the
+// cluster path was ahead of the tiled path for K5 and K6 everywhere, and
+// C = 2 ahead of C = 4 for K6 everywhere and for K5 but at h = 96, B =
+// 65,536 and at the band (where C = 4 holds the weight image and C = 2 does
+// not); a band step's K6 gains more than its K5 loses.
+// For the C taken, the kernels keep the weight image and then the state in
+// shared memory where they fit beside one pass of the CTA's rows; K6's
+// replay holds them as K5 does, and its walk keeps the image where that
+// costs it no extra pass (else the walk's buffers take the image's place
+// once the replay is done).  Where the image is not resident, the products
+// read the device-memory weights (from L2):
+//   * K5 and K6's replay at the adaptive band (C = 2: 64 rows a CTA) and at
+//     the gate's edge, where one layout does not fit beside a CTA's rows;
+//     sharding the image over the cluster and reading the peers' parts over
+//     DSMEM is not done;
+//   * K6's walk at h = 128 (6 -> 128 -> 128 -> 5, the band) and at h = 64,
+//     where holding the image would cost the walk a pass more.
 inline ClusterPlan cluster_plan(const Dims& d, int sd, int g, int B, int path) {
-  ClusterPlan best{};
-  if (path == 0 || g <= 0 || B % g) return best;
-  const int groups = B / g;
+  if (path == 0 || g <= 0 || B % g) return ClusterPlan{};
   const long cap = kSmemMax / 4;
-  long best_cost = 0;
   for (int C : {2, 4}) {
-    if (g % C) continue;
+    if (g % C || (path > 1 && C != path)) continue;
     ClusterPlan pl{};
     pl.cluster = C;
     const int R = pl.rows = g / C;
@@ -153,16 +161,9 @@ inline ClusterPlan cluster_plan(const Dims& d, int sd, int g, int B, int path) {
     const long walk = (pl.res_bwd ? img + kBarFloats : 0) + pl.share + (long)pl.walk_rows * per;
     pl.smem_bwd = (int)(4 * (walk > pl.smem_fwd / 4 ? walk : pl.smem_fwd / 4));
     pl.image = pl.res_fwd ? (int)img : 0;
-    const long per_sm = (228L * 1024) / (pl.smem_fwd + 1024);
-    const long clusters = (kSMs * (per_sm > 2 ? 2 : per_sm)) / C;
-    const long cost = (groups + clusters - 1) / (clusters > 0 ? clusters : 1) * R;
-    const int on_chip = 2 * pl.res_fwd + pl.state_fwd, best_on_chip = 2 * best.res_fwd + best.state_fwd;
-    if (!best.cluster || cost < best_cost || (cost == best_cost && on_chip > best_on_chip)) {
-      best = pl;
-      best_cost = cost;
-    }
+    return pl;
   }
-  return best;
+  return ClusterPlan{};
 }
 
 // ---------------------------------------------------------------------------

@@ -170,7 +170,7 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
                                  t_col, g, s);
     }
   }
-  if (path == 1) return cudaErrorInvalidValue;  // the cluster path was asked for and does not fit
+  if (path >= 1) return cudaErrorInvalidValue;  // the cluster path was asked for and does not fit
   if (pl.H == 0) {
     cudaError_t err = cnf::set_smem(adaptive_fwd_tiled, pl.smem_fwd);
     if (err != cudaSuccess) return err;
@@ -198,7 +198,8 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 // t0, t1: device scalars.  S: scratch of B x 9 x sd floats (used by the
 // tiled and cluster paths).  stats: (B / group) x 4.  B must be a multiple of
 // group (<= 128, a multiple of 8).  path: -1 the plan's, 0 the tiled path, 1
-// the cluster path (an error where it does not fit).
+// the cluster path, 2 or 4 the cluster path of that many CTAs a group (an
+// error where it does not fit).
 extern "C" int cnf_fused_adaptive_fwd(const float* u0, const float* eps, const float* ys,
                                       const float* A1, const float* b1, const float* A2,
                                       const float* b2, const float* A3, const float* b3,

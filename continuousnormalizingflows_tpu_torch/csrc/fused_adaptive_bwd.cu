@@ -510,7 +510,7 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
       return cnf::launch_reduce(partial, groups, P, grads, stream);
     }
   }
-  if (path == 1) return cudaErrorInvalidValue;  // the cluster path was asked for and does not fit
+  if (path >= 1) return cudaErrorInvalidValue;  // the cluster path was asked for and does not fit
   if (pl.walk_H == 0) {
     // H = 0 (the tiled replay), 4, 8, ..., 32 (row_fwd_H)
     decltype(&adaptive_bwd<0>) const kernels[] = {
@@ -556,10 +556,12 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 // cotangent of u1 (B, sd).  S: scratch of B x 9 x sd floats (the tiled and
 // cluster replays); traj: max_nodes x nz x
 // B floats; tdt: (B / group) x max_nodes x 2 floats; partial: (B / group) x
-// walk_blocks x P floats (cnf_adaptive_plan); grads receives the P weight
-// gradients in the layout of cnf_fused_dynamics_bwd; nacc and done:
-// (B / group) ints each, every group's accepted steps in the replay and
-// whether it finished (done is the two-kernel path's own scratch).
+// walk_blocks x P floats (cnf_adaptive_plan), (B / group) x P on the cluster
+// path; grads receives the P weight gradients in the layout of
+// cnf_fused_dynamics_bwd; nacc and done: (B / group) ints each, every
+// group's accepted steps in the replay and whether it finished (done is the
+// row walk's own scratch, read only where the walk is a kernel apart from
+// the replay: walk_H > 0).
 extern "C" int cnf_fused_adaptive_bwd(const float* u0, const float* eps, const float* ys,
                                       const float* A1, const float* b1, const float* A2,
                                       const float* b2, const float* A3, const float* b3,

@@ -241,12 +241,12 @@ def cluster_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, group: int, ba
     """The cluster path of K5 and K6 at these widths, groups of ``group`` rows
     and a batch of ``batch`` (``cnf_adaptive_cluster_plan``, from
     ``cluster_plan`` in ``csrc/cluster_adaptive.cuh``): a thread-block
-    cluster of ``cluster`` CTAs a group (2 or 4), each taking ``rows`` of the
-    group's rows in one pass a stage; ``cluster == 0`` where the kernels take
-    another path (the row paths, h <= 32; the tiled path where the cluster
-    path does not fit).  ``path``: -1 the plan's choice, 0 the tiled path
-    (a reference for tests and timings), 1 the cluster path wherever it
-    fits."""
+    cluster of ``cluster`` CTAs a group (2 where a CTA's rows fit, else 4),
+    each taking ``rows`` of the group's rows in one pass a stage; ``cluster
+    == 0`` where the kernels take another path (the row paths, h <= 32; the
+    tiled path where the cluster path does not fit).  ``path``: -1 the
+    plan's choice, 0 the tiled path (a reference for tests and timings), 1
+    the cluster path wherever it fits, 2 or 4 only that many CTAs a group."""
     info = (ctypes.c_int * 9)()
     cluster = kernels().cnf_adaptive_cluster_plan(n_in, h, n_out, nz, sd, group, batch, path, info)
     rows, rf, sf, smf, rb, wr, smb, image, share = (int(v) for v in info)

@@ -74,11 +74,12 @@ __all__ = [
 MAX_WIDTH = 128
 # rows of a control group (the JAX backward's tile)
 _GROUP = 128
-# the path of K5 and K6 for 32 < h <= 128: None the plan's (_build.cluster_plan),
-# "tiled" or "cluster" to time or test one (the cluster path raises where it
-# does not fit)
+# a test hook: the path of K5 and K6 for 32 < h <= 128, None the plan's
+# (_build.cluster_plan), "tiled", "cluster", or "cluster2" / "cluster4" (that
+# many CTAs a group) to time or test one (a cluster path raises where it does
+# not fit)
 _WIDE_PATH: Optional[str] = None
-_PATH_ARG = {None: -1, "tiled": 0, "cluster": 1}
+_PATH_ARG = {None: -1, "tiled": 0, "cluster": 1, "cluster2": 2, "cluster4": 4}
 
 _A = DOPRI5.A
 _B = DOPRI5.B
@@ -404,13 +405,18 @@ def _weight_image(weights, n_in, h, n_out, floats):
     return torch.cat(parts + [a1.new_zeros(floats - used)])
 
 
-def _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group):
-    """The path argument of the kernels and the weight image where the
-    cluster path holds it (K5 and K6's replay alike; else None)."""
+def _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group, image=None):
+    """The path argument of the kernels, their cluster plan, and the weight
+    image where the cluster path holds it (K5 and K6's replay alike; else
+    None): ``image`` where it is the one the plan holds (K5's, kept for K6's
+    launch of the same step), else built here."""
     path = _PATH_ARG[_WIDE_PATH]
     cp = _build.cluster_plan(n_in, h, n_out, nz, sd, group, b, path)
-    image = _weight_image(weights, n_in, h, n_out, cp.image) if cp.cluster and cp.image else None
-    return path, image
+    if not (cp.cluster and cp.image):
+        image = None
+    elif image is None or image.numel() != cp.image:
+        image = _weight_image(weights, n_in, h, n_out, cp.image)
+    return path, cp, image
 
 
 def _solver_args(scfg):
@@ -420,11 +426,13 @@ def _solver_args(scfg):
 
 
 def _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group):
-    """K5 on CUDA tensors."""
+    """K5 on CUDA tensors: ``(u1, stats rows, the weight image or None)``."""
     weights = kernel_operands(weights, u0, eps, ys, t0, t1)
     b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
     a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, staged=False)
+    path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
+    # the products read the transposes where the weights are not in shared memory
+    w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd))
     u0, eps = u0.contiguous(), eps.contiguous()
     ys = None if ys is None else ys.contiguous()
     dev = u0.device
@@ -432,7 +440,6 @@ def _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group):
     rows = torch.empty((b // group, 4), dtype=torch.float32, device=dev)
     state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
     lib = _build.kernels()
-    path, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_adaptive_fwd(
@@ -443,11 +450,12 @@ def _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group):
         )
     _build.check(err, "fused_adaptive_fwd")
     fused_solve_dopri5.launches += 1
-    return u1, rows
+    return u1, rows, image
 
 
-def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group):
-    """K6 on CUDA tensors."""
+def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group,
+                image=None):
+    """K6 on CUDA tensors; ``image``: K5's weight image of the same step, if any."""
     weights = kernel_operands(weights, u0, eps, ys, t0, t1, gbar)
     b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
     if gbar.shape != u0.shape:
@@ -455,7 +463,8 @@ def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, 
     if max_nodes < 1:
         raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
     a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, staged=False)
+    path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group, image)
+    w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd and cp.res_bwd))
     u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
     ys = None if ys is None else ys.contiguous()
     dev = u0.device
@@ -467,14 +476,15 @@ def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, 
     traj = torch.empty((max_nodes, nz, b), dtype=torch.float32, device=dev)
     tdt = torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=dev)
     # a row of weight-gradient partial sums for each block of the walk back
-    # (on the cluster path, each group's cluster writes one row)
-    walk_blocks = _build.adaptive_plan(n_in, h, n_out, nz, sd, group)[6]
-    partial = torch.empty((n_groups * walk_blocks, n_params), dtype=torch.float32, device=dev)
+    # (on the cluster path, each group's cluster writes one row); `done` is
+    # the row walk's own scratch (the walk a kernel apart from the replay)
+    walk_h, walk_blocks = _build.adaptive_plan(n_in, h, n_out, nz, sd, group)[5:]
+    rows = n_groups * (1 if cp.cluster else walk_blocks)
+    partial = torch.empty((rows, n_params), dtype=torch.float32, device=dev)
     grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
     nacc = torch.empty((n_groups,), dtype=torch.int32, device=dev)
-    done = torch.empty((n_groups,), dtype=torch.int32, device=dev)
+    done = torch.empty((n_groups,), dtype=torch.int32, device=dev) if walk_h else None
     lib = _build.kernels()
-    path, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cnf_fused_adaptive_bwd(
@@ -502,11 +512,12 @@ def _group_of(u0) -> int:
     return group
 
 
-def _bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group):
+def _bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group, image=None):
     if u0.device.type == "cpu":
         return _bwd_reference(u0, eps, ys, params_of(weights), t0, t1, nz, t_col, scfg,
                               max_nodes, gbar, group)
-    return _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group)
+    return _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group,
+                       image)
 
 
 def fused_solve_dopri5_bwd(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tensor],
@@ -525,18 +536,21 @@ class _FusedAdaptive(torch.autograd.Function):
     """K5 forward, K6 backward, with the cotangent structure of the JAX rule
     (``pallas_adaptive._fused_adaptive_bwd``): ``u0``, ``eps`` and the six
     weights get real cotangents, ``ys`` zeros, the time span none.  The
-    stats rows are not differentiable."""
+    stats rows are not differentiable.  K5's weight image (the cluster
+    path's) is kept for K6, so it is built once a step."""
 
     @staticmethod
     def forward(ctx, u0, eps, ys, t0, t1, static, *weights):
         nz, t_col, scfg, max_nodes, group = static
         ctx.save_for_backward(u0, eps, ys, t0, t1, *weights)
         ctx.static = static
+        ctx.image = None
         if u0.device.type == "cpu":
             u1, rows = _fwd_reference(u0, eps, ys, params_of(weights), t0, t1, nz, t_col,
                                       scfg, group)
         else:
-            u1, rows = _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group)
+            u1, rows, ctx.image = _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg,
+                                              group)
         ctx.mark_non_differentiable(rows)
         return u1, rows
 
@@ -545,7 +559,7 @@ class _FusedAdaptive(torch.autograd.Function):
         u0, eps, ys, t0, t1, *weights = ctx.saved_tensors
         nz, t_col, scfg, max_nodes, group = ctx.static
         u0bar, epsbar, wbars, _nacc = _bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg,
-                                           max_nodes, gbar, group)
+                                           max_nodes, gbar, group, ctx.image)
         ysbar = None if ys is None else torch.zeros_like(ys)
         return (u0bar, epsbar, ysbar, None, None, None, *wbars)
 

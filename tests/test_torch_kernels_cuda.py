@@ -817,8 +817,8 @@ def test_fused_adaptive_kernels_match_plain(dev, case):
 # K6's walk on its row path (h = 8, 24, 32: 64-row blocks, one row a thread) and,
 # with K5, on the cluster path (h = 33, 64, 96, 128: a thread-block cluster a
 # group, each CTA walking its rows), on groups of 8 rows (one ragged block; a
-# cluster of 4 CTAs of 2 rows), 72 (a 64-row block and an 8-row one; 4 CTAs of
-# 18 rows), 120 (2 blocks; 4 CTAs of 30 rows), 128 (two blocks) and 3 x 128
+# cluster of 2 CTAs of 4 rows), 72 (a 64-row block and an 8-row one; 2 CTAs of
+# 36 rows), 120 (2 blocks; 2 CTAs of 60 rows), 128 (two blocks) and 3 x 128
 @pytest.mark.parametrize("case", ["conditioned", "reversed"])
 @pytest.mark.parametrize("b", [8, 72, 120, 128, 384])
 @pytest.mark.parametrize("h", [8, 24, 32, 33, 64, 96, 128])
@@ -905,14 +905,15 @@ def test_fused_adaptive_fwd_is_deterministic(dev, h):
 # 10x, takes 16 steps of a 128-wide state, past the few steps the u1
 # tolerance is stated for: its u1 differs from the plain version's by up to
 # 9e-5 in the tiled path's bits too); and batches with fewer groups than a
-# wave of clusters holds and with more, so that each cluster size the plan
-# picks runs.
+# wave of clusters holds and with more.  The plan takes 2 CTAs a group where
+# a CTA's 64 rows fit and 4 at the gate's edge, where they do not; each size
+# that fits runs at every case (test_cluster_path_matches_plain_and_tiled).
 CLUSTER_CASES = {  # (n_in, h, nz, nc, B): (CTAs a group the plan picks, weights resident in K5)
-    "band": ((42, 128, 41, 0, 2048), (4, True)),
-    "band 21 -> 20": ((21, 128, 20, 0, 2048), (4, True)),
+    "band": ((42, 128, 41, 0, 2048), (2, False)),
+    "band 21 -> 20": ((21, 128, 20, 0, 2048), (2, False)),
     "gate edge": ((128, 128, 125, 2, 128), (4, False)),
     "h128 64 groups": ((6, 128, 5, 0, 8192), (2, True)),
-    "h33 64 groups": ((6, 33, 5, 0, 8192), (4, True)),
+    "h33 64 groups": ((6, 33, 5, 0, 8192), (2, True)),
     "h33 512 groups": ((6, 33, 5, 0, 65_536), (2, True)),
 }
 
@@ -922,7 +923,8 @@ def test_cluster_plan_picks_and_fits(dev):
     group, each with group / CTAs rows, within the 227 KB a CTA may hold; the
     weight image's floats a multiple of 4 x CTAs (each CTA's bulk copy a
     multiple of 16 bytes); K6's share of the weight gradient covers the
-    parameters over the cluster; the tiled path where it is asked for."""
+    parameters over the cluster; the tiled path where it is asked for, and
+    each cluster size where it is asked for and fits."""
     from continuousnormalizingflows_tpu_torch.ops import _build
 
     for (n_in, h, nz, _nc, b), (cluster, res) in CLUSTER_CASES.values():
@@ -935,10 +937,14 @@ def test_cluster_plan_picks_and_fits(dev):
         n_params = h * n_in + h + h * h + h + nz * h + nz
         assert plan.share * plan.cluster >= n_params
         assert _build.cluster_plan(n_in, h, nz, nz, nz + 3, 128, b, 0).cluster == 0
+        for c in (2, 4):
+            assert _build.cluster_plan(n_in, h, nz, nz, nz + 3, 128, b, c).cluster in (0, c)
+        assert _build.cluster_plan(n_in, h, nz, nz, nz + 3, 128, b, cluster) == plan
     for h in (8, 24, 32):  # the row paths
         assert _build.cluster_plan(6, h, 5, 5, 8, 128, 8192, 1).cluster == 0
-    for g in (8, 72, 120):  # one group: 4 CTAs of g / 4 rows
-        assert _build.cluster_plan(6, 128, 5, 5, 8, g, g)[:2] == (4, g // 4)
+    for g in (8, 72, 120):  # one group: 2 CTAs of g / 2 rows
+        assert _build.cluster_plan(6, 128, 5, 5, 8, g, g)[:2] == (2, g // 2)
+    assert _build.cluster_plan(128, 128, 125, 125, 128, 128, 128, 2).cluster == 0
 
 
 @pytest.mark.parametrize("name", list(CLUSTER_CASES))
@@ -949,7 +955,9 @@ def test_cluster_path_matches_plain_and_tiled(dev, name):
     K5 gives the tiled path's bits (the same arithmetic per element, the
     group's error sum in the same order), and K6 the tiled path's gradients to
     1e-5 of their largest entry (the weight gradient summed over rows in
-    another grouping)."""
+    another grouping); so does each cluster size that fits, where the plan
+    would take the other."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
 
     (n_in, h, nz, nc, b), _ = CLUSTER_CASES[name]
@@ -967,6 +975,18 @@ def test_cluster_path_matches_plain_and_tiled(dev, name):
     assert torch.equal(u1.view(torch.int32), u1_t.view(torch.int32)) and torch.equal(rows, rows_t)
     assert torch.equal(got[3], want[3])
     _close_to_max([got[0], got[1], *got[2]], [want[0], want[1], *want[2]], 1e-5)
+    for c in (2, 4):
+        if not _build.cluster_plan(n_in, h, nz, nz, nz + 3, 128, b, c).cluster:
+            continue
+        try:
+            fa._WIDE_PATH = f"cluster{c}"
+            u1_c, rows_c = fa.fused_solve_dopri5(*args, 64)
+            got_c = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+        finally:
+            fa._WIDE_PATH = None
+        assert torch.equal(u1_c.view(torch.int32), u1_t.view(torch.int32)), c
+        assert torch.equal(rows_c, rows_t) and torch.equal(got_c[3], want[3]), c
+        _close_to_max([got_c[0], got_c[1], *got_c[2]], [want[0], want[1], *want[2]], 1e-5)
 
 
 # K6's replay at every H the plan can pick for K5 (h = 4 ... 32, h = 12 at 12),
