@@ -32,8 +32,13 @@ with one process), then the model axis in full ([model axis]: 2 gloo ranks
 with the digits-shaped net split 128 + 128 on the default stack without the
 seminorm through K1 + K2, the 2-probe rk4 step and the TEST exact sweep
 split over ``model``, each against one process; ``dryrun_multichip(4)``; a
-float64 ``fused=True`` call launching no kernel; ``usage.py``), and checks
-that the kernels carried each path.  The
+float64 ``fused=True`` call launching no kernel; ``usage.py``), then
+``layout="feature_first"`` ([layout]: the JAX package's
+``benchmarks/layout_ab.py``, the flagship's train steps at batch 65,536 in
+both layouts and precisions, in turns, with no kernel; the default stack's
+steps in both layouts; the exported feature-first and ``from_torch`` exact
+TEST log-densities against eager), and checks that the kernels carried
+each path.  The
 kernels line (third from last) gives each kernel's bound: the least time
 the card could take for its work, fp32 FMAs at the published peak or bytes
 at the memory rate (bf16 rows: at the bf16 tensor-core peak); K2 and K1
@@ -156,6 +161,17 @@ MODEL_AXIS_SWEEP_CHUNK = 8
 MODEL_AXIS_SWEEP_TOL = (1e-5, 1e-6)
 MODEL_AXIS_USAGE_EPOCHS = 4
 DRYRUN_RANKS = 4
+# [layout]: the JAX package's benchmarks/layout_ab.py (the flagship, rk4-32
+# backprop, B = 65,536, Adam at 1e-3) in both layouts and precisions: timed
+# train steps a layout (after one warm-up step), in turns; a feature-first
+# loss against the batch-first one (JAX's tests/test_core.py:97 bound) and
+# the first step's gradients (1e-3 of each tensor's largest, JAX's bound);
+# the exported feature-first and from_torch TEST log-densities against eager
+LAYOUTS = ("batch_first", "feature_first")
+LAYOUT_STEPS = 7
+LAYOUT_LOSS_ATOL = 1e-4
+LAYOUT_GRAD_TOL = 1e-3
+LAYOUT_EXPORT_RTOL = 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
 # fp32 outside the tensor cores, bf16 dense on the tensor cores, and HBM3
 FP32_FLOPS = 67e12
@@ -2908,6 +2924,208 @@ def model_axis_phase(dev, record):
     record["model_axis"] = out
 
 
+def device_profile(fn) -> dict:
+    """``fn()`` once under ``torch.profiler`` with CUDA activity only, read
+    from the profiler's raw events (the per-op host records ProfileWindow
+    keeps take tens of seconds to process at ~40,000 kernels a step): the
+    device's busy ms (kernels, copies and fills), the call's host ms, the
+    idle share and the device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    ns = lambda e: e.duration_ns() if hasattr(e, "duration_ns") else 1e3 * e.duration_us()
+    busy = sum(ns(e) for e in dev) / 1e6
+    return dict(busy_ms=busy, step_ms=step_ms, idle_share=1.0 - busy / step_ms, kernels=len(dev))
+
+
+def layout_model(layout, precision="highest", fused=False, solver=None):
+    """The JAX package's ``benchmarks/layout_ab.py`` model: the flagship
+    (``ICNF.create(nvariables=2)``, 6 -> 24 -> 24 -> 5), rk4-32 with backprop
+    unless ``solver`` is given."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import SolverConfig
+
+    solver = solver or SolverConfig(method="rk4", gradient="backprop", fixed_steps=STEPS)
+    return cnf.ICNF.create(nvariables=2, solver=solver, precision=precision, layout=layout,
+                           fused=fused)
+
+
+def layout_exports(dev, x, out):
+    """The default stack's feature-first TEST log-density and a from_torch
+    ``nn.Sequential`` at the flagship widths (its exact trace through the fx
+    graph), each exported (``_export_logpdf``, the symbolic batch) and served
+    on ``x`` against its eager call: equal steps, LAYOUT_EXPORT_RTOL, no
+    kernel."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import ICNFConfig, Mode
+    from continuousnormalizingflows_tpu_torch.utils import export as ex
+
+    cfg = ICNFConfig(nvariables=2)
+    module = torch.nn.Sequential(torch.nn.Linear(cfg.n_in, 24), torch.nn.Softplus(),
+                                 torch.nn.Linear(24, 24), torch.nn.Softplus(),
+                                 torch.nn.Linear(24, cfg.n_out))
+    models = {"feature-first default stack": cnf.ICNF.create(nvariables=2, layout="feature_first"),
+              "from_torch Sequential, default stack": cnf.ICNF(
+                  cfg, cnf.from_torch(module, cfg.n_in, cfg.n_out))}
+    for name, icnf in models.items():
+        params = icnf.init(torch.Generator().manual_seed(0), device=dev)
+        reset_counts()
+        art, export_s = host_seconds(lambda: ex._export_logpdf(icnf, params, device=dev))
+        (lp, nfe, nacc, nrej), served_s = host_seconds(lambda: art.call(x))
+        with torch.no_grad():
+            (eager, _a, st), eager_s = host_seconds(
+                lambda: cnf.inference(icnf, Mode.TEST, x, params))
+        stats = {"nfe": int(nfe), "naccept": int(nacc), "nreject": int(nrej)}
+        if stats != solve_stats(st):
+            fail(f"[layout] {name}: the served call's steps {stats} vs eager {solve_stats(st)}")
+        if counts() != NO_LAUNCH:
+            fail(f"[layout] {name}: the TEST calls launched kernels {counts()}")
+        if lp.shape != (x.shape[0],) or not torch.isfinite(lp).all():
+            fail(f"[layout] {name}: served log-density shape {tuple(lp.shape)} or non-finite")
+        err = compare(f"[layout] {name}: served vs eager TEST log-density", lp, eager,
+                      LAYOUT_EXPORT_RTOL, 0.0)
+        log(f"  {name}: exported in {export_s:.1f} s; {x.shape[0]} points served in "
+            f"{served_s * 1e3:.1f} ms, eager {eager_s * 1e3:.1f} ms; steps {tuple(stats.values())} "
+            f"equal ok")
+        out[name] = dict(export_s=export_s, served_ms=served_s * 1e3, eager_ms=eager_s * 1e3,
+                         max_abs_err=err, **stats)
+
+
+def layout_phase(dev, record):
+    """[layout]: ``layout="feature_first"`` on the JAX package's own A/B,
+    ``benchmarks/layout_ab.py`` as it stands (the flagship, rk4-32 with
+    backprop, B = 65,536 ``gaussian_mixture`` points, Adam at 1e-3), for each
+    precision ("default": bf16-rounded operands; "highest") both layouts from
+    the same params with the same draws, one warm-up step then LAYOUT_STEPS
+    timed steps each in turns, then one profiled step each.  Checks: each
+    step's feature-first loss against the batch-first one (LAYOUT_LOSS_ATOL),
+    the first step's gradients (LAYOUT_GRAD_TOL of each tensor's largest), no
+    kernel launched on any step (a feature-first step with ``fused=True``
+    too, whose loss is the unfused one's bits); the default stack (dopri5 at
+    1e-4, backsolve) on the same points takes equal NFE and steps in both
+    layouts; layout_exports."""
+    import continuousnormalizingflows_tpu_torch as cnf
+    from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
+    from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
+
+    started = time.perf_counter()
+    x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), BATCH)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    out, parts = {}, {}
+    for prec in ("default", "highest"):
+        t_prec = time.perf_counter()
+        state = {}
+        for lay in LAYOUTS:
+            icnf = layout_model(lay, prec)
+            p = {k: v.requires_grad_() for k, v in icnf.init(
+                torch.Generator().manual_seed(0), device=dev).items()}
+            state[lay] = (icnf, p, torch.optim.Adam(list(p.values()), lr=1e-3))
+        icnf_ff, p_ff, _opt = state["feature_first"]
+        reset_counts()
+        with torch.no_grad():
+            fused_ff = cnf.loss(layout_model("feature_first", prec, fused=True), Mode.TRAIN, x,
+                                p_ff, gen(99))
+            plain_ff = cnf.loss(icnf_ff, Mode.TRAIN, x, p_ff, gen(99))
+        if counts() != NO_LAUNCH or not torch.equal(fused_ff, plain_ff):
+            fail(f"[layout] {prec}: feature-first with fused=True launched {counts()} or its "
+                 f"loss {float(fused_ff)} is not the unfused one's {float(plain_ff)}")
+
+        def step(lay, seed):
+            icnf, p, opt = state[lay]
+            opt.zero_grad(set_to_none=True)
+            loss = cnf.loss(icnf, Mode.TRAIN, x, p, gen(seed))
+            loss.backward()
+            grads = {k: v.grad.detach().clone() for k, v in p.items()}
+            opt.step()
+            return loss.detach(), grads
+
+        runs, first = {lay: [] for lay in LAYOUTS}, {}
+        for i in range(LAYOUT_STEPS + 1):  # step 0 warms up, untimed
+            for lay in (LAYOUTS if i % 2 == 0 else LAYOUTS[::-1]):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, grads = step(lay, 100 + i)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if counts() != NO_LAUNCH:
+                    fail(f"[layout] {prec} {lay} step {i}: launches {counts()}")
+                if not torch.isfinite(loss) or not all(torch.isfinite(g).all()
+                                                       for g in grads.values()):
+                    fail(f"[layout] {prec} {lay} step {i}: non-finite loss or gradient")
+                if i == 0:
+                    first[lay] = grads
+                runs[lay].append(dict(ms=ms, loss=float(loss)))
+        gap = max(abs(f["loss"] - b["loss"])
+                  for f, b in zip(runs["feature_first"], runs["batch_first"]))
+        if gap > LAYOUT_LOSS_ATOL:
+            fail(f"[layout] {prec}: feature-first and batch-first losses differ by {gap:.3e} "
+                 f"at some step (bound {LAYOUT_LOSS_ATOL})")
+        compare_to_max(f"[layout] {prec}: the first step's gradients, feature-first vs "
+                       f"batch-first", list(first["feature_first"].values()),
+                       list(first["batch_first"].values()), LAYOUT_GRAD_TOL)
+        summary = {}
+        for lay in LAYOUTS:
+            prof = device_profile(lambda: step(lay, 200))
+            ms = sorted(r["ms"] for r in runs[lay][1:])
+            summary[lay] = dict(ms_median=statistics.median(ms), ms_min=ms[0], ms_max=ms[-1],
+                                losses=[r["loss"] for r in runs[lay]], profile=prof)
+            log(f"  {prec} {lay}: {statistics.median(ms):.3f} ms a step (median of {len(ms)}, "
+                f"min {ms[0]:.3f}, max {ms[-1]:.3f}), {BATCH / statistics.median(ms) * 1e3:.1f} "
+                f"train samples/s; profiled step: device busy {prof['busy_ms']:.3f} ms of "
+                f"{prof['step_ms']:.3f}, idle share {prof['idle_share']:.3f}, "
+                f"{prof['kernels']:.0f} kernels")
+        ratio = summary["feature_first"]["ms_median"] / summary["batch_first"]["ms_median"]
+        log(f"  {prec}: losses within {gap:.2e} a step (bound {LAYOUT_LOSS_ATOL}) ok; no kernel "
+            f"on any step, fused=True included, ok; feature-first {ratio:.3f}x the batch-first "
+            f"ms a step ({nvidia_smi()})")
+        out[prec] = dict(loss_gap=gap, ff_over_bf=ratio, **summary)
+        parts[prec] = time.perf_counter() - t_prec
+    # the default stack: equal steps in both layouts
+    t_stack = time.perf_counter()
+    stack = {}
+    p0 = None
+    for lay in LAYOUTS:
+        icnf = layout_model(lay, solver=SolverConfig())
+        p0 = p0 or icnf.init(torch.Generator().manual_seed(0), device=dev)
+        p = {k: v.detach().clone().requires_grad_() for k, v in p0.items()}
+        reset_counts()
+        loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x, p, gen(7))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        if counts() != NO_LAUNCH:
+            fail(f"[layout] default stack {lay}: launches {counts()}")
+        stack[lay] = dict(loss=float(loss.detach()), grads=grads, **solve_stats(st))
+    steps = {lay: tuple(stack[lay][k] for k in ("nfe", "naccept", "nreject")) for lay in LAYOUTS}
+    if steps["feature_first"] != steps["batch_first"]:
+        fail(f"[layout] default stack: steps (NFE, accepted, rejected) {steps}")
+    if abs(stack["feature_first"]["loss"] - stack["batch_first"]["loss"]) > LAYOUT_LOSS_ATOL:
+        fail(f"[layout] default stack: losses {stack['feature_first']['loss']} vs "
+             f"{stack['batch_first']['loss']}")
+    compare_to_max("[layout] default stack: gradients, feature-first vs batch-first",
+                   list(stack["feature_first"]["grads"]), list(stack["batch_first"]["grads"]),
+                   LAYOUT_GRAD_TOL)
+    log(f"  default stack (dopri5, 1e-4, backsolve), {BATCH} points: (NFE, accepted, rejected) "
+        f"{steps['feature_first']} in both layouts ok")
+    out["default_stack"] = {lay: {k: v for k, v in d.items() if k != "grads"}
+                            for lay, d in stack.items()}
+    parts["default stack"] = time.perf_counter() - t_stack
+    out["export"] = {}
+    t_export = time.perf_counter()
+    layout_exports(dev, x, out["export"])
+    parts["exports"] = time.perf_counter() - t_export
+    out["seconds"], out["part_seconds"] = time.perf_counter() - started, parts
+    log(f"  [layout] phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    record["layout"] = out
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2978,6 +3196,11 @@ def main() -> None:
         "seminorm through K1 + K2, the 2-probe rk4 step, the TEST exact sweep; "
         "dryrun_multichip(4); float64 with fused=True; usage.py")
     model_axis_phase(dev, record)
+    log("[layout] layout='feature_first' on the JAX package's benchmarks/layout_ab.py (the "
+        "flagship, rk4-32 backprop, B = 65,536, Adam at 1e-3), precision default and highest, "
+        "against batch_first in turns; the default stack's steps; the exported feature-first "
+        "and from_torch exact TEST log-densities")
+    layout_phase(dev, record)
     log(f"[done] every phase passed, {time.perf_counter() - started:.1f} s in all")
 
     flag = {r["precision"]: r for r in results if r["shape"] == "flagship"}["fp32"]

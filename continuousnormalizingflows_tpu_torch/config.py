@@ -5,9 +5,7 @@ dataclasses, the same validation and the same derived sizes, with
 ``torch.float32`` as the default dtype.  Variant mapping (FFJORD, RNODE,
 ANODE, STEER, conditional, non-autonomous) is as in the JAX package.
 
-``feature_first``, a TPU lane layout, is not ported and raises
-``NotImplementedError`` when the config is built (see ``ROADMAP.md``,
-Queue 1).  ``probe_axis``/``sweep_axis`` name the mesh axis that splits
+``probe_axis``/``sweep_axis`` name the mesh axis that splits
 the probe ensemble or the exact sweep inside a sharded step
 (:mod:`.parallel.mesh`); JAX validates neither, nor does the port.
 """
@@ -173,6 +171,10 @@ class ICNFConfig:
     # than the global-norm solve, so opt-in, as in the JAX package).
     fused: bool = False
     fused_adaptive: bool = False
+    # The array layout inside a solve: "batch_first" (batch, features), or
+    # "feature_first" (features, batch), as in the JAX package.  The public
+    # API stays batch-first: one transpose in and one out a solve.  A
+    # feature-first solve takes no fused route (core._solve).
     layout: str = "batch_first"
 
     def __post_init__(self) -> None:
@@ -219,11 +221,6 @@ class ICNFConfig:
                 f"exact_chunk must be >= 0 (0 = unchunked), got {self.exact_chunk}"
             )
         object.__setattr__(self, "tspan", (float(self.tspan[0]), float(self.tspan[1])))
-        if self.layout == "feature_first":
-            raise NotImplementedError(
-                "layout='feature_first' is a TPU lane layout and is not ported "
-                "(ROADMAP.md, Queue 1: 'not ported')"
-            )
 
     # ---- derived sizes ----
 

@@ -136,17 +136,22 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
     ``dt0`` (the carried start) reaches only that last route: the kernels'
     controllers keep the fixed start, as in the JAX package.  ``device_loop``
     takes :func:`.ops.ode.odeint_device` (no host read, no gradient): the
-    exported TEST surfaces, and only those."""
+    exported TEST surfaces, and only those.
+
+    ``layout="feature_first"`` takes no fused route (the gates require
+    ``batch_first``, as JAX's do): the unfused solve runs on ``u0``, ``eps``
+    and ``ys`` transposed once here, and ``u1`` is transposed back."""
     cfg = icnf.config
     if device_loop:
         if mode.stochastic:
             raise ValueError(f"device_loop=True serves only Mode.TEST (the exported "
                              f"surfaces), not {mode}: the training modes take the kernels "
                              f"or the differentiable solve")
-        f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
+        f_aug = make_augmented_dynamics(cfg, icnf.net, mode, device_loop=True)
+        u0, args = _layout_in(cfg, u0, {"params": params, "eps": eps, "ys": ys})
         with torch.no_grad():
-            return odeint_device(f_aug, u0, t0, t1, {"params": params, "eps": eps, "ys": ys},
-                                 cfg.solver)
+            u1, stats = odeint_device(f_aug, u0, t0, t1, args, cfg.solver)
+        return _layout_out(cfg, u1), stats
     if (eps is not None and fused_adaptive_applicable(cfg, icnf.net, mode)
             and fused_adaptive_tile(u0.shape[0], whole_groups=_split_rows())):
         t_col = None if cfg.autonomous else cfg.nz
@@ -166,10 +171,28 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
               - torch.as_tensor(t0, dtype=cfg.dtype, device=u0.device)) / steps
         return u1, SolverStats(4 * steps, steps, 0, dt)
     f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
-    args = {"params": params, "eps": eps, "ys": ys}
+    u0, args = _layout_in(cfg, u0, {"params": params, "eps": eps, "ys": ys})
     if dt0 is not None:
         args["dt0"] = dt0
-    return odeint_diff(f_aug, u0, t0, t1, args, cfg.solver)
+    u1, stats = odeint_diff(f_aug, u0, t0, t1, args, cfg.solver)
+    return _layout_out(cfg, u1), stats
+
+
+def _layout_in(cfg: ICNFConfig, u0: torch.Tensor, args: dict):
+    """The solve's state and args in the config's layout: feature-first
+    transposes ``u0`` to ``(state_dim, B)``, the probes to ``(P, nz, B)`` and
+    the conditions to ``(nc, B)``, each made contiguous (the batch the
+    minor axis)."""
+    if cfg.layout != "feature_first":
+        return u0, args
+    eps, ys = args["eps"], args["ys"]
+    return u0.t().contiguous(), dict(
+        args, eps=None if eps is None else eps.transpose(1, 2).contiguous(),
+        ys=None if ys is None else ys.t().contiguous())
+
+
+def _layout_out(cfg: ICNFConfig, u1: torch.Tensor) -> torch.Tensor:
+    return u1.t() if cfg.layout == "feature_first" else u1
 
 
 def _split_rows() -> bool:
@@ -326,8 +349,8 @@ def log_prob(icnf: ICNF, mode: Mode, xs, params: Params,
 def trajectory(icnf: ICNF, xs, params: Params, ts, ys=None):
     """The flow ``z(t)`` at the times ``ts`` (clamped to ``tspan``), read off
     the dense output of one TEST-mode (exact trace) adaptive solve; a
-    fixed-step config solves with dopri5 for it.  Returns ``(path (len(ts),
-    batch, nz), SolverStats)``."""
+    fixed-step config solves with dopri5 for it, and a feature-first one
+    batch-first.  Returns ``(path (len(ts), batch, nz), SolverStats)``."""
     cfg = icnf.config
     device = _device_of(params)
     xs, _single = _as_batch(torch.as_tensor(xs, dtype=cfg.dtype, device=device))
@@ -339,6 +362,10 @@ def trajectory(icnf: ICNF, xs, params: Params, ts, ys=None):
     solver = cfg.solver
     if solver.method not in ("dopri5", "tsit5", "abm"):
         solver = dataclasses.replace(solver, method="dopri5", gradient="adjoint")
+    # the state here is batch-first: the batch-first dynamics whatever the
+    # layout (JAX's trajectory forces it too)
+    if cfg.layout != "batch_first":
+        cfg = dataclasses.replace(cfg, layout="batch_first")
     f_aug = make_augmented_dynamics(cfg, icnf.net, Mode.TEST)
     t0, t1 = cfg.tspan
     ts = torch.as_tensor(ts, dtype=cfg.dtype, device=device).reshape(-1)

@@ -191,6 +191,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Invalidates the mbarrier at `bar`: required before its memory is put to
+// another use (PTX: mbarrier.inval).
+__device__ __forceinline__ void mbar_inval(const void* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // The weight image into every CTA of the cluster: CTA `rank` copies the
 // rank-th C-th of it from device memory with one bulk copy multicast to the
 // whole cluster; each CTA's mbarrier expects the whole image.  Every thread

@@ -470,6 +470,15 @@ adaptive_bwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps
   const int nacc = v.c->nacc, done = v.c->done;
   __syncthreads();  // every thread holds the counts: the shared memory is reused
 
+  if constexpr (ResReplay && !ResWalk) {
+    // The walk's buffers take the image's place and its mbarrier's: the
+    // barrier is invalidated first, and every CTA of the cluster is past the
+    // replay.  Written over without that, the barrier's word (row 11 of the
+    // walk's G1 at the band's widths with C = 4) came out corrupted, NaN, in
+    // 1-5 % of the calls on an H100.
+    if (threadIdx.x == 0) cnf::mbar_inval(smem + cnf::image_layout(d, C).floats);
+    cnf::cg::this_cluster().sync();
+  }
   if constexpr (!ResWalk) p = smem;  // the walk's buffers take the image's place
   const cnf::CWeights w = ResWalk ? wr : cnf::cluster_weights<false>(gw, image, d, p);
   const bool ok = done && nacc <= nodes.max_nodes;

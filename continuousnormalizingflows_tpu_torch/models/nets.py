@@ -13,6 +13,10 @@ layout.
 ``u``, ``w``, ``b``, the same layout as JAX's) with ``planar_h``,
 ``CondLayer`` (appends a constant condition to the input) and
 ``from_torch`` (any ``nn.Module``, in place of JAX's ``from_flax``).
+
+``apply_t(params, x)`` is the feature-first apply of ``layout="feature_first"``:
+``(..., n_in, batch) -> (..., n_out, batch)``.  ``MLP`` and ``Planar`` run
+native transposed chains; any other net runs ``apply`` between transposes.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from ..config import resolve_device
 from ..parallel import mesh as pmesh
 
 __all__ = ["DynamicsNet", "MLP", "Planar", "CondLayer", "planar_h", "from_torch", "Params",
-           "linear", "mlp_layers"]
+           "linear", "linear_t", "mlp_layers"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -48,6 +52,11 @@ class DynamicsNet(nn.Module):
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return torch.func.functional_call(self, params, (x,))
+
+    def apply_t(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Feature-first apply, ``(..., n_in, batch) -> (..., n_out, batch)``:
+        ``apply`` between transposes of the last two axes."""
+        return self.apply(params, x.transpose(-2, -1)).transpose(-2, -1)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +77,16 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         x, w = _round_bf16(x), _round_bf16(w)
     y = x @ w.t()
     return y if b is None else y + b
+
+
+def linear_t(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+             precision: str) -> torch.Tensor:
+    """The feature-first :func:`linear`: ``w @ x + b[:, None]`` for ``x`` of
+    shape ``(..., in, batch)``, with the same operand rounding."""
+    if precision != "highest":
+        x, w = _round_bf16(x), _round_bf16(w)
+    y = w @ x
+    return y if b is None else y + b[:, None]
 
 
 def _glorot_uniform(generator: torch.Generator, fan_in: int, fan_out: int,
@@ -148,6 +167,23 @@ class MLP(DynamicsNet):
                 h = self.activation(h)
         return h
 
+    def apply_t(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """The feature-first chain ``W h + b[:, None]`` on the same
+        parameters, tensor-parallel as :meth:`forward`."""
+        layers = mlp_layers(params)
+        tp = self.tp_group(params)
+        h, last = x, len(layers) - 1
+        for i, (w, b) in enumerate(layers):
+            if tp is not None and i == 0:
+                h = pmesh.copy_to_model(h, tp)
+            if tp is not None and i == 1:
+                h = pmesh.reduce_from_model(linear_t(h, w, None, self.precision), tp) + b[:, None]
+            else:
+                h = linear_t(h, w, b, self.precision)
+            if i != last:
+                h = self.activation(h)
+        return h
+
 
 def mlp_layers(params: Params) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """``[(weight (out, in), bias (out,)), ...]`` of an MLP parameter dict."""
@@ -192,6 +228,14 @@ class Planar(DynamicsNet):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = {"w": self.w, "b": self.b}
         return self.activation(self._pre(params, x))[..., None] * self.u
+
+    def _pre_t(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``w . x + b`` over the feature axis of ``(..., n_in, batch)``."""
+        h = params["w"] @ x
+        return h + params["b"] if self.use_bias else h
+
+    def apply_t(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return params["u"][:, None] * self.activation(self._pre_t(params, x))[..., None, :]
 
 
 def planar_h(net: Planar, params: Params, x: torch.Tensor) -> torch.Tensor:

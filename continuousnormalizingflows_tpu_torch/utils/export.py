@@ -25,12 +25,15 @@ read.
   a ``while_loop``).
 
 The program runs on the device it was exported for (``device``; default the
-card).  Not exported, each raising at export time (ROADMAP.md, Queue 1): the
-exact trace of a ``from_torch`` net (its sweep runs in forward mode, which
-``torch.export`` does not capture with a symbolic batch; its trace-free
-sampler exports); an activation without a written-out derivative
-(:data:`..ops.dynamics.ACTIVATION_DERIVATIVES`); and a user's base
-distribution whose sampler reads the device.
+card).  A ``layout="feature_first"`` config exports its feature-first solve,
+the symbolic batch on axis 1 of the state inside the loop.  The exact trace
+of a ``from_torch`` net exports through its ``torch.fx`` graph with the
+tangents carried node by node (:func:`..ops.dynamics.fx_refusal` names the
+ops it covers).  Not exported, each raising at export time: a
+``from_torch`` net that ``torch.fx`` cannot trace or whose graph holds
+another op (its trace-free sampler exports); an activation without a
+written-out derivative (:data:`..ops.dynamics.ACTIVATION_DERIVATIVES`); and
+a user's base distribution whose sampler reads the device.
 """
 
 from __future__ import annotations
@@ -95,8 +98,11 @@ class Artifact:
 def _check_exportable(icnf, exact_trace: bool) -> None:
     """Raise where the program would take the exact trace of a net whose
     sweep ``torch.export`` does not capture: an activation without a
-    written-out derivative, or a ``from_torch`` net's forward-mode sweep."""
-    from ..ops.dynamics import activation_name, exact_trace_traceable
+    written-out derivative, or a ``from_torch`` net whose graph the written-out
+    forward mode does not cover (``torch.fx`` cannot trace it, or a node
+    outside :func:`..ops.dynamics.fx_refusal`'s set, named)."""
+    from ..models.nets import CondLayer, _TorchNet
+    from ..ops.dynamics import activation_name, exact_trace_traceable, fx_refusal
 
     if not exact_trace or exact_trace_traceable(icnf.net):
         return
@@ -106,13 +112,17 @@ def _check_exportable(icnf, exact_trace: bool) -> None:
             f"the activation {name} has no written-out derivative, and autograd inside the "
             f"exported solve is not captured: use one of ops.dynamics.ACTIVATION_DERIVATIVES "
             f"(softplus, tanh, sigmoid, relu, elu, gelu, silu)")
+    net = icnf.net
+    while isinstance(net, CondLayer):
+        net = net.net
+    why = (fx_refusal(net) if isinstance(net, _TorchNet)
+           else f"a {type(net).__name__} is neither an MLP, a Planar nor a from_torch net")
     raise NotImplementedError(
-        "the exact trace of a from_torch net runs in forward mode "
-        "(torch.autograd.forward_ad, or torch.func.jvp), which torch.export does not capture "
-        "with a symbolic batch: the fixed-step solves specialize the batch ('Constraints "
-        "violated (batch)! ... specialized it to be a constant'), and inside an adaptive "
-        "solve's while_loop it fails with fake tensors in _make_dual/_fw_primal; the sampler "
-        "with trace_free=True exports (ROADMAP.md, Queue 1)")
+        f"the exact trace of this net does not export: {why}.  A from_torch net's "
+        f"forward mode is written out node by node for nn.Linear/F.linear, the activations of "
+        f"ops.dynamics.ACTIVATION_DERIVATIVES, +, -, * by a tangent-free operand, negation, "
+        f"torch.cat, torch.stack, indexing and reshape/view; forward mode by autograd is not "
+        f"captured with a symbolic batch.  The sampler with trace_free=True exports")
 
 
 def _logpdf(icnf, params, x, ys=None):

@@ -176,9 +176,9 @@ def case_grad_noseminorm22(rank, world, inputs):
     return _default_grad(inputs, SolverConfig(adjoint_seminorm=False), model=2)
 
 
-def _tp_step(inputs, fused):
+def _tp_step(inputs, fused, layout="batch_first"):
     mesh = make_mesh(data=2, model=2, device="cpu")
-    cfg = tcnf.ICNFConfig(nvariables=2, solver=FAST, fused=fused)
+    cfg = tcnf.ICNFConfig(nvariables=2, solver=FAST, fused=fused, layout=layout)
     icnf = tcnf.ICNF(cfg, MLP((cfg.n_in, 32, 32, cfg.n_out)))
     whole = params_from_jax(unpack(inputs, "tp.p"))
     params = {k: v.requires_grad_() for k, v in shard_mlp_params(mesh, whole).items()}
@@ -201,6 +201,23 @@ def case_tp_step(rank, world, inputs):
 
 def case_tp_fused(rank, world, inputs):
     return _tp_step(inputs, fused=True)
+
+
+def case_feature_first(rank, world, inputs):
+    """``layout="feature_first"``, each rank transposing its own rows: the
+    data-parallel step of case_train_step (``dp.``) and the tensor-parallel
+    one of case_tp_step (``tp.``)."""
+    mesh = make_mesh(device="cpu")
+    icnf = tcnf.ICNF.create(nvariables=2, solver=FAST, layout="feature_first")
+    params = _params(inputs, "train.p")
+    opt = torch.optim.Adam(list(params.values()), lr=1e-3)
+    step = shard_train_step(lambda p, g, xs, ys: (tcnf.loss(icnf, Mode.TRAIN, xs, p, g),), mesh)
+    xl, _ = shard_batch_arrays(mesh, torch.from_numpy(inputs["train.x"]))
+    with draws(inputs["train.eps"], inputs["train.t1"]):
+        (loss,) = step(params, opt, torch.Generator().manual_seed(0), xl, None)
+    out = {"dp.loss": loss.numpy(), **{f"dp.{k}": v for k, v in _np_params(params).items()}}
+    out.update({f"tp.{k}": v for k, v in _tp_step(inputs, False, "feature_first").items()})
+    return out
 
 
 def _tp_model(inputs, **kw):

@@ -71,12 +71,8 @@ def test_icnf_validation_matches_jax(kwargs):
     ids=str,
 )
 def test_unported_options_raise(kwargs):
-    """``feature_first`` (a TPU lane layout) is not ported and raises; the
-    mesh axes are accepted, unvalidated as in JAX, with JAX's derived sizes."""
-    if "layout" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfig.ICNFConfig(**kwargs)
-        return
+    """The options that once raised: ``feature_first`` and the mesh axes are
+    accepted (the axes unvalidated as in JAX), with JAX's derived sizes."""
     t, j = tconfig.ICNFConfig(**kwargs), jconfig.ICNFConfig(**kwargs)
     for k, v in kwargs.items():
         assert getattr(t, k) == getattr(j, k) == v

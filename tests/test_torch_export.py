@@ -194,27 +194,45 @@ def test_conditional_sampler_requires_and_bakes_ys():
     assert s.shape == (8, 2) and bool(torch.isfinite(s).all())
 
 
+class _Branchy(torch.nn.Module):
+    """A module torch.fx cannot trace (Python control flow on a shape, a
+    proxy to fx), which torch.export takes (the feature width is static)."""
+
+    def __init__(self, n_in, n_out):
+        super().__init__()
+        self.lin = torch.nn.Linear(n_in, n_out)
+
+    def forward(self, x):
+        y = self.lin(x)
+        return torch.tanh(y) if x.shape[-1] > 1 else y
+
+
 def test_what_does_not_export_raises():
     """What still refuses, each at export time: the exact trace of a
-    from_torch net (forward mode, which torch.export does not capture with a
-    symbolic batch), in a fixed-step and an adaptive solve, whose trace-free
-    sampler exports; an activation without a written-out derivative, which
-    names itself; a user's sampler that reads the device.  The abm solver,
-    the generic sweep of the port's nets, the Student-t base and ``mesh=``
-    export (``tests/test_torch_export_rest.py``, ``test_torch_export_mesh.py``)."""
+    from_torch net whose graph the written-out forward mode does not cover,
+    naming the node's op (an nn.Hardtanh; a module torch.fx cannot trace), in
+    a fixed-step and an adaptive solve, whose trace-free sampler exports; an
+    activation without a written-out derivative, which names itself; a
+    user's sampler that reads the device.  The abm solver, the generic sweep
+    of the port's nets and of a from_torch net of the covered ops, the
+    Student-t base and ``mesh=`` export (``tests/test_torch_export_rest.py``,
+    ``test_torch_export_mesh.py``)."""
     _j, _jp, ticnf, _tp = _pair()
     cfg = ticnf.config
-    module = torch.nn.Sequential(torch.nn.Linear(cfg.n_in, 8), torch.nn.Tanh(),
-                                 torch.nn.Linear(8, cfg.n_out))
+    modules = {"call_module 1 \\(Hardtanh\\)": torch.nn.Sequential(
+                   torch.nn.Linear(cfg.n_in, 8), torch.nn.Hardtanh(),
+                   torch.nn.Linear(8, cfg.n_out)),
+               "torch.fx cannot trace": _Branchy(cfg.n_in, cfg.n_out)}
     for solver in ("rk4-4", "dopri5"):
-        wrapped = tcnf.ICNF(dataclasses.replace(cfg, solver=SolverConfig(**SOLVERS[solver])),
-                            tcnf.from_torch(module, cfg.n_in, cfg.n_out))
-        params = wrapped.init(torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="forward mode"):
-            ex.export_logpdf(wrapped, params, device="cpu")
-        with pytest.raises(NotImplementedError, match="forward mode"):
-            ex.export_sampler(wrapped, params, 4, trace_free=False, device="cpu")
-        assert ex.export_sampler(wrapped, params, 4, device="cpu").call(1).shape == (4, 2)
+        for why, module in modules.items():
+            wrapped = tcnf.ICNF(dataclasses.replace(cfg, solver=SolverConfig(**SOLVERS[solver])),
+                                tcnf.from_torch(module, cfg.n_in, cfg.n_out))
+            params = wrapped.init(torch.Generator().manual_seed(0), device="cpu")
+            with pytest.raises(NotImplementedError, match=f"does not export: {why}"):
+                ex.export_logpdf(wrapped, params, device="cpu")
+            with pytest.raises(NotImplementedError, match=f"does not export: {why}"):
+                ex.export_sampler(wrapped, params, 4, trace_free=False, device="cpu")
+            assert ex.export_sampler(wrapped, params, 4, device="cpu").call(1).shape == (4, 2)
     hard = tcnf.ICNF(cfg, MLP((cfg.n_in, 8, 8, 8, cfg.n_out), activation=F.hardtanh))
     with pytest.raises(NotImplementedError, match="activation hardtanh"):
         ex.export_logpdf(hard, hard.init(torch.Generator().manual_seed(0), device="cpu"),

@@ -1,7 +1,8 @@
 """The rest of the port's serving export against the JAX package's: the abm
 solver's device loop, the written-out exact sweep (an MLP of any depth, every
-activation with a written-out derivative, a ``CondLayer``), and the
-Student-t sampler (its gamma rounds in a ``while_loop``).
+activation with a written-out derivative, a ``CondLayer``, and a
+``from_torch`` net through its ``torch.fx`` graph), and the Student-t
+sampler (its gamma rounds in a ``while_loop``).
 
 Tolerances: abm's device loop against its eager loop takes the same steps
 and gives the same bits; the exported log-densities against JAX's export at
@@ -9,7 +10,9 @@ rtol 1e-5 (fp32 solves, sums in another order), with the adaptive solves'
 NFE, accepted and rejected steps equal to JAX's and to the port's eager
 call, whose bits the served call gives; the written-out sweep against the
 forward-mode one (``torch.autograd.forward_ad``) at rtol 1e-6 / atol 1e-6
-(the same products, the tangents' sums in another order); the loss
+(the same products, the tangents' sums in another order), and so is a
+``from_torch`` net's through its fx graph, whose export matches its eager
+call (forward mode) at rtol 1e-5 with the same steps; the loss
 gradients through the written-out sweep against ``jax.grad`` within 2e-4 of
 each tensor's largest entry, as ``tests/test_torch_dynamics_exact.py``; the
 exported Student-t sampler equals the eager ``generate`` bit for bit; the
@@ -248,6 +251,97 @@ def test_gradients_through_the_written_sweep_match_jax(monkeypatch, act):
     for a, b in zip(g_t, params_from_jax(jax.device_get(g_j)).values()):
         a, b = a.numpy(), b.numpy()
         assert np.abs(a - b).max() <= 2e-4 * np.abs(b).max()
+
+
+# ---- a from_torch net's forward mode through its torch.fx graph ----
+
+class _Residual(torch.nn.Module):
+    """A from_torch net of every op the fx forward mode carries: nn.Linear,
+    F.softplus, a tanh module, a residual ``+``, ``*`` by a buffer, ``-`` a
+    constant, a negation, slicing, reshape/view, ``torch.stack`` and
+    ``torch.cat``."""
+
+    def __init__(self, n_in, h, n_out):
+        super().__init__()
+        self.a, self.b = torch.nn.Linear(n_in, h), torch.nn.Linear(h, h)
+        self.act = torch.nn.Tanh()
+        self.c = torch.nn.Linear(2 * h, n_out)
+        self.register_buffer("scale", torch.tensor(0.5))
+
+    def forward(self, x):
+        h = F.softplus(self.a(x))
+        r = h + self.act(self.b(h)) * self.scale - 0.1
+        pair = torch.stack([h[..., 3:], 2 * h[..., 3:]], dim=-1).view(h.shape[:-1] + (-1,))
+        z = torch.cat([r, -h[..., :3].reshape(h.shape[:-1] + (3,)), pair[..., :h.shape[-1] - 3]],
+                      dim=-1)
+        return self.c(z)
+
+
+def _fx_net(kind, cfg):
+    if kind == "sequential":
+        module = torch.nn.Sequential(torch.nn.Linear(cfg.n_in, 16), torch.nn.Softplus(),
+                                     torch.nn.Linear(16, 16), torch.nn.Softplus(),
+                                     torch.nn.Linear(16, cfg.n_out))
+    else:
+        module = _Residual(cfg.n_in, 8, cfg.n_out)
+    return tcnf.from_torch(module, cfg.n_in, cfg.n_out)
+
+
+@pytest.mark.parametrize("ff", [False, True], ids=["batch_first", "feature_first"])
+@pytest.mark.parametrize("kind", ["sequential", "residual"])
+def test_fx_jvps_match_forward_mode(kind, ff):
+    """``(field, J tangents)`` of a from_torch net through its fx graph
+    against forward mode (``torch.autograd.forward_ad``): the sweep's basis
+    rows (whole and in blocks of 3, with ``sum J^2``) and a probe stack, in
+    both layouts; rtol 1e-6 / atol 1e-6, as the written-out sweep of the
+    port's nets.  Eager solves keep forward mode."""
+    cfg = ICNFConfig(nvariables=3, layout="feature_first" if ff else "batch_first")
+    net = _fx_net(kind, cfg)
+    assert tdyn.fx_refusal(net) is None and tdyn.exact_trace_traceable(net)
+    params = net.init(torch.Generator().manual_seed(0), device="cpu")
+    u = torch.randn((8, cfg.state_dim), generator=torch.Generator().manual_seed(1))
+    nz, t = cfg.nz, 0.3
+    z = u[:, :nz].t().contiguous() if ff else u[:, :nz]
+    field = (tdyn.make_field_t if ff else tdyn.make_field)(cfg, net)
+    x_full = tdyn._net_input(cfg, t, z, None, ff)
+    written = lambda tg: tdyn._written_jvps(*tdyn._written_net(net, fx=True), params, x_full, nz,
+                                            tg, ff)
+    forward = lambda tg: tdyn._jvps(lambda zz: field(t, zz, params, None), z, tg)
+    for chunk in (0, 3):
+        got = tdyn._exact_sweep(written, z, nz, chunk, True, ff=ff)
+        want = tdyn._exact_sweep(forward, z, nz, chunk, True, ff=ff)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    probes = torch.randn((2,) + z.shape, generator=torch.Generator().manual_seed(2))
+    for a, b in zip(written(probes), forward(probes)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert tdyn._written_net(net) is None  # eager: forward mode
+
+
+@pytest.mark.parametrize("solver", ["rk4-4", "dopri5"])
+@pytest.mark.parametrize("kind", ["sequential", "residual"])
+def test_fx_exact_trace_exports_match_eager(kind, solver):
+    """A from_torch net's exact TEST log-density exported with the symbolic
+    batch, against the eager call (forward mode): the same steps, rtol 1e-5;
+    and its exported sampler with ``trace_free=False`` against the eager
+    ``generate``."""
+    spec = dict(method="rk4", gradient="backprop", fixed_steps=4) if solver == "rk4-4" else DOPRI5
+    cfg = ICNFConfig(nvariables=2, solver=SolverConfig(**spec))
+    icnf = tcnf.ICNF(cfg, _fx_net(kind, cfg))
+    params = icnf.init(torch.Generator().manual_seed(3), device="cpu")
+    art = ex._export_logpdf(icnf, params, device="cpu")
+    for b in (3, 6):
+        x = torch.from_numpy(_x(b, b))
+        got, nfe, nacc, nrej = art.call(x)
+        with torch.no_grad():
+            eager, _a, st = tcnf.inference(icnf, Mode.TEST, x, params)
+        assert (int(nfe), int(nacc), int(nrej)) == _counts(st)
+        torch.testing.assert_close(got, eager, rtol=1e-5, atol=1e-6)
+    if solver == "rk4-4":
+        s = ex.export_sampler(icnf, params, 6, trace_free=False, device="cpu").call(4)
+        with torch.no_grad():
+            want = tcnf.generate(icnf, Mode.TEST, params, torch.Generator().manual_seed(4), 6)
+        torch.testing.assert_close(s, want, rtol=1e-5, atol=1e-6)
 
 
 def test_convert_carries_deep_and_conditioned_nets():

@@ -989,6 +989,43 @@ def test_cluster_path_matches_plain_and_tiled(dev, name):
         _close_to_max([got_c[0], got_c[1], *got_c[2]], [want[0], want[1], *want[2]], 1e-5)
 
 
+# K6 on the cluster path where its replay holds the weight image and its walk
+# does not (the walk's buffers then take the image's place): the same bits
+# call after call.  Its walk once wrote over the image's mbarrier without
+# invalidating it: at B = 65,536 (512 groups, many waves of clusters) 1-5 %
+# of the calls came out NaN in one row's buffer, at the band's widths with
+# C = 4 and at the h = 128 net with C = 2 (the plan's choice there).
+REPEAT_CASES = {"band C=4": ((42, 128, 41, 65_536), 4), "h128 C=2": ((6, 128, 5, 65_536), 2)}
+REPEAT_CALLS = 200
+
+
+@pytest.mark.parametrize("name", list(REPEAT_CASES))
+def test_cluster_bwd_gives_its_bits_call_after_call(dev, name):
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    (n_in, h, nz, b), c = REPEAT_CASES[name]
+    plan = _build.cluster_plan(n_in, h, nz, nz, nz + 3, 128, b, c)
+    assert plan.cluster == c and plan.res_fwd, plan
+    if c == 4:
+        assert not plan.res_bwd, plan
+    args, gbar = _adaptive_case("flagship", dev, 5, h=h, b=b, resolved=True, nz=nz)
+    assert args[3]["layers.0.weight"].shape[1] == n_in
+    bits = lambda o: [t.view(torch.int32) if t.dtype == torch.float32 else t
+                      for t in (o[0], o[1], *o[2], o[3])]
+    try:
+        fa._WIDE_PATH = f"cluster{c}"
+        first = bits(fa.fused_solve_dopri5_bwd(*args, 64, gbar))
+        assert all(torch.isfinite(t.view(torch.float32)).all() for t in first[:-1])
+        other = 0
+        for _ in range(REPEAT_CALLS):
+            got = bits(fa.fused_solve_dopri5_bwd(*args, 64, gbar))
+            other += not all(torch.equal(a, b) for a, b in zip(got, first))
+    finally:
+        fa._WIDE_PATH = None
+    assert other == 0, f"{other} of {REPEAT_CALLS} calls gave other bits"
+
+
 # K6's replay at every H the plan can pick for K5 (h = 4 ... 32, h = 12 at 12),
 # as its own kernel before the row walk; in the tiled walk's kernel (h = 33);
 # the row replay inside the tiled walk's kernel, where 122 conditions make the
@@ -1185,3 +1222,86 @@ def test_float64_fused_config_takes_the_unfused_route(dev, solver, kw):
         got[fused] = (loss.detach(), grads)
     assert torch.equal(got[True][0], got[False][0]) and bool(torch.isfinite(got[True][0]))
     assert all(torch.equal(a, b) for a, b in zip(got[True][1], got[False][1]))
+
+
+# ---- layout="feature_first": no kernel, the card's fit the CPU's ----
+
+FEATURE_FIRST = {  # fused=True routes that a batch-first config takes through K3, K1, K5
+    "rk4": (dict(method="rk4", gradient="backprop", fixed_steps=8), {}),
+    "ffjord": (dict(method="rk4", gradient="backprop", fixed_steps=8),
+               dict(lambda_1=0.0, lambda_2=0.0)),
+    "dopri5": (dict(method="dopri5", rtol=1e-4, atol=1e-4), dict(fused_adaptive=True)),
+}
+
+
+def _all_launches():
+    from continuousnormalizingflows_tpu_torch.ops.fused_adaptive import (
+        fused_solve_dopri5, fused_solve_dopri5_bwd)
+
+    return tuple(f.launches for f in (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fused_solve_rk4,
+                                      fused_solve_rk4_bwd, fused_solve_dopri5,
+                                      fused_solve_dopri5_bwd))
+
+
+@pytest.mark.parametrize("route", list(FEATURE_FIRST))
+def test_feature_first_fit_matches_the_cpu(dev, route):
+    """``ICNFModel.fit`` of a feature-first config with ``fused=True``, 3
+    steps on the card and on the CPU with the same draws (a CPU generator):
+    no kernel launches (the unfused route, as in JAX), params within the
+    solve tolerance rtol 5e-4 / atol 5e-5 and the losses too."""
+    solver, kw = FEATURE_FIRST[route]
+    icnf = cnf.ICNF.create(nvariables=2, solver=SolverConfig(**solver), fused=True,
+                           layout="feature_first", **kw)
+    x = 0.5 * torch.randn((384, 2), generator=torch.Generator().manual_seed(1))
+    p0 = icnf.init(torch.Generator().manual_seed(0), device="cpu")
+    before = _all_launches()
+    res = {}
+    for d in ("cpu", dev):
+        model = cnf.ICNFModel(icnf, batchsize=128, epochs=1, log_every=1, device=d,
+                              generator=torch.Generator().manual_seed(5))
+        res[torch.device(d).type] = model.fit(x, params={k: v.to(d) for k, v in p0.items()})
+    assert _all_launches() == before
+    cpu, card = res["cpu"], res["cuda"]
+    assert card.stats["iterations"] == cpu.stats["iterations"] == 3
+    torch.testing.assert_close(torch.tensor(card.history), torch.tensor(cpu.history),
+                               rtol=5e-4, atol=5e-5)
+    for k, v in cpu.params.items():
+        torch.testing.assert_close(card.params[k].cpu(), v, rtol=5e-4, atol=5e-5)
+
+
+def test_feature_first_entry_points_match_the_cpu(dev):
+    """The default stack on a feature-first config on the card against the
+    CPU (the draws on a CPU generator): ``inference`` (TEST), ``loss`` and
+    its gradients (TRAIN), ``generate_with_logp``, ``ICNFDist.logpdf``,
+    ``trajectory`` and the exported TEST log-density, each with the CPU's
+    steps, values within 5e-4 / 5e-5 (gradients 5e-4 of each tensor's
+    largest), and no kernel launched."""
+    from continuousnormalizingflows_tpu_torch.utils import export as ex
+
+    icnf = cnf.ICNF.create(nvariables=2, layout="feature_first", fused=True)
+    x = 0.5 * torch.randn((512, 2), generator=torch.Generator().manual_seed(1))
+    p0 = icnf.init(torch.Generator().manual_seed(0), device="cpu")
+    ts = torch.linspace(0.0, 1.0, 4)
+    before = _all_launches()
+    res = {}
+    for d in ("cpu", dev):
+        p = {k: v.to(d).requires_grad_() for k, v in p0.items()}
+        xd = x.to(d)
+        loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, xd, p, torch.Generator().manual_seed(3))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            lp, _a, st_test = cnf.inference(icnf, Mode.TEST, xd, p)
+            s, lps = cnf.generate_with_logp(icnf, Mode.TEST, p, torch.Generator().manual_seed(4),
+                                            256)
+            dens = cnf.ICNFDist(icnf, p).logpdf(xd)
+            path, _st = cnf.trajectory(icnf, xd[:64], p, ts.to(d))
+        served, nfe, _na, _nr = ex._export_logpdf(icnf, p, device=d).call(xd)
+        counts = [int(v) for c in (st, st_test) for v in (c.nfe, c.naccept, c.nreject)]
+        res[torch.device(d).type] = (counts + [int(nfe)], [loss.detach(), lp, s, lps, dens, path,
+                                                          served], grads)
+    assert _all_launches() == before
+    (cc, vc, gc), (cd, vd, gd) = res["cpu"], res["cuda"]
+    assert cd == cc
+    for a, b in zip(vd, vc):
+        torch.testing.assert_close(a.cpu(), b, rtol=5e-4, atol=5e-5)
+    _close_to_max([g.cpu() for g in gd], list(gc), 5e-4)

@@ -46,7 +46,7 @@ CASES4 = ["mesh", "roundtrip", "train_step", "adaptive", "grad_auto", "grad_nose
           "grad_noseminorm22",
           "tp_step", "tp_fused", "probe_axis", "sweep_axis", "estimator", "carry",
           "inventory", "fused_adaptive", "fused_adaptive_partial", "tp_probe", "tp_sweep",
-          "tp_noseminorm", "tp_noseminorm_fused", "dryrun"]
+          "tp_noseminorm", "tp_noseminorm_fused", "dryrun", "feature_first"]
 
 
 def _pack(prefix, layers):
@@ -359,6 +359,34 @@ def test_tensor_parallel_train_step_matches(run, inject, case, fused):
             assert counts["all_gather"] > 0
         else:  # Megatron's all-reduces, no gather
             assert counts["model"] > 0 and counts["all_gather"] == 0
+
+
+def _prefixed(per_rank, prefix):
+    return [{k[len(prefix):]: v for k, v in r.items() if k.startswith(prefix)} for r in per_rank]
+
+
+def test_feature_first_sharded_steps_match(run, inject):
+    """``layout="feature_first"`` on a mesh, each rank transposing its own
+    rows: the data-parallel step (4 x 1) and the tensor-parallel one (2 x 2,
+    h = 32 split 16 + 16) each equal JAX's feature-first step in one
+    process, as the batch-first steps above do."""
+    inputs, got = run
+    inject(inputs["train.eps"], inputs["train.t1"])
+    icnf = jcnf.ICNF.create(nvariables=2, solver=FAST, layout="feature_first")
+    p_ref, l_ref = _jax_step(icnf, _layers(inputs, "train.p"), jnp.asarray(inputs["train.x"]))
+    dp = _prefixed(got["feature_first"], "dp.")
+    _held_step(dp, p_ref, l_ref)
+    _same_on_every_rank(dp, "p.0.w")
+    inject(inputs["tp.eps"], inputs["tp.t1"])
+    cfg = jcnf.ICNFConfig(nvariables=2, solver=FAST, layout="feature_first")
+    icnf = jcnf.ICNF(config=cfg, net=JMLP((cfg.n_in, 32, 32, cfg.n_out)))
+    p_ref, l_ref = _jax_step(icnf, _layers(inputs, "tp.p"), jnp.asarray(inputs["tp.x"]))
+    tp = _prefixed(got["feature_first"], "tp.")
+    _held_step(tp, p_ref, l_ref)
+    for r in tp:
+        assert tuple(r["split"]) == (16, 16)
+        counts = dict(zip(ranks.COUNT_SITES, r["counts"]))
+        assert counts["grad"] == 1 and counts["model"] > 0 and counts["all_gather"] == 0
 
 
 def test_probe_axis_sharding_parity(run, inject):
