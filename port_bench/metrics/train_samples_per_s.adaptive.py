@@ -1,0 +1,7 @@
+"""Rows of every finished train step (the global batch) over the window's seconds, by the host clock."""
+
+from port_bench import readers
+
+
+def read(rec):
+    return readers.rate(rec)
