@@ -769,8 +769,6 @@ def samples_per_s(name, fn, n, reps=3):
 def slice_phase(dev, record):
     import continuousnormalizingflows_tpu_torch as cnf
     from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
-    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import fused_dynamics_vjp
-    from continuousnormalizingflows_tpu_torch.ops.fused_solve import fused_solve_rk4
     from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
 
     solver = SolverConfig(method="rk4", gradient="backprop", fixed_steps=STEPS)
@@ -801,18 +799,17 @@ def slice_phase(dev, record):
             "TRAIN sample_with_logpdf": (1, 0), "TRAIN loss": (1, 0)}
     with torch.no_grad():
         # the counted run of the main path: each call once
-        fused_solve_rk4.launches = 0
-        fused_dynamics_vjp.launches = 0
+        reset_counts()
         outs = {}
         for name, _mode, fn in calls(icnf):
-            k3, k1 = fused_solve_rk4.launches, fused_dynamics_vjp.launches
+            k3, k1 = counts()["K3"], counts()["K1"]
             outs[name] = fn()
-            moved = (fused_solve_rk4.launches - k3, fused_dynamics_vjp.launches - k1)
+            moved = (counts()["K3"] - k3, counts()["K1"] - k1)
             if moved != want.get(name, (0, 0)):
                 fail(f"{name}: kernel launches (K3, K1) = {moved}, expected "
                      f"{want.get(name, (0, 0))}")
         torch.cuda.synchronize()
-        launches = {"K3": fused_solve_rk4.launches, "K1": fused_dynamics_vjp.launches}
+        launches = {"K3": counts()["K3"], "K1": counts()["K1"]}
         log(f"  launches on the main path: {launches}")
         if launches["K3"] == 0 or launches["K1"] == 0:
             fail("a kernel of the path was not launched")
@@ -858,29 +855,22 @@ def slice_phase(dev, record):
     return launches
 
 
-def kernel_counters():
-    """The launch counter of every kernel, by name."""
-    from continuousnormalizingflows_tpu_torch.ops.fused_adaptive import (
-        fused_solve_dopri5, fused_solve_dopri5_bwd)
-    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (
-        fused_dynamics_vjp, fused_dynamics_vjp_bwd)
-    from continuousnormalizingflows_tpu_torch.ops.fused_solve import (
-        fused_solve_rk4, fused_solve_rk4_bwd)
-
-    return {"K1": fused_dynamics_vjp, "K2": fused_dynamics_vjp_bwd, "K3": fused_solve_rk4,
-            "K4": fused_solve_rk4_bwd, "K5": fused_solve_dopri5, "K6": fused_solve_dopri5_bwd}
-
-
 def counts():
-    return {k: fn.launches for k, fn in kernel_counters().items()}
+    """The launch counter of every kernel, by name (``K1`` ... ``K6``)."""
+    from continuousnormalizingflows_tpu_torch.utils import profiling
+
+    c = profiling.counters()
+    return {k: c.get(f"{k}.launches", 0) for k in KERNELS}
 
 
 def reset_counts():
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    from continuousnormalizingflows_tpu_torch.utils import profiling
+
+    profiling.reset_counters()
 
 
-NO_LAUNCH = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+NO_LAUNCH = {k: 0 for k in KERNELS}
 
 
 def timed_fit(name, icnf, data, epochs, want, dev, seed=7):

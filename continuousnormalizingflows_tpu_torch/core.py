@@ -42,6 +42,7 @@ from .ops.fused_adaptive import (_scfg_tuple, fused_adaptive_applicable, fused_a
 from .ops.fused_solve import fused_solve_applicable, fused_solve_rk4
 from .ops.ode import SolverStats, eval_dense, odeint_dense, odeint_device
 from .parallel import mesh as pmesh
+from .utils import profiling
 
 __all__ = [
     "base_logpdf",
@@ -147,35 +148,44 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
             raise ValueError(f"device_loop=True serves only Mode.TEST (the exported "
                              f"surfaces), not {mode}: the training modes take the kernels "
                              f"or the differentiable solve")
-        f_aug = make_augmented_dynamics(cfg, icnf.net, mode, device_loop=True)
-        u0, args = _layout_in(cfg, u0, {"params": params, "eps": eps, "ys": ys})
-        with torch.no_grad():
-            u1, stats = odeint_device(f_aug, u0, t0, t1, args, cfg.solver)
-        return _layout_out(cfg, u1), stats
+        profiling.count("solve.device_loop")
+        with profiling.span("solve", route="device_loop"):
+            f_aug = make_augmented_dynamics(cfg, icnf.net, mode, device_loop=True)
+            u0, args = _layout_in(cfg, u0, {"params": params, "eps": eps, "ys": ys})
+            with torch.no_grad():
+                u1, stats = odeint_device(f_aug, u0, t0, t1, args, cfg.solver)
+            return _layout_out(cfg, u1), stats
     if (eps is not None and fused_adaptive_applicable(cfg, icnf.net, mode)
             and fused_adaptive_tile(u0.shape[0], whole_groups=_split_rows())):
-        t_col = None if cfg.autonomous else cfg.nz
-        # the node buffer is device memory: dense_max_nodes is honored as given
-        # the kernels take the whole net: a tensor-parallel one's slices gathered
-        u1, rows = fused_solve_dopri5(u0, eps[0], ys, pmesh.whole_mlp_params(params),
-                                      (t0, t1), cfg.nz, t_col,
-                                      _scfg_tuple(cfg.solver), cfg.solver.dense_max_nodes)
-        return u1, stats_from_rows(rows, cfg.dtype)
+        profiling.count("solve.fused_adaptive")
+        with profiling.span("solve", route="fused_adaptive"):
+            t_col = None if cfg.autonomous else cfg.nz
+            # the node buffer is device memory: dense_max_nodes is honored as given
+            # the kernels take the whole net: a tensor-parallel one's slices gathered
+            u1, rows = fused_solve_dopri5(u0, eps[0], ys, pmesh.whole_mlp_params(params),
+                                          (t0, t1), cfg.nz, t_col,
+                                          _scfg_tuple(cfg.solver), cfg.solver.dense_max_nodes)
+            return u1, stats_from_rows(rows, cfg.dtype)
     if eps is not None and fused_solve_applicable(cfg, icnf.net, mode):
-        steps = cfg.solver.fixed_steps
-        cdt = torch.bfloat16 if icnf.net.precision != "highest" else None
-        t_col = None if cfg.autonomous else cfg.nz
-        u1 = fused_solve_rk4(u0, eps[0], ys, pmesh.whole_mlp_params(params), (t0, t1), cfg.nz,
-                             t_col, steps, cdt)
-        dt = (torch.as_tensor(t1, dtype=cfg.dtype, device=u0.device)
-              - torch.as_tensor(t0, dtype=cfg.dtype, device=u0.device)) / steps
-        return u1, SolverStats(4 * steps, steps, 0, dt)
-    f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
-    u0, args = _layout_in(cfg, u0, {"params": params, "eps": eps, "ys": ys})
-    if dt0 is not None:
-        args["dt0"] = dt0
-    u1, stats = odeint_diff(f_aug, u0, t0, t1, args, cfg.solver)
-    return _layout_out(cfg, u1), stats
+        profiling.count("solve.fused_rk4")
+        with profiling.span("solve", route="fused_rk4"):
+            steps = cfg.solver.fixed_steps
+            cdt = torch.bfloat16 if icnf.net.precision != "highest" else None
+            t_col = None if cfg.autonomous else cfg.nz
+            u1 = fused_solve_rk4(u0, eps[0], ys, pmesh.whole_mlp_params(params), (t0, t1),
+                                 cfg.nz, t_col, steps, cdt)
+            with profiling.host_read("solve.stats"):  # a float end: a synchronizing copy
+                dt = (torch.as_tensor(t1, dtype=cfg.dtype, device=u0.device)
+                      - torch.as_tensor(t0, dtype=cfg.dtype, device=u0.device)) / steps
+            return u1, SolverStats(4 * steps, steps, 0, dt)
+    profiling.count("solve.unfused")
+    with profiling.span("solve", route="unfused"):
+        f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
+        u0, args = _layout_in(cfg, u0, {"params": params, "eps": eps, "ys": ys})
+        if dt0 is not None:
+            args["dt0"] = dt0
+        u1, stats = odeint_diff(f_aug, u0, t0, t1, args, cfg.solver)
+        return _layout_out(cfg, u1), stats
 
 
 def _layout_in(cfg: ICNFConfig, u0: torch.Tensor, args: dict):

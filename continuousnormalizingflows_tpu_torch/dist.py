@@ -19,6 +19,7 @@ from .config import Mode
 from .core import _device_of, generate, generate_with_logp, inference
 from .models.icnf import ICNF
 from .models.nets import Params
+from .utils import profiling
 
 __all__ = ["ICNFDist", "CondICNFDist"]
 
@@ -76,13 +77,14 @@ class ICNFDist:
 
     def logpdf(self, x, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Log-density; ``(d,)`` gives a scalar, ``(n, d)`` gives ``(n,)``."""
-        cfg = self.icnf.config
-        x = torch.as_tensor(x, dtype=cfg.dtype, device=_device_of(self.params))
-        x = _shim_layout(x, cfg.nvariables)
-        ys = self._ys_for(x.shape[0] if x.ndim > 1 else 1)
-        logpx, _augs, _stats = inference(self.icnf, self.mode, x, self.params,
-                                         generator or self.generator, ys)
-        return logpx
+        with profiling.span("logpdf.call"):
+            cfg = self.icnf.config
+            x = torch.as_tensor(x, dtype=cfg.dtype, device=_device_of(self.params))
+            x = _shim_layout(x, cfg.nvariables)
+            ys = self._ys_for(x.shape[0] if x.ndim > 1 else 1)
+            logpx, _augs, _stats = inference(self.icnf, self.mode, x, self.params,
+                                             generator or self.generator, ys)
+            return logpx
 
     def pdf(self, x, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return torch.exp(self.logpdf(x, generator))

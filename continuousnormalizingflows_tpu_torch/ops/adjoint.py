@@ -40,6 +40,7 @@ import torch
 
 from ..config import DEFAULT_FIXED_DT0, SolverConfig
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 from .ode import SHARED, SPLIT, SolverStats, _leaves, eval_dense, odeint, odeint_dense
 
 __all__ = ["odeint_diff"]
@@ -219,7 +220,7 @@ class _Backsolve(torch.autograd.Function):
             return tuple(dy) + tuple(-v for v in a_y) + tuple(-v for v in a_d)
 
         state1 = tuple(y1) + tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("adjoint.backward"):
             state0, _nfe = odeint(aug_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
                                   dt0_override=_bwd_dt0(args_nd))
         state0 = _leaves(state0)
@@ -262,7 +263,7 @@ class _Quadrature(torch.autograd.Function):
             return tuple(-v for v in a_y) + tuple(-v for v in a_d)
 
         state1 = tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("adjoint.backward"):
             state0, _nfe = odeint(adj_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
                                   dt0_override=_bwd_dt0(args_nd))
             state0 = _leaves(state0)
@@ -286,7 +287,9 @@ def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig) -> Tuple[Any, SolverStat
     d_leaves, build_d = _flatten(args_d)
     device = y_leaves[0].device
     tdt = y_leaves[0].dtype if y_leaves[0].dtype.is_floating_point else torch.float32
-    t0, t1 = (torch.as_tensor(t, dtype=tdt, device=device) for t in (t0, t1))
+    # a float end is copied to the card from pageable memory: it waits for the stream
+    with profiling.host_read("adjoint.times"):
+        t0, t1 = (torch.as_tensor(t, dtype=tdt, device=device) for t in (t0, t1))
     needs = torch.is_grad_enabled() and any(
         t.requires_grad for t in (t0, t1, *y_leaves, *d_leaves))
     if not needs:

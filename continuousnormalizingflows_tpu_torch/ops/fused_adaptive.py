@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from ..config import DEFAULT_FIXED_DT0, ICNFConfig, Mode, SolverConfig, TraceEstimator
 from ..models.nets import MLP, Params
 from . import _build
+from ..utils import profiling
 from .fused_dynamics import (_ptr, fused_dynamics_vjp_bwd_reference, kernel_operands,
                              mlp3_forward_vjp_reference, params_of, split_grads, transposes,
                              weights_of)
@@ -142,7 +143,8 @@ def stats_from_rows(rows: torch.Tensor, tdt=torch.float32) -> SolverStats:
     smallest-magnitude final step, as 0-d device tensors (no host read).
     Inside a sharded step, over every rank's groups (one collective)."""
     worst = torch.amax(rows[:, :3], dim=0)
-    dt = rows[torch.argmin(torch.abs(rows[:, 3])), 3]
+    with profiling.host_read("solve.stats"):  # indexing by a device scalar reads it
+        dt = rows[torch.argmin(torch.abs(rows[:, 3])), 3]
     if pmesh.active() is not None:
         both = pmesh.reduce_max(torch.cat([worst, -torch.abs(dt)[None]]))
         worst, dt = both[:3], torch.sign(dt) * -both[3]
@@ -217,7 +219,9 @@ class _Replay(NamedTuple):
 
 
 def _times(u0, tspan):
-    return tuple(torch.as_tensor(t, dtype=u0.dtype, device=u0.device) for t in tspan)
+    # a float end is copied to the card from pageable memory: it waits for the stream
+    with profiling.host_read("solve.times"):
+        return tuple(torch.as_tensor(t, dtype=u0.dtype, device=u0.device) for t in tspan)
 
 
 def _stage_fn(eps, ys, params, nz, t_col):
@@ -427,76 +431,81 @@ def _solver_args(scfg):
 
 def _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group):
     """K5 on CUDA tensors: ``(u1, stats rows, the weight image or None)``."""
-    weights = kernel_operands(weights, u0, eps, ys, t0, t1)
-    b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
-    a1, b1, a2, b2, a3, b3 = weights
-    path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
-    # the products read the transposes where the weights are not in shared memory
-    w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd))
-    u0, eps = u0.contiguous(), eps.contiguous()
-    ys = None if ys is None else ys.contiguous()
-    dev = u0.device
-    u1 = torch.empty_like(u0)
-    rows = torch.empty((b // group, 4), dtype=torch.float32, device=dev)
-    state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
-    lib = _build.kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cnf_fused_adaptive_fwd(
-            _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
-            _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
-            _ptr(state), _ptr(u1), _ptr(rows), b, sd, n_in, h, n_out, nz, nc,
-            -1 if t_col is None else t_col, group, path, *_solver_args(scfg), stream,
-        )
-    _build.check(err, "fused_adaptive_fwd")
-    fused_solve_dopri5.launches += 1
-    return u1, rows, image
+    with profiling.span("K5"):
+        weights = kernel_operands(weights, u0, eps, ys, t0, t1)
+        b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
+        a1, b1, a2, b2, a3, b3 = weights
+        path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
+        # the products read the transposes where the weights are not in shared memory
+        w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd))
+        u0, eps = u0.contiguous(), eps.contiguous()
+        ys = None if ys is None else ys.contiguous()
+        dev = u0.device
+        u1 = torch.empty_like(u0)
+        rows = torch.empty((b // group, 4), dtype=torch.float32, device=dev)
+        state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
+        lib = _build.kernels()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            with profiling.span("K5.call"):
+                err = lib.cnf_fused_adaptive_fwd(
+                    _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
+                    _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
+                    _ptr(state), _ptr(u1), _ptr(rows), b, sd, n_in, h, n_out, nz, nc,
+                    -1 if t_col is None else t_col, group, path, *_solver_args(scfg), stream,
+                )
+        _build.check(err, "fused_adaptive_fwd")
+        profiling.count("K5.launches")
+        return u1, rows, image
 
 
 def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group,
                 image=None):
     """K6 on CUDA tensors; ``image``: K5's weight image of the same step, if any."""
-    weights = kernel_operands(weights, u0, eps, ys, t0, t1, gbar)
-    b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
-    if gbar.shape != u0.shape:
-        raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
-    if max_nodes < 1:
-        raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
-    a1, b1, a2, b2, a3, b3 = weights
-    path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group, image)
-    w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd and cp.res_bwd))
-    u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
-    ys = None if ys is None else ys.contiguous()
-    dev = u0.device
-    n_groups = b // group
-    n_params = sum(w.numel() for w in weights)
-    u0bar = torch.empty_like(u0)
-    epsbar = torch.empty_like(eps)
-    state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
-    traj = torch.empty((max_nodes, nz, b), dtype=torch.float32, device=dev)
-    tdt = torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=dev)
-    # a row of weight-gradient partial sums for each block of the walk back
-    # (on the cluster path, each group's cluster writes one row); `done` is
-    # the row walk's own scratch (the walk a kernel apart from the replay)
-    walk_h, walk_blocks = _build.adaptive_plan(n_in, h, n_out, nz, sd, group)[5:]
-    rows = n_groups * (1 if cp.cluster else walk_blocks)
-    partial = torch.empty((rows, n_params), dtype=torch.float32, device=dev)
-    grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
-    nacc = torch.empty((n_groups,), dtype=torch.int32, device=dev)
-    done = torch.empty((n_groups,), dtype=torch.int32, device=dev) if walk_h else None
-    lib = _build.kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cnf_fused_adaptive_bwd(
-            _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
-            _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
-            _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(state), _ptr(traj), _ptr(tdt),
-            _ptr(partial), _ptr(grads), _ptr(nacc), _ptr(done), b, sd, n_in, h, n_out, nz, nc,
-            -1 if t_col is None else t_col, group, path, max_nodes, *_solver_args(scfg), stream,
-        )
-    _build.check(err, "fused_adaptive_bwd")
-    fused_solve_dopri5_bwd.launches += 1
-    return u0bar, epsbar, split_grads(grads, n_in, h, n_out), nacc
+    with profiling.span("K6"):
+        weights = kernel_operands(weights, u0, eps, ys, t0, t1, gbar)
+        b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
+        if gbar.shape != u0.shape:
+            raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
+        if max_nodes < 1:
+            raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
+        a1, b1, a2, b2, a3, b3 = weights
+        path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group, image)
+        w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd and cp.res_bwd))
+        u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
+        ys = None if ys is None else ys.contiguous()
+        dev = u0.device
+        n_groups = b // group
+        n_params = sum(w.numel() for w in weights)
+        u0bar = torch.empty_like(u0)
+        epsbar = torch.empty_like(eps)
+        state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
+        traj = torch.empty((max_nodes, nz, b), dtype=torch.float32, device=dev)
+        tdt = torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=dev)
+        # a row of weight-gradient partial sums for each block of the walk back
+        # (on the cluster path, each group's cluster writes one row); `done` is
+        # the row walk's own scratch (the walk a kernel apart from the replay)
+        walk_h, walk_blocks = _build.adaptive_plan(n_in, h, n_out, nz, sd, group)[5:]
+        rows = n_groups * (1 if cp.cluster else walk_blocks)
+        partial = torch.empty((rows, n_params), dtype=torch.float32, device=dev)
+        grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
+        nacc = torch.empty((n_groups,), dtype=torch.int32, device=dev)
+        done = torch.empty((n_groups,), dtype=torch.int32, device=dev) if walk_h else None
+        lib = _build.kernels()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            with profiling.span("K6.call"):
+                err = lib.cnf_fused_adaptive_bwd(
+                    _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
+                    _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
+                    _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(state), _ptr(traj), _ptr(tdt),
+                    _ptr(partial), _ptr(grads), _ptr(nacc), _ptr(done), b, sd, n_in, h, n_out,
+                    nz, nc, -1 if t_col is None else t_col, group, path, max_nodes,
+                    *_solver_args(scfg), stream,
+                )
+        _build.check(err, "fused_adaptive_bwd")
+        profiling.count("K6.launches")
+        return u0bar, epsbar, split_grads(grads, n_in, h, n_out), nacc
 
 
 def _device_check(u0, what):
@@ -577,8 +586,3 @@ def fused_solve_dopri5(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.T
     t0, t1 = _times(u0, tspan)
     static = (nz, t_col, tuple(scfg), int(max_nodes), group)
     return _FusedAdaptive.apply(u0, eps, ys, t0, t1, static, *weights_of(params))
-
-
-# launches of the CUDA kernels since the last reset (plain counters)
-fused_solve_dopri5.launches = 0
-fused_solve_dopri5_bwd.launches = 0

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..models.nets import Params, _round_bf16, linear, mlp_layers
 from . import _build
+from ..utils import profiling
 
 __all__ = [
     "fused_dynamics_vjp",
@@ -188,32 +189,34 @@ def _check_stage(x, eps, weights, nz):
 
 def _launch_fwd(x, eps, weights, nz, compute_dtype) -> Out5:
     """K1 on CUDA tensors."""
-    bf16 = _precision(compute_dtype) == "default"
-    weights = kernel_operands(weights, x, eps)
-    b, n_in, h, n_out = _check_stage(x, eps, weights, nz)
-    plan = _build.fwd_plan(n_in, h, n_out, nz, b)
-    if plan.rows == 0:
-        raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
-    a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
-    x, eps = x.contiguous(), eps.contiguous()
-    y = torch.empty((b, nz), dtype=torch.float32, device=x.device)
-    ez = torch.empty((b, nz), dtype=torch.float32, device=x.device)
-    div, reg_z, reg_j = (torch.empty((b,), dtype=torch.float32, device=x.device)
-                         for _ in range(3))
-    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
-    lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cnf_fused_dynamics_fwd(
-            _ptr(x), _ptr(eps), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3), _ptr(b3),
-            _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(y), _ptr(ez),
-            _ptr(div), _ptr(reg_z), _ptr(reg_j), _ptr(scratch),
-            b, n_in, h, n_out, nz, int(bf16), stream,
-        )
-    _build.check(err, "fused_dynamics_fwd")
-    fused_dynamics_vjp.launches += 1
-    return y, ez, div, reg_z, reg_j
+    with profiling.span("K1"):
+        bf16 = _precision(compute_dtype) == "default"
+        weights = kernel_operands(weights, x, eps)
+        b, n_in, h, n_out = _check_stage(x, eps, weights, nz)
+        plan = _build.fwd_plan(n_in, h, n_out, nz, b)
+        if plan.rows == 0:
+            raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
+        a1, b1, a2, b2, a3, b3 = weights
+        w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
+        x, eps = x.contiguous(), eps.contiguous()
+        y = torch.empty((b, nz), dtype=torch.float32, device=x.device)
+        ez = torch.empty((b, nz), dtype=torch.float32, device=x.device)
+        div, reg_z, reg_j = (torch.empty((b,), dtype=torch.float32, device=x.device)
+                             for _ in range(3))
+        scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
+        lib = _build.kernels()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            with profiling.span("K1.call"):
+                err = lib.cnf_fused_dynamics_fwd(
+                    _ptr(x), _ptr(eps), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3), _ptr(b3),
+                    _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(y), _ptr(ez),
+                    _ptr(div), _ptr(reg_z), _ptr(reg_j), _ptr(scratch),
+                    b, n_in, h, n_out, nz, int(bf16), stream,
+                )
+        _build.check(err, "fused_dynamics_fwd")
+        profiling.count("K1.launches")
+        return y, ez, div, reg_z, reg_j
 
 
 def split_grads(grads: torch.Tensor, n_in: int, h: int, n_out: int):
@@ -225,37 +228,39 @@ def split_grads(grads: torch.Tensor, n_in: int, h: int, n_out: int):
 
 def _launch_bwd(x, eps, weights, nz, cotangents, compute_dtype):
     """K2 on CUDA tensors."""
-    bf16 = _precision(compute_dtype) == "default"
-    weights = kernel_operands(weights, x, eps, *cotangents)
-    b, n_in, h, n_out = _check_stage(x, eps, weights, nz)
-    shapes = [(b, nz), (b, nz), (b,), (b,), (b,)]
-    if [tuple(c.shape) for c in cotangents] != shapes:
-        raise ValueError(f"cotangent shapes {[tuple(c.shape) for c in cotangents]}, "
-                         f"expected {shapes}")
-    plan = _build.bwd_plan(n_in, h, n_out, nz, 0, b)
-    if plan.rows == 0:
-        raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
-    a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
-    x, eps = x.contiguous(), eps.contiguous()
-    ybar, ebar, divbar, rzbar, rjbar = (c.contiguous() for c in cotangents)
-    xbar = torch.empty((b, n_in), dtype=torch.float32, device=x.device)
-    epsbar = torch.empty((b, nz), dtype=torch.float32, device=x.device)
-    partial = torch.empty((plan.grid, plan.n_params), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
-    grads = torch.empty((plan.n_params,), dtype=torch.float32, device=x.device)
-    lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cnf_fused_dynamics_bwd(
-            _ptr(x), _ptr(eps), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3), _ptr(b3),
-            _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(ybar), _ptr(ebar), _ptr(divbar),
-            _ptr(rzbar), _ptr(rjbar), _ptr(xbar), _ptr(epsbar), _ptr(partial), _ptr(scratch),
-            _ptr(grads), b, n_in, h, n_out, nz, int(bf16), stream,
-        )
-    _build.check(err, "fused_dynamics_bwd")
-    fused_dynamics_vjp_bwd.launches += 1
-    return xbar, epsbar, split_grads(grads, n_in, h, n_out)
+    with profiling.span("K2"):
+        bf16 = _precision(compute_dtype) == "default"
+        weights = kernel_operands(weights, x, eps, *cotangents)
+        b, n_in, h, n_out = _check_stage(x, eps, weights, nz)
+        shapes = [(b, nz), (b, nz), (b,), (b,), (b,)]
+        if [tuple(c.shape) for c in cotangents] != shapes:
+            raise ValueError(f"cotangent shapes {[tuple(c.shape) for c in cotangents]}, "
+                             f"expected {shapes}")
+        plan = _build.bwd_plan(n_in, h, n_out, nz, 0, b)
+        if plan.rows == 0:
+            raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
+        a1, b1, a2, b2, a3, b3 = weights
+        w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
+        x, eps = x.contiguous(), eps.contiguous()
+        ybar, ebar, divbar, rzbar, rjbar = (c.contiguous() for c in cotangents)
+        xbar = torch.empty((b, n_in), dtype=torch.float32, device=x.device)
+        epsbar = torch.empty((b, nz), dtype=torch.float32, device=x.device)
+        partial = torch.empty((plan.grid, plan.n_params), dtype=torch.float32, device=x.device)
+        scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
+        grads = torch.empty((plan.n_params,), dtype=torch.float32, device=x.device)
+        lib = _build.kernels()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            with profiling.span("K2.call"):
+                err = lib.cnf_fused_dynamics_bwd(
+                    _ptr(x), _ptr(eps), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3), _ptr(b3),
+                    _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(ybar), _ptr(ebar), _ptr(divbar),
+                    _ptr(rzbar), _ptr(rjbar), _ptr(xbar), _ptr(epsbar), _ptr(partial),
+                    _ptr(scratch), _ptr(grads), b, n_in, h, n_out, nz, int(bf16), stream,
+                )
+        _build.check(err, "fused_dynamics_bwd")
+        profiling.count("K2.launches")
+        return xbar, epsbar, split_grads(grads, n_in, h, n_out)
 
 
 def fused_dynamics_vjp_bwd(x: torch.Tensor, eps: torch.Tensor, params: Params, nz: int,
@@ -303,8 +308,3 @@ def fused_dynamics_vjp(x: torch.Tensor, eps: torch.Tensor, params: Params, nz: i
         raise ValueError(f"fused_dynamics_vjp runs on CPU or CUDA tensors, got {x.device}")
     _precision(compute_dtype)
     return _FusedDynamics.apply(x, eps, nz, compute_dtype, *weights_of(params))
-
-
-# launches of the CUDA kernels since the last reset (plain counters)
-fused_dynamics_vjp.launches = 0
-fused_dynamics_vjp_bwd.launches = 0

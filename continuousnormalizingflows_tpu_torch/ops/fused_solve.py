@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..config import ICNFConfig, Mode, TraceEstimator
 from ..models.nets import MLP, Params
 from . import _build
+from ..utils import profiling
 from .fused_dynamics import (_ptr, _precision, fused_dynamics_vjp_bwd_reference,
                              kernel_operands, mlp3_forward_vjp_reference, params_of,
                              split_grads, transposes, weights_of)
@@ -71,8 +72,10 @@ def fused_solve_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
 
 def _times(u0: torch.Tensor, tspan, steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``t0`` and ``dt = (t1 - t0)/steps`` as float32 scalars on ``u0``'s device
-    (either end may be a device tensor, e.g. a steered ``t1``)."""
-    t0, t1 = (torch.as_tensor(t, dtype=torch.float32, device=u0.device) for t in tspan)
+    (either end may be a device tensor, e.g. a steered ``t1``).  A float end
+    is copied to the card from pageable memory, which waits for the stream."""
+    with profiling.host_read("solve.times"):
+        t0, t1 = (torch.as_tensor(t, dtype=torch.float32, device=u0.device) for t in tspan)
     return t0, (t1 - t0) / steps
 
 
@@ -203,67 +206,71 @@ def _check_solve(u0, eps, ys, weights, nz, t_col):
 
 def _launch_fwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, compute_dtype):
     """K3 on CUDA tensors."""
-    bf16 = _precision(compute_dtype) == "default"
-    weights = kernel_operands(weights, u0, eps, ys, t0, dt)
-    b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
-    plan = _build.plan(n_in, h, n_out, n_out, sd, b)
-    if plan.rows == 0:
-        raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
-    a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
-    u0, eps = u0.contiguous(), eps.contiguous()
-    ys = None if ys is None else ys.contiguous()
-    u1 = torch.empty_like(u0)
-    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=u0.device)
-    lib = _build.kernels()
-    with torch.cuda.device(u0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cnf_fused_solve_rk4_fwd(
-            _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2),
-            _ptr(a3), _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(dt), _ptr(u1),
-            _ptr(scratch), b, sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, steps,
-            int(bf16), stream,
-        )
-    _build.check(err, "fused_solve_rk4_fwd")
-    fused_solve_rk4.launches += 1
-    return u1
+    with profiling.span("K3"):
+        bf16 = _precision(compute_dtype) == "default"
+        weights = kernel_operands(weights, u0, eps, ys, t0, dt)
+        b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
+        plan = _build.plan(n_in, h, n_out, n_out, sd, b)
+        if plan.rows == 0:
+            raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
+        a1, b1, a2, b2, a3, b3 = weights
+        w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
+        u0, eps = u0.contiguous(), eps.contiguous()
+        ys = None if ys is None else ys.contiguous()
+        u1 = torch.empty_like(u0)
+        scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=u0.device)
+        lib = _build.kernels()
+        with torch.cuda.device(u0.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            with profiling.span("K3.call"):
+                err = lib.cnf_fused_solve_rk4_fwd(
+                    _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2),
+                    _ptr(a3), _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(dt),
+                    _ptr(u1), _ptr(scratch), b, sd, n_in, h, n_out, nz, nc,
+                    -1 if t_col is None else t_col, steps, int(bf16), stream,
+                )
+        _build.check(err, "fused_solve_rk4_fwd")
+        profiling.count("K3.launches")
+        return u1
 
 
 def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dtype):
     """K4 on CUDA tensors."""
-    bf16 = _precision(compute_dtype) == "default"
-    weights = kernel_operands(weights, u0, eps, ys, t0, dt, gbar)
-    b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
-    if gbar.shape != u0.shape:
-        raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
-    plan = _build.bwd_plan(n_in, h, n_out, nz, sd, b)
-    if plan.rows == 0:
-        raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
-    a1, b1, a2, b2, a3, b3 = weights
-    w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
-    u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
-    ys = None if ys is None else ys.contiguous()
-    dev = u0.device
-    u0bar = torch.empty_like(u0)
-    epsbar = torch.empty_like(eps)
-    # scratch of the step trajectory, steps x B x nz floats in the layout of the path
-    traj = torch.empty((steps * b * nz,), dtype=torch.float32, device=dev)
-    partial = torch.empty((plan.grid, plan.n_params), dtype=torch.float32, device=dev)
-    scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=dev)
-    grads = torch.empty((plan.n_params,), dtype=torch.float32, device=dev)
-    lib = _build.kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cnf_fused_solve_rk4_bwd(
-            _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2),
-            _ptr(a3), _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(dt),
-            _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(traj), _ptr(partial), _ptr(scratch),
-            _ptr(grads), b, sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, steps,
-            int(bf16), stream,
-        )
-    _build.check(err, "fused_solve_rk4_bwd")
-    fused_solve_rk4_bwd.launches += 1
-    return u0bar, epsbar, split_grads(grads, n_in, h, n_out)
+    with profiling.span("K4"):
+        bf16 = _precision(compute_dtype) == "default"
+        weights = kernel_operands(weights, u0, eps, ys, t0, dt, gbar)
+        b, sd, n_in, h, n_out, nc = _check_solve(u0, eps, ys, weights, nz, t_col)
+        if gbar.shape != u0.shape:
+            raise ValueError(f"cotangent shape {tuple(gbar.shape)}, expected {tuple(u0.shape)}")
+        plan = _build.bwd_plan(n_in, h, n_out, nz, sd, b)
+        if plan.rows == 0:
+            raise ValueError(f"widths n_in={n_in}, h={h}: one row does not fit the kernel")
+        a1, b1, a2, b2, a3, b3 = weights
+        w1t, w2t, w3t = transposes(weights, plan.staged or plan.path == "wide")
+        u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
+        ys = None if ys is None else ys.contiguous()
+        dev = u0.device
+        u0bar = torch.empty_like(u0)
+        epsbar = torch.empty_like(eps)
+        # scratch of the step trajectory, steps x B x nz floats in the layout of the path
+        traj = torch.empty((steps * b * nz,), dtype=torch.float32, device=dev)
+        partial = torch.empty((plan.grid, plan.n_params), dtype=torch.float32, device=dev)
+        scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=dev)
+        grads = torch.empty((plan.n_params,), dtype=torch.float32, device=dev)
+        lib = _build.kernels()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            with profiling.span("K4.call"):
+                err = lib.cnf_fused_solve_rk4_bwd(
+                    _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2),
+                    _ptr(a3), _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(t0), _ptr(dt),
+                    _ptr(gbar), _ptr(u0bar), _ptr(epsbar), _ptr(traj), _ptr(partial),
+                    _ptr(scratch), _ptr(grads), b, sd, n_in, h, n_out, nz, nc,
+                    -1 if t_col is None else t_col, steps, int(bf16), stream,
+                )
+        _build.check(err, "fused_solve_rk4_bwd")
+        profiling.count("K4.launches")
+        return u0bar, epsbar, split_grads(grads, n_in, h, n_out)
 
 
 def _bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dtype):
@@ -324,8 +331,3 @@ def fused_solve_rk4(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tens
     t0, dt = _times(u0, tspan, steps)
     return _FusedSolve.apply(u0, eps, ys, t0, dt, nz, t_col, steps, compute_dtype,
                              *weights_of(params))
-
-
-# launches of the CUDA kernels since the last reset (plain counters)
-fused_solve_rk4.launches = 0
-fused_solve_rk4_bwd.launches = 0

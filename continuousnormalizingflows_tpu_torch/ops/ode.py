@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ABM_MAX_ORDER, DEFAULT_FIXED_DT0, SolverConfig
 from ..parallel.mesh import global_mean
+from ..utils import profiling
 
 __all__ = ["odeint", "odeint_fixed", "odeint_dopri5", "odeint_abm", "odeint_dopri5_dense",
            "odeint_abm_dense", "odeint_dense", "odeint_device", "eval_dense", "DenseSolution",
@@ -297,7 +298,8 @@ def _initial_dt(f, t0, y0, f0, args, cfg, span, direction, err_order, tdt, overr
         return direction * dt, 0
     if not isinstance(cfg.dt0, str):
         return span * torch.as_tensor(float(cfg.dt0), dtype=tdt), 0
-    tiny = torch.tensor(1e-6, dtype=tdt, device=span.device)
+    with profiling.host_read("ode.start"):  # a copy from pageable memory: waits for the stream
+        tiny = torch.tensor(1e-6, dtype=tdt, device=span.device)
     d0 = _wnorm(y0, y0, cfg)
     d1 = _wnorm(f0, y0, cfg)
     h0 = torch.where(torch.minimum(d0, d1) < 1e-5, tiny,
@@ -398,9 +400,12 @@ def _adaptive_loop(f, y0, t0, t1, args, cfg, error_weight, dt0_override, on_acce
     if on_accept is not None:
         on_accept(t0, y0, k1)
     while steps < cfg.max_steps:
-        y5, k7, t, dt, accept, done_t, fail_t = _trial(ctl, f, t, dt, y, k1, args)
-        # the one host read of the trial step
-        stop, acc, done = torch.stack([done_t | fail_t, accept, done_t]).tolist()
+        with profiling.span("ode.trial"):
+            y5, k7, t, dt, accept, done_t, fail_t = _trial(ctl, f, t, dt, y, k1, args)
+            flags = torch.stack([done_t | fail_t, accept, done_t])
+            # the one host read of the trial step
+            with profiling.host_read("ode.trial"):
+                stop, acc, done = flags.tolist()
         nfe, steps = nfe + n_evals, steps + 1
         if acc:
             nacc += 1
@@ -842,9 +847,12 @@ def _abm_loop(f, y0, t0, t1, args, cfg, error_weight, on_accept=None) -> _Loop:
     if on_accept is not None:
         on_accept(s.t, s.y, f0)
     while steps < cfg.max_steps:
-        trial = _abm_trial(ctl, f, s, args)
-        # the one host read of the trial step
-        acc, done, fail = torch.stack([trial.accept, trial.done, trial.fail]).tolist()
+        with profiling.span("ode.trial"):
+            trial = _abm_trial(ctl, f, s, args)
+            flags = torch.stack([trial.accept, trial.done, trial.fail])
+            # the one host read of the trial step
+            with profiling.host_read("ode.trial"):
+                acc, done, fail = flags.tolist()
         nfe, steps = nfe + 2, steps + 1
         if acc:
             nacc += 1

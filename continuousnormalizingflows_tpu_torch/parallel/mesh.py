@@ -39,6 +39,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import resolve_device
+from ..utils import profiling
 
 __all__ = [
     "make_mesh",
@@ -534,7 +535,8 @@ def shard_train_step(step: Callable, mesh: DeviceMesh, conditional: bool = False
             loss.backward()
             ctx.tp_sharded = _tp_sharded(params) if ctx.tensor_parallel else set()
             loss = _reduce_bucket(ctx, list(params.values()), loss.detach())
-            optimizer.step()
+            with profiling.span("optimizer.step"):
+                optimizer.step()
         sharded.counts = dict(ctx.counts)
         return (loss, *aux)
 
@@ -547,19 +549,20 @@ def _reduce_bucket(ctx: _Shards, tensors, loss: torch.Tensor) -> torch.Tensor:
     then each divided by the ranks summed, and the gradients summed over the
     batch already (the adjoint's) by the data ranks: the global mean loss and
     the gradient of the global mean."""
-    todo = [p.grad for p in tensors if p.grad is not None and id(p) not in ctx.summed]
-    flat = torch.cat([loss.reshape(1).to(torch.float32)]
-                     + [g.reshape(-1).to(torch.float32) for g in todo])
-    _all_reduce(flat, ctx.grad_group, site="grad")
-    flat = flat / ctx.grad_size
-    i = 1
-    for g in todo:
-        g.copy_(flat[i:i + g.numel()].view_as(g))
-        i += g.numel()
-    for p in tensors:
-        if p.grad is not None and id(p) in ctx.summed:
-            p.grad.div_(ctx.data_size)
-    return flat[0].to(loss.dtype)
+    with profiling.span("bucket"):
+        todo = [p.grad for p in tensors if p.grad is not None and id(p) not in ctx.summed]
+        flat = torch.cat([loss.reshape(1).to(torch.float32)]
+                         + [g.reshape(-1).to(torch.float32) for g in todo])
+        _all_reduce(flat, ctx.grad_group, site="grad")
+        flat = flat / ctx.grad_size
+        i = 1
+        for g in todo:
+            g.copy_(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
+        for p in tensors:
+            if p.grad is not None and id(p) in ctx.summed:
+                p.grad.div_(ctx.data_size)
+        return flat[0].to(loss.dtype)
 
 
 def clip_sq_norm(params_and_grads) -> torch.Tensor:

@@ -52,6 +52,7 @@ from .dist import _shim_layout
 from .models.icnf import ICNF
 from .ops.fused_adaptive import fused_adaptive_applicable, fused_adaptive_tile
 from .parallel import mesh as pmesh
+from .utils import profiling
 
 __all__ = ["default_optimizer", "ClippedAdam", "FitResult", "ICNFModel", "CondICNFModel"]
 
@@ -257,7 +258,8 @@ class ICNFModel:
             opt.zero_grad(set_to_none=True)
             l, stats = self._loss_step(params, generator, xb, yb, *extra)
             l.backward()
-            opt.step()
+            with profiling.span("optimizer.step"):
+                opt.step()
             return l.detach(), stats
 
         return step
@@ -297,135 +299,141 @@ class ICNFModel:
         evaluations in a row without improvement (a non-finite NLL counts as
         none).  Validation draws nothing from the generator, so a validated
         run trains the same bits as an unvalidated one up to its stop."""
-        icnf = self.icnf
-        cfg = icnf.config
-        device = self.device
-        xs_all = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=device)
-        if xs_all.ndim != 2 or xs_all.shape[1] != cfg.nvariables:
-            raise ValueError(f"X must be (n, {cfg.nvariables}), got {tuple(xs_all.shape)}")
-        ys_all = None
-        if self._conditional:
-            if Y is None:
-                raise ValueError("conditional model requires Y")
-            ys_all = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
-            if ys_all.shape != (xs_all.shape[0], cfg.nconditions):
-                raise ValueError(
-                    f"Y must be (n, {cfg.nconditions}), got {tuple(ys_all.shape)}")
-        n = xs_all.shape[0]
+        with profiling.span("fit.call"):
+            icnf = self.icnf
+            cfg = icnf.config
+            device = self.device
+            xs_all = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=device)
+            if xs_all.ndim != 2 or xs_all.shape[1] != cfg.nvariables:
+                raise ValueError(f"X must be (n, {cfg.nvariables}), got {tuple(xs_all.shape)}")
+            ys_all = None
+            if self._conditional:
+                if Y is None:
+                    raise ValueError("conditional model requires Y")
+                ys_all = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+                if ys_all.shape != (xs_all.shape[0], cfg.nconditions):
+                    raise ValueError(
+                        f"Y must be (n, {cfg.nconditions}), got {tuple(ys_all.shape)}")
+            n = xs_all.shape[0]
 
-        val_active = validation_data is not None
-        xval = yval = None
-        if val_active:
-            if int(eval_every) < 1:
-                raise ValueError(f"eval_every must be >= 1, got {eval_every}")
-            if isinstance(validation_data, (tuple, list)):
-                xval, yval = validation_data
+            val_active = validation_data is not None
+            xval = yval = None
+            if val_active:
+                if int(eval_every) < 1:
+                    raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+                if isinstance(validation_data, (tuple, list)):
+                    xval, yval = validation_data
+                else:
+                    xval = validation_data
+                if self._conditional and yval is None:
+                    raise ValueError("conditional model requires validation_data=(Xval, Yval)")
+            val_history: List[tuple] = []
+            best_params: Optional[Params] = None
+            best_val = float("inf")
+            best_epoch: Optional[int] = None
+            stale = 0
+
+            def epoch_end(epoch_done: int, params: Params) -> bool:
+                """Validation at an epoch boundary; True = stop early."""
+                nonlocal best_params, best_val, best_epoch, stale
+                if not val_active:
+                    return False
+                if epoch_done % eval_every != 0 and epoch_done != self.epochs:
+                    return False
+                vnll = self.score(xval, params, Y=yval)
+                val_history.append((epoch_done, vnll))
+                if self.val_callback is not None:
+                    self.val_callback(epoch_done, vnll)
+                if vnll < best_val:  # NaN compares False: counts as stale below
+                    best_val, best_epoch, stale = vnll, epoch_done, 0
+                    best_params = {k: v.detach().clone() for k, v in params.items()}
+                    return False
+                stale += 1
+                return patience is not None and stale >= patience
+
+            gen = generator if generator is not None else self._start_generator(device)
+            if params is None:
+                params = icnf.init(gen, device)
             else:
-                xval = validation_data
-            if self._conditional and yval is None:
-                raise ValueError("conditional model requires validation_data=(Xval, Yval)")
-        val_history: List[tuple] = []
-        best_params: Optional[Params] = None
-        best_val = float("inf")
-        best_epoch: Optional[int] = None
-        stale = 0
+                params = {k: v.detach().to(device).clone() for k, v in params.items()}
+            params = {k: v.requires_grad_() for k, v in params.items()}
+            opt = self.optimizer(list(params.values()))
+            if opt_state is not None:
+                opt.load_state_dict(opt_state)
 
-        def epoch_end(epoch_done: int, params: Params) -> bool:
-            """Validation at an epoch boundary; True = stop early."""
-            nonlocal best_params, best_val, best_epoch, stale
-            if not val_active:
-                return False
-            if epoch_done % eval_every != 0 and epoch_done != self.epochs:
-                return False
-            vnll = self.score(xval, params, Y=yval)
-            val_history.append((epoch_done, vnll))
-            if self.val_callback is not None:
-                self.val_callback(epoch_done, vnll)
-            if vnll < best_val:  # NaN compares False: counts as stale below
-                best_val, best_epoch, stale = vnll, epoch_done, 0
-                best_params = {k: v.detach().clone() for k, v in params.items()}
-                return False
-            stale += 1
-            return patience is not None and stale >= patience
-
-        gen = generator if generator is not None else self._start_generator(device)
-        if params is None:
-            params = icnf.init(gen, device)
-        else:
-            params = {k: v.detach().to(device).clone() for k, v in params.items()}
-        params = {k: v.requires_grad_() for k, v in params.items()}
-        opt = self.optimizer(list(params.values()))
-        if opt_state is not None:
-            opt.load_state_dict(opt_state)
-
-        history: List[float] = []
-        it = 0
-        epochs_run = 0
-        t_start = time.perf_counter()
-        last_loss = float("nan")
-        sol_stats = None
-        spd = self.steps_per_dispatch
-        rows = n if self.batchsize <= 0 or self.batchsize >= n else self.batchsize
-        if self.mesh is not None and rows % self.mesh.size(0):
-            raise ValueError(f"minibatches of {rows} rows do not split evenly over the "
-                             f"{self.mesh.size(0)} ranks of the mesh's data axis")
-        carry = self._carry_dt(rows // (self.mesh.size(0) if self.mesh is not None else 1))
-        step = self._make_step(carry)
-        # the carried start: 0 makes the first solve take the fixed-fraction
-        # start (the override's fallback); each later one the previous |dt|
-        tdt = cfg.dtype if cfg.dtype.is_floating_point else torch.float32
-        dt_prev = torch.zeros((), dtype=tdt, device=device)
-        for epoch in range(self.epochs):
-            batches = self._batches(gen, n)
-            for blk in range(0, batches.shape[0], spd):
-                losses = []
-                for idx in batches[blk: blk + spd]:
-                    xb, yb = self._minibatch(gen, xs_all, ys_all, idx)
-                    l, sol_stats = step(params, opt, gen, xb, yb,
-                                        *((dt_prev,) if carry else ()))
-                    if carry:
-                        dt_prev = torch.abs(sol_stats.dt_final).detach()
-                    losses.append(l)
-                logged = [j for j in range(len(losses)) if (it + j) % self.log_every == 0]
-                if logged:
-                    values = torch.stack(losses).tolist()  # one synchronisation per block
-                    for j in logged:
-                        last_loss = values[j]
-                        history.append(last_loss)
-                        if self.callback is not None:
-                            self.callback(it + j, last_loss)
-                it += len(losses)
-            epochs_run = epoch + 1
-            if epoch_end(epochs_run, params):
-                break
-        if it:
-            last_loss = float(l)
-        stats = {
-            "iterations": it,
-            "epochs": self.epochs,
-            "epochs_run": epochs_run,
-            "wall_time_s": time.perf_counter() - t_start,
-            "final_loss": last_loss,
-        }
-        if val_active:
-            stats.update(
-                best_val_nll=best_val if best_epoch is not None else float("nan"),
+            history: List[float] = []
+            it = 0
+            epochs_run = 0
+            t_start = time.perf_counter()
+            last_loss = float("nan")
+            sol_stats = None
+            spd = self.steps_per_dispatch
+            rows = n if self.batchsize <= 0 or self.batchsize >= n else self.batchsize
+            if self.mesh is not None and rows % self.mesh.size(0):
+                raise ValueError(f"minibatches of {rows} rows do not split evenly over the "
+                                 f"{self.mesh.size(0)} ranks of the mesh's data axis")
+            carry = self._carry_dt(rows // (self.mesh.size(0) if self.mesh is not None else 1))
+            step = self._make_step(carry)
+            # the carried start: 0 makes the first solve take the fixed-fraction
+            # start (the override's fallback); each later one the previous |dt|
+            tdt = cfg.dtype if cfg.dtype.is_floating_point else torch.float32
+            dt_prev = torch.zeros((), dtype=tdt, device=device)
+            for epoch in range(self.epochs):
+                batches = self._batches(gen, n)
+                for blk in range(0, batches.shape[0], spd):
+                    losses = []
+                    for idx in batches[blk: blk + spd]:
+                        with profiling.span("fit.step"):
+                            xb, yb = self._minibatch(gen, xs_all, ys_all, idx)
+                            l, sol_stats = step(params, opt, gen, xb, yb,
+                                                *((dt_prev,) if carry else ()))
+                            if carry:
+                                dt_prev = torch.abs(sol_stats.dt_final).detach()
+                        losses.append(l)
+                    logged = [j for j in range(len(losses)) if (it + j) % self.log_every == 0]
+                    if logged:
+                        stacked = torch.stack(losses)
+                        with profiling.host_read("fit.read"):  # one synchronisation per block
+                            values = stacked.tolist()
+                        for j in logged:
+                            last_loss = values[j]
+                            history.append(last_loss)
+                            if self.callback is not None:
+                                self.callback(it + j, last_loss)
+                    it += len(losses)
+                epochs_run = epoch + 1
+                if epoch_end(epochs_run, params):
+                    break
+            if it:
+                with profiling.host_read("fit.read"):
+                    last_loss = float(l)
+            stats = {
+                "iterations": it,
+                "epochs": self.epochs,
+                "epochs_run": epochs_run,
+                "wall_time_s": time.perf_counter() - t_start,
+                "final_loss": last_loss,
+            }
+            if val_active:
+                stats.update(
+                    best_val_nll=best_val if best_epoch is not None else float("nan"),
+                    best_epoch=best_epoch,
+                    stopped_early=epochs_run < self.epochs,
+                    val_evals=len(val_history),
+                )
+            if sol_stats is not None:
+                # per-solve diagnostics of the last step
+                with profiling.host_read("fit.read"):
+                    stats.update(nfe=int(sol_stats.nfe), naccept=int(sol_stats.naccept),
+                                 nreject=int(sol_stats.nreject),
+                                 dt_final=float(sol_stats.dt_final))
+            return FitResult(
+                params={k: v.detach() for k, v in params.items()}, history=history, stats=stats,
+                opt_state=opt.state_dict(), generator=gen, val_history=val_history,
+                best_params=best_params,
+                best_val_nll=(best_val if best_epoch is not None else None),
                 best_epoch=best_epoch,
-                stopped_early=epochs_run < self.epochs,
-                val_evals=len(val_history),
             )
-        if sol_stats is not None:
-            # per-solve diagnostics of the last step
-            stats.update(nfe=int(sol_stats.nfe), naccept=int(sol_stats.naccept),
-                         nreject=int(sol_stats.nreject),
-                         dt_final=float(sol_stats.dt_final))
-        return FitResult(
-            params={k: v.detach() for k, v in params.items()}, history=history, stats=stats,
-            opt_state=opt.state_dict(), generator=gen, val_history=val_history,
-            best_params=best_params,
-            best_val_nll=(best_val if best_epoch is not None else None),
-            best_epoch=best_epoch,
-        )
 
     def transform(self, X, params: Params, Y=None) -> torch.Tensor:
         """TestMode densities ``exp(logpx)`` (reference transform,

@@ -26,6 +26,7 @@ from continuousnormalizingflows_tpu.config import SolverConfig as JSolver
 from continuousnormalizingflows_tpu.ops import pallas_adaptive as pa
 from continuousnormalizingflows_tpu_torch.config import Mode, SolverConfig
 from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+from continuousnormalizingflows_tpu_torch.utils import profiling
 from continuousnormalizingflows_tpu_torch.utils.convert import params_from_jax
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -240,7 +241,8 @@ def test_core_route_and_fit_take_the_adaptive_twin():
     the carry off (inert there)."""
     jicnf, ticnf, jparams, u0, eps, _ys = _make(16)
     p = params_from_jax(jparams)
-    counts = (fa.fused_solve_dopri5.launches, fa.fused_solve_dopri5_bwd.launches)
+    launches = lambda: tuple(profiling.counters().get(f"{k}.launches", 0) for k in ("K5", "K6"))
+    counts = launches()
     u1, stats = tcore._solve(ticnf, Mode.TRAIN, torch.from_numpy(u0), 0.0, 1.0, p,
                              torch.from_numpy(eps)[None], None)
     want, rows = fa.fused_solve_dopri5(torch.from_numpy(u0), torch.from_numpy(eps), None, p,
@@ -254,7 +256,7 @@ def test_core_route_and_fit_take_the_adaptive_twin():
     assert not model._carry_dt(16) and model._carry_dt(12)
     res = model.fit(torch.from_numpy(u0[:32, :2]), params=p)
     assert res.stats["iterations"] == 1 and np.isfinite(res.stats["final_loss"])
-    assert counts == (fa.fused_solve_dopri5.launches, fa.fused_solve_dopri5_bwd.launches)
+    assert counts == launches()
 
 
 def test_twin_landing_that_rounds_past_t1_ends_the_group():

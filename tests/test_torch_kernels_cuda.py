@@ -37,6 +37,7 @@ from continuousnormalizingflows_tpu_torch.ops.fused_solve import (
     fused_solve_rk4_bwd_reference,
     fused_solve_rk4_reference,
 )
+from continuousnormalizingflows_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +49,14 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _launches(*names):
+    """The launch counters of the kernels ``names`` (``"K1"`` ... ``"K6"``):
+    an int for one name, else a list."""
+    c = profiling.counters()
+    got = [c.get(f"{n}.launches", 0) for n in names]
+    return got[0] if len(names) == 1 else got
 
 
 def _params(widths, dev, seed=0):
@@ -75,10 +84,10 @@ def test_fused_dynamics_kernel_matches_plain(dev, n_in, h, nz, b, cdt):
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((b, n_in), generator=g, device=dev)
     eps = torch.randn((b, nz), generator=g, device=dev)
-    before = fused_dynamics_vjp.launches
+    before = _launches("K1")
     out = fused_dynamics_vjp(x, eps, params, nz, cdt)
     torch.cuda.synchronize()
-    assert fused_dynamics_vjp.launches == before + 1
+    assert _launches("K1") == before + 1
     ref = mlp3_forward_vjp_reference(x, eps, params, nz, cdt)
     rtol, atol = TOL[cdt]
     for a, r in zip(out, ref):
@@ -112,10 +121,10 @@ def test_fused_solve_kernel_matches_plain(dev, case, cdt):
     u0 = 0.5 * torch.randn((b, nz + 3), generator=g, device=dev)
     eps = torch.randn((b, nz), generator=g, device=dev)
     ys = torch.randn((b, nc), generator=g, device=dev) if nc else None
-    before = fused_solve_rk4.launches
+    before = _launches("K3")
     u1 = fused_solve_rk4(u0, eps, ys, params, span, nz, t_col, 32, cdt)
     torch.cuda.synchronize()
-    assert fused_solve_rk4.launches == before + 1
+    assert _launches("K3") == before + 1
     ref = fused_solve_rk4_reference(u0, eps, ys, params, span, nz, t_col, 32, cdt)
     rtol, atol = SOLVE_TOL[cdt]
     torch.testing.assert_close(u1, ref, rtol=rtol, atol=atol)
@@ -144,10 +153,10 @@ def test_fused_dynamics_row_widths(dev, h, b, cdt):
     g = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn((b, n_in), generator=g, device=dev)
     eps = torch.randn((b, nz), generator=g, device=dev)
-    before = fused_dynamics_vjp.launches
+    before = _launches("K1")
     out = fused_dynamics_vjp(x, eps, params, nz, cdt)
     torch.cuda.synchronize()
-    assert fused_dynamics_vjp.launches == before + 1
+    assert _launches("K1") == before + 1
     ref = mlp3_forward_vjp_reference(x, eps, params, nz, cdt)
     for a, r in zip(out, ref):
         torch.testing.assert_close(a, r, rtol=TOL[cdt][0], atol=TOL[cdt][1])
@@ -168,10 +177,10 @@ def test_fused_solve_row_widths(dev, h, b, cdt):
     eps = torch.randn((b, nz), generator=g, device=dev)
     ys = torch.randn((b, nc), generator=g, device=dev) if nc else None
     span = (0.0, torch.tensor(1.05, device=dev))
-    before = fused_solve_rk4.launches
+    before = _launches("K3")
     u1 = fused_solve_rk4(u0, eps, ys, params, span, nz, nz, 32, cdt)
     torch.cuda.synchronize()
-    assert fused_solve_rk4.launches == before + 1
+    assert _launches("K3") == before + 1
     ref = fused_solve_rk4_reference(u0, eps, ys, params, span, nz, nz, 32, cdt)
     torch.testing.assert_close(u1, ref, rtol=SOLVE_TOL[cdt][0], atol=SOLVE_TOL[cdt][1])
     assert torch.equal(u1, fused_solve_rk4(u0, eps, ys, params, span, nz, nz, 32, cdt))
@@ -275,10 +284,10 @@ def test_fused_dynamics_bwd_kernel_matches_plain(dev, n_in, h, nz, b, cdt):
     cot = (torch.randn((b, nz), generator=g, device=dev),
            torch.randn((b, nz), generator=g, device=dev),
            *torch.randn((3, b), generator=g, device=dev))
-    before = fused_dynamics_vjp_bwd.launches
+    before = _launches("K2")
     got = fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)
     torch.cuda.synchronize()
-    assert fused_dynamics_vjp_bwd.launches == before + 1
+    assert _launches("K2") == before + 1
     want = fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot, cdt)
     _close_to_max(_flat(got), _flat(want), BWD_TOL[cdt])
 
@@ -310,10 +319,10 @@ def test_fused_dynamics_bwd_paths_and_edges(dev, h, b, cdt):
     cot = (torch.randn((b, nz), generator=g, device=dev),
            torch.randn((b, nz), generator=g, device=dev),
            *torch.randn((3, b), generator=g, device=dev))
-    before = fused_dynamics_vjp_bwd.launches
+    before = _launches("K2")
     got = fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt)
     torch.cuda.synchronize()
-    assert fused_dynamics_vjp_bwd.launches == before + 1
+    assert _launches("K2") == before + 1
     want = fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot, cdt)
     _close_to_max(_flat(got), _flat(want), BWD_TOL[cdt])
 
@@ -358,11 +367,11 @@ def test_fused_dynamics_bwd_wide_nets(dev, h, b, cdt):
     cot = (torch.randn((b, nz), generator=g, device=dev),
            torch.randn((b, nz), generator=g, device=dev),
            *torch.randn((3, b), generator=g, device=dev))
-    before = fused_dynamics_vjp_bwd.launches
+    before = _launches("K2")
     got = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt))
     again = _flat(fused_dynamics_vjp_bwd(x, eps, params, nz, cot, cdt))
     torch.cuda.synchronize()
-    assert fused_dynamics_vjp_bwd.launches == before + 2
+    assert _launches("K2") == before + 2
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     want = fused_dynamics_vjp_bwd_reference(x, eps, params, nz, cot, cdt)
     _close_to_max(got, _flat(want), BWD_TOL[cdt])
@@ -428,11 +437,11 @@ def test_fused_dynamics_wide_nets(dev, h, b, cdt):
     g = torch.Generator(device=dev).manual_seed(b)
     x = torch.randn((b, n_in), generator=g, device=dev)
     eps = torch.randn((b, nz), generator=g, device=dev)
-    before = fused_dynamics_vjp.launches
+    before = _launches("K1")
     got = fused_dynamics_vjp(x, eps, params, nz, cdt)
     again = fused_dynamics_vjp(x, eps, params, nz, cdt)
     torch.cuda.synchronize()
-    assert fused_dynamics_vjp.launches == before + 2
+    assert _launches("K1") == before + 2
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     _close_stage(got, mlp3_forward_vjp_reference(x, eps, params, nz, cdt), eps, TOL[cdt])
 
@@ -542,10 +551,10 @@ def _solve_case(case, dev):
 def test_fused_solve_bwd_kernel_matches_plain(dev, case, cdt):
     args, gbar = _solve_case(case, dev)
     steps = 8 if case == "widest" else 32
-    before = fused_solve_rk4_bwd.launches
+    before = _launches("K4")
     got = fused_solve_rk4_bwd(*args, steps, gbar, cdt)
     torch.cuda.synchronize()
-    assert fused_solve_rk4_bwd.launches == before + 1
+    assert _launches("K4") == before + 1
     want = fused_solve_rk4_bwd_reference(*args, steps, gbar, cdt)
     _close_to_max(_flat(got), _flat(want), SOLVE_BWD_TOL[cdt])
 
@@ -571,12 +580,12 @@ def test_fused_solve_wide_nets(dev, h, b, cdt):
     ys = torch.randn((b, 2), generator=g, device=dev)
     gbar = torch.randn((b, sd), generator=g, device=dev)
     args = (u0, eps, ys, params, (0.0, torch.tensor(1.05, device=dev)), nz, nz, 6)
-    before = (fused_solve_rk4.launches, fused_solve_rk4_bwd.launches)
+    before = (_launches("K3"), _launches("K4"))
     u1, again = fused_solve_rk4(*args, cdt), fused_solve_rk4(*args, cdt)
     got = _flat(fused_solve_rk4_bwd(*args, gbar, cdt))
     twice = _flat(fused_solve_rk4_bwd(*args, gbar, cdt))
     torch.cuda.synchronize()
-    assert (fused_solve_rk4.launches, fused_solve_rk4_bwd.launches) == (before[0] + 2,
+    assert (_launches("K3"), _launches("K4")) == (before[0] + 2,
                                                                         before[1] + 2)
     assert torch.equal(u1, again) and all(torch.equal(a, c) for a, c in zip(got, twice))
     torch.testing.assert_close(u1, fused_solve_rk4_reference(*args, cdt), rtol=SOLVE_TOL[cdt][0],
@@ -710,13 +719,13 @@ def test_loss_gradients_flow_through_the_kernels(dev, form):
     params = {k: v.requires_grad_() for k, v in
               fused.init(torch.Generator().manual_seed(0), device=dev).items()}
     x = torch.randn((500, 2), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    counts = (fused_solve_rk4_bwd.launches, fused_dynamics_vjp_bwd.launches)
+    counts = (_launches("K4"), _launches("K2"))
     grads = {}
     for name, icnf in (("fused", fused), ("plain", plain)):
         gen = torch.Generator(device=dev).manual_seed(2)
         loss = cnf.loss(icnf, Mode.TRAIN, x, params, gen)
         grads[name] = torch.autograd.grad(loss, list(params.values()))
-    moved = (fused_solve_rk4_bwd.launches - counts[0], fused_dynamics_vjp_bwd.launches - counts[1])
+    moved = (_launches("K4") - counts[0], _launches("K2") - counts[1])
     assert moved == ((1, 0) if form == "rnode" else (0, 32))
     _close_to_max(grads["fused"], grads["plain"], 5e-4)
 
@@ -780,10 +789,10 @@ def _check_adaptive_kernels(args, gbar, seed=None):
     from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
 
     group = fa.fused_adaptive_tile(args[0].shape[0])
-    before = fa.fused_solve_dopri5.launches
+    before = _launches("K5")
     u1, rows = fa.fused_solve_dopri5(*args, 64)
     torch.cuda.synchronize()
-    assert fa.fused_solve_dopri5.launches == before + 1
+    assert _launches("K5") == before + 1
     u1_p, rows_p = fa.fused_solve_dopri5_reference(*args, group)
     same = (rows[:, :3] == rows_p[:, :3]).all(dim=1)
     other = (~same).repeat_interleave(group)
@@ -793,10 +802,10 @@ def _check_adaptive_kernels(args, gbar, seed=None):
     keep = same.repeat_interleave(group)
     torch.testing.assert_close(u1[keep], u1_p[keep], rtol=2e-4, atol=2e-5)
     gbar = torch.where(keep[:, None], gbar, torch.zeros_like(gbar))
-    before = fa.fused_solve_dopri5_bwd.launches
+    before = _launches("K6")
     got = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
     torch.cuda.synchronize()
-    assert fa.fused_solve_dopri5_bwd.launches == before + 1
+    assert _launches("K6") == before + 1
     # K6's replay took K5's steps in every group
     assert torch.equal(got[3], rows[:, 1].to(torch.int32))
     want = fa.fused_solve_dopri5_bwd_reference(*args, 64, gbar, group)
@@ -1105,7 +1114,6 @@ def test_fused_adaptive_training_route(dev):
     versions agree to 6e-6 on the CPU).  Data from the flagship's mixture:
     on N(0, 1) draws at 1e-6 some groups stall at float32 resolution and
     give up (NaN), in the plain version and the kernel alike."""
-    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
     from continuousnormalizingflows_tpu_torch.utils.datasets import gaussian_mixture
 
     solver = SolverConfig(rtol=1e-5, atol=1e-5)
@@ -1116,11 +1124,11 @@ def test_fused_adaptive_training_route(dev):
     x = gaussian_mixture(torch.Generator(device=dev).manual_seed(1), 1024)
     grads = {}
     for name, icnf in (("fused", fused), ("plain", plain)):
-        before = (fa.fused_solve_dopri5.launches, fa.fused_solve_dopri5_bwd.launches)
+        before = (_launches("K5"), _launches("K6"))
         loss = cnf.loss(icnf, Mode.TRAIN, x, params, torch.Generator(device=dev).manual_seed(2))
         grads[name] = torch.autograd.grad(loss, list(params.values()))
-        moved = (fa.fused_solve_dopri5.launches - before[0],
-                 fa.fused_solve_dopri5_bwd.launches - before[1])
+        moved = (_launches("K5") - before[0],
+                 _launches("K6") - before[1])
         assert moved == ((1, 1) if name == "fused" else (0, 0))
     _close_to_max(grads["fused"], grads["plain"], 1e-3)
 
@@ -1131,22 +1139,20 @@ def test_default_stack_fused_stage_route(dev):
     the adjoint's VJPs K2, never K5/K6; the gradients equal the fused=False
     ones (same draws, the same steps) to 5e-4 of the largest entry, as the
     rk4 routes."""
-    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
 
     fused = cnf.ICNF.create(nvariables=2, fused=True)
     plain = cnf.ICNF.create(nvariables=2)
     params = {k: v.requires_grad_() for k, v in
               fused.init(torch.Generator().manual_seed(0), device=dev).items()}
     x = torch.randn((512, 2), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    kernels = (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fa.fused_solve_dopri5,
-               fa.fused_solve_dopri5_bwd)
+    kernels = ("K1", "K2", "K5", "K6")
     grads, steps = {}, {}
     for name, icnf in (("fused", fused), ("plain", plain)):
-        before = [k.launches for k in kernels]
+        before = _launches(*kernels)
         loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x, params,
                                        torch.Generator(device=dev).manual_seed(2))
         grads[name] = torch.autograd.grad(loss, list(params.values()))
-        moved = [k.launches - b for k, b in zip(kernels, before)]
+        moved = [a - b for a, b in zip(_launches(*kernels), before)]
         steps[name] = tuple(int(v) for v in st[:3])
         if name == "fused":
             assert moved[0] > 0 and moved[1] > 0 and moved[2:] == [0, 0]
@@ -1162,25 +1168,22 @@ def test_abm_quadrature_fused_stage_route(dev):
     adjoint's VJPs K2, no other kernel; the fused step takes the unfused
     step's forward steps, and those of the same 256 points on the CPU, and
     its gradients equal the fused=False ones to 5e-4 of the largest entry."""
-    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
-    from continuousnormalizingflows_tpu_torch.ops import fused_solve as fs
 
     solver = SolverConfig(method="abm", rtol=1e-4, atol=1e-4, gradient="quadrature")
     fused = cnf.ICNF.create(nvariables=2, solver=solver, fused=True)
     plain = cnf.ICNF.create(nvariables=2, solver=solver)
     params = fused.init(torch.Generator().manual_seed(0), device=dev)
     x = torch.randn((256, 2), generator=torch.Generator().manual_seed(1)).to(dev)
-    kernels = (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fs.fused_solve_rk4,
-               fs.fused_solve_rk4_bwd, fa.fused_solve_dopri5, fa.fused_solve_dopri5_bwd)
+    kernels = ("K1", "K2", "K3", "K4", "K5", "K6")
     grads, steps = {}, {}
     for name, icnf, where in (("fused", fused, dev), ("plain", plain, dev),
                               ("cpu", fused, torch.device("cpu"))):
         p = {k: v.detach().to(where).requires_grad_() for k, v in params.items()}
-        before = [k.launches for k in kernels]
+        before = _launches(*kernels)
         loss, st = cnf.loss_with_stats(icnf, Mode.TRAIN, x.to(where), p,
                                        torch.Generator().manual_seed(2))
         grads[name] = [g.to(dev) for g in torch.autograd.grad(loss, list(p.values()))]
-        moved = [k.launches - b for k, b in zip(kernels, before)]
+        moved = [a - b for a, b in zip(_launches(*kernels), before)]
         steps[name] = tuple(int(v) for v in st[:3])
         if name == "fused":
             assert moved[0] > 0 and moved[1] > 0 and moved[2:] == [0, 0, 0, 0]
@@ -1201,11 +1204,8 @@ def test_float64_fused_config_takes_the_unfused_route(dev, solver, kw):
     kernels take float32): every fused gate is closed, so its loss and
     gradients are float64, launch no kernel, and equal ``fused=False``'s
     bits, as on the CPU."""
-    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
-    from continuousnormalizingflows_tpu_torch.ops import fused_solve as fs
 
-    kernels = (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fs.fused_solve_rk4,
-               fs.fused_solve_rk4_bwd, fa.fused_solve_dopri5, fa.fused_solve_dopri5_bwd)
+    kernels = ("K1", "K2", "K3", "K4", "K5", "K6")
     x = torch.randn((256, 2), dtype=torch.float64, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(1))
     got = {}
@@ -1214,10 +1214,10 @@ def test_float64_fused_config_takes_the_unfused_route(dev, solver, kw):
                                **kw)
         p = {k: v.requires_grad_() for k, v in
              icnf.init(torch.Generator().manual_seed(0), device=dev).items()}
-        before = [k.launches for k in kernels]
+        before = _launches(*kernels)
         loss = cnf.loss(icnf, Mode.TRAIN, x, p, torch.Generator(device=dev).manual_seed(2))
         grads = torch.autograd.grad(loss, list(p.values()))
-        assert [k.launches - b for k, b in zip(kernels, before)] == [0] * 6
+        assert [a - b for a, b in zip(_launches(*kernels), before)] == [0] * 6
         assert loss.dtype == torch.float64 and all(g.dtype == torch.float64 for g in grads)
         got[fused] = (loss.detach(), grads)
     assert torch.equal(got[True][0], got[False][0]) and bool(torch.isfinite(got[True][0]))
@@ -1235,12 +1235,7 @@ FEATURE_FIRST = {  # fused=True routes that a batch-first config takes through K
 
 
 def _all_launches():
-    from continuousnormalizingflows_tpu_torch.ops.fused_adaptive import (
-        fused_solve_dopri5, fused_solve_dopri5_bwd)
-
-    return tuple(f.launches for f in (fused_dynamics_vjp, fused_dynamics_vjp_bwd, fused_solve_rk4,
-                                      fused_solve_rk4_bwd, fused_solve_dopri5,
-                                      fused_solve_dopri5_bwd))
+    return tuple(_launches("K1", "K2", "K3", "K4", "K5", "K6"))
 
 
 @pytest.mark.parametrize("route", list(FEATURE_FIRST))
