@@ -8,6 +8,7 @@ and serving calls of PERF.md section 5.
     python3 chip_profile.py k1-wide
     python3 chip_profile.py k1-phases
     python3 chip_profile.py solve-wide
+    python3 chip_profile.py wide-f32
     python3 chip_profile.py widths
     python3 chip_profile.py fwd-widths
     python3 chip_profile.py adaptive-widths
@@ -55,7 +56,12 @@ its products.  ``k1-wide`` and ``k1-phases`` do the same for K1 (h = 33
 digest of the outputs' bits, so that two checkouts show whether they
 agree bit for bit.  ``solve-wide`` does the same for K3 and K4 (h = 24, 33
 ... 256, B = 256, 8,192 and 65,536, 4 steps): the measurement behind the
-width where their wide paths take over.  ``widths`` times K2 and K6 at every
+width where their wide paths take over.  ``wide-f32`` times the fp32 product
+core of the wide paths (``csrc/wide_gemm.cuh``) at the d43 benchmark cell's
+shapes (88 -> 352 -> 352 -> 87, B = 8,192): one product of each kind on each
+tile, beside ``torch.matmul``, and K3 and K4 whole with K4's device time
+split into its trajectory, the walk's recompute, its stage backwards, their
+merges and the slices' sums.  ``widths`` times K2 and K6 at every
 hidden width of the row path and
 just past it (h = 8 ... 33), by the device time of their kernels: the
 measurement behind the rule that h <= 32 takes that path; beside K6 it
@@ -577,6 +583,114 @@ def solve_wide(dev):
     return out
 
 
+# wide-f32: the d43 cell's shapes, and the core's tiles by index (2: the
+# first design's 64 x 32; -1: the tile rule's choice)
+WIDE_F32_DIMS = dict(b=8_192, h=352, n_in=88, nz=87, steps=32)
+WIDE_F32_TILES = {2: "64x32", 0: "128x96", 1: "64x96", -1: "rule"}
+
+
+def wide_f32_products(dev):
+    """(name, operands, M, N, K, kseg, slices) of each kind of the d43 chain's
+    fp32 products, on random inputs."""
+    b, h, n_in, nz = (WIDE_F32_DIMS[k] for k in ("b", "h", "n_in", "nz"))
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x, hid, d, eb = r(b, n_in), r(b, h), r(b, h), r(b, nz)
+    a1, a2, a3 = r(h, n_in), r(h, h), r(nz, h)
+
+    def row(t, e):
+        return (t, e, None, e, True)
+
+    def col(t, e):
+        return (t, e, None, e, False)
+
+    wgrad = ((hid, h, d, h, False), (hid, h, d, h, False), h, h, 2 * b, b)
+    return [("F2/B2 (N=352, K=352)", row(hid, b), row(a2, h), b, h, h, 1 << 30, 1),
+            ("U1/Z1 (N=352, K=352, B by column)", row(d, b), col(a2, h), b, h, h, 1 << 30, 1),
+            ("F1 (N=352, K=88)", row(x, b), row(a1, h), b, h, n_in, 1 << 30, 1),
+            ("B1 (N=352, K=87, rows of 87)", row(eb, b), row(a1, h), b, h, nz, 1 << 30, 1),
+            ("Y/kStep (N=87, K=352)", row(hid, b), row(a3, nz), b, nz, h, 1 << 30, 1),
+            ("E/Vb (N=87, K=352, B by column)", row(d, b), col(a1, nz), b, nz, h, 1 << 30, 1),
+            ("dA2 (352 x 352, K=16,384), 3 slices", *wgrad, 3),
+            ("dA2 (352 x 352, K=16,384), 14 slices", *wgrad, 14)]
+
+
+def wide_f32(dev):
+    """The fp32 product core at the d43 cell's shapes: each product of
+    wide_f32_products on each tile (WIDE_F32_TILES: the first design's 64 x
+    32, the Hopper tiles, the rule's choice), device us by the profiler and
+    TFLOP/s, each tile's bits against the first design's, beside
+    ``torch.matmul`` of the same (M x K) @ (K x N) in fp32 (TF32 off; a
+    yardstick, not on the port's path).  Then K3 and K4 whole at the cell's
+    shapes and steps, and K4's device time by phase: the trajectory, the
+    walk's recompute of k1..k3, the stage backwards' products, the merges
+    (solve_merge), the slices' sums, and the rest (inputs, u2, epsbar and the
+    bias sums)."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+    from continuousnormalizingflows_tpu_torch.ops.fused_solve import (fused_solve_rk4,
+                                                                      fused_solve_rk4_bwd)
+
+    out = {"products": {}, "k4_phases_ms": {}}
+    for name, a, b, m, n, k, kseg, slices in wide_f32_products(dev):
+        row = out["products"][name] = {"flop": 2.0 * m * n * k}
+        first = _build.wide_f32_product(2, a, b, m, n, k, kseg, slices)
+        for tile, label in WIDE_F32_TILES.items():
+            def fn(tile=tile):
+                return _build.wide_f32_product(tile, a, b, m, n, k, kseg, slices)
+            same = torch.equal(fn(), first)
+            us = device_ms(fn, (r"\bwide_products<",), reps=50) * 1e3
+            row[label] = dict(us=us, tflops=row["flop"] / us / 1e6, bits_as_64x32=same)
+        row["matmul_us"] = matmul_us(dev, m, k, n, None)
+        print(f"wide-f32 {name}: " + ", ".join(
+            f"{label} {row[label]['us']:.2f} us ({row[label]['tflops']:.2f} TFLOP/s"
+            f"{'' if row[label]['bits_as_64x32'] else ', BITS DIFFER'})"
+            for label in WIDE_F32_TILES.values())
+            + f"; torch.matmul {row['matmul_us']:.2f} us "
+              f"({row['flop'] / row['matmul_us'] / 1e6:.2f} TFLOP/s)", flush=True)
+    b, h, nz, steps = (WIDE_F32_DIMS[k] for k in ("b", "h", "nz", "steps"))
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+
+    params = MLP((nz + 1, h, h, nz)).init(torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
+                    torch.zeros((b, 3), device=dev)], dim=-1)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    gbar = torch.randn((b, nz + 3), generator=g, device=dev)
+    args = (u0, eps, None, params, (0.0, torch.tensor(1.05, device=dev)), nz, nz, steps)
+    k3 = launches_in_order(lambda: fused_solve_rk4(*args))
+    k4 = launches_in_order(lambda: fused_solve_rk4_bwd(*args, gbar))
+    traj, per_step = 12 * (steps - 1), 9 + 4 * 9  # products: y-only stages; a walk step's
+    seen, phases = 0, {}
+    for name, us, _grid in k4:
+        if "wide_products" in name:
+            seen += 1
+            j = seen - 2 - traj  # a product of the walk from 0
+            phase = ("rest" if seen == 1 else "trajectory" if j < 0 else "rest"
+                     if j >= steps * per_step else "recompute" if j % per_step < 9
+                     else "stage backwards")
+        elif "solve_merge" in name:
+            phase = "merge"
+        elif "add_slices" in name:
+            phase = "slice sums"
+        elif "solve_load_x" in name:
+            phase = "recompute"
+        else:
+            phase = "rest"
+        phases[phase] = phases.get(phase, 0.0) + us / 1e3
+    out["k4_phases_ms"] = phases
+    out["k3_ms"] = sum(us for _n, us, _g in k3) / 1e3
+    out["k4_ms"] = sum(phases.values())
+    out["counts"] = {t: n for t, n in _build.f32_tiles().items()}
+    print(f"wide-f32 K3 {nz + 1}->{h}->{h}->{nz} B={b} steps={steps}: {out['k3_ms']:.3f} device ms "
+          f"in {len(k3)} kernels; K4 {out['k4_ms']:.3f} ms in {len(k4)} kernels: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+          + f"; products on each tile since the library loaded {out['counts']}", flush=True)
+    return out
+
+
 def launches_in_order(fn):
     """The device kernels of one call of ``fn`` (after 3 warm-up calls) in
     launch order: (short name, device us, grid), from the profiler's trace."""
@@ -1077,7 +1191,7 @@ def main() -> None:
     out = {"device": torch.cuda.get_device_name(0)}
     for name, mode in (("sass", sass), ("k2-grid", k2_grid), ("k2-wide", k2_wide),
                        ("k2-phases", k2_phases), ("k1-wide", k1_wide), ("k1-phases", k1_phases),
-                       ("solve-wide", solve_wide),
+                       ("solve-wide", solve_wide), ("wide-f32", wide_f32),
                        ("widths", widths),
                        ("fwd-widths", fwd_widths), ("adaptive-widths", adaptive_widths),
                        ("adaptive-wide", adaptive_wide),

@@ -205,7 +205,7 @@ constexpr int kWideMinH = 64;
 // turn and the grid is capped at what the card holds at once (row_bwd_grid,
 // bwd_grid).  The launch and cnf_bwd_plan both read it: grid is the row count
 // of the caller's partial-sum buffer (the wide path's: its slices, when more
-// than one).
+// than one, the larger of the two precisions' counts).
 struct StageBwdShape {
   int H;
   int grid;
@@ -232,7 +232,7 @@ StageBwdShape bwd_shape(const cnf::Dims& d, int B) {
                          false, 0};
   }
   if (d.h >= kWideMinH) {
-    const int slices = cnf::wide::wgrad_slices(d, B);
+    const int slices = cnf::wide::wgrad_rows(d, B);
     return StageBwdShape{0, slices > 1 ? slices : 0,
                          cnf::BwdPlan{false, false, cnf::wide::kBM, 0, cnf::param_count(d)},
                          true, slices};

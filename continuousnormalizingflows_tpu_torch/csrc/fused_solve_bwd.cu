@@ -477,8 +477,9 @@ cudaError_t launch_rows(const float* u0, const float* eps, const float* ys, cons
 
 // K4's launch shape for these widths and batch: the row path (H > 0;
 // pl.rows threads a block, one row each, the weights staged), the wide path
-// (wide; pl.rows the rows of an output tile, grid the slices of the batch in
-// its weight-gradient products when more than one) or the tiled path (H ==
+// (wide; pl.rows the rows of a bf16 output tile, grid the slices of the
+// batch in its weight-gradient products when more than one, the larger of
+// the two precisions' counts) or the tiled path (H ==
 // 0; pl.rows rows a tile, 0 when one row does not fit).  The launch and
 // cnf_solve_bwd_plan both read it, so grid is the row count of the caller's
 // partial-sum buffer.
@@ -497,7 +498,7 @@ SolveBwdShape solve_bwd_shape(const cnf::Dims& d, int sd, int B) {
                                       cnf::param_count(d)},
                          false};
   if (d.h >= cnf::wide::kSolveWideMinH) {
-    const int slices = cnf::wide::wgrad_slices(d, B);
+    const int slices = cnf::wide::wgrad_rows(d, B);
     return SolveBwdShape{0, slices > 1 ? slices : 0,
                          cnf::BwdPlan{false, false, cnf::wide::kBM, 0, cnf::param_count(d)},
                          true};

@@ -16,14 +16,29 @@
 // the CUDA cores, re-reading the 396 KB of fp32 weights from L2 for every
 // stage of every tile, and (K4) adding its weight-gradient terms as rank-1
 // updates of a (grid, P) buffer.  Here every product takes the whole batch
-// as its M, split over 64 x 32 output tiles (wide_gemm.cuh: bf16 on
-// mma.sync, fp32 true fp32 on the CUDA cores), a weight tile is read once
-// for every 64 rows, and the weight gradients are products of depth 2B over
-// the batch, one a stage.  The chains are issued from C++ inside the one
-// call, on the caller's stream; t0 and dt stay in device memory, and every
-// time and RK4 weight is formed on the card.  Measured there (PERF.md
-// section 6): K4 17.2 ms and K3 4.1 ms by CUDA events in bf16, against the
-// tiled path's 84.4-85.3 and 24.7-25.1 in the same run.
+// as its M, split over output tiles (wide_gemm.cuh: bf16 on mma.sync over 64
+// x 32 tiles), a weight tile is read once for every tile of rows, and the
+// weight gradients are products of depth 2B over the batch, one a stage.
+// The chains are launched from C++ inside the one call, on the caller's
+// stream; t0 and dt stay in device memory, and every time and RK4 weight is
+// formed on the card.  Measured there (PERF.md section 6): K4 17.2 ms and K3
+// 4.1 ms by CUDA events in bf16, against the tiled path's 84.4-85.3 and
+// 24.7-25.1 in the same run.
+//
+// In fp32 (true fp32 on the CUDA cores, the benchmark's d43 fit: 88 -> 352
+// -> 352 -> 87, B = 8,192, rk4-32) the products are what bounds them: 713
+// GFLOP a K3 call, 2.8 TFLOP a K4 call, 10.6 and 42 ms at the 67 TFLOP/s
+// fp32 peak.  The first fp32 core (64 x 32 tiles, a 4 x 4 register tile a
+// thread) spent two shared reads on 16 FMAs and ran 18.5 TFLOP/s on a lone
+// 352-wide product; in the chains, with the epilogues' reads and writes, K4
+// took 226 ms and K3 54.  The Hopper tiles (128 x 96 and 64 x 96 of 256
+// threads, 8 x 6 and 4 x 6 a thread, both operands copied by cp.async as
+// they lie in device memory, the outputs through shared memory into the
+// epilogue a row at a time) run 27-30 TFLOP/s on the 352-wide products and
+// 18-20 on the 87-wide ones; a launch takes the tile whose grid fits the
+// card in the fewest waves, and the weight gradients the slices of theirs.
+// What is left in the chains is mostly the epilogues: each element's loads
+// wait in turn for device memory, 20-55 us a product.
 //
 // K3, the forward (solve_fwd), launches:
 //   C   (bf16) eps, A1, A2, A3 -> their bf16 copies (convert_inputs<3>)
@@ -540,7 +555,7 @@ solve_add_slices(const float* __restrict__ partial, int S, Offsets o, float* __r
 }  // namespace
 
 // K4's wide path on the caller's stream.  traj: steps x B x nz floats;
-// partial: slices x P floats when wgrad_slices(d, B) > 1; scratch:
+// partial: slices x P floats when wgrad_slices(d, B, BF16) > 1; scratch:
 // solve_bwd_scratch_floats(d, B) floats.  n_out == nz, sd == nz + 3.
 template <bool BF16>
 cudaError_t solve_bwd(const float* u0, const float* eps, const float* ys, const Weights& w,
@@ -549,7 +564,7 @@ cudaError_t solve_bwd(const float* u0, const float* eps, const float* ys, const 
                       float* grads, int B, int nc, int t_col, int steps, cudaStream_t stream) {
   const int h = d.h, nz = d.nz, n_in = d.n_in, sd = nz + 3;
   const Offsets o = offsets(d);
-  const int slices = wgrad_slices(d, B);
+  const int slices = wgrad_slices(d, B, BF16);
   using T = typename SolveBwdEpi<BF16>::T;
   SolveBwdEpi<BF16> e{};
   e.h = h;

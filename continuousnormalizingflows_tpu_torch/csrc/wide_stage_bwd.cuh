@@ -75,7 +75,7 @@ namespace wide {
 
 // Weight-gradient tiles below which the batch is cut into slices: two blocks
 // on each of the card's 132 SMs.
-constexpr int kTargetBlocks = 264;
+constexpr int kTargetBlocks = 2 * kSMs;
 // The least depth of a slice.
 constexpr int kMinSlice = 4 * kSliceK;
 // Batch rows a block of the bias sums takes.
@@ -125,18 +125,50 @@ __host__ __device__ inline Offsets offsets(const Dims& d) {
   return o;
 }
 
-// Slices of the weight-gradient products at these widths and batch.
-inline int wgrad_slices(const Dims& d, int B) {
+// Slices of the weight-gradient products at these widths and batch (depth
+// 2B), on the tile their launch takes: enough that their blocks come to
+// kTargetBlocks, each at least kMinSlice deep.  bf16 takes 64 x 32 tiles;
+// fp32 the tile of choose_f32's rule for the launch they share with the
+// input cotangent's product (B x n_out x h; K2's is B x n_in x h), sliced.
+inline int wgrad_slices(const Dims& d, int B, bool bf16) {
   const int K = 2 * B;
   const Operand none{};
-  const int tiles = product(none, none, d.h, d.n_in, K, 0).tiles_mn +
-                    product(none, none, d.h, d.h, K, 0).tiles_mn +
-                    product(none, none, d.n_out, d.h, K, 0).tiles_mn;
-  if (tiles >= kTargetBlocks) return 1;
-  int s = (kTargetBlocks + tiles - 1) / tiles;
-  const int most = (K + kMinSlice - 1) / kMinSlice;
-  if (s > most) s = most;
-  return product(none, none, d.h, d.h, K, 0, 0, s < 1 ? 1 : s).slices;
+  Launch<int> L{};
+  L.p[0] = product(none, none, d.h, d.n_in, K, 0);
+  L.p[1] = product(none, none, d.h, d.h, K, 0);
+  L.p[2] = product(none, none, d.n_out, d.h, K, 0);
+  L.p[3] = product(none, none, B, d.n_out, d.h, 0);
+  const int first = kF32Tiles - 1;
+  int best = 1;
+  double limit = 0.0;
+  for (int i = first; i >= (bf16 ? first : 0); --i) {
+    L.count = 3;  // the weight gradients' tiles alone
+    const long tiles = blocks_on(L, i);
+    int s = 1;
+    if (tiles < kTargetBlocks) {
+      const int most = (K + kMinSlice - 1) / kMinSlice;
+      const int want = (int)((kTargetBlocks + tiles - 1) / tiles);
+      s = product(none, none, d.h, d.h, K, 0, 0, want < most ? want : most).slices;
+    }
+    L.count = 4;
+    double cost;
+    const long blocks = blocks_on(L, i, &cost) + tiles * (s - 1);
+    if (i == first) {
+      best = s;
+      limit = 0.9 * cost;
+    } else if (fills(blocks, min(B, d.h)) && cost < limit) {
+      best = s;
+      limit = cost;
+    }
+  }
+  return best;
+}
+
+// Rows of the partial gradients a plan asks the caller for: the larger of
+// the two precisions' slices.
+inline int wgrad_rows(const Dims& d, int B) {
+  const int a = wgrad_slices(d, B, true), b = wgrad_slices(d, B, false);
+  return a > b ? a : b;
 }
 
 enum BwdCase : int { kB1 = kFwdCases, kB2, kEpsbar, kZ2, kZ1, kXbar, kGrad };
@@ -323,7 +355,7 @@ wide_add_slices(const float* __restrict__ partial, int S, Offsets o, float* __re
 }  // namespace
 
 // The whole chain on the caller's stream.  scratch: scratch_floats(d, B)
-// floats; partial: slices * P floats when wgrad_slices(d, B) > 1.
+// floats; partial: slices * P floats when wgrad_slices(d, B, BF16) > 1.
 template <bool BF16>
 cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const Dims& d,
                       const float* ybar, const float* ezbar, const float* divbar,
@@ -332,7 +364,7 @@ cudaError_t stage_bwd(const float* x, const float* eps, const Weights& w, const 
                       cudaStream_t stream) {
   const int h = d.h, n_in = d.n_in, n_out = d.n_out, nz = d.nz;
   const Offsets o = offsets(d);
-  const int slices = wgrad_slices(d, B);
+  const int slices = wgrad_slices(d, B, BF16);
   using T = typename BwdEpi<BF16>::T;
   // the forward's operands (fp32: the inputs themselves) and the rows of the
   // arrays the products read: h, nz, n_in wide, padded in bf16

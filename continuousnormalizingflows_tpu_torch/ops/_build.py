@@ -19,10 +19,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
+
+from ..utils import profiling
 
 __all__ = ["kernels", "check", "plan", "fwd_plan", "bwd_plan", "adaptive_plan", "cluster_plan",
-           "build_info"]
+           "build_info", "f32_tiles", "count_f32_tiles", "wide_f32_product"]
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -51,6 +53,8 @@ _SIGNATURES = {
     "cnf_adaptive_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_adaptive_cluster_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_gates": [_P] * 3 + [_I, _P],
+    "cnf_wide_f32_product": [_I, _P, _P, _P, _P],
+    "cnf_wide_f32_tally": [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int), _I],
 }
 
 # what the last build did: seconds, library path, compiler log
@@ -251,3 +255,56 @@ def cluster_plan(n_in: int, h: int, n_out: int, nz: int, sd: int, group: int, ba
     cluster = kernels().cnf_adaptive_cluster_plan(n_in, h, n_out, nz, sd, group, batch, path, info)
     rows, rf, sf, smf, rb, wr, smb, image, share = (int(v) for v in info)
     return ClusterPlan(int(cluster), rows, bool(rf), bool(sf), smf, bool(rb), wr, smb, image, share)
+
+
+def f32_tiles() -> Dict[str, int]:
+    """Products the library's wide paths have launched in fp32 on each tile
+    of their product core since it loaded, by shape: ``{"128x96": n,
+    "64x96": n, "64x32": n}`` (``cnf_wide_f32_tally``)."""
+    counts, shapes = (ctypes.c_longlong * 8)(), (ctypes.c_int * 16)()
+    n = kernels().cnf_wide_f32_tally(counts, shapes, 8)
+    return {f"{shapes[2 * i]}x{shapes[2 * i + 1]}": int(counts[i]) for i in range(n)}
+
+
+def count_f32_tiles(before: Dict[str, int]) -> None:
+    """Adds to the counters ``wide.f32.<BMxBN>`` (``utils.profiling``) the
+    products launched on each fp32 tile since ``before``, an :func:`f32_tiles`
+    reading: a kernel wrapper's call, read on the host."""
+    for shape, n in f32_tiles().items():
+        if n > before.get(shape, 0):
+            profiling.count("wide.f32." + shape, n - before.get(shape, 0))
+
+
+# an operand of wide_f32_product: (first tensor, its extent, second tensor or
+# None, its extent, rows along k)
+Operand = Tuple[object, int, Optional[object], int, bool]
+
+
+def wide_f32_product(tile: int, a: Operand, b: Operand, m: int, n: int, k: int,
+                     kseg: int = 1 << 30, slices: int = 1):
+    """One fp32 product ``C = A B^T`` of the wide paths' core
+    (``csrc/wide_gemm.cuh``) on tile ``tile``, an index of :func:`f32_tiles`'
+    shapes (-1: the core's own choice), on the current stream; for the tests
+    and ``chip_profile.py wide-f32``, which the port's API does not reach.
+    An operand ``(t0, ext0, t1, ext1, kmajor)`` reads element ``(f, k)`` of
+    the 2-D fp32 CUDA tensor ``t0`` (``t1`` from depth ``kseg`` on) at ``[f,
+    k]`` (kmajor) or ``[k, f]``, 0 past the extent in ``f``.  Returns the
+    ``(slices, m, n)`` outputs of the product cut into ``slices`` along k
+    (``product()``'s rounding of the count)."""
+    import torch
+
+    per = -(-k // slices)
+    kslice = -(-per // 64) * 64
+    cut = -(-k // kslice)
+    out = torch.empty((cut, m, n), dtype=torch.float32, device=a[0].device)
+    ptrs = (ctypes.c_void_p * 4)()
+    ints = (ctypes.c_int * 15)()
+    for i, (t0, e0, t1, e1, kmajor) in enumerate((a, b)):
+        t1 = t0 if t1 is None else t1
+        ptrs[2 * i], ptrs[2 * i + 1] = t0.data_ptr(), t1.data_ptr()
+        ints[5 * i:5 * i + 5] = [t0.stride(0), t1.stride(0), e0, e1, int(kmajor)]
+    ints[10:15] = [kseg, m, n, k, slices]
+    stream = torch.cuda.current_stream(a[0].device).cuda_stream
+    check(kernels().cnf_wide_f32_product(tile, ptrs, ints, out.data_ptr(), stream),
+          "wide_f32_product")
+    return out

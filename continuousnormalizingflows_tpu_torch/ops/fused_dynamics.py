@@ -205,6 +205,7 @@ def _launch_fwd(x, eps, weights, nz, compute_dtype) -> Out5:
                              for _ in range(3))
         scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
         lib = _build.kernels()
+        tiles = None if bf16 or plan.path != "wide" else _build.f32_tiles()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             with profiling.span("K1.call"):
@@ -216,6 +217,8 @@ def _launch_fwd(x, eps, weights, nz, compute_dtype) -> Out5:
                 )
         _build.check(err, "fused_dynamics_fwd")
         profiling.count("K1.launches")
+        if tiles is not None:  # the fp32 products on each tile (wide.f32.*)
+            _build.count_f32_tiles(tiles)
         return y, ez, div, reg_z, reg_j
 
 
@@ -249,6 +252,7 @@ def _launch_bwd(x, eps, weights, nz, cotangents, compute_dtype):
         scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=x.device)
         grads = torch.empty((plan.n_params,), dtype=torch.float32, device=x.device)
         lib = _build.kernels()
+        tiles = None if bf16 or plan.path != "wide" else _build.f32_tiles()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             with profiling.span("K2.call"):
@@ -260,6 +264,8 @@ def _launch_bwd(x, eps, weights, nz, cotangents, compute_dtype):
                 )
         _build.check(err, "fused_dynamics_bwd")
         profiling.count("K2.launches")
+        if tiles is not None:  # the fp32 products on each tile (wide.f32.*)
+            _build.count_f32_tiles(tiles)
         return xbar, epsbar, split_grads(grads, n_in, h, n_out)
 
 

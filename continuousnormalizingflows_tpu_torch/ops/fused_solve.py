@@ -220,6 +220,7 @@ def _launch_fwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, compute_dtype):
         u1 = torch.empty_like(u0)
         scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=u0.device)
         lib = _build.kernels()
+        tiles = None if bf16 or plan.path != "wide" else _build.f32_tiles()
         with torch.cuda.device(u0.device):
             stream = torch.cuda.current_stream().cuda_stream
             with profiling.span("K3.call"):
@@ -231,6 +232,8 @@ def _launch_fwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, compute_dtype):
                 )
         _build.check(err, "fused_solve_rk4_fwd")
         profiling.count("K3.launches")
+        if tiles is not None:  # the fp32 products on each tile (wide.f32.*)
+            _build.count_f32_tiles(tiles)
         return u1
 
 
@@ -258,6 +261,7 @@ def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dt
         scratch = torch.empty((plan.scratch,), dtype=torch.float32, device=dev)
         grads = torch.empty((plan.n_params,), dtype=torch.float32, device=dev)
         lib = _build.kernels()
+        tiles = None if bf16 or plan.path != "wide" else _build.f32_tiles()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             with profiling.span("K4.call"):
@@ -270,6 +274,8 @@ def _launch_bwd(u0, eps, ys, weights, t0, dt, nz, t_col, steps, gbar, compute_dt
                 )
         _build.check(err, "fused_solve_rk4_bwd")
         profiling.count("K4.launches")
+        if tiles is not None:  # the fp32 products on each tile (wide.f32.*)
+            _build.count_f32_tiles(tiles)
         return u0bar, epsbar, split_grads(grads, n_in, h, n_out)
 
 

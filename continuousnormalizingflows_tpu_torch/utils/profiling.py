@@ -24,8 +24,9 @@ The recorder marks the port's layers from the inside:
 * :func:`count` ``(name, n)`` adds to a process-wide counter, always on:
   ``K1.launches`` ... ``K6.launches`` (CUDA kernel launches),
   ``solve.<route>`` (the route ``core._solve`` took), ``host_reads.<site>``
-  (every :func:`host_read`), ``spans.dropped`` (records past
-  :data:`MAX_RECORDS`).  :func:`counters` reads them,
+  (every :func:`host_read`), ``wide.f32.<BMxBN>`` (the fp32 products K1-K4's
+  wide paths launched on each tile of their product core), ``spans.dropped``
+  (records past :data:`MAX_RECORDS`).  :func:`counters` reads them,
   :func:`reset_counters` zeroes them.
 """
 

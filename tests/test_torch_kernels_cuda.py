@@ -380,8 +380,9 @@ def test_fused_dynamics_bwd_wide_nets(dev, h, b, cdt):
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])
 def test_fused_dynamics_bwd_wide_memory(dev, cdt):
     """K2 at the image model (785 -> 1024 -> 1024 -> 784, B = 256) adds under
-    64 MB to the device's peak: its outputs and scratch, no (grid, P) buffer
-    of per-block partial gradients."""
+    64 MB to the device's peak: its outputs and scratch, and no (grid, P)
+    buffer of per-block partial gradients, only the 2 slices' partial
+    gradients that fp32's 128 x 96 tiles ask for (2 x 2.7 M floats)."""
     n_in, h, nz, b = 785, 1024, 784, 256
     params = _params((n_in, h, h, nz), dev)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -591,6 +592,131 @@ def test_fused_solve_wide_nets(dev, h, b, cdt):
     torch.testing.assert_close(u1, fused_solve_rk4_reference(*args, cdt), rtol=SOLVE_TOL[cdt][0],
                                atol=SOLVE_TOL[cdt][1])
     _close_to_max(got, _flat(fused_solve_rk4_bwd_reference(*args, gbar, cdt)), SOLVE_BWD_TOL[cdt])
+
+
+# The fp32 product core's tiles (csrc/wide_gemm.cuh): index 0 128 x 96, 1 64 x
+# 96, 2 the first design's 64 x 32.  Products at the d43 cell's shapes (88 ->
+# 352 -> 352 -> 87, B = 8,192): a (M, N, K) of each kind, both layouts of
+# each operand, rows of 87 floats (not 16-byte aligned), a weight gradient of
+# two row sets with a ragged extent, cut into slices, and M = 8,193 and 256.
+def _f32_case(case, dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, h, n_in, nz = 8192, 352, 88, 87
+    if case == "m8193":
+        b = 8193
+    if case == "b256":
+        b = 256
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x, hid, d, eb = r(b, n_in), r(b, h), r(b, h), r(b, nz)
+    a1, a2, a3 = r(h, n_in), r(h, h), r(nz, h)
+    row = lambda t, ext: (t, ext, None, ext, True)  # noqa: E731
+    col = lambda t, ext: (t, ext, None, ext, False)  # noqa: E731
+    cases = {
+        "n352k352": (row(hid, b), row(a2, h), b, h, h),
+        "n352k352_bycol": (row(d, b), col(a2, h), b, h, h),
+        "n352k88": (row(x, b), row(a1, h), b, h, n_in),
+        "n352k87_ld87": (row(eb, b), row(a1, h), b, h, nz),
+        "n87k352": (row(hid, b), row(a3, nz), b, nz, h),
+        "n87k352_bycol": (row(d, b), col(a1, nz), b, nz, h),
+        "m8193": (row(hid, b), row(a2, h), b, h, h),
+        "b256": (row(hid, b), col(a2, h), b, h, h),
+        "bycol_byrow": (col(hid, h), row(a2, h), h, h, h),
+    }
+    if case == "wgrad":  # dA1 = z1^T x + d1^T [ebar, 0], cut into 3 slices
+        a = (hid, 300, d, 200, False)
+        bb = (x, 80, eb, nz, False)
+        return a, bb, h, n_in, 2 * b, b, 3
+    a, bb, m, n, k = cases[case]
+    return a, bb, m, n, k, 1 << 30, 1
+
+
+F32_CASES = ["n352k352", "n352k352_bycol", "n352k88", "n352k87_ld87", "n87k352",
+             "n87k352_bycol", "wgrad", "m8193", "b256", "bycol_byrow"]
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_wide_f32_tiles_give_the_first_designs_bits(dev, case):
+    """Each Hopper tile of the fp32 core gives the 64 x 32 tile's bits (every
+    output adds the same terms in the same order), on the same product
+    through the test entry, call after call; the 64 x 32 tile against a
+    float64 product."""
+    from continuousnormalizingflows_tpu_torch.ops import _build
+
+    a, b, m, n, k, kseg, slices = _f32_case(case, dev)
+    first = _build.wide_f32_product(2, a, b, m, n, k, kseg, slices)
+    for tile in (0, 1, 0, 1):
+        assert torch.equal(_build.wide_f32_product(tile, a, b, m, n, k, kseg, slices), first)
+    assert torch.equal(_build.wide_f32_product(-1, a, b, m, n, k, kseg, slices), first)
+
+    def dense(op, f):  # the operand as an (f, k) float64 matrix
+        t0, e0, t1, e1, kmajor = op
+        parts = []
+        for t, e, rows in ((t0, e0, min(k, kseg)), (t1, e1, k - min(k, kseg))):
+            if rows <= 0:
+                continue
+            t = (t0 if t is None else t).double()
+            v = torch.zeros((f, rows), dtype=torch.float64, device=dev)
+            c = min(f, e)
+            v[:c] = t[:c, :rows] if kmajor else t[:rows, :c].T
+            parts.append(v)
+        return torch.cat(parts, dim=1)
+
+    want = dense(a, m) @ dense(b, n).T
+    torch.testing.assert_close(first.double().sum(0), want, rtol=1e-5, atol=1e-3)
+
+
+def test_wide_f32_tiles_follow_the_products_shape(dev):
+    """K3 and K4 on their fp32 wide paths at the d43 widths count each product
+    on its tile (wide.f32.*): at B = 8,192 the Hopper tiles (the 352-wide
+    products on 128 x 96, the 87-wide on 64 x 96) and none on 64 x 32; at B =
+    256 the first design's 64 x 32 only."""
+    counts = {}
+    for b in (8192, 256):
+        args, gbar = _d43_solve(dev, b)
+        before = profiling.counters()
+        fused_solve_rk4(*args, 1)
+        fused_solve_rk4_bwd(*args, 1, gbar)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        counts[b] = {s: after.get(f"wide.f32.{s}", 0) - before.get(f"wide.f32.{s}", 0)
+                     for s in ("128x96", "64x96", "64x32")}
+    assert counts[8192]["128x96"] > 0 and counts[8192]["64x96"] > 0
+    assert counts[8192]["64x32"] == 0
+    assert counts[256]["128x96"] == counts[256]["64x96"] == 0 and counts[256]["64x32"] > 0
+    # the same products at either batch, on other tiles
+    assert sum(counts[8192].values()) == sum(counts[256].values())
+
+
+def _d43_solve(dev, b):
+    """The d43 cell's net (88 -> 352 -> 352 -> 87, a time column, state 90)
+    and a batch of b rows over a span that ends at a device scalar."""
+    nz, h = 87, 352
+    params = _params((nz + 1, h, h, nz), dev, seed=3)
+    g = torch.Generator(device=dev).manual_seed(b)
+    u0 = torch.cat([0.5 * torch.randn((b, nz), generator=g, device=dev),
+                    torch.zeros((b, 3), device=dev)], dim=-1)
+    eps = torch.randn((b, nz), generator=g, device=dev)
+    gbar = torch.randn((b, nz + 3), generator=g, device=dev)
+    return (u0, eps, None, params, (0.0, torch.tensor(1.05, device=dev)), nz, nz), gbar
+
+
+def test_fused_solve_d43_widths(dev):
+    """K3 and K4 at the d43 cell's widths and batch (B = 8,192, fp32, 4
+    steps: the Hopper tiles, the weight gradients cut into the slices of
+    their tile) against their plain versions (SOLVE_TOL, SOLVE_BWD_TOL), the
+    same bits call after call."""
+    args, gbar = _d43_solve(dev, 8192)
+    u1, again = fused_solve_rk4(*args, 4), fused_solve_rk4(*args, 4)
+    got = _flat(fused_solve_rk4_bwd(*args, 4, gbar))
+    twice = _flat(fused_solve_rk4_bwd(*args, 4, gbar))
+    torch.cuda.synchronize()
+    assert torch.equal(u1, again) and all(torch.equal(a, c) for a, c in zip(got, twice))
+    torch.testing.assert_close(u1, fused_solve_rk4_reference(*args, 4), rtol=SOLVE_TOL[None][0],
+                               atol=SOLVE_TOL[None][1])
+    _close_to_max(got, _flat(fused_solve_rk4_bwd_reference(*args, 4, gbar)), SOLVE_BWD_TOL[None])
 
 
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["fp32", "bf16"])

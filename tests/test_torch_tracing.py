@@ -243,3 +243,32 @@ def test_the_chrome_trace_holds_the_programs_spans(tmp_path):
     (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
     names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
     assert {"cnf.logpdf.call", "cnf.solve", "cnf.ode.trial", "cnf.host_read.ode.trial"} <= names
+
+
+def test_the_plain_versions_count_no_fp32_tiles():
+    """On the CPU the kernels' plain versions run, at widths whose fp32 solves
+    and stages take the wide paths on the card (h = 64), and no
+    ``wide.f32.*`` counter moves: those count the products the kernel
+    library launched on each tile of its fp32 core."""
+    from continuousnormalizingflows_tpu_torch.models.nets import MLP
+    from continuousnormalizingflows_tpu_torch.ops.fused_dynamics import (fused_dynamics_vjp,
+                                                                         fused_dynamics_vjp_bwd)
+    from continuousnormalizingflows_tpu_torch.ops.fused_solve import (fused_solve_rk4,
+                                                                      fused_solve_rk4_bwd)
+
+    nz, h, b = 5, 64, 16
+    params = MLP((nz + 1, h, h, nz)).init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    u0 = torch.cat([torch.randn((b, nz), generator=g), torch.zeros((b, 3))], dim=-1)
+    eps = torch.randn((b, nz), generator=g)
+    gbar = torch.randn((b, nz + 3), generator=g)
+    args = (u0, eps, None, params, (0.0, 1.0), nz, nz, 2)
+    fused_solve_rk4(*args)
+    fused_solve_rk4_bwd(*args, gbar)
+    x = torch.cat([u0[:, :nz], torch.full((b, 1), 0.5)], dim=-1)
+    fused_dynamics_vjp(x, eps, params, nz)
+    fused_dynamics_vjp_bwd(x, eps, params, nz, (gbar[:, :nz], gbar[:, :nz], *gbar[:, nz:].T))
+    call = _route_call("fused_rk4")
+    call()
+    assert profiling.counters()["solve.fused_rk4"] == 1
+    assert not [k for k in profiling.counters() if k.startswith("wide.f32.")]
