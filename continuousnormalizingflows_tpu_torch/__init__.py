@@ -12,7 +12,9 @@ fixed-step rk4/euler with backprop, the reference-default adaptive dopri5
 the adaptive-order multistep ``abm`` (Adams-Bashforth-Moulton), the
 backsolve and quadrature adjoints; every trace estimator (the exact sweep,
 the planar and MLP analytic traces, Hutchinson by VJP or JVP); the nets
-``MLP``, ``Planar``, ``CondLayer`` and ``from_torch``; custom base,
+``MLP``, ``Planar``, ``CondLayer`` and ``from_torch``; FFJORD's multiscale
+image flow (``MultiscaleICNF``: a chain of blocks with ``ConcatConvNet``
+dynamics, squeezes and factor-outs; the port's own); custom base,
 probe and steer distributions (``distributions``); and ``utils``: the
 datasets, ``AsyncCheckpointer``, ``profiling.trace``/``StepTimer`` and the
 serving export (``export_logpdf``/``export_sampler`` on ``torch.export``,
@@ -44,13 +46,16 @@ from .core import (base_logpdf, generate, generate_with_logp, inference, log_pro
 from .dist import CondICNFDist, ICNFDist
 from .distributions import CustomDist
 from .models.icnf import ICNF, default_net
-from .models.nets import MLP, CondLayer, DynamicsNet, Planar, from_torch, planar_h
+from .models.multiscale import MultiscaleICNF, dequantize
+from .models.nets import MLP, ConcatConvNet, CondLayer, DynamicsNet, Planar, from_torch, planar_h
 from .train import CondICNFModel, FitResult, ICNFModel, default_optimizer
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ICNF",
+    "MultiscaleICNF",
+    "dequantize",
     "ICNFConfig",
     "Mode",
     "ProbeDist",
@@ -61,6 +66,7 @@ __all__ = [
     "TraceEstimator",
     "MLP",
     "Planar",
+    "ConcatConvNet",
     "CondLayer",
     "DynamicsNet",
     "default_net",

@@ -34,9 +34,10 @@ import torch
 from .config import LOG_2PI, ICNFConfig, Mode, ProbeDist
 from .distributions import generator_arg
 from .models.icnf import ICNF
-from .models.nets import Params
+from .models.nets import Params, _TorchNet
 from .ops.adjoint import odeint_diff
-from .ops.dynamics import make_augmented_dynamics, make_field, probe_share
+from .ops.dynamics import (fused_dynamics_applicable, make_augmented_dynamics, make_field,
+                           probe_share)
 from .ops.fused_adaptive import (_scfg_tuple, fused_adaptive_applicable, fused_adaptive_tile,
                                   fused_solve_dopri5, stats_from_rows)
 from .ops.fused_solve import fused_solve_applicable, fused_solve_rk4
@@ -50,6 +51,7 @@ __all__ = [
     "sample_probe",
     "steer_t1",
     "inference",
+    "block_terminal",
     "generate",
     "generate_with_logp",
     "loss",
@@ -141,7 +143,9 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
 
     ``layout="feature_first"`` takes no fused route (the gates require
     ``batch_first``, as JAX's do): the unfused solve runs on ``u0``, ``eps``
-    and ``ys`` transposed once here, and ``u1`` is transposed back."""
+    and ``ys`` transposed once here, and ``u1`` is transposed back.
+    The unfused route's continuous adjoint replays ``icnf.graphs`` where
+    :func:`_graphs` gives them."""
     cfg = icnf.config
     if device_loop:
         if mode.stochastic:
@@ -184,8 +188,19 @@ def _solve(icnf: ICNF, mode: Mode, u0: torch.Tensor, t0, t1, params: Params,
         u0, args = _layout_in(cfg, u0, {"params": params, "eps": eps, "ys": ys})
         if dt0 is not None:
             args["dt0"] = dt0
-        u1, stats = odeint_diff(f_aug, u0, t0, t1, args, cfg.solver)
+        u1, stats = odeint_diff(f_aug, u0, t0, t1, args, cfg.solver, _graphs(icnf, mode))
         return _layout_out(cfg, u1), stats
+
+
+def _graphs(icnf: ICNF, mode: Mode) -> Optional[dict]:
+    """``icnf``'s cache of CUDA graphs of its solves in ``mode``
+    (:func:`.ops.adjoint.odeint_diff`), or None where its dynamics are not
+    the port's own operations alone: the fused stage's kernels (K1, K2)
+    count their launches on the host, and a ``from_torch`` module's code
+    may read the device from the host."""
+    if fused_dynamics_applicable(icnf.config, icnf.net, mode) or isinstance(icnf.net, _TorchNet):
+        return None
+    return icnf.graphs.setdefault(mode, {})
 
 
 def _layout_in(cfg: ICNFConfig, u0: torch.Tensor, args: dict):
@@ -244,6 +259,29 @@ def _need_generator(mode: Mode, generator: Optional[torch.Generator]) -> None:
         raise ValueError("train mode needs a torch.Generator (probe + steer sampling)")
 
 
+def _forward_solve(icnf: ICNF, mode: Mode, xs, params: Params,
+                   generator: Optional[torch.Generator], ys, dt0: Optional[torch.Tensor],
+                   device_loop: bool, tspan=None):
+    """``(u1, stats, single)``: the padded state of ``xs`` solved over the
+    span (``tspan``, default the config's), the end time steered and the
+    probes drawn as ``mode`` asks."""
+    cfg = icnf.config
+    device = _device_of(params)
+    xs, single = _as_batch(torch.as_tensor(xs, dtype=cfg.dtype, device=device))
+    ys = _prep_ys(cfg, ys, device)
+    _need_generator(mode, generator)
+    batch = xs.shape[0]
+    u0 = torch.cat(
+        [xs, torch.zeros((batch, cfg.n_aug_input + 3), dtype=cfg.dtype, device=device)], dim=-1
+    )
+    t0, t1 = cfg.tspan if tspan is None else tspan
+    if mode.regularized and cfg.steered:
+        t1 = steer_t1(cfg, generator, device)
+    eps = _shard_probe(cfg, generator, batch, device) if mode.stochastic else None
+    u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys, dt0, device_loop)
+    return u1, stats, single
+
+
 def inference(icnf: ICNF, mode: Mode, xs, params: Params,
               generator: Optional[torch.Generator] = None, ys=None,
               dt0: Optional[torch.Tensor] = None, device_loop: bool = False):
@@ -254,23 +292,26 @@ def inference(icnf: ICNF, mode: Mode, xs, params: Params,
     ``torch.export`` captures; no gradient, and the counts in the stats are
     0-d tensors), with the same steps as the default loop."""
     cfg = icnf.config
-    device = _device_of(params)
-    xs, single = _as_batch(torch.as_tensor(xs, dtype=cfg.dtype, device=device))
-    ys = _prep_ys(cfg, ys, device)
-    _need_generator(mode, generator)
-    batch = xs.shape[0]
-    u0 = torch.cat(
-        [xs, torch.zeros((batch, cfg.n_aug_input + 3), dtype=cfg.dtype, device=device)], dim=-1
-    )
-    t0, t1 = cfg.tspan
-    if mode.regularized and cfg.steered:
-        t1 = steer_t1(cfg, generator, device)
-    eps = _shard_probe(cfg, generator, batch, device) if mode.stochastic else None
-    u1, stats = _solve(icnf, mode, u0, t0, t1, params, eps, ys, dt0, device_loop)
+    u1, stats, single = _forward_solve(icnf, mode, xs, params, generator, ys, dt0, device_loop)
     logpx, augs = _split_terminal(cfg, mode, u1)
     if single:
         logpx, augs = logpx[0], tuple(a[0] for a in augs)
     return logpx, augs, stats
+
+
+def block_terminal(icnf: ICNF, mode: Mode, xs: torch.Tensor, params: Params,
+                   generator: Optional[torch.Generator] = None, tspan=None):
+    """One block of a chain of flows (:class:`.models.multiscale.MultiscaleICNF`):
+    the solve of :func:`inference` from the rows ``xs`` ``(batch, nz)``,
+    returned as the terminal state's columns ``(z1 (batch, nz), dlogp, E, n,
+    SolverStats)``, which the chain sums over its blocks.  ``logpx`` of one
+    block alone would be ``base_logpdf(z1) - dlogp``.  ``tspan``: the
+    span's ends as 0-d tensors on the rows' device (no copy from the host,
+    so no wait for the stream), or None for the config's."""
+    nz = icnf.config.nz
+    u1, stats, _single = _forward_solve(icnf, mode, xs, params, generator, None, None, False,
+                                        tspan)
+    return u1[:, :nz], u1[:, nz], u1[:, nz + 1], u1[:, nz + 2], stats
 
 
 def generate_with_logp(icnf: ICNF, mode: Mode, params: Params, generator: torch.Generator,

@@ -18,6 +18,7 @@ import torch
 from .config import Mode
 from .core import _device_of, generate, generate_with_logp, inference
 from .models.icnf import ICNF
+from .models.multiscale import MultiscaleICNF
 from .models.nets import Params
 from .utils import profiling
 
@@ -58,7 +59,9 @@ def _shim_layout(x: torch.Tensor, nvariables: int) -> torch.Tensor:
 
 
 class ICNFDist:
-    """Unconditional flow distribution over ``nvariables`` dimensions."""
+    """Unconditional flow distribution over ``nvariables`` dimensions.  Of a
+    :class:`.models.multiscale.MultiscaleICNF`, ``logpdf`` only, in
+    ``Mode.TRAIN_NOREG`` (it has no exact trace)."""
 
     def __init__(self, icnf: ICNF, params: Params, mode: Mode = Mode.TEST,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -81,6 +84,8 @@ class ICNFDist:
             cfg = self.icnf.config
             x = torch.as_tensor(x, dtype=cfg.dtype, device=_device_of(self.params))
             x = _shim_layout(x, cfg.nvariables)
+            if isinstance(self.icnf, MultiscaleICNF):
+                return self.icnf.log_prob(self.mode, x, self.params, generator or self.generator)
             ys = self._ys_for(x.shape[0] if x.ndim > 1 else 1)
             logpx, _augs, _stats = inference(self.icnf, self.mode, x, self.params,
                                              generator or self.generator, ys)

@@ -26,10 +26,14 @@ def default_net(cfg: ICNFConfig, precision: str = "highest") -> MLP:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ICNF:
-    """An infinitesimal continuous normalizing flow: config and net."""
+    """An infinitesimal continuous normalizing flow: config and net.
+    ``graphs``: the CUDA graphs of its fixed-step backsolves on the card, by
+    mode (:mod:`..ops.adjoint`), captured on a solve's first call of its
+    shapes and held for the flow's life."""
 
     config: ICNFConfig
     net: DynamicsNet
+    graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self) -> None:
         if self.net.n_in != self.config.n_in or self.net.n_out != self.config.n_out:

@@ -11,8 +11,10 @@ layout.
 
 ``MLP`` (the reference default), ``Planar`` (planar-flow dynamics, params
 ``u``, ``w``, ``b``, the same layout as JAX's) with ``planar_h``,
-``CondLayer`` (appends a constant condition to the input) and
-``from_torch`` (any ``nn.Module``, in place of JAX's ``from_flax``).
+``CondLayer`` (appends a constant condition to the input),
+``from_torch`` (any ``nn.Module``, in place of JAX's ``from_flax``) and
+``ConcatConvNet`` (FFJORD's convolutional dynamics of an image-shaped
+state; the port's own, with no JAX counterpart).
 
 ``apply_t(params, x)`` is the feature-first apply of ``layout="feature_first"``:
 ``(..., n_in, batch) -> (..., n_out, batch)``.  ``MLP`` and ``Planar`` run
@@ -32,8 +34,8 @@ from torch import nn
 from ..config import resolve_device
 from ..parallel import mesh as pmesh
 
-__all__ = ["DynamicsNet", "MLP", "Planar", "CondLayer", "planar_h", "from_torch", "Params",
-           "linear", "linear_t", "mlp_layers"]
+__all__ = ["DynamicsNet", "MLP", "Planar", "CondLayer", "ConcatConvNet", "planar_h", "from_torch",
+           "Params", "linear", "linear_t", "mlp_layers"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -57,6 +59,74 @@ class DynamicsNet(nn.Module):
         """Feature-first apply, ``(..., n_in, batch) -> (..., n_out, batch)``:
         ``apply`` between transposes of the last two axes."""
         return self.apply(params, x.transpose(-2, -1)).transpose(-2, -1)
+
+
+class ConcatConvNet(DynamicsNet):
+    """FFJORD's image dynamics (``ODEnet`` of ``ConcatConv2d`` layers): on a
+    state of shape ``(c, h, w)``, every layer is a 3 x 3 convolution (stride
+    1, padding 1, with bias) of ``[t, x]``, the input with a constant channel
+    ``t`` put in front of it; softplus (``activation``) after all but the
+    last.  Widths ``c -> hidden... -> c``.
+
+    A :class:`DynamicsNet` over flattened rows: ``n_in = c*h*w + 1`` (the
+    state, then ``t``), ``n_out = c*h*w``.  Params ``layers.{i}.weight``
+    ``(out, in + 1, 3, 3)`` (input channel 0 is ``t``) and
+    ``layers.{i}.bias``."""
+
+    def __init__(self, shape: Sequence[int], hidden: Sequence[int] = (64, 64, 64),
+                 activation: Callable[[torch.Tensor], torch.Tensor] = F.softplus,
+                 dtype=torch.float32) -> None:
+        super().__init__()
+        self.shape = tuple(int(s) for s in shape)
+        if len(self.shape) != 3:
+            raise ValueError(f"ConcatConvNet takes a (c, h, w) shape, got {shape!r}")
+        c, h, w = self.shape
+        self.hidden = tuple(int(x) for x in hidden)
+        self.activation = activation
+        self.dtype = dtype
+        self.channels = (c,) + self.hidden + (c,)
+        self.n_in = c * h * w + 1
+        self.n_out = c * h * w
+        self.layers = nn.ModuleList(
+            nn.Conv2d(a + 1, b, 3, padding=1, dtype=dtype)
+            for a, b in zip(self.channels[:-1], self.channels[1:])
+        )
+
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        """``nn.Conv2d``'s default draws (weights and biases uniform within
+        ``1 / sqrt(fan_in)``, ``fan_in = 9 (in + 1)``), layer after layer,
+        weight then bias, on ``generator``'s device, then moved to
+        ``device`` (default: the card)."""
+        device = resolve_device(device)
+        params = {}
+        for i, (a, b) in enumerate(zip(self.channels[:-1], self.channels[1:])):
+            bound = 1.0 / math.sqrt(9 * (a + 1))
+            for name, shape in (("weight", (b, a + 1, 3, 3)), ("bias", (b,))):
+                u = torch.rand(shape, generator=generator, dtype=self.dtype,
+                               device=generator.device)
+                params[f"layers.{i}.{name}"] = (2.0 * u - 1.0) * bound
+        return {k: v.to(device) for k, v in params.items()}
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        c, h, w = self.shape
+        hcur = x[..., :-1].reshape((-1, c, h, w))
+        tt = x[..., -1].reshape(-1, 1, 1, 1).expand(-1, 1, h, w)
+        last = len(self.layers) - 1
+        for i in range(len(self.layers)):
+            hcur = F.conv2d(torch.cat([tt, hcur], dim=1), params[f"layers.{i}.weight"],
+                            params[f"layers.{i}.bias"], padding=1)
+            if i != last:
+                hcur = self.activation(hcur)
+        return hcur.reshape(lead + (self.n_out,))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(dict(self.named_parameters()), x)
+
+    def apply_t(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(
+            'ConcatConvNet runs batch-first only: layout="feature_first" would put the '
+            'batch after the image axes; use the default layout="batch_first"')
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:

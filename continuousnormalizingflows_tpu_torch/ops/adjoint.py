@@ -21,6 +21,17 @@ Each evaluation of the backward takes the VJP of ``f`` with
 Hutchinson probe ``eps`` and the carried starting step ``dt0`` are not
 differentiated (zero cotangent), as in the JAX package.
 
+``graphs`` (a dict for one dynamics in one mode: ``ICNF.graphs``, which
+``core._solve`` passes): a fixed-step backsolve on the card, outside a
+sharded step, runs its forward solve and its backward solve as CUDA graphs,
+each captured on the first call of its shapes (after two warm-up calls on a
+side stream, which pick the convolutions' kernels) and replayed after it on
+copies of the inputs: two launches a solve in place of one a product and
+sum.  The replays run the eager solve's kernels on the same values, but
+cuDNN's weight gradients may sum in another order from call to call: four
+Adam steps of a replayed and an eager chain agree to 1.5e-5 of a step on
+the card (``tests/test_torch_multiscale_cuda.py``).
+
 Inside a sharded step (:func:`..parallel.mesh.use_mesh`) the parameter
 leaves of the backward state, the parameter VJP and its integral ``q``, are
 sums over this rank's rows.  Where they enter an error norm (no seminorm)
@@ -189,41 +200,106 @@ def _end_grads(ctx, f, t0, t1, y1, g, y0_rec, a0, build_y, args):
     return t0_bar, t1_bar
 
 
+class _Captured:
+    """``fn(*inputs) -> (tensors, static)`` captured once as a CUDA graph on
+    copies of ``inputs``; a call copies its inputs in, replays, and returns
+    copies of the tensors and the capture's ``static`` (what does not vary
+    between calls)."""
+
+    def __init__(self, fn, inputs: List[torch.Tensor]) -> None:
+        self.inputs = [x.detach().clone() for x in inputs]
+        side = torch.cuda.Stream(self.inputs[0].device)
+        side.wait_stream(torch.cuda.current_stream(self.inputs[0].device))
+        with torch.cuda.stream(side):  # the warm-up picks the kernels outside the capture
+            for _ in range(2):
+                fn(*self.inputs)
+        torch.cuda.current_stream(self.inputs[0].device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outputs, self.static = fn(*self.inputs)
+
+    def __call__(self, inputs: List[torch.Tensor]):
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        return [o.clone() for o in self.outputs], self.static
+
+
+def _capturable(cfg: SolverConfig, x: torch.Tensor) -> bool:
+    """Whether a solve of ``cfg`` on ``x``'s device can be a CUDA graph: a
+    fixed-step one (no host read) on the card, outside a sharded step."""
+    return cfg.method in ("rk4", "euler") and x.is_cuda and pmesh.active() is None
+
+
+def _replayed(graphs: Optional[dict], key: tuple, fn, inputs: List[torch.Tensor]):
+    """``fn(*inputs) -> (tensors, static)``; with a ``graphs`` cache, where
+    :func:`_capturable` (``key[1]`` the solve's config), through the graph
+    captured there on the first call of these shapes."""
+    if graphs is None or not _capturable(key[1], inputs[0]):
+        return fn(*inputs)
+    key = key + (inputs[0].device,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
+    captured = graphs.get(key)
+    if captured is None:
+        captured = graphs[key] = _Captured(fn, inputs)
+    return captured(inputs)
+
+
+def _backward_solve(solve, inputs: List[torch.Tensor], cfg: SolverConfig,
+                    graphs: Optional[dict]) -> list:
+    """The leaves of a continuous adjoint's backward solve, ``solve(*inputs)``
+    (the span ``adjoint.backward``), without a graph; replayed from
+    ``graphs`` where :func:`_replayed` allows."""
+    with torch.no_grad(), profiling.span("adjoint.backward"):
+        return _replayed(graphs, ("bwd", cfg), solve, inputs)[0]
+
+
 class _Backsolve(torch.autograd.Function):
     """The backsolve adjoint.  Inputs after the statics: ``t0``, ``t1`` (0-d
     tensors), the leaves of ``y0``, then those of the differentiable args."""
 
     @staticmethod
     def forward(ctx, t0, t1, static, *leaves):
-        f, cfg, n_y, build_y, build_d, args_nd, stats_out, _shard = static
-        y0 = build_y(list(leaves[:n_y]))
-        y1, stats = odeint(f, y0, t0, t1, _merge_args(build_d(list(leaves[n_y:])), args_nd),
-                           cfg)
-        stats_out.append(stats)
-        y1_leaves, _ = _flatten(y1)
+        f, cfg, n_y, build_y, build_d, args_nd, stats_out, _shard, graphs = static
+        nd, build_nd = _flatten(args_nd)
+        n_in = len(leaves)
+
+        def solve(t0, t1, *ins):
+            args = _merge_args(build_d(list(ins[n_y:n_in])), build_nd(list(ins[n_in:])))
+            y1, stats = odeint(f, build_y(list(ins[:n_y])), t0, t1, args, cfg)
+            return _flatten(y1)[0] + [stats.dt_final], tuple(stats[:3])
+
+        outs, counts = _replayed(graphs, ("fwd", cfg), solve, [t0, t1, *leaves, *nd])
+        y1_leaves = outs[:-1]
+        stats_out.append(SolverStats(*counts, outs[-1]))
         ctx.static = static
         ctx.save_for_backward(t0, t1, *y1_leaves, *leaves[n_y:])
         return tuple(y1_leaves)
 
     @staticmethod
     def backward(ctx, *g):
-        f, cfg, n_y, build_y, build_d, args_nd, _stats, (keys, param_ids) = ctx.static
+        f, cfg, n_y, build_y, build_d, args_nd, _stats, (keys, param_ids), graphs = ctx.static
         t0, t1, *saved = ctx.saved_tensors
         y1, d_leaves = saved[:n_y], saved[n_y:]
         g = [torch.zeros_like(y) if gi is None else gi for gi, y in zip(g, y1)]
         shard = _Sharding(cfg, keys, param_ids, n_y, with_y=True)
+        nd, build_nd = _flatten(args_nd)
+        n_in = 2 * n_y + len(d_leaves)
 
-        def aug_dyn(t, state, _args):
-            y, a = list(state[:n_y]), list(state[n_y:2 * n_y])
-            dy, a_y, a_d = _vjp(f, t, y, build_y, d_leaves, build_d, args_nd, a)
-            a_d = shard.each_eval(a_d)
-            return tuple(dy) + tuple(-v for v in a_y) + tuple(-v for v in a_d)
+        def solve(t1, t0, *ins):
+            d_in, nd_args = list(ins[2 * n_y:n_in]), build_nd(list(ins[n_in:]))
 
-        state1 = tuple(y1) + tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
-        with torch.no_grad(), profiling.span("adjoint.backward"):
-            state0, _nfe = odeint(aug_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
-                                  dt0_override=_bwd_dt0(args_nd))
-        state0 = _leaves(state0)
+            def aug_dyn(t, state, _args):
+                y, a = list(state[:n_y]), list(state[n_y:2 * n_y])
+                dy, a_y, a_d = _vjp(f, t, y, build_y, d_in, build_d, nd_args, a)
+                a_d = shard.each_eval(a_d)
+                return tuple(dy) + tuple(-v for v in a_y) + tuple(-v for v in a_d)
+
+            state1 = tuple(ins[:2 * n_y]) + tuple(torch.zeros_like(l) for l in d_in)
+            state0, _stats = odeint(aug_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
+                                    dt0_override=_bwd_dt0(nd_args))
+            return _leaves(state0), None
+
+        state0 = _backward_solve(solve, [t1, t0, *y1, *g, *d_leaves, *nd], cfg, graphs)
         y0_rec, a0, q = state0[:n_y], state0[n_y:2 * n_y], shard.at_end(state0[2 * n_y:])
         full_args = _merge_args(build_d(list(d_leaves)), args_nd)
         t0_bar, t1_bar = _end_grads(ctx, f, t0, t1, y1, g, y0_rec, a0, build_y, full_args)
@@ -236,7 +312,7 @@ class _Quadrature(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t0, t1, static, *leaves):
-        f, cfg, n_y, build_y, build_d, args_nd, stats_out, _shard = static
+        f, cfg, n_y, build_y, build_d, args_nd, stats_out, _shard, _graphs = static
         y0 = build_y(list(leaves[:n_y]))
         y1, stats, dense = odeint_dense(f, y0, t0, t1,
                                         _merge_args(build_d(list(leaves[n_y:])), args_nd), cfg)
@@ -248,7 +324,7 @@ class _Quadrature(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g):
-        f, cfg, n_y, build_y, build_d, args_nd, _stats, (keys, param_ids) = ctx.static
+        f, cfg, n_y, build_y, build_d, args_nd, _stats, (keys, param_ids), _graphs = ctx.static
         dense = ctx.dense
         t0, t1, *saved = ctx.saved_tensors
         y1, d_leaves = saved[:n_y], saved[n_y:]
@@ -262,11 +338,14 @@ class _Quadrature(torch.autograd.Function):
             a_d = shard.each_eval(a_d)
             return tuple(-v for v in a_y) + tuple(-v for v in a_d)
 
-        state1 = tuple(g) + tuple(torch.zeros_like(l) for l in d_leaves)
-        with torch.no_grad(), profiling.span("adjoint.backward"):
-            state0, _nfe = odeint(adj_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
-                                  dt0_override=_bwd_dt0(args_nd))
-            state0 = _leaves(state0)
+        def solve(t1, t0, *state1):  # an adaptive solve: never captured
+            state0, _stats = odeint(adj_dyn, state1, t1, t0, None, _bwd_cfg(cfg), shard.weight,
+                                    dt0_override=_bwd_dt0(args_nd))
+            return _leaves(state0), None
+
+        state1 = list(g) + [torch.zeros_like(l) for l in d_leaves]
+        state0 = _backward_solve(solve, [t1, t0, *state1], cfg, None)
+        with torch.no_grad():
             y0_rec, _ = _flatten(eval_dense(dense, t0))
         a0, q = state0[:n_y], shard.at_end(state0[n_y:])
         full_args = _merge_args(build_d(list(d_leaves)), args_nd)
@@ -274,12 +353,14 @@ class _Quadrature(torch.autograd.Function):
         return (t0_bar, t1_bar, None, *a0, *q)
 
 
-def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig) -> Tuple[Any, SolverStats]:
+def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig,
+                graphs: Optional[dict] = None) -> Tuple[Any, SolverStats]:
     """Differentiable solve.  ``backprop`` is autograd through a fixed-step
     loop; ``adjoint`` (backsolve, any method) and ``quadrature`` (an
     adaptive method's dense output) are continuous adjoints.  On those two,
     the ``"eps"`` and ``"dt0"`` entries of a dict ``args`` get no cotangent
-    (``backprop`` differentiates the probe)."""
+    (``backprop`` differentiates the probe).  ``graphs``: the caller's cache
+    of CUDA graphs for ``f`` (see the module's docstring), or None."""
     if cfg.gradient == "backprop":
         return odeint(f, y0, t0, t1, args, cfg)
     args_d, args_nd = _split_args(args)
@@ -287,9 +368,12 @@ def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig) -> Tuple[Any, SolverStat
     d_leaves, build_d = _flatten(args_d)
     device = y_leaves[0].device
     tdt = y_leaves[0].dtype if y_leaves[0].dtype.is_floating_point else torch.float32
-    # a float end is copied to the card from pageable memory: it waits for the stream
-    with profiling.host_read("adjoint.times"):
-        t0, t1 = (torch.as_tensor(t, dtype=tdt, device=device) for t in (t0, t1))
+    if all(isinstance(t, torch.Tensor) and t.device == device for t in (t0, t1)):
+        t0, t1 = t0.to(tdt), t1.to(tdt)
+    else:
+        # a float end is copied to the card from pageable memory: it waits for the stream
+        with profiling.host_read("adjoint.times"):
+            t0, t1 = (torch.as_tensor(t, dtype=tdt, device=device) for t in (t0, t1))
     needs = torch.is_grad_enabled() and any(
         t.requires_grad for t in (t0, t1, *y_leaves, *d_leaves))
     if not needs:
@@ -300,6 +384,6 @@ def odeint_diff(f, y0, t0, t1, args, cfg: SolverConfig) -> Tuple[Any, SolverStat
     fn = _Quadrature if cfg.gradient == "quadrature" else _Backsolve
     keys = _param_keys(args_d)
     shard = (keys, [id(l) for l, k in zip(d_leaves, keys) if k is not None])
-    static = (f, cfg, len(y_leaves), build_y, build_d, args_nd, stats_out, shard)
+    static = (f, cfg, len(y_leaves), build_y, build_d, args_nd, stats_out, shard, graphs)
     y1 = fn.apply(t0, t1, static, *y_leaves, *d_leaves)
     return build_y(list(y1)), stats_out[0]

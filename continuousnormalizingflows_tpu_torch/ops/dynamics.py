@@ -16,7 +16,8 @@ The branches, in the JAX package's order: the fused Hutchinson-VJP stage
 exact Frobenius ``reg_j``); the analytic trace of 1- and 2-hidden-layer
 MLPs; the generic exact sweep (one JVP a basis row, in blocks of
 ``exact_chunk`` rows when it is set); the Hutchinson VJP
-(``torch.autograd.grad``) and the Hutchinson JVP.  The JVPs of the port's
+(``torch.autograd.grad``; a :class:`ConcatConvNet`'s written out,
+:func:`_conv_probe_vjps`) and the Hutchinson JVP.  The JVPs of the port's
 own nets (an MLP of any depth or a planar net, under any ``CondLayer``s,
 with an activation of :data:`ACTIVATION_DERIVATIVES`) are written out: the
 tangents pushed through each product and each activation's derivative
@@ -53,8 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ICNFConfig, Mode, TraceEstimator
-from ..models.nets import (MLP, CondLayer, DynamicsNet, Params, Planar, _TorchNet, linear,
-                           linear_t, mlp_layers)
+from ..models.nets import (MLP, ConcatConvNet, CondLayer, DynamicsNet, Params, Planar, _TorchNet,
+                           linear, linear_t, mlp_layers)
 from ..parallel import mesh as pmesh
 from .fused_dynamics import MAX_HIDDEN, _row_norm, fused_dynamics_vjp
 
@@ -693,6 +694,41 @@ def _probe_vjps(fn, z: torch.Tensor, eps: torch.Tensor, inputs):
     return (dz, eps_j) if train else (dz.detach(), eps_j.detach())
 
 
+def _conv_probe_vjps(net: ConcatConvNet, params: Params, x_full: torch.Tensor,
+                     eps: torch.Tensor):
+    """``(f, stack of eps[p]^T df/dz)`` of a :class:`ConcatConvNet` at rows
+    ``x_full = [z, t]``, the probe VJP written out: through each layer
+    backward, the activation's written slope, then the layer's data
+    gradient as ``conv_transpose2d`` by its weight less the ``t`` channel.
+    Plain operations: with no grad (the adjoint's forward solve) they record
+    no graph, and a VJP of them (the adjoint's backward) runs the
+    convolutions' first-order backwards, where one of ``torch.autograd.grad``
+    with ``create_graph`` runs PyTorch's convolution double backward (its
+    weight term a convolution with the batch as channels and the image as
+    the kernel)."""
+    c, h, w = net.shape
+    b = x_full.shape[0]
+    hcur = x_full[:, :-1].reshape(b, c, h, w)
+    tt = x_full[:, -1].reshape(b, 1, 1, 1).expand(b, 1, h, w)
+    last = len(net.layers) - 1
+    slopes = []
+    for i in range(last + 1):
+        hcur = F.conv2d(torch.cat([tt, hcur], dim=1), params[f"layers.{i}.weight"],
+                        params[f"layers.{i}.bias"], padding=1)
+        if i != last:
+            hcur, slope = _act_and_deriv(net.activation, hcur)
+            slopes.append(slope)
+    ejs = []
+    for e in eps:
+        g = e.reshape(b, c, h, w)
+        for i in range(last, -1, -1):
+            g = F.conv_transpose2d(g, params[f"layers.{i}.weight"][:, 1:], padding=1)
+            if i:
+                g = g * slopes[i - 1]
+        ejs.append(g.reshape(b, -1))
+    return hcur.reshape(b, -1), torch.stack(ejs)
+
+
 def fused_dynamics_applicable(cfg: ICNFConfig, net, mode: Mode) -> bool:
     """The JAX fused-stage predicate with a float32 check in place of its
     TPU-backend check (the kernel takes float32; a float64 config solves
@@ -751,6 +787,7 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode,
         return f_aug_fused
 
     planar = isinstance(net, Planar)
+    conv_vjp = isinstance(net, ConcatConvNet) and not ff
     mlp_exact = _mlp_exact_applicable(net) and not compute_reg_j
     written = _written_net(net, fx=device_loop)
     sweep = estimator is TraceEstimator.EXACT and not planar and not mlp_exact
@@ -786,7 +823,10 @@ def make_augmented_dynamics(cfg: ICNFConfig, net: DynamicsNet, mode: Mode,
             reg_j = torch.sqrt(fro) if compute_reg_j else zero
         elif estimator is TraceEstimator.HUTCH_VJP:  # one shared forward, one VJP a probe
             eps = args["eps"]
-            dz, eps_j = _probe_vjps(g, z, eps, (*params.values(), ys))
+            if conv_vjp:
+                dz, eps_j = _conv_probe_vjps(net, params, x_in(), eps)
+            else:
+                dz, eps_j = _probe_vjps(g, z, eps, (*params.values(), ys))
             div = _probe_mean(torch.sum(eps_j * eps, dim=feat), cfg.nprobes, probes)
             reg_j = _probe_mean(norm(eps_j), cfg.nprobes, probes) if compute_reg_j else zero
         else:  # HUTCH_JVP: J eps by forward mode

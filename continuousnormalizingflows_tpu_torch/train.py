@@ -50,6 +50,7 @@ from .config import Mode, resolve_device
 from .core import _device_of, inference, loss_with_stats
 from .dist import _shim_layout
 from .models.icnf import ICNF
+from .models.multiscale import MultiscaleICNF
 from .ops.fused_adaptive import fused_adaptive_applicable, fused_adaptive_tile
 from .parallel import mesh as pmesh
 from .utils import profiling
@@ -163,6 +164,9 @@ class ICNFModel:
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh= takes a DeviceMesh (parallel.make_mesh), got "
                             f"{type(mesh).__name__}")
+        if mesh is not None and isinstance(icnf, MultiscaleICNF):
+            raise ValueError("a MultiscaleICNF trains on one device: mesh= (data "
+                             "parallelism) is not implemented for a chain of flows")
         if int(steps_per_dispatch) < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         if eval_icnf is not None and (
@@ -243,7 +247,10 @@ class ICNFModel:
     def _loss_step(self, params: Params, generator: torch.Generator, xb: torch.Tensor,
                    yb: Optional[torch.Tensor], dt0: Optional[torch.Tensor] = None):
         """The train step's loss on a minibatch (a rank's rows of it):
-        ``(loss, solver stats)``.  ``dt0``: the carried start, or None."""
+        ``(loss, solver stats)``.  ``dt0``: the carried start, or None.  A
+        chain of flows sums its blocks' solves (its stats too)."""
+        if isinstance(self.icnf, MultiscaleICNF):
+            return self.icnf.loss_with_stats(Mode.TRAIN, xb, params, generator)
         return loss_with_stats(self.icnf, Mode.TRAIN, xb, params, generator, ys=yb, dt0=dt0)
 
     def _make_step(self, carry: bool) -> Callable:
@@ -439,11 +446,14 @@ class ICNFModel:
         """TestMode densities ``exp(logpx)`` (reference transform,
         core_icnf.jl:60-68) of a table, an ``(n, d)`` matrix, one ``(d,)``
         sample, or a features-first ``(d, n)`` matrix (transposed with a
-        warning)."""
+        warning).  A :class:`MultiscaleICNF` (no exact trace) gives its
+        concatenated latents ``(n, d)`` instead."""
         cfg = self.icnf.config
         xs = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=_device_of(params))
         if xs.ndim == 2:
             xs = _shim_layout(xs, cfg.nvariables)
+        if isinstance(self.icnf, MultiscaleICNF):
+            return self.icnf.latents(xs, params)
         with torch.no_grad():
             logpx = inference(self.icnf, Mode.TEST, xs, params,
                               ys=Y if self._conditional else None)[0]
@@ -451,12 +461,20 @@ class ICNFModel:
 
     def score(self, X, params: Params, Y=None) -> float:
         """Mean negative log-likelihood (nats) under the deterministic
-        TestMode exact trace, with ``eval_icnf`` when set."""
+        TestMode exact trace, with ``eval_icnf`` when set.  A
+        :class:`MultiscaleICNF` (no exact trace) is scored by Hutchinson
+        probes (``Mode.TRAIN_NOREG``) drawn from the start of the model's
+        generator stream, as FFJORD evaluates."""
         icnf_eval = self.eval_icnf if self.eval_icnf is not None else self.icnf
         if self._conditional and Y is None:
             raise ValueError("conditional model requires Y to score")
         cfg = icnf_eval.config
         xs = torch.as_tensor(_table_to_matrix(X), dtype=cfg.dtype, device=_device_of(params))
+        if isinstance(icnf_eval, MultiscaleICNF):
+            with torch.no_grad():
+                logpx = icnf_eval.log_prob(Mode.TRAIN_NOREG, xs, params,
+                                           self._start_generator(xs.device))
+            return -float(torch.mean(logpx))
         ys = Y if self._conditional else None
         if self.mesh is not None and xs.ndim == 2 and xs.shape[0] % self.mesh.size(0) == 0:
             # sharded: each rank its rows, the mean over every rank's
