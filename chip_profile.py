@@ -994,7 +994,10 @@ def adaptive_wide(dev):
     bits on each, which is checked).  A size that does not fit a shape is
     left out of it.  The draws are chip_smoke.py's h = 128 case (doubled
     weights, each 128-row group scaled by 0.1-10, the first step half the
-    span)."""
+    span).  K6 is ``fused_solve_dopri5_bwd``: on the cluster paths its
+    record is written by K5's kernel first, which the K6 row leaves out (a
+    train step's K6 walks K5's record), while the tiled path's K6 holds its
+    replay."""
     from continuousnormalizingflows_tpu_torch.models.nets import MLP
     from continuousnormalizingflows_tpu_torch.ops import _build
     from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa

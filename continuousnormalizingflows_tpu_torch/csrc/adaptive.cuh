@@ -87,9 +87,11 @@ struct Ctl {
   int steps, nacc, nfe, done, fail, accept;
 };
 
-// Where K6's replay records the accepted steps (traj == nullptr in K5).
+// Where the accepted steps are recorded (traj == nullptr: nowhere): K6's
+// replay on the row and tiled paths, K5 on the cluster path under autograd.
 struct Nodes {
-  float* traj;  // (max_nodes, nz, B): z of u at the start of each accepted step
+  float* traj;  // (max_nodes, nz, B): z of u at the start of each accepted step; on the
+                // cluster path (max_nodes, 6, nz, B): z of its six stage inputs
   float* tdt;   // (groups, max_nodes, 2): its t and dt
   int max_nodes;
 };

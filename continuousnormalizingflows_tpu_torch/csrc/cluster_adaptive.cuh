@@ -25,10 +25,20 @@
 //     (adaptive.cuh ctl_decide), and writes the Ctl into each peer's shared
 //     memory; cluster barriers take the place of the block barriers around
 //     the decision.  The trial-step arithmetic is adaptive.cuh's.
-// The per-element arithmetic is the tiled path's, so K5 here gives its bits,
-// and K6's replay (the same cl_solve) takes K5's steps by construction.
+// The per-element arithmetic is the tiled path's, so K5 here gives its bits.
 //
-// K6's walk back (cl_walk) runs on the same cluster: each CTA walks its rows
+// K5's record: under autograd K5 (cl_solve) also writes, for each accepted
+// step, the z columns of its six stage inputs v_0 (u at the step's start)
+// ... v_5, built by stage_input from the accepted trial's k's (the values
+// the stages were evaluated at), into a device buffer of max_nodes x 6 x nz
+// x B floats ([node][stage][column][row]: a warp's stores and the walk's
+// loads are neighbouring rows), with each step's t and dt and each group's
+// accepted count and done flag.  K6 walks that record: it solves nothing
+// again and recomputes no stage input.  A K6 called without K5's record
+// (fused_solve_dopri5_bwd) has K5's kernel write one first: the same
+// cl_solve, so the same steps and the same bits.
+//
+// K6's walk back (cl_walk) runs on a cluster of the same shape: each CTA walks its rows
 // (in passes of walk_rows rows where they do not fit at once), its rows'
 // cotangents (a, vbar_0..vbar_5, epsbar) in its shared memory for the whole
 // walk.  The weight gradient is a product over the cluster's rows at each
@@ -37,10 +47,10 @@
 // reads its peers' activations and cotangents over distributed shared
 // memory.  It is written once, to the group's row of the partial-sum buffer,
 // at the end; the fixed-order reduction (stage_bwd.cuh launch_reduce) adds
-// the groups' rows.  The next step's node is loaded with cp.async while the
-// current step's stages run.  A group that did not finish, or accepted more
-// steps than the node buffer holds, NaN-poisons its rows and its row of
-// partial sums, as on the tiled path.
+// the groups' rows.  The next step's six stage inputs are loaded with cp.async
+// while the current step's stages run.  A group that did not finish, or
+// accepted more steps than the record holds, NaN-poisons its rows and its
+// row of partial sums, as on the tiled path.
 #pragma once
 
 #include <stdint.h>
@@ -80,6 +90,7 @@ __host__ __device__ inline ImageLayout image_layout(const Dims& d, int C) {
 
 constexpr int kBarFloats = 4;  // the image's mbarrier (8 bytes), 16 bytes kept
 constexpr int kClusterThreads = 256;  // threads of a CTA
+constexpr int kRecordStages = 6;      // stage inputs of an accepted step in K5's record
 
 struct ClusterPlan {
   int cluster;    // CTAs a control group (0: the cluster path is not taken)
@@ -87,10 +98,9 @@ struct ClusterPlan {
   int res_fwd;    // K5: the weight image resident in shared memory
   int state_fwd;  // K5: the rows' state in shared memory (else the device scratch)
   int smem_fwd;   // K5: bytes of shared memory
-  int res_bwd;    // K6's walk: the weight image resident (its replay holds it, and the
-                  // state, as K5 does)
+  int res_bwd;    // K6's walk: the weight image resident
   int walk_rows;  // K6's walk: rows of a pass
-  int smem_bwd;   // K6: bytes of shared memory
+  int smem_bwd;   // K6's walk: bytes of shared memory
   int image;      // floats of the weight image (0: neither kernel holds it)
   int share;      // floats of a CTA's share of the weight gradient
 };
@@ -103,10 +113,11 @@ __host__ __device__ inline long solve_floats(const Dims& d, int sd, int R, long 
          (long)R * (stage_floats_per_row(d) + (state ? kStateVecs * sd : 0));
 }
 
-// Floats of a row of K6's walk: the stage backward's buffers, the walk's own
-// (adaptive_bwd_extra) and the node being prefetched.
+// Floats of a row of K6's walk: the stage backward's buffers, the state
+// cotangent a (sd), and z columns of the current and of the next step's six
+// stage inputs (two buffers), the six input cotangents and epsbar.
 __host__ __device__ inline long walk_row_floats(const Dims& d, int sd) {
-  return bwd_floats_per_row(d) + adaptive_bwd_extra(sd, d.nz) + odd(d.nz);
+  return bwd_floats_per_row(d) + odd(sd) + (3 * kRecordStages + 1) * odd(d.nz);
 }
 
 // The cluster plan for groups of g rows and a batch of B: C = 2 CTAs a group
@@ -121,12 +132,11 @@ __host__ __device__ inline long walk_row_floats(const Dims& d, int sd) {
 // 65,536 and at the band (where C = 4 holds the weight image and C = 2 does
 // not); a band step's K6 gains more than its K5 loses.
 // For the C taken, the kernels keep the weight image and then the state in
-// shared memory where they fit beside one pass of the CTA's rows; K6's
-// replay holds them as K5 does, and its walk keeps the image where that
-// costs it no extra pass (else the walk's buffers take the image's place
-// once the replay is done).  Where the image is not resident, the products
-// read the device-memory weights (from L2):
-//   * K5 and K6's replay at the adaptive band (C = 2: 64 rows a CTA) and at
+// shared memory where they fit beside one pass of the CTA's rows, and K6's
+// walk keeps the image (where K5 holds one) where that costs it no extra
+// pass.  Where the image is not resident, the products read the
+// device-memory weights (from L2):
+//   * K5 at the adaptive band (C = 2: 64 rows a CTA) and at
 //     the gate's edge, where one layout does not fit beside a CTA's rows;
 //     sharding the image over the cluster and reading the peers' parts over
 //     DSMEM is not done;
@@ -159,7 +169,7 @@ inline ClusterPlan cluster_plan(const Dims& d, int sd, int g, int B, int path) {
     const long np = pl.res_bwd ? p_img : p_dev;
     pl.walk_rows = (int)((R + np - 1) / np);  // passes of equal rows
     const long walk = (pl.res_bwd ? img + kBarFloats : 0) + pl.share + (long)pl.walk_rows * per;
-    pl.smem_bwd = (int)(4 * (walk > pl.smem_fwd / 4 ? walk : pl.smem_fwd / 4));
+    pl.smem_bwd = (int)(4 * walk);
     pl.image = pl.res_fwd ? (int)img : 0;
     return pl;
   }
@@ -189,12 +199,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (ok) return;
     if (clock64() - start > (1LL << 32)) __trap();
   }
-}
-
-// Invalidates the mbarrier at `bar`: required before its memory is put to
-// another use (PTX: mbarrier.inval).
-__device__ __forceinline__ void mbar_inval(const void* bar) {
-  asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
 }
 
 // The weight image into every CTA of the cluster: CTA `rank` copies the
@@ -322,11 +326,21 @@ __device__ void cl_solve(const Dims& d, const CWeights& w, const StageBufs& s, i
     }
     cl.sync();  // every CTA holds the decision; no red is written before it
     if (c.accept) {
-      const long idx = min(c.nacc - 1, nodes.max_nodes - 1);
+      if (nodes.traj != nullptr) {
+        // the record: v_0 (u) and v_1..v_5 as cl_eval built them, before the
+        // FSAL shift; a warp's stores are neighbouring rows
+        const long idx = min(c.nacc - 1, nodes.max_nodes - 1);
+        float* rec = nodes.traj + idx * kRecordStages * nz * B + row0;
+        for (int e = tid; e < kRecordStages * nz * R; e += nt) {
+          const int q = e / R, r = e - q * R, i = q / nz, col = q - i * nz;
+          const float* Sr = St + (long)r * ss;
+          rec[(long)q * B + r] = i == 0 ? Sr[col] : stage_input(i, Sr[col], Sr + sd + col, sd, dtc);
+        }
+        __syncthreads();
+      }
       for (int e = tid; e < R * sd; e += nt) {
         const int r = e / sd, col = e - r * sd;
         float* Sr = St + (long)r * ss;
-        if (nodes.traj != nullptr && col < nz) nodes.traj[(idx * nz + col) * B + row0 + r] = Sr[col];
         Sr[col] = Sr[8 * sd + col];
         Sr[sd + col] = Sr[7 * sd + col];
       }
@@ -383,13 +397,16 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-// The z columns of node n of the pass's Rp rows (from row `row` of the
-// batch) into NB, asynchronously; cp_async_wait makes them visible.
-__device__ inline void prefetch_node(float* NB, int ldz, const Nodes& nodes, int n, int nz,
+// The six stage inputs (z columns) of accepted step n of the pass's Rp rows
+// (from row `row` of the batch) into NV (stage i at NV + i * vz),
+// asynchronously; cp_async_wait makes them visible.
+__device__ inline void prefetch_step(float* NV, int vz, int ldz, const Nodes& nodes, int n, int nz,
                                      long row, int Rp, long B) {
-  for (int idx = threadIdx.x; idx < Rp * nz; idx += blockDim.x) {
-    const int col = idx / Rp, r = idx - col * Rp;  // a warp's loads are neighbouring rows
-    cp_async4(NB + r * ldz + col, nodes.traj + ((long)n * nz + col) * B + row + r);
+  const float* rec = nodes.traj + (long)n * kRecordStages * nz * B + row;
+  for (int idx = threadIdx.x; idx < kRecordStages * nz * Rp; idx += blockDim.x) {
+    const int q = idx / Rp, r = idx - q * Rp;  // a warp's loads are neighbouring rows
+    const int i = q / nz, col = q - i * nz;
+    cp_async4(NV + i * vz + r * ldz + col, rec + (long)q * B + r);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -402,8 +419,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // R rows in passes of cp.walk_rows; the weight gradient summed into the
 // CTA's share g (zeroed by the caller) over the cluster's rows.  p: the
 // shared memory after the weights and the share.  Pointers eps, ys, gbar,
-// u0bar, epsbar at the CTA's first row (row0 of the batch).  Every CTA of
-// the cluster calls it with the same R, walk rows and walk.
+// u0bar, epsbar at the CTA's first row (row0 of the batch).  The stage
+// inputs come from the record (nodes.traj); the next step's are loaded
+// while the current step's stages run, into the other of two buffers.
+// Every CTA of the cluster calls it with the same R, walk rows and walk.
 template <bool Res>
 __device__ void cl_walk(const Dims& d, const CWeights& w, float* p, int Rw, int R, long row0,
                         long grp, const float* eps, const float* ys, const float* gbar,
@@ -414,16 +433,14 @@ __device__ void cl_walk(const Dims& d, const CWeights& w, float* p, int Rw, int 
   BwdBufs b;
   p = carve_bwd(p, Rw, d, b);
   const StageBufs& s = b.f;
-  const int nz = d.nz, ldx = s.ldx, ldy = s.ldy, ldz = s.ldz, lds = odd(sd);
+  const int nz = d.nz, ldx = s.ldx, ldz = s.ldz, lds = odd(sd);
   const int ys_off = nz + (t_col >= 0 ? 1 : 0);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int vz = Rw * ldz;        // floats of one z-column buffer
-  float* A = p;                   // (Rw, lds) state cotangent a
-  float* V = A + Rw * lds;        // v_0..v_5 (z columns): the stage inputs
-  float* KZ = V + 6 * vz;         // k_0..k_4 (z columns)
-  float* VB = KZ + 5 * vz;        // vbar_0..vbar_5
-  float* EPSB = VB + 6 * vz;      // epsbar
-  float* NB = EPSB + vz;          // the next node, loaded ahead
+  const int vz = Rw * ldz;                  // floats of one z-column buffer
+  float* A = p;                             // (Rw, lds) state cotangent a
+  float* VS[2] = {A + Rw * lds, A + Rw * lds + kRecordStages * vz};  // v_0..v_5, two steps
+  float* VB = VS[1] + kRecordStages * vz;   // vbar_0..vbar_5
+  float* EPSB = VB + 6 * vz;                // epsbar
   const float* tdt = nodes.tdt + grp * nodes.max_nodes * 2;
 
   for (int r0 = 0; r0 < R; r0 += Rw) {
@@ -441,41 +458,14 @@ __device__ void cl_walk(const Dims& d, const CWeights& w, float* p, int Rw, int 
       const int r = idx / nc, j = idx - r * nc;
       s.X[r * ldx + ys_off + j] = ys[(long)r0 * nc + idx];
     }
-    if (walk > 0) prefetch_node(NB, ldz, nodes, walk - 1, nz, row0 + r0, Rp, B);
+    if (walk > 0) prefetch_step(VS[0], vz, ldz, nodes, walk - 1, nz, row0 + r0, Rp, B);
 
     for (int n = walk - 1; n >= 0; --n) {
       const float t = tdt[2 * n], dt = tdt[2 * n + 1];
+      const float* V = VS[(walk - 1 - n) & 1];
       cp_async_wait();
-      __syncthreads();
-      for (int idx = tid; idx < Rp * nz; idx += nt) {
-        const int r = idx / nz, c = idx - r * nz;
-        V[r * ldz + c] = NB[r * ldz + c];
-      }
-      __syncthreads();
-      if (n > 0) prefetch_node(NB, ldz, nodes, n - 1, nz, row0 + r0, Rp, B);
-      // the stage inputs v_1..v_5, from k_0..k_4
-      for (int i = 0; i < 5; ++i) {
-        for (int idx = tid; idx < Rp * nz; idx += nt) {
-          const int r = idx / nz, c = idx - r * nz;
-          s.X[r * ldx + c] = V[i * vz + r * ldz + c];
-        }
-        if (t_col >= 0)
-          for (int r = tid; r < Rp; r += nt)
-            s.X[r * ldx + t_col] = __fadd_rn(t, __fmul_rn(kDpC[i], dt));
-        __syncthreads();
-        cl_stage_fwd<Res>(d, w, s, Rp);
-        for (int idx = tid; idx < Rp * nz; idx += nt) {
-          const int r = idx / nz, c = idx - r * nz;
-          KZ[i * vz + r * ldz + c] = s.Y[r * ldy + c];
-          float v = V[r * ldz + c];
-          for (int j = 0; j <= i; ++j) {
-            const float a = kDpA[i][j];
-            if (a != 0.0f) v = fmaf(__fmul_rn(dt, a), KZ[j * vz + r * ldz + c], v);
-          }
-          V[(i + 1) * vz + r * ldz + c] = v;
-        }
-        __syncthreads();
-      }
+      __syncthreads();  // step n's inputs are in V; the other buffer's last reader is done
+      if (n > 0) prefetch_step(VS[(walk - n) & 1], vz, ldz, nodes, n - 1, nz, row0 + r0, Rp, B);
       // the six stages backward, last first
       for (int i = 5; i >= 0; --i) {
         for (int idx = tid; idx < Rp * nz; idx += nt) {

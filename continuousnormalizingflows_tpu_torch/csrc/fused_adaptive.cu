@@ -21,9 +21,14 @@
 // Wider nets (32 < h <= 128) take the cluster path of cluster_adaptive.cuh:
 // a group's rows split over a thread-block cluster of 2 or 4 CTAs, the
 // weights resident in shared memory, one pass a stage, the error sum over
-// distributed shared memory.  Where its plan does not fit they take the
+// distributed shared memory.  Under autograd the cluster path also writes
+// K5's record for K6: each accepted step's six stage inputs (z columns),
+// its t and dt, each group's accepted count and done flag
+// (cluster_adaptive.cuh).  At the default 128 nodes that is 6 x 128 x nz x B
+// floats: 3.4 GB at nz = 17, B = 65,536, each accepted step's 6 nz B floats
+// written once (27 MB there).  Where its plan does not fit they take the
 // tiled stage of stage.cuh, one block a group, with the rows' state in a
-// device-memory scratch.
+// device-memory scratch, and write no record.
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
@@ -118,7 +123,8 @@ adaptive_fwd_tiled(const float* __restrict__ u0, const float* __restrict__ eps,
 
 // The cluster path: cp.cluster CTAs of kClusterThreads threads a group, each
 // taking cp.rows of its rows (cluster_adaptive.cuh).  With Res the weights
-// are the image, resident in shared memory.
+// are the image, resident in shared memory.  With nodes.traj the record
+// for K6 (nacc_out and done_out: each group's accepted count and flag).
 template <bool Res>
 __global__ void __launch_bounds__(cnf::kClusterThreads, 2)
 adaptive_fwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps,
@@ -126,7 +132,8 @@ adaptive_fwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps
                      const float* __restrict__ image, cnf::Dims d, cnf::ClusterPlan cp,
                      const float* __restrict__ t0p, const float* __restrict__ t1p,
                      float* __restrict__ S, float* __restrict__ u1, float* __restrict__ stats,
-                     int B, int sd, int nc, int t_col, int g, Solver s) {
+                     Nodes nodes, int* __restrict__ nacc_out, int* __restrict__ done_out, int B,
+                     int sd, int nc, int t_col, int g, Solver s) {
   extern __shared__ __align__(16) float smem[];
   const int rank = (int)cnf::cg::this_cluster().block_rank(), R = cp.rows;
   const long grp = blockIdx.x / cp.cluster, row0 = grp * g + (long)rank * R;
@@ -134,8 +141,8 @@ adaptive_fwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps
   const cnf::CWeights w = cnf::cluster_weights<Res>(gw, image, d, p);
   const cnf::SolveBufs v =
       cnf::solve_setup(p, d, R, cp.state_fwd, S, u0, eps, ys, row0, sd, nc, t_col);
-  cnf::cl_solve<Res>(d, w, v.s, R, v.St, sd, t_col, *t0p, *t1p, s, *v.c, v.red,
-                     Nodes{nullptr, nullptr, 0}, grp, row0, B);
+  cnf::cl_solve<Res>(d, w, v.s, R, v.St, sd, t_col, *t0p, *t1p, s, *v.c, v.red, nodes, grp,
+                     row0, B);
   const Ctl& c = *v.c;
   const float nan = __int_as_float(0x7fc00000);
   const int ss = cnf::kStateVecs * sd;
@@ -149,14 +156,19 @@ adaptive_fwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps
     st[1] = (float)c.nacc;
     st[2] = (float)(c.steps - c.nacc);
     st[3] = c.dt;
+    if (nodes.traj != nullptr) {
+      nacc_out[grp] = c.nacc;
+      done_out[grp] = c.done;
+    }
   }
   cnf::cg::this_cluster().sync();  // no CTA leaves while a peer may reach its shared memory
 }
 
 cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf::Weights& w,
                    const float* image, const cnf::Dims& d, const float* t0, const float* t1,
-                   float* S, float* u1, float* stats, int B, int sd, int nc, int t_col, int g,
-                   int path, const Solver& s, cudaStream_t stream) {
+                   float* S, float* u1, float* stats, const Nodes& nodes, int* nacc, int* done,
+                   int B, int sd, int nc, int t_col, int g, int path, const Solver& s,
+                   cudaStream_t stream) {
   const cnf::AdaptivePlan pl = cnf::adaptive_plan(d, sd, g);
   if (pl.smem_fwd == 0) return cudaErrorInvalidValue;
   const int grid = B / g;
@@ -166,11 +178,12 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
       if (cp.res_fwd && image == nullptr) return cudaErrorInvalidValue;
       const auto kernel = cp.res_fwd ? adaptive_fwd_cluster<true> : adaptive_fwd_cluster<false>;
       return cnf::launch_cluster(kernel, grid * cp.cluster, cp.cluster, cp.smem_fwd, stream, u0,
-                                 eps, ys, w, image, d, cp, t0, t1, S, u1, stats, B, sd, nc,
-                                 t_col, g, s);
+                                 eps, ys, w, image, d, cp, t0, t1, S, u1, stats, nodes, nacc,
+                                 done, B, sd, nc, t_col, g, s);
     }
   }
   if (path >= 1) return cudaErrorInvalidValue;  // the cluster path was asked for and does not fit
+  if (nodes.traj != nullptr) return cudaErrorInvalidValue;  // a record only on the cluster path
   if (pl.H == 0) {
     cudaError_t err = cnf::set_smem(adaptive_fwd_tiled, pl.smem_fwd);
     if (err != cudaSuccess) return err;
@@ -199,24 +212,30 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 // tiled and cluster paths).  stats: (B / group) x 4.  B must be a multiple of
 // group (<= 128, a multiple of 8).  path: -1 the plan's, 0 the tiled path, 1
 // the cluster path, 2 or 4 the cluster path of that many CTAs a group (an
-// error where it does not fit).
+// error where it does not fit).  rec (null: no record; the cluster path
+// only): K5's record for K6, max_nodes x 6 x nz x B floats; tdt: (B / group)
+// x max_nodes x 2 floats; nacc and done: (B / group) ints each.
 extern "C" int cnf_fused_adaptive_fwd(const float* u0, const float* eps, const float* ys,
                                       const float* A1, const float* b1, const float* A2,
                                       const float* b2, const float* A3, const float* b3,
                                       const float* W1t, const float* W2t, const float* W3t,
                                       const float* image, const float* t0, const float* t1,
-                                      float* S, float* u1, float* stats, int B, int sd, int n_in,
+                                      float* S, float* u1, float* stats, float* rec, float* tdt,
+                                      int* nacc, int* done, int B, int sd, int n_in,
                                       int h, int n_out, int nz, int nc, int t_col, int group,
-                                      int path, int max_steps,
+                                      int path, int max_nodes, int max_steps,
                                       float rtol, float atol, float dt0f, float safety,
                                       float min_f, float max_f, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (group <= 0 || group > cnf::kMaxGroup || B % group != 0) return cudaErrorInvalidValue;
+  if (rec != nullptr && (max_nodes < 1 || tdt == nullptr || nacc == nullptr || done == nullptr))
+    return cudaErrorInvalidValue;
   const cnf::Weights w{W1t, W2t, W3t, A1, A2, A3, b1, b2, b3};
   const cnf::Dims d{n_in, h, n_out, nz};
   const Solver s{rtol, atol, dt0f, safety, min_f, max_f, max_steps};
-  return launch(u0, eps, ys, w, image, d, t0, t1, S, u1, stats, B, sd, nc, t_col, group, path,
-                s, static_cast<cudaStream_t>(stream));
+  const Nodes nodes = rec != nullptr ? Nodes{rec, tdt, max_nodes} : Nodes{nullptr, nullptr, 0};
+  return launch(u0, eps, ys, w, image, d, t0, t1, S, u1, stats, nodes, nacc, done, B, sd, nc,
+                t_col, group, path, s, static_cast<cudaStream_t>(stream));
 }
 
 // The launch plan of K5 and K6, which the wrapper reads to size K6's

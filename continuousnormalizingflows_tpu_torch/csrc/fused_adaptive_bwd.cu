@@ -3,25 +3,28 @@
 //
 // Replaces continuousnormalizingflows_tpu/ops/pallas_adaptive.py
 // _adaptive_bwd_kernel (custom-VJP rule _fused_adaptive_bwd).  Two phases:
-//   1. the replay, one block per control group of rows: K5's solve again
-//      with the same device functions and the same block shape
-//      (adaptive.cuh), recording each accepted step's u (z columns) in a
-//      device-memory node buffer of max_nodes x nz x B floats (stored
-//      [node][column][row], so a warp's stores and the row walk's loads are
-//      contiguous), and its t and dt per group.  The TPU kept the nodes in
-//      VMEM and capped them at 64; device memory holds what max_nodes asks
-//      (168 MB at B = 65,536, nz = 5 and 128 nodes);
-//   2. the walk over the accepted steps, last first.  For step n, recompute
-//      the stage outputs k_0..k_4 from the node (they build the stage inputs
-//      v_0..v_5), then take the six stage VJPs in reverse, each after
-//      recomputing its stage with every intermediate kept, through the
-//      dopri5 chain rule
+//   1. the accepted steps, one record a control group of rows.  On the row
+//      and tiled paths K6 replays K5's solve with the same device functions
+//      and the same block shape (adaptive.cuh), recording each accepted
+//      step's u (z columns) in a device-memory node buffer of max_nodes x nz
+//      x B floats (stored [node][column][row], so a warp's stores and the
+//      row walk's loads are contiguous), and its t and dt per group.  On the
+//      cluster path K5 itself writes the record under autograd: the six
+//      stage inputs of each accepted step (max_nodes x 6 x nz x B floats,
+//      cluster_adaptive.cuh), so K6 solves nothing again.  The TPU kept the
+//      nodes in VMEM and capped them at 64; device memory holds what
+//      max_nodes asks;
+//   2. the walk over the accepted steps, last first.  For step n, the stage
+//      inputs v_0..v_5: on the row and tiled paths recomputed from the node
+//      (five stage forwards for k_0..k_4), on the cluster path read from the
+//      record.  Then the six stage VJPs in reverse, each after recomputing
+//      its stage with every intermediate kept, through the dopri5 chain rule
 //        kbar_i = dt b_i a + sum_{m > i} dt a_mi vbar_m,   a <- a + sum_i vbar_i.
 //      epsbar and the weight gradients accumulate over stages and steps; the
 //      weight gradients go into the block's row of a (walk grid, P) buffer of
 //      partial sums, added in order of block by a last kernel: the same
 //      inputs give the same bits.
-// Two paths of the walk, chosen from the widths (adaptive_plan):
+// Three paths of the walk, chosen from the widths (adaptive_plan):
 //   * h <= 32, two kernels.  The replay (adaptive_replay) also writes each
 //     group's accepted-step count and whether it finished; the walk
 //     (walk_rows) runs one row per thread in blocks of 64 rows that never
@@ -31,23 +34,25 @@
 //     own grid and shared memory the walk pays neither for the replay's
 //     block shape (one block a 128-row group) nor for a group cut into tiles
 //     that do not divide it.
-//   * wider nets (32 < h <= 128), one kernel (adaptive_bwd_cluster): the
-//     thread-block cluster that replayed a group walks it
-//     (cluster_adaptive.cuh), each CTA its share of the rows, the weight
-//     gradient held in the cluster's shared memory, a share a CTA, across
-//     stages and steps and written once.  Where its plan does not fit, one
-//     kernel too (adaptive_bwd): the block that replayed a group walks it,
-//     tiles of rows through stage.cuh and stage_bwd.cuh.  Split in two like
-//     the row path it was slower (12.3 -> 16.8 ms at h = 33, B = 65,536 on
-//     an H100; PERF.md section 6), so it stays whole.
+//   * wider nets (32 < h <= 128), the walk alone (adaptive_bwd_cluster) on
+//     K5's record: a thread-block cluster a group (cluster_adaptive.cuh),
+//     each CTA its share of the rows, the weight gradient held in the
+//     cluster's shared memory, a share a CTA, across stages and steps and
+//     written once.
+//   * where the cluster plan does not fit, one kernel (adaptive_bwd): the
+//     block that replayed a group walks it, tiles of rows through stage.cuh
+//     and stage_bwd.cuh.  Split in two like the row path it was slower (12.3
+//     -> 16.8 ms at h = 33, B = 65,536 on an H100; PERF.md section 6), so it
+//     stays whole.
 // A group that accepted more steps than max_nodes, or did not finish,
 // NaN-poisons its rows of u0bar and epsbar and the partial sums of its walk
 // blocks, as the TPU kernel does.  Each group's accepted-step count is
 // returned, so a caller can check that the replay took K5's steps.
 //
-// What bounds it on an H100: per accepted step 5 + 6 stage forwards and 6
-// stage backwards against 2 x nz floats of node traffic per row: FMA and
-// shared-memory issue inside the SM, as for K4.
+// What bounds it on an H100: per accepted step 6 stage forwards with every
+// intermediate kept and 6 stage backwards (the row and tiled paths 5 stage
+// forwards more), against 2 x nz floats of node traffic per row (6 x nz on
+// the cluster path): FMA and shared-memory issue inside the SM, as for K4.
 //
 // C interface for ctypes: returns a cudaError_t (0 on success).
 
@@ -440,57 +445,35 @@ walk_rows(const float* __restrict__ eps, const float* __restrict__ ys, cnf::Weig
     partial[(long)blockIdx.x * P + q] = ok ? acc[q] : acc[q] * poison;
 }
 
-// The cluster path: K5's cluster replays the group (the same cl_solve, with
-// the weight image where K5 holds it: ResReplay), then walks it, each CTA
-// its rows, the weight gradient summed into each CTA's share over the
-// cluster's rows and written once to the group's row of `partial`.  The walk
-// keeps the image (ResWalk) or reads the device-memory weights, its buffers
-// then taking the image's place.
-template <bool ResReplay, bool ResWalk>
+// The cluster path's walk: K5's record of the group (cluster_adaptive.cuh)
+// walked back on a cluster of K5's shape, each CTA its rows, the weight
+// gradient summed into each CTA's share over the cluster's rows and written
+// once to the group's row of `partial`.  With Res the walk holds the weight
+// image in shared memory, else it reads the device-memory weights.
+template <bool Res>
 __global__ void __launch_bounds__(cnf::kClusterThreads, 1)
-adaptive_bwd_cluster(const float* __restrict__ u0, const float* __restrict__ eps,
-                     const float* __restrict__ ys, cnf::Weights gw,
+adaptive_bwd_cluster(const float* __restrict__ eps, const float* __restrict__ ys, cnf::Weights gw,
                      const float* __restrict__ image, cnf::Dims d, cnf::ClusterPlan cp,
-                     const float* __restrict__ t0p, const float* __restrict__ t1p,
                      const float* __restrict__ gbar, float* __restrict__ u0bar,
-                     float* __restrict__ epsbar, float* __restrict__ S, Nodes nodes,
-                     float* __restrict__ partial, int* __restrict__ nacc_out, int B, int sd,
-                     int nc, int t_col, int g, long P, Solver sv) {
+                     float* __restrict__ epsbar, Nodes nodes, const int* __restrict__ nacc_in,
+                     const int* __restrict__ done_in, float* __restrict__ partial, int B, int sd,
+                     int nc, int t_col, int g, long P) {
   extern __shared__ __align__(16) float smem[];
   const int C = cp.cluster, rank = (int)cnf::cg::this_cluster().block_rank(), R = cp.rows;
   const long grp = blockIdx.x / C, row0 = grp * g + (long)rank * R;
   const int nz = d.nz;
-  static_assert(ResReplay || !ResWalk, "the walk holds the image only after the replay");
   float* p = smem;
-  const cnf::CWeights wr = cnf::cluster_weights<ResReplay>(gw, image, d, p);
-  const cnf::SolveBufs v =
-      cnf::solve_setup(p, d, R, cp.state_fwd, S, u0, eps, ys, row0, sd, nc, t_col);
-  cnf::cl_solve<ResReplay>(d, wr, v.s, R, v.St, sd, t_col, *t0p, *t1p, sv, *v.c, v.red, nodes,
-                           grp, row0, B);
-  const int nacc = v.c->nacc, done = v.c->done;
-  __syncthreads();  // every thread holds the counts: the shared memory is reused
-
-  if constexpr (ResReplay && !ResWalk) {
-    // The walk's buffers take the image's place and its mbarrier's: the
-    // barrier is invalidated first, and every CTA of the cluster is past the
-    // replay.  Written over without that, the barrier's word (row 11 of the
-    // walk's G1 at the band's widths with C = 4) came out corrupted, NaN, in
-    // 1-5 % of the calls on an H100.
-    if (threadIdx.x == 0) cnf::mbar_inval(smem + cnf::image_layout(d, C).floats);
-    cnf::cg::this_cluster().sync();
-  }
-  if constexpr (!ResWalk) p = smem;  // the walk's buffers take the image's place
-  const cnf::CWeights w = ResWalk ? wr : cnf::cluster_weights<false>(gw, image, d, p);
-  const bool ok = done && nacc <= nodes.max_nodes;
+  const cnf::CWeights w = cnf::cluster_weights<Res>(gw, image, d, p);
+  const int nacc = nacc_in[grp];
+  const bool ok = done_in[grp] && nacc <= nodes.max_nodes;
   const float poison = ok ? 1.0f : __int_as_float(0x7fc00000);
   const cnf::GradShare share = cnf::carve_share(p, d, C, rank);
   for (int q = threadIdx.x; q < cp.share; q += blockDim.x) p[q] = 0.0f;
-  cnf::cl_walk<ResWalk>(d, w, p + cp.share, cp.walk_rows, R, row0, grp, eps + row0 * nz,
+  cnf::cl_walk<Res>(d, w, p + cp.share, cp.walk_rows, R, row0, grp, eps + row0 * nz,
                     ys == nullptr ? ys : ys + row0 * nc, gbar + row0 * sd, u0bar + row0 * sd,
                     epsbar + row0 * nz, nodes, min(nacc, nodes.max_nodes), share, sd, nc, t_col,
                     B, poison);
   cnf::write_share(d, share, partial + grp * P, ok, poison);
-  if (rank == 0 && threadIdx.x == 0) nacc_out[grp] = nacc;
   cnf::cg::this_cluster().sync();  // no CTA leaves while a peer may reach its shared memory
 }
 
@@ -508,13 +491,12 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
   if (pl.H == 0 && pl.walk_H == 0) {
     const cnf::ClusterPlan cp = cnf::cluster_plan(d, sd, g, B, path);
     if (cp.cluster) {
-      if (cp.res_fwd && image == nullptr) return cudaErrorInvalidValue;
-      const auto kernel = cp.res_bwd   ? adaptive_bwd_cluster<true, true>
-                          : cp.res_fwd ? adaptive_bwd_cluster<true, false>
-                                       : adaptive_bwd_cluster<false, false>;
-      err = cnf::launch_cluster(kernel, groups * cp.cluster, cp.cluster, cp.smem_bwd, stream, u0,
-                                eps, ys, w, image, d, cp, t0, t1, gbar, u0bar, epsbar, S, nodes,
-                                partial, nacc, B, sd, nc, t_col, g, P, s);
+      if ((cp.res_bwd && image == nullptr) || nodes.traj == nullptr || done == nullptr)
+        return cudaErrorInvalidValue;
+      const auto kernel = cp.res_bwd ? adaptive_bwd_cluster<true> : adaptive_bwd_cluster<false>;
+      err = cnf::launch_cluster(kernel, groups * cp.cluster, cp.cluster, cp.smem_bwd, stream, eps,
+                                ys, w, image, d, cp, gbar, u0bar, epsbar, nodes, nacc, done,
+                                partial, B, sd, nc, t_col, g, P);
       if (err != cudaSuccess) return err;
       return cnf::launch_reduce(partial, groups, P, grads, stream);
     }
@@ -562,15 +544,17 @@ cudaError_t launch(const float* u0, const float* eps, const float* ys, const cnf
 }  // namespace
 
 // Weights, image and path as for cnf_fused_adaptive_fwd.  gbar: the
-// cotangent of u1 (B, sd).  S: scratch of B x 9 x sd floats (the tiled and
-// cluster replays); traj: max_nodes x nz x
-// B floats; tdt: (B / group) x max_nodes x 2 floats; partial: (B / group) x
-// walk_blocks x P floats (cnf_adaptive_plan), (B / group) x P on the cluster
-// path; grads receives the P weight gradients in the layout of
-// cnf_fused_dynamics_bwd; nacc and done: (B / group) ints each, every
-// group's accepted steps in the replay and whether it finished (done is the
-// row walk's own scratch, read only where the walk is a kernel apart from
-// the replay: walk_H > 0).
+// cotangent of u1 (B, sd).  S: scratch of B x 9 x sd floats (the tiled
+// replay); traj: max_nodes x nz x B floats; tdt: (B / group) x max_nodes x 2
+// floats; partial: (B / group) x walk_blocks x P floats (cnf_adaptive_plan),
+// (B / group) x P on the cluster path; grads receives the P weight gradients
+// in the layout of cnf_fused_dynamics_bwd; nacc and done: (B / group) ints
+// each, every group's accepted steps in the replay and whether it finished
+// (done is the row walk's own scratch, read only where the walk is a kernel
+// apart from the replay: walk_H > 0).  On the cluster path K6 only walks:
+// traj, tdt, nacc and done are then K5's record (cnf_fused_adaptive_fwd with
+// rec: traj max_nodes x 6 x nz x B floats), read and not written, and u0,
+// t0, t1 and S are not read.
 extern "C" int cnf_fused_adaptive_bwd(const float* u0, const float* eps, const float* ys,
                                       const float* A1, const float* b1, const float* A2,
                                       const float* b2, const float* A3, const float* b3,

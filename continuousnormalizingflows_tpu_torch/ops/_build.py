@@ -44,7 +44,7 @@ _SIGNATURES = {
     "cnf_fused_solve_rk4_fwd": [_P] * 16 + [_I] * 10 + [_P],
     "cnf_fused_dynamics_bwd": [_P] * 21 + [_I] * 6 + [_P],
     "cnf_fused_solve_rk4_bwd": [_P] * 21 + [_I] * 10 + [_P],
-    "cnf_fused_adaptive_fwd": [_P] * 18 + [_I] * 11 + [_F] * 6 + [_P],
+    "cnf_fused_adaptive_fwd": [_P] * 22 + [_I] * 12 + [_F] * 6 + [_P],
     "cnf_fused_adaptive_bwd": [_P] * 25 + [_I] * 12 + [_F] * 6 + [_P],
     "cnf_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     "cnf_fwd_plan": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],

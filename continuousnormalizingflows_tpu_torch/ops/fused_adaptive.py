@@ -11,9 +11,10 @@ the give-up on a non-finite field and the NaN poison of a group that does
 not finish within ``max_steps``.  One stats row per group: ``[nfe, naccept,
 nreject, dt_final]`` (:func:`stats_from_rows` folds them).
 
-The backward (K6) replays the forward's controller for each group,
-records its accepted steps ``(u, t, dt)`` in a node buffer of
-``max_nodes`` entries, then walks them backward through the 6-stage dopri5
+The backward (K6) takes each group's accepted steps ``(u, t, dt)``, at
+most ``max_nodes`` of them (from K5's record on the cluster path, below;
+else it replays the forward's controller into a node buffer), then walks
+them backward through the 6-stage dopri5
 chain rule, ``kbar_i = dt b_i a + dt sum_{m > i} a_mi vbar_m``, with the
 stage VJP of :mod:`.fused_dynamics`.  The accept decisions and step sizes
 are not differentiated.  A group that accepted more steps than the buffer
@@ -24,6 +25,19 @@ walk one row a thread in blocks of 64 rows within a group.  For 32 < h <=
 128 both kernels run a thread-block cluster of 2 or 4 CTAs a group
 (``_build.cluster_plan``), the weights resident in shared memory where they
 fit: the wrapper builds their image (:func:`_weight_image`).
+
+**K5's record** (the cluster path).  Where the solve will be taken back
+(:func:`_wants_backward`), K5 records each accepted step's six stage inputs
+``v_0 .. v_5`` (z columns, the values its stages were evaluated at), their
+``t`` and ``dt``, and each group's accepted count and done flag
+(:class:`_Record`).  K6 walks that record: it neither replays the solve nor
+recomputes the stage inputs from the node (five stage forwards an accepted
+step), which the row and tiled paths still do.  The record is
+``max_nodes x 6 x nz x B`` float32, 6x the replay's node buffer: 3.42 GB
+at ``nz = 17``, ``B = 65,536`` and 128 nodes.  It is ``torch.empty``, held
+from K5 to K6 by the autograd Function and freed by its backward.  Scoring,
+sampling and ``torch.no_grad`` make none; :func:`fused_solve_dopri5_bwd`
+(no K5 before it) has K5's kernel write one first.
 
 **The route is the semantics here.**  Per-group step control gives other
 answers than the global-norm solve of :mod:`.ode` (by O(tol)), so the same
@@ -429,39 +443,96 @@ def _solver_args(scfg):
             float(min_f), float(max_f))
 
 
-def _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group):
-    """K5 on CUDA tensors: ``(u1, stats rows, the weight image or None)``."""
+class _Record(NamedTuple):
+    """K5's record for K6 on the cluster path (``csrc/cluster_adaptive.cuh``)."""
+
+    nodes: torch.Tensor  # (max_nodes, 6, nz, B): z of each accepted step's six stage inputs
+    tdt: torch.Tensor  # (groups, max_nodes, 2): each accepted step's t and dt
+    nacc: torch.Tensor  # (groups,) int32: the accepted steps
+    done: torch.Tensor  # (groups,) int32: whether the group finished
+
+
+def _wants_backward(u0, eps, weights) -> bool:
+    """Whether the solve's result will be taken back: grad mode is on and
+    ``u0``, ``eps`` or a weight requires grad (inside an autograd Function's
+    forward grad mode is off, and ``ctx.needs_input_grad`` does not see
+    ``torch.no_grad``)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in (u0, eps, *weights))
+
+
+def _record_shape(max_nodes: int, cluster: int, nz: int, b: int):
+    """The shape of the record K5 writes for K6, ``(max_nodes, 6, nz, b)``,
+    or None where it writes none: with no backward to feed (``max_nodes``
+    0) or off the cluster path (``cluster`` 0: the row and tiled paths'
+    K6 replays the solve)."""
+    return (max_nodes, _N_STAGES, nz, b) if max_nodes > 0 and cluster else None
+
+
+def _new_record(shape, group: int, device) -> _Record:
+    max_nodes, _stages, _nz, b = shape
+    n_groups = b // group
+    return _Record(torch.empty(shape, dtype=torch.float32, device=device),
+                   torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=device),
+                   torch.empty((n_groups,), dtype=torch.int32, device=device),
+                   torch.empty((n_groups,), dtype=torch.int32, device=device))
+
+
+def _call_fwd(lib, u0, eps, ys, weights, w_t, image, t0, t1, nz, t_col, scfg, group, path,
+              record: Optional[_Record]):
+    """One call of K5's kernel on contiguous operands: ``(u1, stats rows)``,
+    and the record written where one is given."""
+    a1, b1, a2, b2, a3, b3 = weights
+    w1t, w2t, w3t = w_t
+    b, sd = u0.shape
+    n_in, h, n_out = a1.shape[1], a1.shape[0], a3.shape[0]
+    nc = 0 if ys is None else ys.shape[1]
+    dev = u0.device
+    u1 = torch.empty_like(u0)
+    rows = torch.empty((b // group, 4), dtype=torch.float32, device=dev)
+    state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
+    rec, tdt, nacc, done = record if record is not None else (None,) * 4
+    max_nodes = 0 if record is None else rec.shape[0]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cnf_fused_adaptive_fwd(
+            _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
+            _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
+            _ptr(state), _ptr(u1), _ptr(rows), _ptr(rec), _ptr(tdt), _ptr(nacc), _ptr(done), b,
+            sd, n_in, h, n_out, nz, nc, -1 if t_col is None else t_col, group, path, max_nodes,
+            *_solver_args(scfg), stream,
+        )
+    _build.check(err, "fused_adaptive_fwd")
+    return u1, rows
+
+
+def _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group, record_nodes=0):
+    """K5 on CUDA tensors: ``(u1, stats rows, the weight image or None, K5's
+    record or None)``.  ``record_nodes``: the record's depth where K6 will
+    take this solve back (0: none); on the cluster path K5 then writes it
+    (:func:`_record_shape`)."""
     with profiling.span("K5"):
         weights = kernel_operands(weights, u0, eps, ys, t0, t1)
         b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
-        a1, b1, a2, b2, a3, b3 = weights
         path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group)
         # the products read the transposes where the weights are not in shared memory
-        w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd))
+        w_t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd))
         u0, eps = u0.contiguous(), eps.contiguous()
         ys = None if ys is None else ys.contiguous()
-        dev = u0.device
-        u1 = torch.empty_like(u0)
-        rows = torch.empty((b // group, 4), dtype=torch.float32, device=dev)
-        state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
+        shape = _record_shape(record_nodes, cp.cluster, nz, b)
+        record = None if shape is None else _new_record(shape, group, u0.device)
         lib = _build.kernels()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            with profiling.span("K5.call"):
-                err = lib.cnf_fused_adaptive_fwd(
-                    _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
-                    _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
-                    _ptr(state), _ptr(u1), _ptr(rows), b, sd, n_in, h, n_out, nz, nc,
-                    -1 if t_col is None else t_col, group, path, *_solver_args(scfg), stream,
-                )
-        _build.check(err, "fused_adaptive_fwd")
+        with profiling.span("K5.call"):
+            u1, rows = _call_fwd(lib, u0, eps, ys, weights, w_t, image, t0, t1, nz, t_col, scfg,
+                                 group, path, record)
         profiling.count("K5.launches")
-        return u1, rows, image
+        return u1, rows, image, record
 
 
 def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group,
-                image=None):
-    """K6 on CUDA tensors; ``image``: K5's weight image of the same step, if any."""
+                image=None, record=None):
+    """K6 on CUDA tensors; ``image``: K5's weight image of the same step, if
+    any; ``record``: K5's record of the same solve, if any (the cluster path
+    walks it; without it K6 has K5's kernel write one first)."""
     with profiling.span("K6"):
         weights = kernel_operands(weights, u0, eps, ys, t0, t1, gbar)
         b, sd, n_in, h, n_out, nc = _check_adaptive(u0, eps, ys, weights, nz, t_col, group)
@@ -471,7 +542,8 @@ def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, 
             raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
         a1, b1, a2, b2, a3, b3 = weights
         path, cp, image = _cluster_operands(weights, b, sd, n_in, h, n_out, nz, group, image)
-        w1t, w2t, w3t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd and cp.res_bwd))
+        w_t = transposes(weights, staged=bool(cp.cluster and cp.res_fwd and cp.res_bwd))
+        w1t, w2t, w3t = w_t
         u0, eps, gbar = u0.contiguous(), eps.contiguous(), gbar.contiguous()
         ys = None if ys is None else ys.contiguous()
         dev = u0.device
@@ -479,22 +551,38 @@ def _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, 
         n_params = sum(w.numel() for w in weights)
         u0bar = torch.empty_like(u0)
         epsbar = torch.empty_like(eps)
-        state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
-        traj = torch.empty((max_nodes, nz, b), dtype=torch.float32, device=dev)
-        tdt = torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=dev)
         # a row of weight-gradient partial sums for each block of the walk back
-        # (on the cluster path, each group's cluster writes one row); `done` is
-        # the row walk's own scratch (the walk a kernel apart from the replay)
+        # (on the cluster path, each group's cluster writes one row)
         walk_h, walk_blocks = _build.adaptive_plan(n_in, h, n_out, nz, sd, group)[5:]
         rows = n_groups * (1 if cp.cluster else walk_blocks)
         partial = torch.empty((rows, n_params), dtype=torch.float32, device=dev)
         grads = torch.empty((n_params,), dtype=torch.float32, device=dev)
-        nacc = torch.empty((n_groups,), dtype=torch.int32, device=dev)
-        done = torch.empty((n_groups,), dtype=torch.int32, device=dev) if walk_h else None
         lib = _build.kernels()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            with profiling.span("K6.call"):
+        with profiling.span("K6.call"):
+            state = None
+            if cp.cluster:
+                shape = _record_shape(max_nodes, cp.cluster, nz, b)
+                if record is None:
+                    record = _new_record(shape, group, dev)
+                    _call_fwd(lib, u0, eps, ys, weights, w_t, image, t0, t1, nz, t_col, scfg,
+                              group, path, record)
+                    profiling.count("K6.replays")
+                elif tuple(record.nodes.shape) != shape:
+                    raise ValueError(f"K5's record {tuple(record.nodes.shape)}, expected {shape}")
+                else:
+                    profiling.count("K6.from_record")
+                traj, tdt, nacc, done = record
+            else:
+                # the replay's node buffer; `done` is the row walk's own scratch (the
+                # walk a kernel apart from the replay)
+                state = torch.empty((b, 9 * sd), dtype=torch.float32, device=dev)
+                traj = torch.empty((max_nodes, nz, b), dtype=torch.float32, device=dev)
+                tdt = torch.empty((n_groups, max_nodes, 2), dtype=torch.float32, device=dev)
+                nacc = torch.empty((n_groups,), dtype=torch.int32, device=dev)
+                done = torch.empty((n_groups,), dtype=torch.int32, device=dev) if walk_h else None
+                profiling.count("K6.replays")
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream().cuda_stream
                 err = lib.cnf_fused_adaptive_bwd(
                     _ptr(u0), _ptr(eps), _ptr(ys), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(a3),
                     _ptr(b3), _ptr(w1t), _ptr(w2t), _ptr(w3t), _ptr(image), _ptr(t0), _ptr(t1),
@@ -521,12 +609,13 @@ def _group_of(u0) -> int:
     return group
 
 
-def _bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group, image=None):
+def _bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group, image=None,
+         record=None):
     if u0.device.type == "cpu":
         return _bwd_reference(u0, eps, ys, params_of(weights), t0, t1, nz, t_col, scfg,
                               max_nodes, gbar, group)
     return _launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group,
-                       image)
+                       image, record)
 
 
 def fused_solve_dopri5_bwd(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.Tensor],
@@ -546,29 +635,32 @@ class _FusedAdaptive(torch.autograd.Function):
     (``pallas_adaptive._fused_adaptive_bwd``): ``u0``, ``eps`` and the six
     weights get real cotangents, ``ys`` zeros, the time span none.  The
     stats rows are not differentiable.  K5's weight image (the cluster
-    path's) is kept for K6, so it is built once a step."""
+    path's) is kept for K6, so it is built once a step; where the result
+    will be taken back (``backward`` in ``static``: :func:`_wants_backward`)
+    so is K5's record on the cluster path, which K6 walks and frees."""
 
     @staticmethod
     def forward(ctx, u0, eps, ys, t0, t1, static, *weights):
-        nz, t_col, scfg, max_nodes, group = static
+        nz, t_col, scfg, max_nodes, group, backward = static
         ctx.save_for_backward(u0, eps, ys, t0, t1, *weights)
         ctx.static = static
-        ctx.image = None
+        ctx.image = ctx.record = None
         if u0.device.type == "cpu":
             u1, rows = _fwd_reference(u0, eps, ys, params_of(weights), t0, t1, nz, t_col,
                                       scfg, group)
         else:
-            u1, rows, ctx.image = _launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg,
-                                              group)
+            u1, rows, ctx.image, ctx.record = _launch_fwd(
+                u0, eps, ys, weights, t0, t1, nz, t_col, scfg, group, max_nodes if backward else 0)
         ctx.mark_non_differentiable(rows)
         return u1, rows
 
     @staticmethod
     def backward(ctx, gbar, _grows):
         u0, eps, ys, t0, t1, *weights = ctx.saved_tensors
-        nz, t_col, scfg, max_nodes, group = ctx.static
+        nz, t_col, scfg, max_nodes, group, _backward = ctx.static
+        record, ctx.record = ctx.record, None  # its memory goes with this backward
         u0bar, epsbar, wbars, _nacc = _bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg,
-                                           max_nodes, gbar, group, ctx.image)
+                                           max_nodes, gbar, group, ctx.image, record)
         ysbar = None if ys is None else torch.zeros_like(ys)
         return (u0bar, epsbar, ysbar, None, None, None, *wbars)
 
@@ -584,5 +676,6 @@ def fused_solve_dopri5(u0: torch.Tensor, eps: torch.Tensor, ys: Optional[torch.T
     _device_check(u0, "fused_solve_dopri5")
     group = _group_of(u0)
     t0, t1 = _times(u0, tspan)
-    static = (nz, t_col, tuple(scfg), int(max_nodes), group)
-    return _FusedAdaptive.apply(u0, eps, ys, t0, t1, static, *weights_of(params))
+    weights = weights_of(params)
+    static = (nz, t_col, tuple(scfg), int(max_nodes), group, _wants_backward(u0, eps, weights))
+    return _FusedAdaptive.apply(u0, eps, ys, t0, t1, static, *weights)

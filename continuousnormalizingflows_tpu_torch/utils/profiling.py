@@ -23,6 +23,8 @@ The recorder marks the port's layers from the inside:
   blocked in host reads inside it.
 * :func:`count` ``(name, n)`` adds to a process-wide counter, always on:
   ``K1.launches`` ... ``K6.launches`` (CUDA kernel launches),
+  ``K6.from_record`` and ``K6.replays`` (a K6 launch that walked K5's record,
+  and one that solved the forward again first),
   ``solve.<route>`` (the route ``core._solve`` took), ``host_reads.<site>``
   (every :func:`host_read`), ``wide.f32.<BMxBN>`` (the fp32 products K1-K4's
   wide paths launched on each tile of their product core), ``spans.dropped``

@@ -187,6 +187,51 @@ def test_twin_backward_reports_its_replay(monkeypatch):
     assert nacc.tolist() == rows[:, 1].int().tolist()
 
 
+# K5's record for K6 (the cluster path, 32 < h <= 128): made only where the
+# solve will be taken back and the cluster plan is taken; its shape is
+# (max_nodes, 6 stage inputs, nz, B).  The plan itself is the card's
+# (_build.cluster_plan), so the decision is held here with the plan's answer
+# given: d8's widths at the default 128 nodes, and no record off the path.
+@pytest.mark.parametrize("max_nodes, cluster, nz, b, want", [
+    (128, 2, 17, 65_536, (128, 6, 17, 65_536)),
+    (64, 4, 125, 128, (64, 6, 125, 128)),
+    (0, 2, 17, 65_536, None),
+    (128, 0, 17, 65_536, None),
+    (0, 0, 5, 2048, None),
+], ids=["d8", "gate edge", "no backward", "row or tiled path", "neither"])
+def test_record_shape_only_for_a_backward_on_the_cluster_path(max_nodes, cluster, nz, b, want):
+    assert fa._record_shape(max_nodes, cluster, nz, b) == want
+
+
+@pytest.mark.parametrize("case", ["grad", "no_grad", "frozen", "u0 only"])
+def test_solve_asks_for_a_record_only_where_it_is_taken_back(monkeypatch, case):
+    """``fused_solve_dopri5`` tells K5 (``static``'s last entry) whether a
+    backward will read its record: with grad mode on and ``u0``, ``eps`` or
+    a weight requiring grad; not under ``torch.no_grad`` (where an autograd
+    Function's ``needs_input_grad`` still reads True), not with nothing to
+    differentiate."""
+    jicnf, ticnf, jparams, u0, eps, _ys = _make(16)
+    p = params_from_jax(jparams)
+    u0, eps = torch.from_numpy(u0), torch.from_numpy(eps)
+    if case in ("grad", "no_grad"):
+        p = {k: v.requires_grad_() for k, v in p.items()}
+    if case == "u0 only":
+        u0 = u0.requires_grad_()
+    seen = []
+    apply = fa._FusedAdaptive.apply
+    monkeypatch.setattr(fa._FusedAdaptive, "apply",
+                        lambda *args: seen.append(args[5]) or apply(*args))
+    scfg = fa._scfg_tuple(ticnf.config.solver)
+    with torch.set_grad_enabled(case != "no_grad"):
+        u1, _rows = fa.fused_solve_dopri5(u0, eps, None, p, (0.0, 1.0), 5, 5, scfg, 64)
+    (static,) = seen
+    assert static[3] == 64 and static[-1] == (case in ("grad", "u0 only"))
+    assert u1.requires_grad == static[-1]
+    weights = list(p.values())
+    with torch.set_grad_enabled(case != "no_grad"):
+        assert fa._wants_backward(u0, eps, weights) == static[-1]
+
+
 GATE_CASES = [
     (dict(), Mode.TRAIN),
     (dict(), Mode.TEST),

@@ -1124,12 +1124,11 @@ def test_cluster_path_matches_plain_and_tiled(dev, name):
         _close_to_max([got_c[0], got_c[1], *got_c[2]], [want[0], want[1], *want[2]], 1e-5)
 
 
-# K6 on the cluster path where its replay holds the weight image and its walk
-# does not (the walk's buffers then take the image's place): the same bits
-# call after call.  Its walk once wrote over the image's mbarrier without
-# invalidating it: at B = 65,536 (512 groups, many waves of clusters) 1-5 %
-# of the calls came out NaN in one row's buffer, at the band's widths with
-# C = 4 and at the h = 128 net with C = 2 (the plan's choice there).
+# K6 on the cluster path where K5 holds the weight image and K6's walk does
+# not: the same bits call after call, at B = 65,536 (512 groups, many waves
+# of clusters), the band's widths with C = 4 and the h = 128 net with C = 2
+# (the plan's choice there).  A walk that wrote over the image's mbarrier
+# gave NaN in one row's buffer in 1-5 % of such calls.
 REPEAT_CASES = {"band C=4": ((42, 128, 41, 65_536), 4), "h128 C=2": ((6, 128, 5, 65_536), 2)}
 REPEAT_CALLS = 200
 
@@ -1159,6 +1158,125 @@ def test_cluster_bwd_gives_its_bits_call_after_call(dev, name):
     finally:
         fa._WIDE_PATH = None
     assert other == 0, f"{other} of {REPEAT_CALLS} calls gave other bits"
+
+
+# K6 from K5's record (the cluster path: K5 writes each accepted step's six
+# stage inputs where its solve will be taken back, and K6 walks them) against
+# K6 given no record (fused_solve_dopri5_bwd: K5's kernel writes one first in
+# the call, the same cl_solve): the same bits in u0bar, epsbar, the weight
+# gradient and the accepted counts, on every cluster case and at the d8
+# cell's widths (18 -> 72 -> 72 -> 17, state 20: 2 CTAs a group, the walk in
+# 2 passes of 32 rows)
+RECORD_CASES = {**{name: spec for name, (spec, _) in CLUSTER_CASES.items()},
+                "d8 2048": (18, 72, 17, 0, 2048), "d8 65536": (18, 72, 17, 0, 65_536)}
+
+
+def _record_counts():
+    c = profiling.counters()
+    return c.get("K6.from_record", 0), c.get("K6.replays", 0)
+
+
+def _from_record(args, gbar, max_nodes=64):
+    """K5 asked for its record, then K6 on it: ``(stats rows, the record, K6's
+    result)``; K6 counts a walk of K5's record and no replay."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    u0, eps, ys, params, span, nz, t_col, scfg = args
+    group = fa.fused_adaptive_tile(u0.shape[0])
+    t0, t1 = fa._times(u0, span)
+    weights = fa.weights_of(params)
+    before = _record_counts()
+    _u1, rows, image, record = fa._launch_fwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg,
+                                              group, max_nodes)
+    assert tuple(record.nodes.shape) == (max_nodes, 6, nz, u0.shape[0])
+    got = fa._launch_bwd(u0, eps, ys, weights, t0, t1, nz, t_col, scfg, max_nodes, gbar, group,
+                         image, record)
+    assert _record_counts() == (before[0] + 1, before[1])
+    return rows, record, got
+
+
+def _bits(out):
+    return [t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in (out[0], out[1], *out[2], out[3])]
+
+
+@pytest.mark.parametrize("name", list(RECORD_CASES))
+def test_k6_from_k5_record_gives_the_replay_bits(dev, name):
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    n_in, h, nz, nc, b = RECORD_CASES[name]
+    args, gbar = _adaptive_case("flagship", dev, 5, h=h, b=b, resolved=True, nz=nz, nc=nc)
+    assert args[3]["layers.0.weight"].shape[1] == n_in
+    rows, record, got = _from_record(args, gbar)
+    assert torch.equal(record.nacc, rows[:, 1].to(torch.int32)) and bool(record.done.all())
+    assert all(torch.isfinite(t).all() for t in (got[0], got[1], *got[2]))
+    before = _record_counts()
+    want = fa.fused_solve_dopri5_bwd(*args, 64, gbar)
+    assert _record_counts() == (before[0], before[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(_bits(got), _bits(want)))
+
+
+@pytest.mark.parametrize("what", ["past max_nodes", "not finished"])
+def test_k6_poison_through_the_record(dev, what):
+    """K6 on K5's record NaN-poisons exactly the rows of a group that
+    accepted more steps than the record holds, or did not finish within
+    max_steps, and every weight gradient; the other groups' rows stay
+    finite.  d8's widths, 16 groups over draw scales of 0.1-10, so the
+    groups take other step counts."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    args, gbar = _adaptive_case("flagship", dev, 5, h=72, b=2048, resolved=True, nz=17)
+    rows = fa.fused_solve_dopri5(*args, 64)[1]
+    max_nodes = 64
+    if what == "past max_nodes":
+        max_nodes = int(rows[:, 1].min())
+        bad = rows[:, 1] > max_nodes
+    else:
+        steps = rows[:, 1] + rows[:, 2]
+        args = args[:-1] + (args[-1][:6] + (int(steps.min()),),)
+        bad = steps > steps.min()
+    assert bool(bad.any()) and not bool(bad.all())
+    _rows, record, got = _from_record(args, gbar, max_nodes)
+    assert torch.equal(record.done == 0, bad) if what == "not finished" else bool(record.done.all())
+    rows_bad = bad.repeat_interleave(128)
+    for t in got[:2]:
+        assert torch.isnan(t[rows_bad]).all() and torch.isfinite(t[~rows_bad]).all()
+    assert all(torch.isnan(w).all() for w in got[2])
+
+
+def test_fit_walks_k5_record_and_scoring_makes_none(dev, monkeypatch):
+    """Under ICNFModel.fit at h = 72 (the d8 widths) every K6 launch walks
+    K5's record and none replays the solve; a TRAIN loss under torch.no_grad
+    launches K5 with no record, and no K6."""
+    from continuousnormalizingflows_tpu_torch.ops import fused_adaptive as fa
+
+    icnf = cnf.ICNF.create(nvariables=8, naugments=9, fused=True, fused_adaptive=True)
+    assert tuple(icnf.net.widths) == (18, 72, 72, 17)
+    x = torch.randn((1024, 8), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    model = cnf.ICNFModel(icnf, batchsize=512, epochs=1, device=dev)
+    before = _launches("K5", "K6") + list(_record_counts())
+    res = model.fit(x)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_launches("K5", "K6") + list(_record_counts()), before)]
+    assert moved == [2, 2, 2, 0], moved
+    records = []
+    monkeypatch.setattr(fa, "_launch_fwd", _keeping(fa._launch_fwd, records))
+    before = _launches("K5", "K6")
+    with torch.no_grad():
+        loss = cnf.loss(icnf, Mode.TRAIN, x[:512], res.params,
+                        torch.Generator(device=dev).manual_seed(2))
+    assert torch.isfinite(loss)
+    moved = [a - b for a, b in zip(_launches("K5", "K6"), before)]
+    assert moved == [1, 0] and records == [None]
+
+
+def _keeping(fn, kept):
+    """``fn`` that keeps the last element of each result in ``kept``."""
+    def call(*args):
+        out = fn(*args)
+        kept.append(out[-1])
+        return out
+    return call
 
 
 # K6's replay at every H the plan can pick for K5 (h = 4 ... 32, h = 12 at 12),
